@@ -1,0 +1,176 @@
+"""Training loop with hooks and deferred metrics.
+
+Port of ``distributed_tensorflow_tpu/training/loop.py`` (``Hook``,
+``LoggingHook``, ``NanHook``, ``TrainLoop``).  The hot path does not wait
+for the device:
+
+- RNG: the loop passes the same base seed every step; the step folds
+  ``state.step`` into it.
+- Metrics: at step N (a ``metrics_every`` boundary) the loop starts a
+  non-blocking copy of the metric tensors to the host and records a CUDA
+  event; the copy is consumed at step N + ``metrics_every``, after the
+  event.  Hooks see step-N values one interval late, with
+  ``loop.last_metrics_step == N``; ``run`` flushes the last interval
+  before the hooks' ``end``.
+"""
+
+from __future__ import annotations
+
+import logging
+import math
+import sys
+from typing import Callable, Dict, Iterable, List, Optional
+
+import torch
+
+from distributed_tensorflow_tpu_torch.training.metrics import RunningMean, ThroughputMeter
+from distributed_tensorflow_tpu_torch.training.train_state import TrainState
+
+logger = logging.getLogger(__name__)
+
+
+class Hook:
+    """Step-boundary observer.  ``after_step`` fires every step, with the
+    metrics that landed this step (else None); ``on_metrics`` receives
+    every delivery with the step it belongs to, the final flush included."""
+
+    def begin(self, loop: "TrainLoop") -> None:
+        pass
+
+    def after_step(self, loop: "TrainLoop", step: int,
+                   metrics: Optional[Dict[str, float]]) -> None:
+        pass
+
+    def on_metrics(self, loop: "TrainLoop", metrics_step: int,
+                   metrics: Dict[str, float]) -> None:
+        pass
+
+    def end(self, loop: "TrainLoop", step: int) -> None:
+        pass
+
+
+class LoggingHook(Hook):
+    """LoggingTensorHook + StepCounterHook in one."""
+
+    def __init__(self, every_steps: int = 100):
+        self.every_steps = every_steps
+        self._mean = RunningMean()
+        self._meter = ThroughputMeter(0)
+
+    def begin(self, loop):
+        self._meter = ThroughputMeter(loop.examples_per_step)
+
+    def on_metrics(self, loop, metrics_step, metrics):
+        self._mean.update(metrics)
+
+    def after_step(self, loop, step, metrics):
+        self._meter.update()
+        if step % self.every_steps == 0 and step > 0:
+            m = {**self._mean.report_and_reset(), **self._meter.report()}
+            msg = ", ".join(f"{k}={v:.4g}" for k, v in sorted(m.items()))
+            logger.info("step %d: %s", step, msg)
+            loop.last_logged_metrics = m
+
+
+class NanHook(Hook):
+    """Raise (or stop) on a non-finite loss, when its values land."""
+
+    def __init__(self, fail_on_nan: bool = True):
+        self.fail_on_nan = fail_on_nan
+
+    def on_metrics(self, loop, metrics_step, metrics):
+        loss = metrics.get("loss")
+        if loss is not None and not math.isfinite(loss):
+            if self.fail_on_nan:
+                raise FloatingPointError(f"Non-finite loss at step {metrics_step}: {loss}")
+            logger.error("Non-finite loss at step %d; requesting stop", metrics_step)
+            loop.request_stop()
+
+
+class TrainLoop:
+    """Drives (state, batch) -> state for a number of steps."""
+
+    def __init__(self, train_step: Callable, state: TrainState, data_iter: Iterable,
+                 *, hooks: Optional[List[Hook]] = None, examples_per_step: int = 0,
+                 metrics_every: int = 10, seed: int = 0):
+        self.train_step = train_step
+        self.state = state
+        self.data_iter = iter(data_iter)
+        self.hooks = hooks or []
+        self.examples_per_step = examples_per_step
+        self.metrics_every = max(1, metrics_every)
+        self.seed = seed
+        self.last_logged_metrics: Dict[str, float] = {}
+        self.last_metrics_step: Optional[int] = None
+        # (step, host tensors in flight, event marking their arrival)
+        self._pending_metrics: Optional[tuple] = None
+        self._stop = False
+
+    def request_stop(self) -> None:
+        self._stop = True
+
+    def _start_metrics_fetch(self, step: int, metrics: Dict[str, torch.Tensor]) -> None:
+        host = {k: v.detach().to("cpu", non_blocking=True) for k, v in metrics.items()}
+        event = None
+        if any(v.is_cuda for v in metrics.values()):
+            event = torch.cuda.Event()
+            event.record()
+        self._pending_metrics = (step, host, event)
+
+    def _consume_pending_metrics(self):
+        if self._pending_metrics is None:
+            return None, None
+        step, host, event = self._pending_metrics
+        self._pending_metrics = None
+        if event is not None:
+            event.synchronize()
+        return step, {k: float(v) for k, v in host.items()}
+
+    def _deliver(self, metrics_step: int, host: Dict[str, float]) -> None:
+        self.last_metrics_step = metrics_step
+        for h in self.hooks:
+            h.on_metrics(self, metrics_step, host)
+
+    def flush_metrics(self) -> Optional[Dict[str, float]]:
+        mstep, host = self._consume_pending_metrics()
+        if host is None:
+            return None
+        self._deliver(mstep, host)
+        self.last_logged_metrics.update(host)
+        return host
+
+    def run_one_step(self, completed_steps: int) -> int:
+        try:
+            batch = next(self.data_iter)
+        except StopIteration:
+            self.request_stop()
+            return completed_steps
+        self.state, metrics = self.train_step(self.state, batch, self.seed)
+        completed_steps += 1
+        host_metrics = None
+        if completed_steps % self.metrics_every == 0:
+            mstep, host_metrics = self._consume_pending_metrics()
+            self._start_metrics_fetch(completed_steps, metrics)
+            if host_metrics is not None:
+                self._deliver(mstep, host_metrics)
+        for h in self.hooks:
+            h.after_step(self, completed_steps, host_metrics)
+        return completed_steps
+
+    def run(self, num_steps: int) -> TrainState:
+        for h in self.hooks:
+            h.begin(self)
+        completed = self.state.step
+        try:
+            for _ in range(num_steps):
+                if self._stop:
+                    break
+                completed = self.run_one_step(completed)
+        finally:
+            try:
+                if sys.exc_info()[0] is None:
+                    self.flush_metrics()
+            finally:
+                for h in self.hooks:
+                    h.end(self, completed)
+        return self.state

@@ -1,0 +1,236 @@
+"""The port's flash attention against the JAX package's Pallas kernels.
+
+On the CPU the port's wrappers take their plain PyTorch versions; the
+reference runs its Pallas kernels in the interpreter
+(DTT_PALLAS_INTERPRET=1) with 128-blocks, so T=384 iterates over 3x3
+tiles.  Inputs are made with numpy from a seed and fed to both.  The CUDA
+kernels themselves are held against the same plain versions on the card by
+chip_smoke.py.
+"""
+
+import importlib
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+import chip_faults  # noqa: E402
+from distributed_tensorflow_tpu_torch.ops import flash_attention as tfa  # noqa: E402
+
+# The reference's own tolerances for its interpreted kernels (f32).
+FWD_TOL = 2e-5
+BWD_TOL = 2e-4
+
+
+def make_inputs(B=2, T=384, H=2, D=16, seed=0):
+    rng = np.random.RandomState(seed)
+    return [rng.randn(B, T, H, D).astype(np.float32) for _ in range(4)]
+
+
+@pytest.fixture
+def jfa(monkeypatch):
+    """The reference module with its kernels interpreted on 128-blocks."""
+    monkeypatch.setenv("DTT_PALLAS_INTERPRET", "1")
+    mod = importlib.import_module("distributed_tensorflow_tpu.ops.flash_attention")
+    monkeypatch.setattr(mod, "BLOCK_Q", 128)
+    monkeypatch.setattr(mod, "BLOCK_K", 128)
+    return mod
+
+
+@pytest.mark.parametrize("causal,masked,with_lse", [
+    (False, False, False),
+    (True, False, False),
+    (False, True, True),
+    (True, True, True),
+])
+def test_forward_and_backward_match_interpreted_kernels(jfa, causal, masked, with_lse):
+    """out (and lse), then dq/dk/dv through the autograd.Function, against
+    jax.vjp of the interpreted kernels; with_lse adds an lse cotangent."""
+    q, k, v, g = make_inputs(seed=3 + 2 * causal + masked)
+    B, T, H, _ = q.shape
+    rng = np.random.RandomState(11)
+    g_lse = rng.randn(B, H, T).astype(np.float32)
+    mask = None
+    if masked:  # one length crosses a 128-block boundary
+        mask = (np.arange(T)[None, :] < np.array([300, 100])[:, None]).astype(np.int32)
+
+    def jfn(q_, k_, v_):
+        kw = dict(causal=causal, kv_mask=None if mask is None else jnp.asarray(mask))
+        if with_lse:
+            return jfa.flash_attention_with_lse(q_, k_, v_, **kw)
+        return jfa.flash_attention(q_, k_, v_, **kw)
+
+    jout, vjp = jax.vjp(jfn, *map(jnp.asarray, (q, k, v)))
+    jgrads = vjp((jnp.asarray(g), jnp.asarray(g_lse)) if with_lse else jnp.asarray(g))
+
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    kw = dict(causal=causal, kv_mask=None if mask is None else torch.from_numpy(mask))
+    if with_lse:
+        out, lse = tfa.flash_attention_with_lse(tq, tk, tv, **kw)
+        np.testing.assert_allclose(lse.detach().numpy(), np.asarray(jout[1]),
+                                   rtol=FWD_TOL, atol=FWD_TOL)
+        grads = torch.autograd.grad((out, lse), (tq, tk, tv),
+                                    (torch.from_numpy(g), torch.from_numpy(g_lse)))
+        jout = jout[0]
+    else:
+        out = tfa.flash_attention(tq, tk, tv, **kw)
+        grads = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(g))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
+                               rtol=FWD_TOL, atol=FWD_TOL)
+    for name, a, b in zip(("dq", "dk", "dv"), grads, jgrads):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=BWD_TOL, atol=BWD_TOL,
+                                   err_msg=name)
+
+
+def test_plain_matches_reference_dense_on_ragged_shape(jfa):
+    """T=200 (not a block multiple) falls back to the reference's dense
+    path; the port takes any T."""
+    q, k, v, _ = make_inputs(B=1, T=200, H=2, D=32, seed=5)
+    want = jfa._dense(*map(jnp.asarray, (q, k, v)), causal=True, scale=1 / np.sqrt(32))
+    got = tfa.flash_attention(*map(torch.from_numpy, (q, k, v)), causal=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=FWD_TOL, atol=FWD_TOL)
+
+
+def test_row_without_valid_key_gives_zero_out_and_floor_lse():
+    q, k, v, _ = make_inputs(B=2, T=8, H=1, D=16, seed=6)
+    mask = torch.tensor([[1] * 8, [0] * 8], dtype=torch.int32)
+    out, lse = tfa.flash_attention_with_lse(*map(torch.from_numpy, (q, k, v)), causal=False,
+                                            kv_mask=mask)
+    assert torch.all(out[1] == 0)
+    assert torch.all(lse[1] == -1e30)
+    assert torch.all(torch.isfinite(lse[0]))
+
+
+class TestPhilox:
+    @pytest.mark.parametrize("counter,key,want", [
+        (0, 0, (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+        (0xFFFFFFFF, 0xFFFFFFFF, (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+    ])
+    def test_known_answer(self, counter, key, want):
+        """Random123's published philox4x32-10 vectors."""
+        c = torch.tensor(counter, dtype=torch.int64)
+        got = tfa.philox4x32_10(c, c, c, c, key, key)
+        assert tuple(int(w) for w in got) == want
+
+    def test_mask_depends_only_on_element_position(self):
+        """A longer sequence's mask extends the shorter one's: the counter
+        is (key // 4, query, b*H + h), not a tile index."""
+        small = tfa.dropout_mask(2, 3, 10, 0.3, seed=99)
+        big = tfa.dropout_mask(2, 3, 37, 0.3, seed=99)
+        assert torch.equal(small, big[:, :, :10, :10])
+        assert set(torch.unique(big).tolist()) == {0.0, float(np.float32(1 / 0.7))}
+
+    def test_keep_rate(self):
+        m = tfa.dropout_mask(4, 4, 128, 0.1, seed=5)
+        keep = float((m > 0).float().mean())
+        assert abs(keep - 0.9) < 0.005, keep
+
+
+class TestDropout:
+    def _qkv(self, seed, **kw):
+        return [torch.from_numpy(x) for x in make_inputs(seed=seed, **kw)[:3]]
+
+    def test_rate_zero_is_exact(self):
+        q, k, v = self._qkv(11, T=64)
+        base = tfa.flash_attention(q, k, v, causal=True)
+        zero = tfa.flash_attention(q, k, v, causal=True, dropout_rate=0.0, dropout_rng=3)
+        assert torch.equal(base, zero)
+
+    def test_deterministic_per_seed_and_varies_across_seeds(self):
+        q, k, v = self._qkv(12, T=64)
+        a = tfa.flash_attention(q, k, v, causal=False, dropout_rate=0.3, dropout_rng=1)
+        b = tfa.flash_attention(q, k, v, causal=False, dropout_rate=0.3, dropout_rng=1)
+        c = tfa.flash_attention(q, k, v, causal=False, dropout_rate=0.3, dropout_rng=2)
+        assert torch.equal(a, b)
+        assert not torch.allclose(a, c)
+
+    def test_dropout_is_unbiased(self):
+        q, k, v = self._qkv(13, B=1, T=128, H=1, D=32)
+        want = tfa.flash_attention(q, k, v, causal=False)
+        n = 48
+        acc = sum(tfa.flash_attention(q, k, v, causal=False, dropout_rate=0.25,
+                                      dropout_rng=100 + s) for s in range(n))
+        err = float((acc / n - want).abs().max() / want.abs().max())
+        assert err < 0.15, f"dropout mean deviates {err:.3f} from undropped"
+
+    def test_backward_matches_autograd_of_plain_forward(self):
+        """The flash backward formulas (used on the CPU and by the kernels)
+        equal torch.autograd through the dense forward under the same
+        mask, in float64, with and without an lse cotangent."""
+        rng = np.random.RandomState(14)
+        q, k, v, g = (torch.from_numpy(rng.randn(2, 40, 2, 16)) for _ in range(4))
+        g_lse = torch.from_numpy(rng.randn(2, 2, 40))
+        mask = (torch.arange(40)[None, :] < torch.tensor([40, 23])[:, None]).int()
+        kw = dict(causal=True, scale=0.25, kv_mask=mask, dropout_rate=0.2, dropout_rng=7)
+        xs = [x.clone().requires_grad_() for x in (q, k, v)]
+        got = torch.autograd.grad(tfa.flash_attention_with_lse(*xs, **kw), xs, (g, g_lse))
+        ys = [x.clone().requires_grad_() for x in (q, k, v)]
+        want = torch.autograd.grad(tfa._dense_with_lse(*ys, **kw), ys, (g, g_lse))
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-10, msg=name)
+
+    def test_requires_rng(self):
+        q, k, v = self._qkv(15, T=16)
+        with pytest.raises(ValueError):
+            tfa.flash_attention(q, k, v, dropout_rate=0.5)
+
+
+class TestWrapperChecks:
+    def test_no_fallback_off_the_cpu(self):
+        """A tensor that is not on the CPU never reaches the plain version."""
+        q = torch.empty(1, 8, 1, 16, device="meta")
+        with pytest.raises(ValueError, match="cpu/cuda"):
+            tfa.flash_fwd(q, q, q, causal=True, scale=1.0)
+
+    @pytest.mark.parametrize("which", ["lse", "g_lse"])
+    def test_backward_checks_the_row_statistics_device(self, which):
+        """lse and g_lse are passed to the kernels by pointer too: one on
+        another device than q raises instead of reaching a kernel."""
+        x = torch.zeros(1, 8, 1, 16)
+        stats = {"lse": torch.zeros(1, 1, 8), "g_lse": torch.zeros(1, 1, 8)}
+        stats[which] = stats[which].to("meta")
+        for fn in (tfa.flash_bwd_dq, tfa.flash_bwd_dkv):
+            with pytest.raises(ValueError, match="cpu/cuda"):
+                fn(x, x, x, x, x, stats["lse"], stats["g_lse"], causal=True, scale=1.0)
+
+    @pytest.mark.parametrize("mask", [
+        [[0.5, 0.0, 1.0, 2.0]],
+        [[True, False, True, True]],
+        [[1, 0, 3, 1]],
+    ])
+    def test_kernel_key_mask_keeps_keys_above_zero(self, mask):
+        """The kernels' int32 mask keeps a key where kv_mask > 0, as the
+        plain version does (a fractional mask is not truncated to 0)."""
+        m, _ = tfa._mask_ptr(torch.tensor(mask), 1, 4)
+        assert m.dtype == torch.int32
+        assert m.tolist() == [[1, 0, 1, 1]]
+
+    @pytest.mark.parametrize("shape,dtype,match", [
+        ((1, 8, 1, 48), torch.float32, "head_dim"),
+        ((1, 8, 1, 16), torch.float16, "float32 or bfloat16"),
+        ((8, 1, 16), torch.float32, r"\(B, T, H, D\)"),
+    ])
+    def test_rejects_what_the_kernels_do_not_take(self, shape, dtype, match):
+        with pytest.raises(ValueError, match=match):
+            tfa._check(torch.zeros(shape, dtype=dtype))
+
+    def test_rejects_strided_head_dim(self):
+        x = torch.zeros(1, 8, 1, 32)[..., ::2]
+        with pytest.raises(ValueError, match="contiguous head dim"):
+            tfa._check(x)
+
+
+@pytest.mark.parametrize("name", [n for n, f in chip_faults.FAULTS.items() if f[0]])
+def test_planted_fault_applies_to_the_kernel_source(name):
+    """chip_faults.py plants each fault by replacing text that must occur
+    exactly once in its kernel source, so an edit of a kernel cannot
+    silently turn a planted fault into no change."""
+    src, old, new, must_fail = chip_faults.FAULTS[name]
+    text = (Path(tfa.__file__).parent / "csrc" / src).read_text()
+    assert text.count(old) == 1
+    assert new != old and must_fail
