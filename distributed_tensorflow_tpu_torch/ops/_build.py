@@ -18,11 +18,11 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+KERNELS = ("flash_fwd", "flash_bwd_delta", "flash_bwd_keep", "flash_bwd_dq", "flash_bwd_dkv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -109,11 +109,9 @@ def load(name: str, argtypes: list) -> ctypes.CDLL:
     return lib
 
 
-def build_all(verbose: bool = False) -> float:
-    """Build every kernel in parallel; returns the seconds it took."""
+def build_all(verbose: bool = False) -> Tuple[float, Dict[str, str]]:
+    """Build every kernel in parallel; returns the seconds it took and the
+    compiler output of each source built (``build``'s)."""
     t0 = time.perf_counter()
     logs = build(KERNELS, verbose=verbose)
-    if verbose:
-        for name, log in logs.items():
-            print(f"[nvcc {name}]\n{log.strip()}")
-    return time.perf_counter() - t0
+    return time.perf_counter() - t0, logs

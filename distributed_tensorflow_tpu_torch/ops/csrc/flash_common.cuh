@@ -2,7 +2,8 @@
 // element conversion, strided tile loads, the row reductions of a 16-lane
 // thread group, and the Philox-4x32-10 dropout mask.
 //
-// Every kernel runs 256 threads on 64-row tiles.  A thread (ty, tx) =
+// The forward and float32 backward kernels run 256 threads on 64-row tiles
+// (the bf16 backward kernels' pieces are in flash_tc.cuh).  A thread (ty, tx) =
 // (tid / 16, tid % 16) owns rows ty*4 .. ty*4+3 of a 64x64 score tile and
 // columns tx*4 .. tx*4+3, and columns tx + 16*e of a 64xD output tile.
 // Tiles live in shared memory as f32 (rows padded by one word against

@@ -1,14 +1,18 @@
 """Flash attention (forward + backward) as hand-written CUDA kernels.
 
 Port of ``distributed_tensorflow_tpu/ops/flash_attention.py``.  The three
-TPU kernels (forward, dQ, dK/dV) become three CUDA kernels for Hopper in
-``ops/csrc`` (built by ``ops/_build.py``); each has a plain PyTorch
-version beside it in this module, which computes the same function with
-dense (T, T) tensors.
+TPU kernels (forward, dQ, dK/dV) become CUDA kernels for Hopper in
+``ops/csrc`` (built by ``ops/_build.py``), with two pre-passes that give
+both backward kernels what each would otherwise recompute: Delta =
+rowsum(dO * O) - g_lse, and the dropout mask's keep bits.  Each kernel has
+a plain PyTorch version beside it in this module, which computes the same
+function with dense (T, T) tensors.
 
 - Layout: q/k/v are (B, T, H, D), read through their strides (no head
   transpose); lse is (B, H, T) float32.  D is 16, 32, 64 or 128; any T.
-  bf16 and float32 inputs, float32 arithmetic inside.
+  bf16 and float32 inputs, float32 accumulation.  The backward kernels
+  pick their design by dtype: bf16 runs its products on the tensor cores
+  (wgmma, P and dS rounded to bf16 as operands), float32 on f32 FMAs.
 - A wrapper takes the plain version only for tensors on the CPU.  On a CUDA
   tensor it launches its kernel or raises; there is no silent fallback.
   Each wrapper counts its launches in ``LAUNCHES``.
@@ -18,6 +22,8 @@ dense (T, T) tensors.
   (b*H + h, query, key): word ``key % 4`` of the draw at counter
   ``(key // 4, query, b*H + h, 0)``.  Kernel and plain version build the
   identical mask.  It differs from the TPU PRNG's and ``jax.random``'s.
+  The forward kernel draws it in place; the backward draws it once into
+  bits (``flash_bwd_keep``) that dQ and dK/dV read.
 - ``flash_attention_with_lse`` is differentiable in both outputs; the lse
   cotangent folds into Delta (dS = P (dP - Delta + g_lse) scale).
 """
@@ -38,13 +44,17 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _c_ptr, _c_int, _c_ll, _c_f, _c_u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                                      ctypes.c_float, ctypes.c_uint)
-# (dtype, head_dim, tensors..., B, H, T, 3 strides per tensor, scale,
-#  causal, seed_lo, seed_hi, thresh, drop_scale, drop_on, stream)
+# (dtype, head_dim, tensors..., B, H, T, 3 strides per tensor, then the
+#  forward's scale, causal, seed_lo, seed_hi, thresh, drop_scale, drop_on,
+#  stream, or the backward kernels' scale, causal, keep bits, drop_scale, stream)
 _TAIL = [_c_f, _c_int, _c_u, _c_u, _c_u, _c_f, _c_int, _c_ptr]
+_BWD_TAIL = [_c_f, _c_int, _c_ptr, _c_f, _c_ptr]
 _ARGTYPES = {
     "flash_fwd": [_c_int, _c_int] + [_c_ptr] * 6 + [_c_int] * 3 + [_c_ll] * 12 + _TAIL,
-    "flash_bwd_dq": [_c_int, _c_int] + [_c_ptr] * 9 + [_c_int] * 3 + [_c_ll] * 18 + _TAIL,
-    "flash_bwd_dkv": [_c_int, _c_int] + [_c_ptr] * 10 + [_c_int] * 3 + [_c_ll] * 21 + _TAIL,
+    "flash_bwd_delta": [_c_int, _c_int] + [_c_ptr] * 4 + [_c_int] * 3 + [_c_ll] * 6 + [_c_ptr],
+    "flash_bwd_keep": [_c_ptr] + [_c_int] * 4 + [_c_u] * 3 + [_c_ptr],
+    "flash_bwd_dq": [_c_int, _c_int] + [_c_ptr] * 8 + [_c_int] * 3 + [_c_ll] * 15 + _BWD_TAIL,
+    "flash_bwd_dkv": [_c_int, _c_int] + [_c_ptr] * 9 + [_c_int] * 3 + [_c_ll] * 18 + _BWD_TAIL,
 }
 
 
@@ -81,6 +91,25 @@ def _dropout_params(rate: float, seed: int) -> Tuple[int, int, int, float]:
     """(key0, key1, keep threshold, keep scale): keep iff draw >= thresh."""
     thresh = min(int(round(rate * 2.0 ** 32)), _MASK32)
     return seed & _MASK32, (seed >> 32) & _MASK32, thresh, 1.0 / (1.0 - rate)
+
+
+def keep_bits(B: int, H: int, T: int, rate: float, seed: int, *, causal: bool,
+              device=None) -> torch.Tensor:
+    """The mask's keep bits as the backward kernels read them: (B*H, n, n,
+    128) int32 words, n = ceil(T / 64).  Word 2r + w of tile (qt, kt) holds
+    keys 64 kt + 32 w .. + 31 of query 64 qt + r (bit i: key 64 kt + 32 w + i,
+    1 = kept); tiles a causal row does not reach are 0.  The plain version
+    of the keep-bit pre-pass kernel."""
+    n = -(-T // 64)
+    keep = dropout_mask(B, H, n * 64, rate, seed, device=device) > 0
+    keep = keep.view(B * H, n, 64, n, 2, 32)
+    words = torch.zeros(keep.shape[:-1], dtype=torch.int64, device=device)
+    for i in range(32):
+        words |= keep[..., i].to(torch.int64) << i
+    words = words.permute(0, 1, 3, 2, 4).reshape(B * H, n, n, 128)
+    if causal:
+        words = words * torch.ones(n, n, dtype=torch.int64, device=device).tril()[None, :, :, None]
+    return (words - ((words >> 31) << 32)).to(torch.int32)  # the uint32 words' bits
 
 
 def dropout_mask(B: int, H: int, T: int, rate: float, seed: int, *,
@@ -162,6 +191,14 @@ def _dense_grads(q, k, v, o, g, lse, g_lse, kv_mask, *, causal, scale,
     return pv, p * (dp - delta[..., None]) * scale
 
 
+def _plain_bwd_delta(o, g, g_lse):
+    """Delta = rowsum(dO * O) - g_lse, (B, H, T) in the compute dtype: the
+    plain version of the pre-pass kernel (the term ``_dense_grads`` forms)."""
+    ct = _compute_dtype(o)
+    delta = (g.to(ct) * o.to(ct)).sum(-1).permute(0, 2, 1)
+    return delta if g_lse is None else delta - g_lse.to(ct)
+
+
 def _plain_bwd_dq(q, k, v, o, g, lse, g_lse, kv_mask, *, causal, scale,
                   dropout_rate, seed):
     _, ds = _dense_grads(q, k, v, o, g, lse, g_lse, kv_mask, causal=causal,
@@ -230,6 +267,28 @@ def _f32_ptr(x, shape):
     return x, x.data_ptr()
 
 
+def _aligned(x):
+    """``x``, or a contiguous copy of it where the kernels' 16-byte loads
+    could not read its rows in place."""
+    per16 = 16 // x.element_size()
+    if x.data_ptr() % 16 or any(st % per16 for st in x.stride()[:3]):
+        return x.clone(memory_format=torch.contiguous_format)
+    return x
+
+
+def _keep_args(rate: float, keep: Optional[torch.Tensor], shape):
+    """(keep bits pointer, drop_scale) for the backward kernels."""
+    if rate <= 0.0:
+        return [None, 1.0]
+    B, T, H, _ = shape
+    n = -(-T // 64)
+    if (keep is None or keep.shape != (B * H, n, n, 128) or keep.dtype != torch.int32
+            or not keep.is_contiguous()):
+        raise ValueError(f"dropout needs the (B*H, {n}, {n}, 128) int32 keep bits of "
+                         "flash_bwd_keep")
+    return [keep.data_ptr(), 1.0 / (1.0 - rate)]
+
+
 def _drop_args(rate: float, seed: Optional[int]):
     if rate <= 0.0:
         return [0, 0, 0, 1.0, 0]
@@ -264,46 +323,99 @@ def flash_fwd(q, k, v, kv_mask=None, *, causal, scale, dropout_rate=0.0,
     return out, lse
 
 
-def flash_bwd_dq(q, k, v, o, g, lse, g_lse=None, kv_mask=None, *, causal, scale,
-                 dropout_rate=0.0, seed=None) -> torch.Tensor:
-    """dQ kernel: (B, T, H, D) in the input dtype."""
-    if _on_cpu(q, k, v, o, g, lse, g_lse, kv_mask):
-        return _plain_bwd_dq(q, k, v, o, g, lse, g_lse, kv_mask, causal=causal,
-                             scale=scale, dropout_rate=dropout_rate, seed=seed)
-    _check(q, k, v, o, g)
-    B, T, H, D = q.shape
-    lse, lse_ptr = _f32_ptr(lse, (B, H, T))
+def flash_bwd_delta(o, g, g_lse=None) -> torch.Tensor:
+    """Delta pre-pass kernel: rowsum(dO * O) - g_lse, (B, H, T) float32."""
+    if _on_cpu(o, g, g_lse):
+        return _plain_bwd_delta(o, g, g_lse)
+    _check(o, g)
+    B, T, H, D = o.shape
+    o, g = _aligned(o), _aligned(g)
     g_lse, g_lse_ptr = _f32_ptr(g_lse, (B, H, T))
+    delta = torch.empty((B, H, T), dtype=torch.float32, device=o.device)
+    _launch("flash_bwd_delta", _DTYPE_CODE[o.dtype], D, o.data_ptr(), g.data_ptr(),
+            g_lse_ptr, delta.data_ptr(), B, H, T, *_strides(o), *_strides(g),
+            torch.cuda.current_stream(o.device).cuda_stream)
+    return delta
+
+
+def flash_bwd_keep(q, *, causal, dropout_rate, seed) -> torch.Tensor:
+    """Keep-bit pre-pass kernel: the dropout mask of (dropout_rate, seed) for
+    q's (B, T, H) as ``keep_bits`` lays it out, drawn once for both backward
+    kernels."""
+    B, T, H, _ = q.shape
+    if _on_cpu(q):
+        return keep_bits(B, H, T, dropout_rate, seed, causal=causal, device=q.device)
+    n = -(-T // 64)
+    bits = torch.empty((B * H, n, n, 128), dtype=torch.int32, device=q.device)
+    key0, key1, thresh, _ = _dropout_params(dropout_rate, seed)
+    _launch("flash_bwd_keep", bits.data_ptr(), B, H, T, int(causal), key0, key1, thresh,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    return bits
+
+
+def _bwd_operands(q, k, v, o, g, lse, g_lse, delta, keep, causal, dropout_rate, seed):
+    """The backward kernels' inputs: aligned q/k/v/dO, float32 lse and Delta,
+    and the keep bits under dropout (each from its pre-pass unless given)."""
+    _check(q, k, v, o, g)
+    B, T, H, _ = q.shape
+    if delta is None:
+        delta = flash_bwd_delta(o, g, g_lse)
+    if dropout_rate > 0.0 and keep is None:
+        keep = flash_bwd_keep(q, causal=causal, dropout_rate=dropout_rate, seed=seed)
+    lse, lse_ptr = _f32_ptr(lse, (B, H, T))
+    delta, delta_ptr = _f32_ptr(delta, (B, H, T))
+    return ([_aligned(x) for x in (q, k, v, g)], (lse, lse_ptr), (delta, delta_ptr),
+            (keep, _keep_args(dropout_rate, keep, q.shape)))
+
+
+def _fold_delta(o, g, g_lse, delta):
+    """The g_lse that makes the plain versions use ``delta`` as Delta (they
+    form rowsum(dO * O) - g_lse themselves)."""
+    return g_lse if delta is None else _plain_bwd_delta(o, g, None) - delta
+
+
+def flash_bwd_dq(q, k, v, o, g, lse, g_lse=None, kv_mask=None, *, causal, scale,
+                 dropout_rate=0.0, seed=None, delta=None, keep=None) -> torch.Tensor:
+    """dQ kernel: (B, T, H, D) in the input dtype.  ``delta`` (B, H, T), when
+    given, replaces rowsum(dO * O) - g_lse (``flash_bwd_delta``); ``keep``,
+    when given, is the mask's bits (``flash_bwd_keep``) for (dropout_rate,
+    seed), which the plain version draws itself."""
+    if _on_cpu(q, k, v, o, g, lse, g_lse, kv_mask, delta, keep):
+        return _plain_bwd_dq(q, k, v, o, g, lse, _fold_delta(o, g, g_lse, delta), kv_mask,
+                             causal=causal, scale=scale, dropout_rate=dropout_rate, seed=seed)
+    (q, k, v, g), (lse, lse_ptr), (delta, delta_ptr), (keep, keep_args) = _bwd_operands(
+        q, k, v, o, g, lse, g_lse, delta, keep, causal, dropout_rate, seed)
+    B, T, H, D = q.shape
     mask, mask_ptr = _mask_ptr(kv_mask, B, T)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     _launch("flash_bwd_dq", _DTYPE_CODE[q.dtype], D,
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(),
-            lse_ptr, g_lse_ptr, mask_ptr, dq.data_ptr(), B, H, T,
-            *_strides(q), *_strides(k), *_strides(v), *_strides(o), *_strides(g),
-            *_strides(dq), scale, int(causal), *_drop_args(dropout_rate, seed),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            lse_ptr, delta_ptr, mask_ptr, dq.data_ptr(), B, H, T,
+            *_strides(q), *_strides(k), *_strides(v), *_strides(g),
+            *_strides(dq), scale, int(causal), *keep_args,
             torch.cuda.current_stream(q.device).cuda_stream)
     return dq
 
 
 def flash_bwd_dkv(q, k, v, o, g, lse, g_lse=None, kv_mask=None, *, causal, scale,
-                  dropout_rate=0.0, seed=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """dK/dV kernel: two (B, T, H, D) tensors in the input dtype."""
-    if _on_cpu(q, k, v, o, g, lse, g_lse, kv_mask):
-        return _plain_bwd_dkv(q, k, v, o, g, lse, g_lse, kv_mask, causal=causal,
-                              scale=scale, dropout_rate=dropout_rate, seed=seed)
-    _check(q, k, v, o, g)
+                  dropout_rate=0.0, seed=None, delta=None,
+                  keep=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dK/dV kernel: two (B, T, H, D) tensors in the input dtype.  ``delta``
+    and ``keep`` as for ``flash_bwd_dq``."""
+    if _on_cpu(q, k, v, o, g, lse, g_lse, kv_mask, delta, keep):
+        return _plain_bwd_dkv(q, k, v, o, g, lse, _fold_delta(o, g, g_lse, delta), kv_mask,
+                              causal=causal, scale=scale, dropout_rate=dropout_rate, seed=seed)
+    (q, k, v, g), (lse, lse_ptr), (delta, delta_ptr), (keep, keep_args) = _bwd_operands(
+        q, k, v, o, g, lse, g_lse, delta, keep, causal, dropout_rate, seed)
     B, T, H, D = q.shape
-    lse, lse_ptr = _f32_ptr(lse, (B, H, T))
-    g_lse, g_lse_ptr = _f32_ptr(g_lse, (B, H, T))
     mask, mask_ptr = _mask_ptr(kv_mask, B, T)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     _launch("flash_bwd_dkv", _DTYPE_CODE[q.dtype], D,
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(),
-            lse_ptr, g_lse_ptr, mask_ptr, dk.data_ptr(), dv.data_ptr(), B, H, T,
-            *_strides(q), *_strides(k), *_strides(v), *_strides(o), *_strides(g),
-            *_strides(dk), *_strides(dv), scale, int(causal),
-            *_drop_args(dropout_rate, seed),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            lse_ptr, delta_ptr, mask_ptr, dk.data_ptr(), dv.data_ptr(), B, H, T,
+            *_strides(q), *_strides(k), *_strides(v), *_strides(g),
+            *_strides(dk), *_strides(dv), scale, int(causal), *keep_args,
             torch.cuda.current_stream(q.device).cuda_stream)
     return dk, dv
 
@@ -331,8 +443,14 @@ class _FlashAttention(torch.autograd.Function):
             g_out = torch.zeros_like(out)
         elif g_out.stride(-1) != 1:
             g_out = g_out.contiguous()
-        dq = flash_bwd_dq(q, k, v, out, g_out, lse, g_lse, kv_mask, **ctx.args)
-        dk, dv = flash_bwd_dkv(q, k, v, out, g_out, lse, g_lse, kv_mask, **ctx.args)
+        # Delta and the dropout bits once, for both kernels.
+        pre = dict(delta=flash_bwd_delta(out, g_out, g_lse), **ctx.args)
+        if ctx.args["dropout_rate"] > 0.0:
+            pre["keep"] = flash_bwd_keep(q, causal=ctx.args["causal"],
+                                         dropout_rate=ctx.args["dropout_rate"],
+                                         seed=ctx.args["seed"])
+        dq = flash_bwd_dq(q, k, v, out, g_out, lse, g_lse, kv_mask, **pre)
+        dk, dv = flash_bwd_dkv(q, k, v, out, g_out, lse, g_lse, kv_mask, **pre)
         return dq, dk, dv, None, None, None, None, None
 
 

@@ -8,7 +8,9 @@ kernels themselves are held against the same plain versions on the card by
 chip_smoke.py.
 """
 
+import ctypes
 import importlib
+import re
 from pathlib import Path
 
 import numpy as np
@@ -223,6 +225,91 @@ class TestWrapperChecks:
         x = torch.zeros(1, 8, 1, 32)[..., ::2]
         with pytest.raises(ValueError, match="contiguous head dim"):
             tfa._check(x)
+
+
+class TestKeepBits:
+    @pytest.mark.parametrize("causal", [False, True])
+    def test_bits_are_the_dropout_mask(self, causal):
+        """Bit i of word 2r + w of tile (qt, kt) keeps key 64kt + 32w + i of
+        query 64qt + r, as dropout_mask draws it; a causal row's unreached
+        tiles are 0."""
+        B, H, T = 2, 3, 150
+        words = tfa.flash_bwd_keep(torch.zeros(B, T, H, 16), causal=causal, dropout_rate=0.3,
+                                   seed=99)
+        n = 3
+        assert words.shape == (B * H, n, n, 128) and words.dtype == torch.int32
+        bits = (words.to(torch.int64) & 0xFFFFFFFF)[..., None] >> torch.arange(32) & 1
+        bits = bits.view(B * H, n, n, 64, 2, 32).permute(0, 1, 3, 2, 4, 5)
+        keep = bits.reshape(B * H, n * 64, n * 64)[:, :T, :T].bool()
+        want = tfa.dropout_mask(B, H, T, 0.3, seed=99).view(B * H, T, T) > 0
+        if causal:
+            reached = torch.ones(n, n, dtype=torch.bool).tril()
+            want = want & reached.repeat_interleave(64, 0).repeat_interleave(64, 1)[:T, :T]
+        assert torch.equal(keep, want)
+
+    def test_kernels_refuse_dropout_without_the_bits(self):
+        with pytest.raises(ValueError, match="keep bits"):
+            tfa._keep_args(0.1, None, (1, 64, 1, 16))
+        assert tfa._keep_args(0.0, None, (1, 64, 1, 16)) == [None, 1.0]
+
+
+class TestDeltaPrepass:
+    def _inputs(self, seed=21, B=2, T=40, H=3, D=16):
+        rng = np.random.RandomState(seed)
+        o, g = (torch.from_numpy(rng.randn(B, T, H, D).astype(np.float32)) for _ in range(2))
+        return o, g, torch.from_numpy(rng.randn(B, H, T).astype(np.float32))
+
+    @pytest.mark.parametrize("with_glse", [False, True])
+    def test_plain_delta_is_rowsum_of_do_times_o_minus_glse(self, with_glse):
+        o, g, g_lse = self._inputs()
+        got = tfa.flash_bwd_delta(o, g, g_lse if with_glse else None)
+        want = np.einsum("bthd,bthd->bht", g.numpy().astype(np.float64),
+                         o.numpy().astype(np.float64))
+        if with_glse:
+            want = want - g_lse.numpy()
+        assert got.shape == (2, 3, 40) and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+    def test_backward_through_a_given_delta_equals_the_backward_without(self):
+        """A precomputed Delta (what the autograd backward passes both
+        kernels) gives the gradients of the path that forms it from dO, O
+        and g_lse; a different Delta changes them, so it is really read."""
+        rng = np.random.RandomState(22)
+        q, k, v, g = (torch.from_numpy(rng.randn(2, 48, 2, 16)) for _ in range(4))
+        g_lse = torch.from_numpy(rng.randn(2, 2, 48))
+        kw = dict(causal=True, scale=0.25, dropout_rate=0.2, seed=9)
+        o, lse = tfa._dense_with_lse(q, k, v, causal=True, scale=0.25, dropout_rate=0.2,
+                                     dropout_rng=9)
+        args = (q, k, v, o, g, lse, g_lse, None)
+        delta = tfa.flash_bwd_delta(o, g, g_lse)
+        want = (tfa.flash_bwd_dq(*args, **kw), *tfa.flash_bwd_dkv(*args, **kw))
+        got = (tfa.flash_bwd_dq(*args, delta=delta, **kw),
+               *tfa.flash_bwd_dkv(*args, delta=delta, **kw))
+        other = tfa.flash_bwd_dq(*args, delta=delta + 1.0, **kw)
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12, msg=name)
+        assert not torch.allclose(other, want[0])
+
+
+def _c_params(name):
+    """The parameter list of ``extern "C" int dtt_<name>(...)`` in its source."""
+    text = (Path(tfa.__file__).parent / "csrc" / f"{name}.cu").read_text()
+    m = re.search(r'extern "C" int dtt_' + name + r"\(([^)]*)\)", text)
+    assert m, f"no extern C entry dtt_{name} in {name}.cu"
+    return [p.strip() for p in m.group(1).split(",")]
+
+
+@pytest.mark.parametrize("name", tfa._build.KERNELS)
+def test_ctypes_argtypes_match_the_c_entry(name):
+    """ctypes passes exactly the C entry's parameters, each with its width:
+    a mismatch would otherwise show only on the card, as a garbage pointer."""
+    want = {"int": ctypes.c_int, "unsigned int": ctypes.c_uint, "float": ctypes.c_float,
+            "long long": ctypes.c_longlong}
+    params = _c_params(name)
+    assert len(params) == len(tfa._ARGTYPES[name])
+    for param, argtype in zip(params, tfa._ARGTYPES[name]):
+        ctype = param.rsplit(" ", 1)[0].replace("const ", "").strip()
+        assert argtype == (ctypes.c_void_p if "*" in param else want[ctype]), param
 
 
 @pytest.mark.parametrize("name", [n for n, f in chip_faults.FAULTS.items() if f[0]])
