@@ -31,15 +31,24 @@ WORK = ROOT / PKG / "ops" / "_build" / "faults"
 FAULTS = {
     "none": (None, None, None, ()),
     "fwd_skips_last_key_tile": (
-        "flash_fwd.cu", "    const int k0 = kt * kBlockK;\n",
-        "    const int k0 = kt * kBlockK;\n    if (k0 > 0 && k0 + kBlockK >= seq) break;\n",
+        "flash_fwd.cu", "    const int k0 = kt * 64, cur = kt & 1;\n",
+        "    const int k0 = kt * 64, cur = kt & 1;\n    if (k0 > 0 && k0 + 64 >= seq) break;\n",
         ("out", "lse")),
     "fwd_wrong_dropout_seed_on_one_key_tile": (
-        "flash_fwd.cu", "dropout4(dr, bh, qpos, (k0 >> 2) + tx, keep);",
-        "dropout4(dr, bh + (kt == 7), qpos, (k0 >> 2) + tx, keep);", ("out",)),
+        "flash_fwd.cu", "make_uint4(k4 + 2 * j, qd, (uint32_t)bh, 0u)",
+        "make_uint4(k4 + 2 * j, qd, (uint32_t)(bh + (k0 == 7 * 64)), 0u)", ("out",)),
     "fwd_no_rescale_in_last_key_tile": (
-        "flash_fwd.cu", "for (int e = 0; e < DPT; ++e) acc[i][e] *= alpha;",
-        "for (int e = 0; e < DPT; ++e) acc[i][e] *= kt + 1 == n_kt ? 1.f : alpha;", ("out",)),
+        "flash_fwd.cu", "for (int x = 0; x < 32; ++x) acc[p][x] *= alpha[(x >> 1) & 1];",
+        "for (int x = 0; x < 32; ++x) acc[p][x] *= kt + 1 == n_kt ? 1.f : alpha[(x >> 1) & 1];",
+        ("out",)),
+    "fwd_pv_skips_last_k_step": (
+        "flash_fwd.cu",
+        "    to_a_frags(s, a);\n",
+        "    to_a_frags(s, a);\n    a[3][0] = a[3][1] = a[3][2] = a[3][3] = 0u;\n",
+        ("out",)),
+    "fwd_dropout_bits_from_wrong_partner": (
+        "flash_fwd.cu", "__shfl_xor_sync(0xffffffffu, give, 1)",
+        "__shfl_xor_sync(0xffffffffu, give, 2)", ("out",)),
     "dq_skips_last_key_tile": (
         "flash_bwd_dq.cu", "    const int k0 = kt * 64, cur = kt & 1;\n",
         "    const int k0 = kt * 64, cur = kt & 1;\n    if (k0 > 0 && k0 + 64 >= seq) break;\n",

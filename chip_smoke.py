@@ -8,24 +8,26 @@ Phases (any failure raises; there is no CPU path):
 1. Print the card (``nvidia-smi``), the torch and CUDA versions, and build
    the flash-attention kernels from ``ops/csrc`` with nvcc for sm_90a;
    print ptxas' registers and spills of every kernel instantiation and the
-   count of HGMMA (wgmma) instructions in each bf16 backward kernel.
+   count of HGMMA (wgmma) instructions in each forward, dQ and dK/dV
+   instantiation.
 2. Hold each kernel (forward, Delta and keep-bit pre-passes, dQ, dK/dV)
-   against its plain
-   PyTorch version on the same inputs: GPT-2 medium's attention shapes
-   (B=8, T=1024, H=16, D=64, bf16, causal) at dropout 0 and 0.1, a ragged
-   shape (T=200, D=32, non-causal, key mask and lse cotangent), bf16 at
-   D=128, float32 (the backward's FMA design) and D=16; then tiny GPT-2's
-   loss and gradients: in float32 with the kernels against the dense
-   attention branch, and in bf16 on the card against the same weights and
-   tokens on the CPU (plain versions).
+   against its plain PyTorch version on the same inputs: GPT-2 medium's
+   attention shapes (B=8, T=1024, H=16, D=64, bf16, causal) at dropout 0
+   and 0.1, a ragged shape (T=200, D=32, non-causal, key mask and lse
+   cotangent), a batch row with no valid key, bf16 at D=128, float32 (the
+   FMA design) and D=16; then tiny GPT-2's loss and gradients: in float32
+   with the kernels against the dense attention branch, and in bf16 on the
+   card against the same weights and tokens on the CPU (plain versions).
 3. Time each kernel at GPT-2 medium's shapes beside its plain version, its
    bound and one PyTorch call for the same function (the yardstick, which
-   the port never calls); the backward kernels at dropout 0.1 and 0.
+   the port never calls), at dropout 0.1 and 0.
 4. Train GPT-2 medium through ``train_lib.run`` (flash attention, batch
    32, 4 microbatches, bf16, dropout 0.1, remat) for 5 steps; the loss must
    be finite every step and the kernels' launch counts must show that the
    step ran them.  Step 3 runs under torch.profiler: its device time by
-   part, against the other steps' wall time, gives the device's idle share.
+   part (and the largest "other" kernels), against the other steps' wall
+   time, gives the device's idle share; the host's time to enqueue each
+   step is printed beside it.
 
 The line before the last is a JSON object of the kernels' numbers; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -60,14 +62,18 @@ DROPOUT, SEED = 0.1, 1234
 # Row by row, the tolerance follows the late rows and keys of a causal
 # sequence, whose values are ~100x smaller than the first ones.
 TOL = {torch.bfloat16: (2.0 ** -7, 2.0 ** -8), torch.float32: (2e-5, 2e-5)}
-# The bf16 backward kernels feed P and dS to the tensor cores as bf16, a
-# rounding the float32 plain version does not have: each term of dq, dk
-# and dv carries a relative error of at most 2^-8 (the unit roundoff of
+# The bf16 kernels feed P (forward, times the keep-scale) and dS (backward)
+# to the tensor cores as bf16, a rounding the float32 plain version does
+# not have; the TPU kernels round P the same way (the reference's
+# _fwd_kernel rounds p to the input dtype for P.V).  Each term of out, dq,
+# dk and dv carries a relative error of at most 2^-8 (the unit roundoff of
 # bf16's 8-bit significand; 2^-9 on average), and over the row's T keys or
 # queries these errors add with random signs.  Their sum comes to a few
 # 2^-9 of the row's largest value, before the output's own rounding, so the
-# row term of dq, dk and dv in bf16 doubles to 2^-7.
-ROW_BF16_GRADS = 2.0 ** -7
+# row term of these four outputs in bf16 doubles to 2^-7.  lse and Delta
+# stay float32 on both sides and keep their tolerance.
+ROW_BF16_TC = 2.0 ** -7
+ROUNDS_P_OR_DS = ("out", "dq", "dk", "dv")
 ATOL = 1e-5
 KERNEL_SITES = {
     "flash_fwd": "distributed_tensorflow_tpu/ops/flash_attention.py:521",
@@ -122,7 +128,7 @@ def report_build(logs, nvcc: str) -> None:
         return
     from distributed_tensorflow_tpu_torch.ops import _build
 
-    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path(name))],
                               check=True, capture_output=True, text=True, timeout=300).stdout
         for func, body in re.findall(r"Function : (\S+)\n(.*?)(?=\n\s+Function : |\Z)", sass,
@@ -150,17 +156,25 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def check(name, got, want, dtype, result):
-    """Hold ``got`` against ``want`` element by element (see TOL); records
-    the max abs error and the worst err/tol in ``result``, and the name
-    under "failures" if any element is out of tolerance."""
+def tolerance(name, want, dtype):
+    """Per-element tolerance of output ``name`` against its plain value
+    ``want`` in ``dtype`` (see TOL); a 3-D ``want`` is a row statistic
+    (lse, Delta), each value its own row."""
     elem, row = TOL[dtype]
-    if dtype == torch.bfloat16 and name in ("dq", "dk", "dv"):
-        row = ROW_BF16_GRADS
+    if dtype == torch.bfloat16 and name in ROUNDS_P_OR_DS:
+        row = ROW_BF16_TC
+    mag = want.float().abs()
+    rowmax = mag if want.dim() == 3 else mag.amax(dim=-1, keepdim=True)
+    return elem * mag + row * rowmax + ATOL
+
+
+def check(name, got, want, dtype, result):
+    """Hold ``got`` against ``want`` element by element (``tolerance``);
+    records the max abs error and the worst err/tol in ``result``, and the
+    name under "failures" if any element is out of tolerance."""
     want = want.float()
     mag = want.abs()
-    rowmax = mag if want.dim() == 3 else mag.amax(dim=-1, keepdim=True)
-    tol = elem * mag + row * rowmax + ATOL
+    tol = tolerance(name, want, dtype)
     diff = (got.float() - want).abs()
     err, worst = float(diff.max()), float((diff / tol).max())
     print(f"  {name:>5}: max_abs_err {err:.3e}  max err/tol {worst:.3f}  tolerance median "
@@ -366,7 +380,12 @@ def time_kernels(fa):
     qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gt = g.transpose(1, 2)
-    lib = {"flash_fwd": time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, dropout_p=DROPOUT)),
+    lib_fwd, lib_fwd_device = {}, {}
+    for rate in (DROPOUT, 0.0):
+        sdpa_fwd = lambda: sdpa(qt, kt, vt, is_causal=True, dropout_p=rate)
+        lib_fwd[rate] = time_ms(sdpa_fwd)
+        lib_fwd_device[rate] = device_ms(sdpa_fwd)
+    lib = {"flash_fwd": lib_fwd[DROPOUT],
            "flash_bwd_delta": time_ms(lambda: torch.linalg.vecdot(g, out, dim=-1)),
            "flash_bwd_keep": None}  # no PyTorch call draws this mask
     lib_bwd, lib_bwd_device = {}, {}
@@ -378,7 +397,9 @@ def time_kernels(fa):
     lib["flash_bwd_dq"] = lib["flash_bwd_dkv"] = lib_bwd[DROPOUT]
     scope = {"flash_fwd": "out", "flash_bwd_delta": "rowsum(dO*O)", "flash_bwd_keep": None,
              "flash_bwd_dq": "dq+dk+dv", "flash_bwd_dkv": "dq+dk+dv"}
-    no_dropout = {name: time_ms(fn) for name, fn in backward(0.0).items()}
+    fwd_0 = lambda: fa.flash_fwd(q, k, v, None, **dict(args, dropout_rate=0.0))
+    no_dropout = {name: time_ms(fn) for name, fn in {"flash_fwd": fwd_0,
+                                                     **backward(0.0)}.items()}
     fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"
     lib_text = lambda x: "none" if x is None else f"{x:.4f} ms"
     work = bounds(B, T, H, D, True, 2)
@@ -402,6 +423,17 @@ def time_kernels(fa):
               f"({r['bound_by']})  library {lib_text(r['library_ms'])} ({scope[name]})  -> "
               f"{flops / r['ms'] / 1e9:.2f} T op/s, {100 * r['bound_ms'] / r['ms']:.2f}% of "
               f"bound; device time (profiler) {fmt(r['device_ms'])}")
+    fwd = rows["flash_fwd"]
+    fwd["library_ms_dropout_0"] = lib_fwd[0.0]
+    fwd["library_device_ms"] = lib_fwd_device[DROPOUT]
+    for rate, ms in ((DROPOUT, fwd["ms"]), (0.0, fwd["ms_dropout_0"])):
+        print(f"[time] forward at dropout {rate}: {ms:.4f} ms vs SDPA fwd {lib_fwd[rate]:.4f} ms: "
+              f"ratio {ms / lib_fwd[rate]:.3f}x; SDPA fwd device time (profiler) "
+              f"{fmt(lib_fwd_device[rate])}")
+    if fwd["device_ms"] and lib_fwd_device[DROPOUT]:
+        print(f"[time] forward device time (profiler) at dropout {DROPOUT}: {fwd['device_ms']:.4f} "
+              f"ms vs SDPA fwd {lib_fwd_device[DROPOUT]:.4f} ms: ratio "
+              f"{fwd['device_ms'] / lib_fwd_device[DROPOUT]:.3f}x")
     pair = {DROPOUT: sum(rows[n]["ms"] for n in BACKWARD),
             0.0: sum(rows[n]["ms_dropout_0"] for n in BACKWARD if n in no_dropout)}
     for rate in (DROPOUT, 0.0):
@@ -421,11 +453,14 @@ def time_kernels(fa):
 
 
 class StepRecorder:
-    """Hook: wall time per step (after a device sync), delivered losses, and
-    the device kernels of step ``profile_step`` (torch.profiler)."""
+    """Hook: wall time per step (after a device sync), the host's time to
+    enqueue the step (from the last step's end to the hook, before the
+    sync), delivered losses, and the device kernels of step
+    ``profile_step`` (torch.profiler)."""
 
     def __init__(self, profile_step):
         self.t = [time.perf_counter()]
+        self.host = []
         self.losses = {}
         self.profile_step, self.prof = profile_step, None
 
@@ -433,7 +468,9 @@ class StepRecorder:
         pass
 
     def after_step(self, loop, step, metrics):
+        enqueued = time.perf_counter()
         torch.cuda.synchronize()
+        self.host.append(enqueued - self.t[-1])
         self.t.append(time.perf_counter())
         if step == self.profile_step - 1:
             from torch.profiler import ProfilerActivity, profile
@@ -451,21 +488,26 @@ class StepRecorder:
         pass
 
 
-def step_breakdown(prof, step_s):
-    """Device time of one profiled step by part, beside the median wall time
-    of the unprofiled steps after the first."""
-    parts = {}
+def step_breakdown(prof, step_s, top=8):
+    """Device time of one profiled step by part, and the ``top`` kernels of
+    "other kernels" by device time, beside the median wall time of the
+    unprofiled steps after the first."""
+    parts, other = {}, []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
         name = e.key
         part = next((k for k in ("flash_fwd", *BACKWARD) if k in name), None)
         if part is None:
-            gemm = any(t in name.lower() for t in ("gemm", "xmma", "cutlass", "sm90_"))
+            gemm = any(t in name.lower() for t in ("gemm", "xmma", "cutlass", "sm90_", "nvjet"))
             part = "GEMMs (cuBLAS)" if gemm else "other kernels"
+        if part == "other kernels" and us:
+            other.append((us / 1e3, e.count, name))
         parts[part] = parts.get(part, 0.0) + us / 1e3
     busy = sum(parts.values())
     for part, ms in sorted(parts.items(), key=lambda kv: -kv[1]):
         print(f"[step] {part}: {ms:.1f} ms of device time in the profiled step")
+    for ms, count, name in sorted(other, reverse=True)[:top]:
+        print(f"[step]   other: {ms:.1f} ms, {count} launches: {name[:160]}")
     print(f"[step] device busy {busy:.1f} ms; unprofiled step wall (median) {1e3 * step_s:.1f} ms;"
           f" busy share {busy / (1e3 * step_s):.1%}, idle share {1 - busy / (1e3 * step_s):.1%}")
 
@@ -490,9 +532,12 @@ def train_medium(fa):
     print(f"[train] GPT-2 medium {' '.join(argv)}")
     print(f"[train] losses {losses}  result {result}")
     unprofiled = statistics.median(s for i, s in enumerate(step_s[1:], 2) if i != profiled)
+    host = statistics.median(s for i, s in enumerate(rec.host[1:], 2) if i != profiled)
     print(f"[train] step seconds {[round(s, 4) for s in step_s]} (step {profiled} profiled)  "
           f"tokens/s (median of the unprofiled steps after the first) "
           f"{batch * 1024 / unprofiled:.1f}  peak memory {peak_gib:.2f} GiB")
+    print(f"[train] host enqueue seconds {[round(s, 4) for s in rec.host]}: median "
+          f"{1e3 * host:.1f} ms, {host / unprofiled:.1%} of the step wall")
     step_breakdown(rec.prof, unprofiled)
     print(f"[train] launches {launches}")
     if len(losses) != steps or not all(x is not None and math.isfinite(x) for x in losses):
@@ -532,6 +577,9 @@ def main() -> int:
     compare_case(fa, "ragged dropout", B=2, T=200, H=4, D=32, dtype=torch.bfloat16,
                  causal=False, rate=DROPOUT, mask_lens=[150, 77], mask_value=0.5,
                  with_glse=True)
+    # Batch row 1 has no valid key: out and every gradient 0, lse -1e30.
+    compare_case(fa, "fully masked row", B=2, T=200, H=4, D=64, dtype=torch.bfloat16,
+                 causal=False, rate=0.0, mask_lens=[200, 0], with_glse=True)
     compare_case(fa, "head_dim 128", B=2, T=300, H=4, D=128, dtype=torch.bfloat16,
                  causal=True, rate=DROPOUT)
     compare_case(fa, "float32", B=2, T=300, H=4, D=128, dtype=torch.float32, causal=True,
@@ -555,7 +603,8 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "library_scope": r["library_scope"],
             "device_ms": r["device_ms"],
-            **({"ms_dropout_0": r["ms_dropout_0"]} if "ms_dropout_0" in r else {})})
+            **{key: r[key] for key in ("ms_dropout_0", "library_ms_dropout_0",
+                                       "library_device_ms") if key in r}})
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

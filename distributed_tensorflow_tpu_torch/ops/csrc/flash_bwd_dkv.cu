@@ -61,8 +61,8 @@ __global__ void __launch_bounds__(kThreads)
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int k0 = blockIdx.x * kBlockK;
 
-  load_tile<float, D, LD>(Ks, k, kvw, b, h, k0, seq);
-  load_tile<float, D, LD>(Vs, v, vv, b, h, k0, seq);
+  load_tile<D, LD>(Ks, k, kvw, b, h, k0, seq);
+  load_tile<D, LD>(Vs, v, vv, b, h, k0, seq);
 
   float dka[4][DPT], dva[4][DPT];
 #pragma unroll
@@ -74,8 +74,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int qt = causal ? k0 / kBlockQ : 0; qt < n_qt; ++qt) {
     const int q0 = qt * kBlockQ;
     __syncthreads();  // K/V ready; last tile's readers of Qs/Gs/PVs/DSs done
-    load_tile<float, D, LD>(Qs, q, qv, b, h, q0, seq);
-    load_tile<float, D, LD>(Gs, g, gv, b, h, q0, seq);
+    load_tile<D, LD>(Qs, q, qv, b, h, q0, seq);
+    load_tile<D, LD>(Gs, g, gv, b, h, q0, seq);
     if (tid < kBlockQ) {
       const int t = q0 + tid;
       const long long idx = (long long)bh * seq + t;
@@ -152,8 +152,8 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   }
-  store_rows<float, D>(dk, dkv, b, h, k0, seq, dka);
-  store_rows<float, D>(dv, dvv, b, h, k0, seq, dva);
+  store_rows<D>(dk, dkv, b, h, k0, seq, dka);
+  store_rows<D>(dv, dvv, b, h, k0, seq, dva);
 }
 
 template <int D>

@@ -54,8 +54,8 @@ __global__ void __launch_bounds__(kThreads)
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int q0 = blockIdx.x * kBlockQ;
 
-  load_tile<float, D, LD>(Qs, q, qv, b, h, q0, seq);
-  load_tile<float, D, LD>(Gs, g, gv, b, h, q0, seq);
+  load_tile<D, LD>(Qs, q, qv, b, h, q0, seq);
+  load_tile<D, LD>(Gs, g, gv, b, h, q0, seq);
   float lse_r[4], delta_r[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -75,8 +75,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kBlockK;
     __syncthreads();
-    load_tile<float, D, LD>(Ks, k, kvw, b, h, k0, seq);
-    load_tile<float, D, LD>(Vs, v, vv, b, h, k0, seq);
+    load_tile<D, LD>(Ks, k, kvw, b, h, k0, seq);
+    load_tile<D, LD>(Vs, v, vv, b, h, k0, seq);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -139,7 +139,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   }
-  store_rows<float, D>(dq, dqv, b, h, q0, seq, dqa);
+  store_rows<D>(dq, dqv, b, h, q0, seq, dqa);
 }
 
 template <int D>

@@ -2,13 +2,12 @@
 // element conversion, strided tile loads, the row reductions of a 16-lane
 // thread group, and the Philox-4x32-10 dropout mask.
 //
-// The forward and float32 backward kernels run 256 threads on 64-row tiles
-// (the bf16 backward kernels' pieces are in flash_tc.cuh).  A thread (ty, tx) =
-// (tid / 16, tid % 16) owns rows ty*4 .. ty*4+3 of a 64x64 score tile and
-// columns tx*4 .. tx*4+3, and columns tx + 16*e of a 64xD output tile.
-// Tiles live in shared memory as f32 (rows padded by one word against
-// bank conflicts), so bf16 and f32 inputs share one code path and all
-// arithmetic is f32.
+// The float32 kernels run 256 threads on 64-row tiles (the bf16 kernels'
+// pieces are in flash_tc.cuh).  A thread (ty, tx) = (tid / 16, tid % 16)
+// owns rows ty*4 .. ty*4+3 of a 64x64 score tile and columns tx*4 ..
+// tx*4+3, and columns tx + 16*e of a 64xD output tile.  Tiles live in
+// shared memory as f32 (rows padded by one word against bank conflicts) and
+// all arithmetic is f32.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -38,23 +37,14 @@ struct Dropout {
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's cast
-}
-
 // dst[r * LD + d] = src[b, t0 + r, h, d] for r < 64, zero past the end.
-template <typename T, int D, int LD>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
+template <int D, int LD>
+__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src,
                                           View v, int b, int h, int t0, int seq) {
-  const T* base = src + b * v.sb + h * v.sh;
+  const float* base = src + b * v.sb + h * v.sh;
   for (int i = threadIdx.x; i < 64 * D; i += kThreads) {
     const int r = i / D, d = i % D, t = t0 + r;
-    dst[r * LD + d] = t < seq ? to_f32(base[(long long)t * v.st + d]) : 0.f;
+    dst[r * LD + d] = t < seq ? base[(long long)t * v.st + d] : 0.f;
   }
 }
 
@@ -111,17 +101,17 @@ __device__ __forceinline__ int key_tiles(int q0, int seq, int causal) {
   return n;
 }
 
-template <typename T, int D>
-__device__ __forceinline__ void store_rows(T* __restrict__ dst, View v, int b, int h, int t0,
+template <int D>
+__device__ __forceinline__ void store_rows(float* __restrict__ dst, View v, int b, int h, int t0,
                                            int seq, const float (&acc)[4][D / 16]) {
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int t = t0 + ty * 4 + i;
     if (t >= seq) continue;
-    T* row = dst + b * v.sb + (long long)t * v.st + h * v.sh;
+    float* row = dst + b * v.sb + (long long)t * v.st + h * v.sh;
 #pragma unroll
-    for (int e = 0; e < D / 16; ++e) row[tx + 16 * e] = from_f32<T>(acc[i][e]);
+    for (int e = 0; e < D / 16; ++e) row[tx + 16 * e] = acc[i][e];
   }
 }
 

@@ -1,4 +1,4 @@
-// Tensor-core pieces of the bf16 backward kernels for Hopper (sm_90a):
+// Tensor-core pieces of the bf16 kernels for Hopper (sm_90a):
 // asynchronous tile loads into 128-byte-swizzled shared memory, wgmma
 // descriptors and the wgmma forms the kernels use, and the tiles of the
 // dropout keep bits that the flash_bwd_keep pre-pass draws.

@@ -10,9 +10,9 @@ function with dense (T, T) tensors.
 
 - Layout: q/k/v are (B, T, H, D), read through their strides (no head
   transpose); lse is (B, H, T) float32.  D is 16, 32, 64 or 128; any T.
-  bf16 and float32 inputs, float32 accumulation.  The backward kernels
-  pick their design by dtype: bf16 runs its products on the tensor cores
-  (wgmma, P and dS rounded to bf16 as operands), float32 on f32 FMAs.
+  bf16 and float32 inputs, float32 accumulation.  The kernels pick their
+  design by dtype: bf16 runs its products on the tensor cores (wgmma, P
+  and dS rounded to bf16 as operands), float32 on f32 FMAs.
 - A wrapper takes the plain version only for tensors on the CPU.  On a CUDA
   tensor it launches its kernel or raises; there is no silent fallback.
   Each wrapper counts its launches in ``LAUNCHES``.
@@ -311,7 +311,10 @@ def flash_fwd(q, k, v, kv_mask=None, *, causal, scale, dropout_rate=0.0,
         return _dense_with_lse(q, k, v, causal=causal, scale=scale, kv_mask=kv_mask,
                                dropout_rate=dropout_rate, dropout_rng=seed)
     _check(q, k, v)
+    if q.dtype == torch.bfloat16 and not scale > 0.0:  # its row max is on the raw scores
+        raise ValueError(f"the bf16 flash forward kernel takes a positive scale, got {scale}")
     B, T, H, D = q.shape
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     mask, mask_ptr = _mask_ptr(kv_mask, B, T)

@@ -22,6 +22,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import chip_faults  # noqa: E402
+import chip_smoke  # noqa: E402
 from distributed_tensorflow_tpu_torch.ops import flash_attention as tfa  # noqa: E402
 
 # The reference's own tolerances for its interpreted kernels (f32).
@@ -89,6 +90,32 @@ def test_forward_and_backward_match_interpreted_kernels(jfa, causal, masked, wit
                                    err_msg=name)
 
 
+@pytest.mark.parametrize("causal,masked", [(False, False), (True, False), (False, True)])
+def test_bf16_plain_forward_is_within_card_tolerance_of_interpreted_kernel(jfa, causal,
+                                                                           masked):
+    """In bf16 the reference's forward kernel rounds P to bf16 for P.V, as
+    the port's bf16 CUDA kernel does; the port's plain version keeps P in
+    float32.  The two agree within the out and lse tolerances chip_smoke
+    holds the CUDA kernel to on the card, so those tolerances admit the
+    rounding the kernel shares with the reference."""
+    q, k, v, _ = make_inputs(B=2, T=384, H=2, D=64, seed=31 + 2 * causal + masked)
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    jq, jk, jv = (jnp.asarray(x.float().numpy()).astype(jnp.bfloat16) for x in (tq, tk, tv))
+    mask = None
+    if masked:
+        mask = (np.arange(384)[None, :] < np.array([300, 100])[:, None]).astype(np.int32)
+    jout, jlse = jfa.flash_attention_with_lse(
+        jq, jk, jv, causal=causal, kv_mask=None if mask is None else jnp.asarray(mask))
+    out, lse = tfa.flash_attention_with_lse(
+        tq, tk, tv, causal=causal, kv_mask=None if mask is None else torch.from_numpy(mask))
+    assert jout.dtype == jnp.bfloat16 and out.dtype == torch.bfloat16
+    for name, got, want, dtype in (("out", jout, out, torch.bfloat16),
+                                   ("lse", jlse, lse, torch.float32)):
+        got = torch.from_numpy(np.array(got.astype(jnp.float32)))
+        ratio = (got - want.float()).abs() / chip_smoke.tolerance(name, want.detach(), dtype)
+        assert float(ratio.max()) <= 1.0, f"{name}: worst err/tol {float(ratio.max()):.3f}"
+
+
 def test_plain_matches_reference_dense_on_ragged_shape(jfa):
     """T=200 (not a block multiple) falls back to the reference's dense
     path; the port takes any T."""
@@ -126,6 +153,35 @@ class TestPhilox:
         big = tfa.dropout_mask(2, 3, 37, 0.3, seed=99)
         assert torch.equal(small, big[:, :, :10, :10])
         assert set(torch.unique(big).tolist()) == {0.0, float(np.float32(1 / 0.7))}
+
+    @pytest.mark.parametrize("q0,k0", [(0, 0), (64, 128)])
+    def test_forward_kernel_lane_split_rebuilds_the_mask(self, q0, k0):
+        """flash_fwd_tc's split of the draws over the accumulator layout:
+        thread (warp w, lane l) holds rows r0 = 16w + l/4 and r0 + 8 and
+        columns 8j + 2(l%4) + c; lane l draws the 4 keys of group (l/2)%2 of
+        each 8-key block for row r0 (even l) or r0 + 8 (odd l), and lanes l
+        and l^1 swap the bits of each other's columns.  The bits each thread
+        ends with are the mask's."""
+        B, H, T, rate, seed, bh = 1, 2, 256, 0.3, 77, 1
+        key0, key1, thresh, _ = tfa._dropout_params(rate, seed)
+        t = torch.arange(128, dtype=torch.int64)
+        warp, lane = t // 32, t % 32
+        r0, c0, e = 16 * warp + lane // 4, 2 * (lane % 4), lane % 2
+        j = torch.arange(8, dtype=torch.int64)
+        k4 = (k0 // 4 + (lane // 2) % 2)[:, None] + 2 * j  # (thread, j)
+        qd = (q0 + r0 + 8 * e)[:, None].expand_as(k4)
+        words = tfa.philox4x32_10(k4, qd, torch.full_like(k4, bh), torch.zeros_like(k4),
+                                  key0, key1)
+        bits = [w >= thresh for w in words]
+        lo, hi = torch.stack(bits[:2], -1), torch.stack(bits[2:], -1)  # (thread, j, c)
+        odd = (e == 1)[:, None, None]
+        own, give = torch.where(odd, hi, lo), torch.where(odd, lo, hi)
+        got = give[t ^ 1]
+        keep = torch.stack([torch.where(odd, got, own), torch.where(odd, own, got)], 1)
+        mask = tfa.dropout_mask(B, H, T, rate, seed)[0, bh] > 0
+        rows = (q0 + r0)[:, None, None, None] + 8 * torch.arange(2)[None, :, None, None]
+        cols = (k0 + c0)[:, None, None, None] + 8 * j[None, None, :, None] + torch.arange(2)
+        assert torch.equal(keep, mask[rows, cols])
 
     def test_keep_rate(self):
         m = tfa.dropout_mask(4, 4, 128, 0.1, seed=5)
