@@ -7,27 +7,38 @@ Phases (any failure raises; there is no CPU path):
 
 1. Print the card (``nvidia-smi``), the torch and CUDA versions, and build
    the flash-attention kernels from ``ops/csrc`` with nvcc for sm_90a;
-   print ptxas' registers and spills of every kernel instantiation and the
+   print ptxas' registers and spills of every kernel instantiation, the
    count of HGMMA (wgmma) instructions in each forward, dQ and dK/dV
-   instantiation.
-2. Hold each kernel (forward, Delta and keep-bit pre-passes, dQ, dK/dV)
-   against its plain PyTorch version on the same inputs: GPT-2 medium's
-   attention shapes (B=8, T=1024, H=16, D=64, bf16, causal) at dropout 0
-   and 0.1, a ragged shape (T=200, D=32, non-causal, key mask and lse
-   cotangent), a batch row with no valid key, bf16 at D=128, float32 (the
-   FMA design) and D=16; then tiny GPT-2's loss and gradients: in float32
-   with the kernels against the dense attention branch, and in bf16 on the
-   card against the same weights and tokens on the CPU (plain versions).
+   instantiation, and the integer instructions of one Philox draw by pipe
+   (the keep-bit kernel's loop in the SASS), which with the SM clock give
+   the draws' bound.
+2. Hold each kernel (forward, with and without its keep bits; Delta and
+   keep-bit pre-passes; dQ, with Delta given and computing it; dK/dV)
+   against its plain PyTorch version on the same inputs, and the training
+   backward (dQ with Delta, then dK/dV on the forward's bits) against the
+   plain gradients: GPT-2 medium's attention shapes (B=8, T=1024, H=16,
+   D=64, bf16, causal) at dropout 0 and 0.1, a ragged shape (T=200, D=32,
+   non-causal, key mask and lse cotangent), a batch row with no valid key,
+   bf16 at D=128, float32 (the FMA design) and D=16; then tiny GPT-2's
+   loss and gradients: in float32 with the kernels against the dense
+   attention branch, and in bf16 on the card against the same weights and
+   tokens on the CPU (plain versions).
 3. Time each kernel at GPT-2 medium's shapes beside its plain version, its
    bound and one PyTorch call for the same function (the yardstick, which
-   the port never calls), at dropout 0.1 and 0.
+   the port never calls), at dropout 0.1 and 0: the forward with and
+   without its keep bits, dQ with and without Delta, and the training
+   backward's two launches against the four of the pre-passes' path and
+   SDPA's backward.  Each is timed by events around back-to-back calls
+   (host included), by the profiler's per-call device time, and as device
+   time alone in turns with the others (``queued_ms``).
 4. Train GPT-2 medium through ``train_lib.run`` (flash attention, batch
    32, 4 microbatches, bf16, dropout 0.1, remat) for 5 steps; the loss must
    be finite every step and the kernels' launch counts must show that the
-   step ran them.  Step 3 runs under torch.profiler: its device time by
-   part (and the largest "other" kernels), against the other steps' wall
-   time, gives the device's idle share; the host's time to enqueue each
-   step is printed beside it.
+   step ran the forward, dQ and dK/dV and neither pre-pass.  Step 3 runs
+   under torch.profiler: its device time by part (and the largest "other"
+   kernels), against the other steps' wall time, gives the device's idle
+   share, and each flash kernel's device time a launch; the host's time
+   to enqueue each step is printed beside it.
 
 The line before the last is a JSON object of the kernels' numbers; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -48,8 +59,10 @@ from pathlib import Path
 import torch
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
-PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+# sm_90 issues 32-bit integer multiply-add on one pipe and integer add,
+# compare, logic and shift on another, each at 64 operations a clock per SM.
+INT_OPS_PER_CLOCK_SM = 64
 MEDIUM = dict(B=8, T=1024, H=16, D=64)  # one microbatch of GPT-2 medium
 DROPOUT, SEED = 0.1, 1234
 # Each element must satisfy |kernel - plain| <= ELEM * |plain| + ROW * rowmax
@@ -83,10 +96,14 @@ KERNEL_SITES = {
     "flash_bwd_dkv": "distributed_tensorflow_tpu/ops/flash_attention.py:755",
 }
 BACKWARD = ("flash_bwd_delta", "flash_bwd_keep", "flash_bwd_dq", "flash_bwd_dkv")
-# Integer operations of one Philox-4x32-10 draw (ten rounds of two 32x32->64
-# multiplies, two 3-way xors and two key additions, then 4 compares and
-# shifts into the word), counted at the CUDA cores' 67 T/s.
-PHILOX_OPS = 70
+PREPASSES = ("flash_bwd_delta", "flash_bwd_keep")  # off the training path
+# SASS opcodes by the pipe that issues them (the rest, memory, control and
+# the uniform datapath, is counted under "other").
+INT_PIPES = {"fma": ("IMAD", "IMUL"),
+             "alu": ("IADD3", "VIADD", "LOP3", "ISETP", "SHF", "SEL", "LEA", "PRMT", "IABS",
+                     "IMNMX", "VIMNMX", "PLOP3", "MOV", "FLO", "BMSK", "SGXT", "SHL", "SHR",
+                     "P2R", "R2P")}
+KEEP_LOOP_DRAWS = 8  # flash_bwd_keep's loop draws one 32-bit word: 8 draws of 4 bits
 
 
 def card_line() -> str:
@@ -122,18 +139,70 @@ def report_build(logs, nvcc: str) -> None:
             if m and entry:
                 print(f"[ptxas] {name}: {entry}: {m.group(1)} registers, {spills}")
                 entry = None
-    cuobjdump = Path(nvcc).with_name("cuobjdump")
-    if not cuobjdump.is_file():
-        print("[sass] cuobjdump not found: HGMMA count not measured")
-        return
     from distributed_tensorflow_tpu_torch.ops import _build
 
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
-        sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path(name))],
-                              check=True, capture_output=True, text=True, timeout=300).stdout
-        for func, body in re.findall(r"Function : (\S+)\n(.*?)(?=\n\s+Function : |\Z)", sass,
-                                     re.S):
+        for func, body in sass_functions(nvcc, _build.library_path(name)).items():
             print(f"[sass] {name}: {short_name(func)}: {body.count('HGMMA')} HGMMA")
+
+
+def sass_functions(nvcc: str, library) -> dict:
+    """{mangled function name: its SASS text} of a built library (cuobjdump)."""
+    sass = subprocess.run([str(Path(nvcc).with_name("cuobjdump")), "-sass", str(library)],
+                          check=True, capture_output=True, text=True, timeout=300).stdout
+    return dict(re.findall(r"Function : (\S+)\n(.*?)(?=\n\s+Function : |\Z)", sass, re.S))
+
+
+def philox_pipe_ops(nvcc: str) -> dict:
+    """Integer instructions of one Philox draw by pipe: those of the loop of
+    flash_bwd_keep's kernel (the body between a backward branch and its
+    target with the most multiply-adds) over the KEEP_LOOP_DRAWS draws it
+    makes, its address arithmetic and store included."""
+    from distributed_tensorflow_tpu_torch.ops import _build
+
+    funcs = sass_functions(nvcc, _build.library_path("flash_bwd_keep"))
+    body = next(text for name, text in funcs.items() if "flash_bwd_keep_kernel" in name)
+    insts, labels = [], {}
+    for line in body.splitlines():
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            labels[m.group(1)] = len(insts)
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);", line)
+        if m:
+            insts.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    at = {addr: i for i, (addr, _, _) in enumerate(insts)}
+    loops = []
+    for i, (_, op, rest) in enumerate(insts):
+        m = re.search(r"(0x[0-9a-f]+|\.L_x_\d+)", rest) if op.startswith("BRA") else None
+        target = None if m is None else (
+            labels.get(m.group(1)) if m.group(1).startswith(".") else at.get(int(m.group(1), 16)))
+        if target is not None and target <= i:
+            loops.append(insts[target:i + 1])
+    if not loops:
+        raise AssertionError("no loop found in flash_bwd_keep's SASS")
+    loop = max(loops, key=lambda ls: sum(op.startswith("IMAD") for _, op, _ in ls))
+    count = {pipe: 0 for pipe in (*INT_PIPES, "other")}
+    for _, op, _ in loop:
+        root = op.split(".")[0]
+        count[next((p for p, ops in INT_PIPES.items() if root in ops), "other")] += 1
+    per_draw = {pipe: n / KEEP_LOOP_DRAWS for pipe, n in count.items()}
+    print(f"[sass] flash_bwd_keep loop: {len(loop)} instructions for {KEEP_LOOP_DRAWS} Philox "
+          f"draws: {count}; per draw {per_draw}")
+    return per_draw
+
+
+def int_ops_rate() -> float:
+    """32-bit integer operations a second on one pipe of the card: 64 a
+    clock per SM at the SM's maximum clock (nvidia-smi)."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rate = INT_OPS_PER_CLOCK_SM * sms * mhz * 1e6
+    print(f"[sass] integer pipe rate: {INT_OPS_PER_CLOCK_SM} a clock x {sms} SMs x {mhz:.0f} MHz "
+          f"= {rate / 1e12:.2f} T op/s")
+    return rate
 
 
 def make_inputs(B, T, H, D, dtype, *, seed, mask_lens=None, mask_value=1, with_glse=False):
@@ -157,11 +226,11 @@ def max_err(a, b) -> float:
 
 
 def tolerance(name, want, dtype):
-    """Per-element tolerance of output ``name`` against its plain value
-    ``want`` in ``dtype`` (see TOL); a 3-D ``want`` is a row statistic
-    (lse, Delta), each value its own row."""
+    """Per-element tolerance of output ``name`` (``dq.fused`` is dq's) against
+    its plain value ``want`` in ``dtype`` (see TOL); a 3-D ``want`` is a row
+    statistic (lse, Delta), each value its own row."""
     elem, row = TOL[dtype]
-    if dtype == torch.bfloat16 and name in ROUNDS_P_OR_DS:
+    if dtype == torch.bfloat16 and name.split(".")[0] in ROUNDS_P_OR_DS:
         row = ROW_BF16_TC
     mag = want.float().abs()
     rowmax = mag if want.dim() == 3 else mag.amax(dim=-1, keepdim=True)
@@ -177,7 +246,7 @@ def check(name, got, want, dtype, result):
     tol = tolerance(name, want, dtype)
     diff = (got.float() - want).abs()
     err, worst = float(diff.max()), float((diff / tol).max())
-    print(f"  {name:>5}: max_abs_err {err:.3e}  max err/tol {worst:.3f}  tolerance median "
+    print(f"  {name:>8}: max_abs_err {err:.3e}  max err/tol {worst:.3f}  tolerance median "
           f"{float(tol.median()):.3e} min {float(tol.min()):.3e}  |plain| median "
           f"{float(mag.median()):.3e} max {float(mag.max()):.3e}")
     result["errors"][name] = err
@@ -186,11 +255,33 @@ def check(name, got, want, dtype, result):
         result["failures"].append(name)
 
 
+def check_words(name, got, want, result):
+    """Keep bits must be equal: the count of words that differ is the error."""
+    wrong = int((got != want).sum())
+    print(f"  {name:>8}: {wrong} of {got.numel()} words differ (tolerance 0)")
+    result["errors"][name] = result["ratios"][name] = float(wrong)
+    if wrong:
+        result["failures"].append(name)
+
+
+def poison_free_blocks(shape, dtype):
+    """Leaves the allocator's cache holding only freed blocks of ``shape``
+    filled with ones, so that outputs allocated next with ``torch.empty``
+    (the kernel wrappers') show every element their kernel did not write."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    blocks = [torch.full(shape, -1, dtype=dtype, device="cuda") for _ in range(3)]
+    blocks.clear()
+
+
 def compare_case(fa, label, *, B, T, H, D, dtype, causal, rate, mask_lens=None,
                  mask_value=1, with_glse=False, raise_on_failure=True):
     """Each kernel against its plain version on the same inputs: the
-    backward kernels get the plain forward's out and lse and the plain
-    Delta.  Returns {"errors", "ratios", "failures"} by output name."""
+    backward kernels get the plain forward's out and lse, the plain Delta
+    and the plain keep bits.  Then the training path: the forward's keep
+    bits (keep.fwd), dQ's own Delta (delta.dq), and the gradients of dQ with
+    it and of dK/dV reading it, on the forward's bits (*.fused).  Returns
+    {"errors", "ratios", "failures"} by output name."""
     print(f"[compare] {label}: B={B} T={T} H={H} D={D} {dtype} causal={causal} "
           f"dropout={rate} kv_mask={mask_lens is not None} g_lse={with_glse}")
     q, k, v, g, mask, g_lse = make_inputs(B, T, H, D, dtype, seed=T + D, mask_lens=mask_lens,
@@ -207,23 +298,36 @@ def compare_case(fa, label, *, B, T, H, D, dtype, causal, rate, mask_lens=None,
     ref_delta = fa._plain_bwd_delta(ref_out, g, g_lse)
     torch.cuda.synchronize()
     check("delta", delta, ref_delta, torch.float32, result)
-    ref_keep = None
-    if rate > 0.0:  # bits must be equal: the count of words that differ is the error
+    ref_keep = bits = None
+    if rate > 0.0:
         keep = fa.flash_bwd_keep(q, causal=causal, dropout_rate=rate, seed=SEED)
         ref_keep = fa.keep_bits(B, H, T, rate, SEED, causal=causal, device="cuda")
-        wrong = int((keep != ref_keep).sum())
-        print(f"   keep: {wrong} of {keep.numel()} words differ (tolerance 0)")
-        result["errors"]["keep"] = result["ratios"]["keep"] = float(wrong)
-        if wrong:
-            result["failures"].append("keep")
+        check_words("keep", keep, ref_keep, result)
+        poison_free_blocks(ref_keep.shape, ref_keep.dtype)
+        out_b, lse_b, bits = fa.flash_fwd(q, k, v, mask, keep_out=True, **args)
+        torch.cuda.synchronize()
+        check_words("keep.fwd", bits, ref_keep, result)
+        same = torch.equal(out_b, out) and torch.equal(lse_b, lse)
+        print(f"  out, lse with keep_out: {'bit-identical to' if same else 'NOT EQUAL TO'} "
+              f"those without")
+        if not same:
+            result["failures"].append("out.bits")
     bwd = (q, k, v, ref_out, g, ref_lse, g_lse, mask)
     dq = fa.flash_bwd_dq(*bwd, delta=ref_delta, keep=ref_keep, **args)
     dk, dv = fa.flash_bwd_dkv(*bwd, delta=ref_delta, keep=ref_keep, **args)
     torch.cuda.synchronize()
-    check("dq", dq, fa._plain_bwd_dq(*bwd, **args), dtype, result)
+    ref_dq = fa._plain_bwd_dq(*bwd, **args)
+    check("dq", dq, ref_dq, dtype, result)
     ref_dk, ref_dv = fa._plain_bwd_dkv(*bwd, **args)
     check("dk", dk, ref_dk, dtype, result)
     check("dv", dv, ref_dv, dtype, result)
+    dq, delta = fa.flash_bwd_dq(*bwd, keep=bits, return_delta=True, **args)
+    dk, dv = fa.flash_bwd_dkv(*bwd, delta=delta, keep=bits, **args)
+    torch.cuda.synchronize()
+    check("delta.dq", delta, ref_delta, torch.float32, result)
+    check("dq.fused", dq, ref_dq, dtype, result)
+    check("dk.fused", dk, ref_dk, dtype, result)
+    check("dv.fused", dv, ref_dv, dtype, result)
     if result["failures"] and raise_on_failure:
         raise AssertionError(f"{label}: kernel differs from its plain version beyond the "
                              f"tolerance in: {', '.join(result['failures'])}")
@@ -233,8 +337,9 @@ def compare_case(fa, label, *, B, T, H, D, dtype, causal, rate, mask_lens=None,
 def kernel_errors(result):
     e = result["errors"]
     return {"flash_fwd": max(e["out"], e["lse"]), "flash_bwd_delta": e["delta"],
-            "flash_bwd_keep": e["keep"], "flash_bwd_dq": e["dq"],
-            "flash_bwd_dkv": max(e["dk"], e["dv"])}
+            "flash_bwd_keep": e["keep"], "flash_bwd_dq": max(e["dq"], e["dq.fused"],
+                                                            e["delta.dq"]),
+            "flash_bwd_dkv": max(e["dk"], e["dv"], e["dk.fused"], e["dv.fused"])}
 
 
 def check_tiny_model():
@@ -284,7 +389,9 @@ def check_tiny_model_bf16(fa):
         grads = torch.autograd.grad(loss, list(params.values()))
         results[dev] = (float(loss.detach()), [x.float().cpu() for x in grads])
         ran = {n: fa.LAUNCHES[n] - before[n] for n in fa.LAUNCHES}
-        if (dev == "cuda") != all(ran[n] > 0 for n in BACKWARD if n != "flash_bwd_keep"):
+        on_path = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+        if ((dev == "cuda") != all(ran[n] > 0 for n in on_path)
+                or any(ran[n] for n in PREPASSES)):
             raise AssertionError(f"tiny GPT-2 bf16 on {dev}: kernel launches {ran}")
     (lc, gc), (lp, gp) = results["cuda"], results["cpu"]
     worst = max(max_err(a, b) / (0.05 * float(b.abs().max()) + 1e-6) for a, b in zip(gc, gp))
@@ -312,143 +419,259 @@ def time_ms(fn, reps=20, runs=5, warmup=3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, calls=10):
+def device_ms(fn, calls=10, tries=2):
     """Device time per call: the CUDA kernels' own time that torch.profiler
-    records over ``calls`` calls, divided by ``calls`` (None if it records
-    none).  Unlike ``time_ms`` it leaves out the host's time to enqueue."""
+    records over ``calls`` calls, divided by ``calls``.  Unlike ``time_ms``
+    it leaves out the host's time to enqueue.  None if in ``tries`` tries
+    the profiler records no kernel, or fewer of the port's kernels than its
+    wrappers launched (a sum that misses records reads low)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(getattr(e, "self_device_time_total", None)
-                   or getattr(e, "self_cuda_time_total", 0) for e in prof.key_averages())
-    return total_us / 1e3 / calls or None
+    for _ in range(tries):
+        before = sum(fa.LAUNCHES.values())
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        launched = sum(fa.LAUNCHES.values()) - before
+        events = prof.key_averages()
+        total_us = sum(getattr(e, "self_device_time_total", None)
+                       or getattr(e, "self_cuda_time_total", 0) for e in events)
+        recorded = sum(e.count for e in events if "flash_" in e.key)
+        if launched and recorded != launched:
+            print(f"[time] the profiler recorded {recorded} of {launched} kernel launches")
+        elif total_us:
+            return total_us / 1e3 / calls
+    return None
 
 
-def bounds(B, T, H, D, causal, itemsize):
-    """(operations, bytes) per kernel: 4/6/8 * D flops per attended (q, k)
-    pair (2 * D per row for Delta, PHILOX_OPS integer operations per draw of
-    4 keep bits); each input read once and each output written once."""
+def bounds(B, T, H, D, causal, itemsize, philox_per_draw):
+    """({rate: operations}, bytes) per kernel as the training path runs it
+    (dropout on): 4/6/8 * D tensor-core flops per attended (q, k) pair (2 *
+    D per row for Delta), and for each Philox draw of 4 keep bits the
+    integer instructions of its busiest pipe (``philox_per_draw``); each
+    input read once and each output written once.  The forward and the keep
+    pre-pass write all n x n tiles of the keep bits (zero tiles included);
+    dQ and dK/dV read only the tiles their causal rows visit.  The forward
+    writes the keep bits, dQ reads O and writes Delta."""
     pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
     n = B * T * H * D * itemsize
     row = B * H * T * 4  # one float32 row statistic (lse or Delta)
     nt = -(-T // 64)
     tiles = B * H * (nt * (nt + 1) // 2 if causal else nt * nt)  # 64x64 tiles drawn
-    return {"flash_fwd": (4 * D * pairs, 3 * n + n + row),
-            "flash_bwd_delta": (2 * D * B * T * H, 2 * n + row),
-            "flash_bwd_keep": (PHILOX_OPS * 1024 * tiles, B * H * nt * nt * 512),
-            "flash_bwd_dq": (6 * D * pairs, 4 * n + 2 * row + n),
-            "flash_bwd_dkv": (8 * D * pairs, 4 * n + 2 * row + 2 * n)}
+    bits_written = B * H * nt * nt * 512
+    bits_read = tiles * 512
+    draws = 1024 * tiles
+    philox = draws * max(philox_per_draw[p] for p in INT_PIPES)
+    return {"flash_fwd": ({"bf16": 4 * D * pairs, "int": philox},
+                          3 * n + n + row + bits_written),
+            "flash_bwd_delta": ({"bf16": 2 * D * B * T * H}, 2 * n + row),
+            "flash_bwd_keep": ({"int": philox}, bits_written),
+            "flash_bwd_dq": ({"bf16": 6 * D * pairs + 2 * D * B * T * H},
+                             5 * n + row + bits_read + row + n),
+            "flash_bwd_dkv": ({"bf16": 8 * D * pairs}, 4 * n + 2 * row + bits_read + 2 * n)}
 
 
-def time_kernels(fa):
+def pair_times(fns):
+    """(event ms, device ms) of each named function."""
+    return {name: (time_ms(fn), device_ms(fn)) for name, fn in fns.items()}
+
+
+def queued_ms(fns, reps=20, runs=5, sleep_ms=20.0):
+    """Device time per call of each named function, without the host's
+    time: each run enqueues ``reps`` calls behind a sleep kernel that lasts
+    until the host has enqueued them all, so the event pair around the
+    calls sees them back to back on the device.  The functions take turns
+    run by run, so a drift of the card's clock falls on all of them alike.
+    Median over ``runs``; a run whose enqueue outlasts the sleep is redone
+    with a sleep twice as long."""
+    cycles = int(sleep_ms * 2e6)  # at up to 2 GHz
+    for fn in fns.values():
+        fn()
+    times = {name: [] for name in fns}
+    for _ in range(runs):
+        for name, fn in fns.items():
+            while True:
+                marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+                torch.cuda.synchronize()
+                marks[0].record()
+                torch.cuda._sleep(cycles)
+                marks[1].record()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    fn()
+                enqueue_ms = 1e3 * (time.perf_counter() - t0)
+                marks[2].record()
+                marks[2].synchronize()
+                if enqueue_ms < 0.8 * marks[0].elapsed_time(marks[1]):
+                    break
+                cycles *= 2
+            times[name].append(marks[1].elapsed_time(marks[2]) / reps)
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def time_kernels(fa, philox_per_draw, int_rate):
+    """Each kernel at GPT-2 medium's shapes as the training path calls it
+    (the forward writing its keep bits, dQ computing Delta), its other
+    variants, the backward's two launches against the pre-passes' four,
+    and the yardsticks."""
     B, T, H, D = MEDIUM["B"], MEDIUM["T"], MEDIUM["H"], MEDIUM["D"]
     dtype = torch.bfloat16
     q, k, v, g, _, _ = make_inputs(B, T, H, D, dtype, seed=7)
     args = dict(causal=True, scale=1.0 / math.sqrt(D), dropout_rate=DROPOUT, seed=SEED)
-    out, lse = fa.flash_fwd(q, k, v, None, **args)
+    out, lse, bits = fa.flash_fwd(q, k, v, None, keep_out=True, **args)
     delta = fa.flash_bwd_delta(out, g)
-    keep = fa.flash_bwd_keep(q, causal=True, dropout_rate=DROPOUT, seed=SEED)
     bwd = (q, k, v, out, g, lse, None, None)
 
-    def backward(rate):
-        a = dict(args, dropout_rate=rate, delta=delta, keep=keep if rate else None)
-        fns = {"flash_bwd_delta": lambda: fa.flash_bwd_delta(out, g),
+    def fused_backward(a):
+        dq, dlt = fa.flash_bwd_dq(*bwd, return_delta=True, **a)
+        return dq, fa.flash_bwd_dkv(*bwd, delta=dlt, **a)
+
+    def prepass_backward(a):
+        dlt = fa.flash_bwd_delta(out, g)
+        if a["dropout_rate"]:
+            a = dict(a, keep=fa.flash_bwd_keep(q, causal=True, dropout_rate=a["dropout_rate"],
+                                               seed=SEED))
+        return fa.flash_bwd_dq(*bwd, delta=dlt, **a), fa.flash_bwd_dkv(*bwd, delta=dlt, **a)
+
+    def kernels(rate):
+        a = dict(args, dropout_rate=rate, keep=bits if rate else None)
+        fns = {"flash_fwd": lambda: fa.flash_fwd(q, k, v, None, keep_out=True,
+                                                 **dict(args, dropout_rate=rate)),
+               "flash_bwd_delta": lambda: fa.flash_bwd_delta(out, g),
                "flash_bwd_keep": lambda: fa.flash_bwd_keep(q, causal=True, dropout_rate=rate,
                                                            seed=SEED),
-               "flash_bwd_dq": lambda: fa.flash_bwd_dq(*bwd, **a),
-               "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(*bwd, **a)}
-        if not rate:  # without dropout the backward draws no mask
+               "flash_bwd_dq": lambda: fa.flash_bwd_dq(*bwd, return_delta=True, **a),
+               "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(*bwd, delta=delta, **a)}
+        if not rate:  # without dropout nothing draws a mask
             del fns["flash_bwd_keep"]
         return fns
 
-    kernel = {"flash_fwd": lambda: fa.flash_fwd(q, k, v, None, **args), **backward(DROPOUT)}
-    plain = {"flash_fwd": lambda: fa._dense_with_lse(
+    kernel = kernels(DROPOUT)
+    plain = {"flash_fwd": lambda: (fa._dense_with_lse(
                  q, k, v, causal=True, scale=args["scale"], dropout_rate=DROPOUT,
-                 dropout_rng=SEED),
+                 dropout_rng=SEED), fa.keep_bits(B, H, T, DROPOUT, SEED, causal=True,
+                                                 device="cuda")),
              "flash_bwd_delta": lambda: fa._plain_bwd_delta(out, g, None),
              "flash_bwd_keep": lambda: fa.keep_bits(B, H, T, DROPOUT, SEED, causal=True,
                                                     device="cuda"),
-             "flash_bwd_dq": lambda: fa._plain_bwd_dq(*bwd, **args),
+             "flash_bwd_dq": lambda: (fa._plain_bwd_dq(*bwd, **args),
+                                      fa._plain_bwd_delta(out, g, None)),
              "flash_bwd_dkv": lambda: fa._plain_bwd_dkv(*bwd, **args)}
     # The yardsticks: one PyTorch call for the same function, never used by
     # the port.  SDPA's backward returns dq, dk and dv in one call.
     qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gt = g.transpose(1, 2)
-    lib_fwd, lib_fwd_device = {}, {}
+    sdpa_fwd, sdpa_bwd = {}, {}
     for rate in (DROPOUT, 0.0):
-        sdpa_fwd = lambda: sdpa(qt, kt, vt, is_causal=True, dropout_p=rate)
-        lib_fwd[rate] = time_ms(sdpa_fwd)
-        lib_fwd_device[rate] = device_ms(sdpa_fwd)
+        sdpa_fwd[rate] = lambda rate=rate: sdpa(qt, kt, vt, is_causal=True, dropout_p=rate)
+        sdpa_bwd[rate] = lambda o=sdpa_fwd[rate](): torch.autograd.grad(o, (qt, kt, vt), gt,
+                                                                         retain_graph=True)
+    lib_fwd = {rate: time_ms(fn) for rate, fn in sdpa_fwd.items()}
+    lib_fwd_device = {rate: device_ms(fn) for rate, fn in sdpa_fwd.items()}
+    lib_bwd = {rate: time_ms(fn) for rate, fn in sdpa_bwd.items()}
+    lib_bwd_device = {rate: device_ms(fn) for rate, fn in sdpa_bwd.items()}
     lib = {"flash_fwd": lib_fwd[DROPOUT],
            "flash_bwd_delta": time_ms(lambda: torch.linalg.vecdot(g, out, dim=-1)),
            "flash_bwd_keep": None}  # no PyTorch call draws this mask
-    lib_bwd, lib_bwd_device = {}, {}
-    for rate in (DROPOUT, 0.0):
-        sdpa_out = sdpa(qt, kt, vt, is_causal=True, dropout_p=rate)
-        sdpa_bwd = lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), gt, retain_graph=True)
-        lib_bwd[rate] = time_ms(sdpa_bwd)
-        lib_bwd_device[rate] = device_ms(sdpa_bwd)
     lib["flash_bwd_dq"] = lib["flash_bwd_dkv"] = lib_bwd[DROPOUT]
     scope = {"flash_fwd": "out", "flash_bwd_delta": "rowsum(dO*O)", "flash_bwd_keep": None,
              "flash_bwd_dq": "dq+dk+dv", "flash_bwd_dkv": "dq+dk+dv"}
-    fwd_0 = lambda: fa.flash_fwd(q, k, v, None, **dict(args, dropout_rate=0.0))
-    no_dropout = {name: time_ms(fn) for name, fn in {"flash_fwd": fwd_0,
-                                                     **backward(0.0)}.items()}
+    no_dropout = {name: time_ms(fn) for name, fn in kernels(0.0).items()}
+    fwd_0_device = device_ms(kernels(0.0)["flash_fwd"])
+    # The variants the training path no longer launches.
+    variant_fns = {
+        "flash_fwd without keep_out": lambda: fa.flash_fwd(q, k, v, None, **args),
+        "flash_bwd_dq with Delta given": lambda: fa.flash_bwd_dq(*bwd, delta=delta, keep=bits,
+                                                                 **args)}
+    variants = pair_times(variant_fns)
+    # Device time alone: every variant takes turns with the training path's
+    # calls and with SDPA (queued_ms).
+    backward = {}
+    for rate in (DROPOUT, 0.0):
+        a = dict(args, dropout_rate=rate, keep=bits if rate else None)
+        backward[f"two launches at dropout {rate}"] = lambda a=a: fused_backward(a)
+        backward[f"four launches at dropout {rate}"] = lambda a=a: prepass_backward(a)
+    queued = queued_ms({**kernel, **variant_fns,
+                        "flash_fwd at dropout 0": kernels(0.0)["flash_fwd"], **backward,
+                        **{f"SDPA fwd at dropout {r}": fn for r, fn in sdpa_fwd.items()},
+                        **{f"SDPA bwd at dropout {r}": fn for r, fn in sdpa_bwd.items()}})
+    for label, ms in queued.items():
+        print(f"[time] queued (device time alone, turns taken): {label}: {ms:.4f} ms")
     fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"
     lib_text = lambda x: "none" if x is None else f"{x:.4f} ms"
-    work = bounds(B, T, H, D, True, 2)
+    work = bounds(B, T, H, D, True, 2, philox_per_draw)
+    peak = {"bf16": PEAK_BF16_FLOPS, "int": int_rate}
     rows = {}
     for name in kernel:
-        flops, nbytes = work[name]
-        peak = PEAK_F32_FLOPS if name == "flash_bwd_keep" else PEAK_BF16_FLOPS
-        t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+        ops, nbytes = work[name]
+        t_ops = max(count / peak[kind] for kind, count in ops.items()) * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
         rows[name] = {"ms": time_ms(kernel[name]), "plain_ms": time_ms(plain[name]),
                       "bound_ms": max(t_ops, t_bytes),
                       "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                       "library_ms": lib[name], "library_scope": scope[name],
-                      "flops": flops, "bytes": nbytes}
+                      "operations": ops, "bytes": nbytes}
         r = rows[name]
         r["device_ms"] = device_ms(kernel[name])
+        r["queued_ms"] = queued[name]
         if name in no_dropout:
             r["ms_dropout_0"] = no_dropout[name]
         print(f"[time] {name}: {r['ms']:.4f} ms"
               + (f" (dropout 0: {r['ms_dropout_0']:.4f} ms)" if name in no_dropout else "")
               + f"  plain {r['plain_ms']:.3f} ms  bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']})  library {lib_text(r['library_ms'])} ({scope[name]})  -> "
-              f"{flops / r['ms'] / 1e9:.2f} T op/s, {100 * r['bound_ms'] / r['ms']:.2f}% of "
-              f"bound; device time (profiler) {fmt(r['device_ms'])}")
-    fwd = rows["flash_fwd"]
+              f"({r['bound_by']}: operations {t_ops:.4f} ms, bytes {t_bytes:.4f} ms)  library "
+              f"{lib_text(r['library_ms'])} ({scope[name]})  -> {100 * r['bound_ms'] / r['ms']:.2f}%"
+              f" of bound, {100 * r['bound_ms'] / r['queued_ms']:.2f}% by queued device time "
+              f"{r['queued_ms']:.4f} ms; device time (profiler) {fmt(r['device_ms'])}")
+    for label, (ms, dev) in variants.items():
+        print(f"[time] {label}: {ms:.4f} ms, device time (profiler) {fmt(dev)}, queued "
+              f"{queued[label]:.4f} ms")
+    fwd, dq = rows["flash_fwd"], rows["flash_bwd_dq"]
+    fwd["ms_without_keep_out"], fwd["device_ms_without_keep_out"] = variants[
+        "flash_fwd without keep_out"]
+    fwd["queued_ms_without_keep_out"] = queued["flash_fwd without keep_out"]
+    fwd["queued_ms_dropout_0"] = queued["flash_fwd at dropout 0"]
+    dq["ms_delta_given"], dq["device_ms_delta_given"] = variants["flash_bwd_dq with Delta given"]
+    dq["queued_ms_delta_given"] = queued["flash_bwd_dq with Delta given"]
+    fwd["device_ms_dropout_0"] = fwd_0_device
     fwd["library_ms_dropout_0"] = lib_fwd[0.0]
     fwd["library_device_ms"] = lib_fwd_device[DROPOUT]
-    for rate, ms in ((DROPOUT, fwd["ms"]), (0.0, fwd["ms_dropout_0"])):
-        print(f"[time] forward at dropout {rate}: {ms:.4f} ms vs SDPA fwd {lib_fwd[rate]:.4f} ms: "
-              f"ratio {ms / lib_fwd[rate]:.3f}x; SDPA fwd device time (profiler) "
-              f"{fmt(lib_fwd_device[rate])}")
-    if fwd["device_ms"] and lib_fwd_device[DROPOUT]:
-        print(f"[time] forward device time (profiler) at dropout {DROPOUT}: {fwd['device_ms']:.4f} "
-              f"ms vs SDPA fwd {lib_fwd_device[DROPOUT]:.4f} ms: ratio "
-              f"{fwd['device_ms'] / lib_fwd_device[DROPOUT]:.3f}x")
-    pair = {DROPOUT: sum(rows[n]["ms"] for n in BACKWARD),
-            0.0: sum(rows[n]["ms_dropout_0"] for n in BACKWARD if n in no_dropout)}
+    fwd["library_queued_ms"] = queued[f"SDPA fwd at dropout {DROPOUT}"]
+    for rate, ms, dev in ((DROPOUT, fwd["ms"], fwd["device_ms"]),
+                          (0.0, fwd["ms_dropout_0"], fwd_0_device)):
+        mine, theirs = (queued["flash_fwd at dropout 0"] if not rate else fwd["queued_ms"],
+                        queued[f"SDPA fwd at dropout {rate}"])
+        print(f"[time] forward at dropout {rate}: {ms:.4f} ms (device {fmt(dev)}) vs SDPA fwd "
+              f"{lib_fwd[rate]:.4f} ms: ratio {ms / lib_fwd[rate]:.3f}x; SDPA fwd device time "
+              f"(profiler) {fmt(lib_fwd_device[rate])}; queued {mine:.4f} vs {theirs:.4f} ms: "
+              f"ratio {mine / theirs:.3f}x")
     for rate in (DROPOUT, 0.0):
-        print(f"[time] backward pair (pre-passes + dq + dkv) at dropout {rate}: "
-              f"{pair[rate]:.4f} ms "
-              f"vs SDPA bwd (dq+dk+dv, one call) {lib_bwd[rate]:.4f} ms: ratio "
-              f"{pair[rate] / lib_bwd[rate]:.3f}x; SDPA bwd device time (profiler) "
-              f"{fmt(lib_bwd_device[rate])}")
-    if all(rows[n]["device_ms"] for n in BACKWARD) and lib_bwd_device[DROPOUT]:
-        dev_pair, dev_lib = sum(rows[n]["device_ms"] for n in BACKWARD), lib_bwd_device[DROPOUT]
-        print(f"[time] device time (profiler) at dropout {DROPOUT}: pair {dev_pair:.4f} ms vs SDPA "
-              f"bwd {dev_lib:.4f} ms: ratio {dev_pair / dev_lib:.3f}x")
-    print(f"[time] fwd + backward pair {rows['flash_fwd']['ms'] + pair[DROPOUT]:.4f} ms vs SDPA "
-          f"fwd+bwd {lib['flash_fwd'] + lib_bwd[DROPOUT]:.4f} ms (shape {MEDIUM}, bf16, causal, "
+        a = dict(args, dropout_rate=rate, keep=bits if rate else None)
+        both = pair_times({"two launches (dQ with Delta, dK/dV)": lambda: fused_backward(a),
+                           "pre-passes + dQ + dK/dV": lambda: prepass_backward(a)})
+        lib_q = queued[f"SDPA bwd at dropout {rate}"]
+        for (label, (ms, dev)), key in zip(both.items(), ("two", "four")):
+            mine = queued[f"{key} launches at dropout {rate}"]
+            print(f"[time] backward at dropout {rate}, {label}: {ms:.4f} ms, device {fmt(dev)} "
+                  f"vs SDPA bwd (dq+dk+dv, one call) {lib_bwd[rate]:.4f} ms, device "
+                  f"{fmt(lib_bwd_device[rate])}: ratio {ms / lib_bwd[rate]:.3f}x; queued "
+                  f"{mine:.4f} vs {lib_q:.4f} ms: ratio {mine / lib_q:.3f}x")
+        if rate:
+            (fwd["backward_ms"], fwd["backward_device_ms"]), (
+                fwd["backward_prepasses_ms"], fwd["backward_prepasses_device_ms"]) = both.values()
+            fwd["backward_queued_ms"] = queued[f"two launches at dropout {rate}"]
+            fwd["backward_prepasses_queued_ms"] = queued[f"four launches at dropout {rate}"]
+            fwd["library_bwd_queued_ms"] = lib_q
+    print(f"[time] fwd + backward {fwd['ms'] + fwd['backward_ms']:.4f} ms vs SDPA fwd+bwd "
+          f"{lib['flash_fwd'] + lib_bwd[DROPOUT]:.4f} ms (shape {MEDIUM}, bf16, causal, "
           f"dropout {DROPOUT})")
+    fwd["library_bwd_ms"], fwd["library_bwd_device_ms"] = lib_bwd[DROPOUT], lib_bwd_device[DROPOUT]
     return rows
 
 
@@ -492,7 +715,7 @@ def step_breakdown(prof, step_s, top=8):
     """Device time of one profiled step by part, and the ``top`` kernels of
     "other kernels" by device time, beside the median wall time of the
     unprofiled steps after the first."""
-    parts, other = {}, []
+    parts, counts, other = {}, {}, []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
         name = e.key
@@ -503,13 +726,17 @@ def step_breakdown(prof, step_s, top=8):
         if part == "other kernels" and us:
             other.append((us / 1e3, e.count, name))
         parts[part] = parts.get(part, 0.0) + us / 1e3
+        counts[part] = counts.get(part, 0) + e.count
     busy = sum(parts.values())
     for part, ms in sorted(parts.items(), key=lambda kv: -kv[1]):
-        print(f"[step] {part}: {ms:.1f} ms of device time in the profiled step")
+        each = f", {counts[part]} launches, {ms / counts[part]:.4f} ms each" if part.startswith(
+            "flash_") else ""
+        print(f"[step] {part}: {ms:.1f} ms of device time in the profiled step{each}")
     for ms, count, name in sorted(other, reverse=True)[:top]:
         print(f"[step]   other: {ms:.1f} ms, {count} launches: {name[:160]}")
     print(f"[step] device busy {busy:.1f} ms; unprofiled step wall (median) {1e3 * step_s:.1f} ms;"
           f" busy share {busy / (1e3 * step_s):.1%}, idle share {1 - busy / (1e3 * step_s):.1%}")
+    return {part: ms / counts[part] for part, ms in parts.items() if part.startswith("flash_")}
 
 
 def train_medium(fa):
@@ -527,7 +754,7 @@ def train_medium(fa):
     torch.cuda.synchronize()
     launches = dict(fa.LAUNCHES)
     step_s = [b - a for a, b in zip(rec.t, rec.t[1:])]
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
     losses = [rec.losses.get(s) for s in range(1, steps + 1)]
     print(f"[train] GPT-2 medium {' '.join(argv)}")
     print(f"[train] losses {losses}  result {result}")
@@ -535,19 +762,22 @@ def train_medium(fa):
     host = statistics.median(s for i, s in enumerate(rec.host[1:], 2) if i != profiled)
     print(f"[train] step seconds {[round(s, 4) for s in step_s]} (step {profiled} profiled)  "
           f"tokens/s (median of the unprofiled steps after the first) "
-          f"{batch * 1024 / unprofiled:.1f}  peak memory {peak_gib:.2f} GiB")
+          f"{batch * 1024 / unprofiled:.1f}  peak memory {peak_mib:.1f} MiB")
     print(f"[train] host enqueue seconds {[round(s, 4) for s in rec.host]}: median "
           f"{1e3 * host:.1f} ms, {host / unprofiled:.1%} of the step wall")
-    step_breakdown(rec.prof, unprofiled)
-    print(f"[train] launches {launches}")
+    per_launch = step_breakdown(rec.prof, unprofiled)
+    print(f"[train] launches {launches}: per step "
+          f"{ {name: n / steps for name, n in launches.items()} }")
     if len(losses) != steps or not all(x is not None and math.isfinite(x) for x in losses):
         raise AssertionError(f"loss not finite every step: {losses}")
-    per_step = 24 * accum * steps
-    if any(launches[name] != per_step for name in BACKWARD):
-        raise AssertionError(f"expected {per_step} Delta, dQ and dK/dV launches, got {launches}")
-    if launches["flash_fwd"] < per_step:
-        raise AssertionError(f"expected at least {per_step} forward launches, got {launches}")
-    return launches
+    # Per step: dQ and dK/dV once a layer and microbatch, the forward at
+    # least as often (twice under remat), and neither pre-pass.
+    per_run = 24 * accum * steps
+    if (any(launches[name] != per_run for name in ("flash_bwd_dq", "flash_bwd_dkv"))
+            or launches["flash_fwd"] < per_run or any(launches[n] for n in PREPASSES)):
+        raise AssertionError(f"expected {per_run} dQ and dK/dV launches, at least {per_run} "
+                             f"forward launches and no pre-pass launch, got {launches}")
+    return launches, per_launch
 
 
 def main() -> int:
@@ -567,6 +797,7 @@ def main() -> int:
     secs, logs = _build.build_all(verbose=True)
     print(f"[build] nvcc {' '.join(_build.NVCC_FLAGS)}: {secs:.1f} s")
     report_build(logs, _build.nvcc_path())
+    philox_per_draw, int_rate = philox_pipe_ops(_build.nvcc_path()), int_ops_rate()
 
     medium = dict(MEDIUM, dtype=torch.bfloat16, causal=True)
     errors = kernel_errors(compare_case(fa, "medium dropout 0.1", rate=DROPOUT, **medium))
@@ -589,8 +820,8 @@ def main() -> int:
     check_tiny_model()
     check_tiny_model_bf16(fa)
 
-    timing = time_kernels(fa)
-    launches = train_medium(fa)
+    timing = time_kernels(fa, philox_per_draw, int_rate)
+    launches, step_device_ms = train_medium(fa)
 
     kernels = []
     for name in _build.KERNELS:
@@ -602,9 +833,12 @@ def main() -> int:
             "max_abs_err": errors[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "library_scope": r["library_scope"],
-            "device_ms": r["device_ms"],
-            **{key: r[key] for key in ("ms_dropout_0", "library_ms_dropout_0",
-                                       "library_device_ms") if key in r}})
+            "device_ms": r["device_ms"], "queued_ms": r["queued_ms"],
+            "step_device_ms": step_device_ms.get(name),
+            **{key: val for key, val in r.items() if key.startswith(("ms_", "device_ms_",
+                                                                     "queued_ms_", "library_",
+                                                                     "backward_"))
+               and key != "library_scope"}})
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

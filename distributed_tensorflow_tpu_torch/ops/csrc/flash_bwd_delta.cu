@@ -2,10 +2,12 @@
 //
 // Part of _flash_bwd_tpu (:755 of distributed_tensorflow_tpu/ops/
 // flash_attention.py), whose dQ (:831) and dK/dV (:905) kernels each compute
-// rowsum(dO * O) for the tiles they visit.  Here it is computed once per
-// backward into a (B, H, T) float32 buffer that both backward kernels read:
+// rowsum(dO * O) for the tiles they visit.  In training the dQ kernel
+// computes it for its rows (in this kernel's order, so to the same bits)
+// and hands it to dK/dV; this kernel computes it for callers with no dQ
+// before them, into the (B, H, T) float32 buffer both backward kernels read:
 //   Delta[b, h, t] = sum_d dO[b, t, h, d] * O[b, t, h, d] - g_lse[b, h, t],
-// so dK/dV no longer reads O once per (key tile, query tile) pair.
+// so dK/dV never reads O.
 //
 // Bound on the card: bytes (O and dO read once, 4 bytes written a row).
 // D / V threads share a row, each reading 16 bytes (V elements) of O and of

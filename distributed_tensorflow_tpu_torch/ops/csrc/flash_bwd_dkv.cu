@@ -7,9 +7,9 @@
 // streams the 64-query tiles from its causal lower bound, recomputing
 // P = exp(S - lse) per query tile:
 //   dV += (P * M)^T dO,  dS = P (dP * M - Delta) scale,  dK += dS^T Q,
-// with M the dropout keep-scale from the flash_bwd_keep pre-pass's bits and
-// Delta = rowsum(dO * O) - g_lse from the flash_bwd_delta pre-pass (O is not
-// read here).  Each block owns its rows of dK and dV, so there are no
+// with M the dropout keep-scale from the keep bits (the forward's, or the
+// flash_bwd_keep pre-pass's) and Delta = rowsum(dO * O) - g_lse (from the
+// dQ kernel, or the flash_bwd_delta pre-pass; O is not read here).  Each block owns its rows of dK and dV, so there are no
 // atomics and the sums run in a fixed order.
 //
 // Bound on the card: 8*D flops per (query, key) pair; at GPT-2 medium's

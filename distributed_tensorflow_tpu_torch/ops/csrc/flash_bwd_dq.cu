@@ -7,15 +7,19 @@
 // recomputes P = exp(S - lse) from the saved lse:
 //   dP = dO V^T (times the dropout keep-scale), dS = P (dP - Delta) scale,
 //   dQ += dS K,
-// with Delta = rowsum(dO * O) - g_lse from the flash_bwd_delta pre-pass and
-// the keep bits from the flash_bwd_keep pre-pass (the mask is drawn once per
-// backward, not once per kernel).  No (T, T) buffer exists and no atomics
-// are used: each block owns its rows of dQ, so the result is the same from
-// run to run.
+// with the keep bits the forward emitted (or the flash_bwd_keep pre-pass
+// drew) and Delta = rowsum(dO * O) - g_lse.  Delta is either given (the
+// flash_bwd_delta pre-pass) or, on the training path, computed here: each
+// block forms it for its own 64 query rows in its prologue, from O and dO,
+// while the first tiles load, and writes it out for the dK/dV kernel that
+// runs next on the stream.  No (T, T) buffer exists and no atomics are
+// used: each block owns its rows of dQ (and Delta), so the result is the
+// same from run to run.
 //
-// Bound on the card: 6*D flops per (query, key) pair; at GPT-2 medium's
-// shapes the flops bound (tensor cores) and the bytes bound are within 5% of
-// each other.  Two designs, picked by the element type:
+// Bound on the card: 6*D flops per (query, key) pair (and 2*D per row for
+// Delta); at GPT-2 medium's shapes the flops bound (tensor cores) and the
+// bytes bound are within 5% of each other, and computing Delta adds O's
+// bytes.  Two designs, picked by the element type:
 // - bfloat16: one warpgroup per 64 query rows.  K and V tiles (and the keep
 //   bits) stream through two cp.async buffers (tile i+1 loads while tile i
 //   computes) in the 128-byte-swizzled layout wgmma reads; S = Q K^T and
@@ -39,8 +43,10 @@ __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_fma(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ g,
                      const float* __restrict__ lse, const float* __restrict__ delta,
-                     const int* __restrict__ kv_mask, float* __restrict__ dq, View qv, View kvw,
-                     View vv, View gv, View dqv, int H, int seq, float scale, int causal,
+                     const float* __restrict__ o, const float* __restrict__ g_lse,
+                     float* __restrict__ delta_out, const int* __restrict__ kv_mask,
+                     float* __restrict__ dq, View qv, View kvw, View vv, View ov, View gv,
+                     View dqv, int H, int seq, float scale, int causal,
                      const uint32_t* __restrict__ keep_bits, float drop_scale) {
   constexpr int LD = D + 1, LDP = kBlockK + 1, DPT = D / 16;
   extern __shared__ float smem[];
@@ -62,7 +68,34 @@ __global__ void __launch_bounds__(kThreads)
     const int t = q0 + ty * 4 + i;
     const long long idx = (long long)bh * seq + t;
     lse_r[i] = t < seq ? lse[idx] : 0.f;
-    delta_r[i] = t < seq ? delta[idx] : 0.f;
+    if (delta_out == nullptr) {
+      delta_r[i] = t < seq ? delta[idx] : 0.f;
+      continue;
+    }
+    // Delta of row t from O and dO, summed as flash_bwd_delta.cu sums it
+    // (the same bits): lane tx takes the 4-column chunks tx, tx + 16, ...,
+    // adds them, and the row's 16 lanes add their parts.
+    constexpr int R = D / 4, M = (R + 15) / 16;
+    float part[M];
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const int c = tx + 16 * m;
+      part[m] = 0.f;
+      if (t < seq && c < R) {
+        const float* orow = o + b * ov.sb + (long long)t * ov.st + h * ov.sh + 4 * c;
+        const float* grow = g + b * gv.sb + (long long)t * gv.st + h * gv.sh + 4 * c;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[m] = fmaf(grow[e], orow[e], part[m]);
+      }
+    }
+#pragma unroll
+    for (int m = 1; m < M; ++m) part[0] += part[m];  // M <= 2
+    float acc = group16_sum(part[0]);
+    if (t < seq) {
+      acc -= g_lse != nullptr ? g_lse[idx] : 0.f;
+      if (tx == 0) delta_out[idx] = acc;
+    }
+    delta_r[i] = t < seq ? acc : 0.f;
   }
 
   float dqa[4][DPT];
@@ -143,9 +176,10 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <int D>
-int launch_dq_fma(const void* q, const void* k, const void* v, const void* g, const float* lse,
-                  const float* delta, const int* kv_mask, void* dq, int B, int H, int seq,
-                  View qv, View kvw, View vv, View gv, View dqv, float scale, int causal,
+int launch_dq_fma(const void* q, const void* k, const void* v, const void* o, const void* g,
+                  const float* lse, const float* delta, const float* g_lse, float* delta_out,
+                  const int* kv_mask, void* dq, int B, int H, int seq, View qv, View kvw,
+                  View vv, View ov, View gv, View dqv, float scale, int causal,
                   const uint32_t* keep_bits, float drop_scale, cudaStream_t stream) {
   constexpr int LD = D + 1;
   constexpr int smem =
@@ -155,21 +189,92 @@ int launch_dq_fma(const void* q, const void* k, const void* v, const void* g, co
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((seq + kBlockQ - 1) / kBlockQ, B * H);
   flash_bwd_dq_fma<D><<<grid, kThreads, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)g, lse, delta, kv_mask,
-      (float*)dq, qv, kvw, vv, gv, dqv, H, seq, scale, causal, keep_bits, drop_scale);
+      (const float*)q, (const float*)k, (const float*)v, (const float*)g, lse, delta,
+      (const float*)o, g_lse, delta_out, kv_mask, (float*)dq, qv, kvw, vv, ov, gv, dqv, H, seq,
+      scale, causal, keep_bits, drop_scale);
   return (int)cudaGetLastError();
 }
 
 // ---- bfloat16: wgmma on the tensor cores -----------------------------------
+
+// Delta = rowsum(dO * O) - g_lse of this thread's rows r0 and r0 + 8 of
+// the tile at q0 (those of its accumulator layout), stored for dK/dV.  The
+// quad's four lanes share the two rows: lane q takes 16-byte chunks q, q + 4,
+// ... of each row, O's from device memory (loaded before the wait, so their
+// latency overlaps the tiles') and dO's from the tile already staged in
+// shared memory.  The sum is flash_bwd_delta.cu's, term for term and in its
+// order (f32 FMAs along a chunk, then chunks added pairwise, farthest
+// first), so the two give the same bits.  Waits for the Q and dO tiles
+// (the oldest but one cp.async group).
+template <int D>
+__device__ __forceinline__ void quad_delta(float (&dlt)[2], const __nv_bfloat16* __restrict__ o,
+                                           View ov, const uint8_t* Gs,
+                                           const float* __restrict__ g_lse,
+                                           float* __restrict__ delta_out, int b, int h, int bh,
+                                           int q0, int r0, int seq) {
+  using namespace tc;
+  constexpr int CPR = D / 8, M = (CPR + 3) / 4;  // 16-byte chunks a row, and a lane
+  const int quad = threadIdx.x & 3;
+  uint4 ox[2][M];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = q0 + r0 + 8 * i;
+    const __nv_bfloat16* orow = o + b * ov.sb + (long long)t * ov.st + h * ov.sh;
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const int c = quad + 4 * m;
+      ox[i][m] = t < seq && c < CPR ? *reinterpret_cast<const uint4*>(orow + 8 * c)
+                                    : make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  cp_async_wait<1>();  // this thread's part of the Q and dO tiles has landed,
+  __syncthreads();     // and every thread's
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 8 * i, t = q0 + r;
+    float part[M];
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const int c = quad + 4 * m;
+      part[m] = 0.f;
+      if (c < CPR) {
+        const uint4 gx = *reinterpret_cast<const uint4*>(
+            Gs + (c / 8) * kPanelBytes + r * 128 + (((c % 8) ^ (r & 7)) << 4));
+        const __nv_bfloat162* op = reinterpret_cast<const __nv_bfloat162*>(&ox[i][m]);
+        const __nv_bfloat162* gp = reinterpret_cast<const __nv_bfloat162*>(&gx);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 of = __bfloat1622float2(op[e]), gf = __bfloat1622float2(gp[e]);
+          part[m] = fmaf(gf.y, of.y, fmaf(gf.x, of.x, part[m]));
+        }
+      }
+    }
+#pragma unroll
+    for (int off = M / 2; off > 0; off >>= 1)
+#pragma unroll
+      for (int m = 0; m < off; ++m) part[m] += part[m + off];
+    float acc = part[0];
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (t < seq) {
+      const long long idx = (long long)bh * seq + t;
+      acc -= g_lse != nullptr ? g_lse[idx] : 0.f;
+      if (quad == 0) delta_out[idx] = acc;
+    }
+    dlt[i] = t < seq ? acc : 0.f;
+  }
+}
 
 template <int D>
 __global__ void __launch_bounds__(tc::kThreadsTC)
     flash_bwd_dq_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ g,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    const int* __restrict__ kv_mask, __nv_bfloat16* __restrict__ dq, View qv,
-                    View kvw, View vv, View gv, View dqv, int H, int seq, float scale,
-                    int causal, const uint32_t* __restrict__ keep_bits, float drop_scale) {
+                    const __nv_bfloat16* __restrict__ o, const float* __restrict__ g_lse,
+                    float* __restrict__ delta_out, const int* __restrict__ kv_mask,
+                    __nv_bfloat16* __restrict__ dq, View qv, View kvw, View vv, View ov, View gv,
+                    View dqv, int H, int seq, float scale, int causal,
+                    const uint32_t* __restrict__ keep_bits, float drop_scale) {
   using namespace tc;
   constexpr int TB = tile_bytes<D>(), NP = panels<D>();
   extern __shared__ uint8_t smem_raw[];
@@ -190,6 +295,7 @@ __global__ void __launch_bounds__(tc::kThreadsTC)
 
   load_tile_async<D>(Qs, q, qv, b, h, q0, seq);
   load_tile_async<D>(Gs, g, gv, b, h, q0, seq);
+  cp_async_commit();
   load_tile_async<D>(Ks, k, kvw, b, h, 0, seq);
   load_tile_async<D>(Vs, v, vv, b, h, 0, seq);
   if (drop) load_keep_async(keep, keep_tile(keep_bits, bh, qt, 0, gridDim.y));
@@ -201,8 +307,9 @@ __global__ void __launch_bounds__(tc::kThreadsTC)
     const int t = q0 + r0 + 8 * i;
     const long long idx = (long long)bh * seq + t;
     lse2[i] = t < seq ? lse[idx] * kLog2e : 0.f;
-    dlt[i] = t < seq ? delta[idx] : 0.f;
+    if (delta_out == nullptr) dlt[i] = t < seq ? delta[idx] : 0.f;
   }
+  if (delta_out != nullptr) quad_delta<D>(dlt, o, ov, Gs, g_lse, delta_out, b, h, bh, q0, r0, seq);
 
   float acc[NP][32];
 #pragma unroll
@@ -273,10 +380,11 @@ __global__ void __launch_bounds__(tc::kThreadsTC)
 }
 
 template <int D>
-int launch_dq_tc(const void* q, const void* k, const void* v, const void* g, const float* lse,
-                 const float* delta, const int* kv_mask, void* dq, int B, int H, int seq, View qv,
-                 View kvw, View vv, View gv, View dqv, float scale, int causal,
-                 const uint32_t* keep_bits, float drop_scale, cudaStream_t stream) {
+int launch_dq_tc(const void* q, const void* k, const void* v, const void* o, const void* g,
+                 const float* lse, const float* delta, const float* g_lse, float* delta_out,
+                 const int* kv_mask, void* dq, int B, int H, int seq, View qv, View kvw, View vv,
+                 View ov, View gv, View dqv, float scale, int causal, const uint32_t* keep_bits,
+                 float drop_scale, cudaStream_t stream) {
   constexpr int smem = 6 * tc::tile_bytes<D>() + 2 * 128 * 4 + 1024;
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_bwd_dq_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -284,33 +392,38 @@ int launch_dq_tc(const void* q, const void* k, const void* v, const void* g, con
   const dim3 grid(B * H, (seq + 63) / 64);
   flash_bwd_dq_tc<D><<<grid, tc::kThreadsTC, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (const __nv_bfloat16*)g, lse, delta, kv_mask, (__nv_bfloat16*)dq, qv, kvw, vv, gv, dqv, H,
-      seq, scale, causal, keep_bits, drop_scale);
+      (const __nv_bfloat16*)g, lse, delta, (const __nv_bfloat16*)o, g_lse, delta_out, kv_mask,
+      (__nv_bfloat16*)dq, qv, kvw, vv, ov, gv, dqv, H, seq, scale, causal, keep_bits, drop_scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace dtt
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; lse and delta
-// are (B, H, T) float32, kv_mask (B, T) int32 or null, keep_bits the
-// dropout pre-pass's bits (flash_bwd_keep.cu) or null without dropout, each
-// kept score scaled by drop_scale.  bf16 tensors need 16-byte aligned rows.
+// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; lse is
+// (B, H, T) float32, kv_mask (B, T) int32 or null, keep_bits the dropout
+// mask's bits (flash_bwd_keep.cu's layout) or null without dropout, each
+// kept score scaled by drop_scale.  Delta, (B, H, T) float32: read from
+// delta when that is not null; else computed from o, g and g_lse (null for
+// none) and written to delta_out.  bf16 tensors need 16-byte aligned rows.
 // Returns the CUDA error code of the launch (0 = launched).
 extern "C" int dtt_flash_bwd_dq(int dtype, int head_dim, const void* q, const void* k,
-                                const void* v, const void* g, const float* lse,
-                                const float* delta, const int* kv_mask, void* dq, int B, int H,
-                                int seq, long long q_sb, long long q_st, long long q_sh,
-                                long long k_sb, long long k_st, long long k_sh, long long v_sb,
-                                long long v_st, long long v_sh, long long g_sb, long long g_st,
-                                long long g_sh, long long dq_sb, long long dq_st,
-                                long long dq_sh, float scale, int causal,
+                                const void* v, const void* o, const void* g, const float* lse,
+                                const float* g_lse, const float* delta, float* delta_out,
+                                const int* kv_mask, void* dq, int B, int H, int seq,
+                                long long q_sb, long long q_st, long long q_sh, long long k_sb,
+                                long long k_st, long long k_sh, long long v_sb, long long v_st,
+                                long long v_sh, long long o_sb, long long o_st, long long o_sh,
+                                long long g_sb, long long g_st, long long g_sh, long long dq_sb,
+                                long long dq_st, long long dq_sh, float scale, int causal,
                                 const unsigned int* keep_bits, float drop_scale, void* stream) {
   using namespace dtt;
   const View qv{q_sb, q_st, q_sh}, kvw{k_sb, k_st, k_sh}, vv{v_sb, v_st, v_sh},
-      gv{g_sb, g_st, g_sh}, dqv{dq_sb, dq_st, dq_sh};
+      ov{o_sb, o_st, o_sh}, gv{g_sb, g_st, g_sh}, dqv{dq_sb, dq_st, dq_sh};
   const cudaStream_t st = (cudaStream_t)stream;
-#define DTT_DQ_FMA(D) launch_dq_fma<D>(q, k, v, g, lse, delta, kv_mask, dq, B, H, seq, qv, kvw, vv, gv, dqv, scale, causal, keep_bits, drop_scale, st)
-#define DTT_DQ_TC(D) launch_dq_tc<D>(q, k, v, g, lse, delta, kv_mask, dq, B, H, seq, qv, kvw, vv, gv, dqv, scale, causal, keep_bits, drop_scale, st)
+  if ((delta == nullptr) == (delta_out == nullptr) || (delta_out != nullptr && o == nullptr))
+    return (int)cudaErrorInvalidValue;
+#define DTT_DQ_FMA(D) launch_dq_fma<D>(q, k, v, o, g, lse, delta, g_lse, delta_out, kv_mask, dq, B, H, seq, qv, kvw, vv, ov, gv, dqv, scale, causal, keep_bits, drop_scale, st)
+#define DTT_DQ_TC(D) launch_dq_tc<D>(q, k, v, o, g, lse, delta, g_lse, delta_out, kv_mask, dq, B, H, seq, qv, kvw, vv, ov, gv, dqv, scale, causal, keep_bits, drop_scale, st)
   if (dtype == 0) {
     DTT_HEAD_DIMS(head_dim, DTT_DQ_FMA);
   } else if (dtype == 1) {

@@ -2,10 +2,11 @@
 //
 // Part of _flash_bwd_tpu (:755 of distributed_tensorflow_tpu/ops/
 // flash_attention.py), whose dQ (:831) and dK/dV (:905) kernels each redraw
-// the dropout mask of every tile they visit (_tile_dropout, :158).  Here
-// the mask is drawn once per backward, as the forward kernel draws it
-// (Philox-4x32-10 counted by element position, flash_common.cuh), and
-// stored as bits that both backward kernels read:
+// the dropout mask of every tile they visit (_tile_dropout, :158).  In
+// training the forward kernel writes these bits as it draws them; this
+// kernel draws them the same way (Philox-4x32-10 counted by element
+// position, flash_common.cuh) for callers of the backward kernels that
+// have no forward's bits, into the layout both backward kernels read:
 //   bits[bh][qt][kt][2 r + w], bit i = keep of query 64 qt + r, key 64 kt + 32 w + i,
 // a 512-byte tile for each pair of 64-query and 64-key tiles; tiles a causal
 // row does not reach are 0.

@@ -10,23 +10,33 @@
 // probabilities; only the P.V product sees the mask (softmax-dropout, as the
 // TPU kernel).  The mask is drawn in place with the Philox counters of
 // flash_common.cuh, so it is bit for bit the flash_bwd_keep pre-pass's bits
-// and the plain version's dropout_mask.
+// and the plain version's dropout_mask.  When the caller asks for them
+// (training), the kernel also writes the drawn bits in flash_bwd_keep's
+// layout, zero tiles included, for the backward kernels: the backward then
+// draws no mask of its own.
 //
 // Bound on the card: per (query, key) pair 4*D flops on the tensor cores,
 // one exponential on the special-function units (16 a clock per SM, which
 // at D = 64 take as long as the flops) and, under dropout, a quarter of a
-// Philox-4x32-10 draw (~50 integer operations, which take longer than both);
-// at GPT-2 medium's shapes the bytes (each input read once) bound 1.16 times
-// the flops bound.  Two designs, picked by the element type:
+// Philox-4x32-10 draw: 19.5 integer instructions on the multiply-add pipe
+// and 28.75 on the ALU pipe (the SASS of the keep kernel's loop, counted by
+// chip_smoke.py's philox_pipe_ops), each pipe issuing 64 a clock per SM.
+// At GPT-2 medium's shapes the bytes (each input read once, the keep bits
+// written once) bound 1.16 times the flops bound without dropout, and the
+// Philox instructions on the ALU pipe bound the kernel under it.  Two
+// designs, picked by the element type:
 // - bfloat16: one warpgroup (128 threads) per 64 query rows.  Q is loaded
 //   once and K and V tiles stream through two cp.async buffers (tile i+1
 //   loads while tile i computes) in the 128-byte-swizzled layout wgmma reads.
 //   S = Q K^T is a wgmma from shared memory, and the tile's Philox draws run
-//   while it does.  The online softmax runs in registers on the accumulator
-//   layout (flash_tc.cuh), where the four lanes of a quad hold one row; P
-//   times the keep-scale goes to acc += P V as bf16 A fragments from
-//   registers (rounded as the TPU kernel rounds P to the input dtype), with V
-//   read transposed (MN-major) from its tile.  Each block's tile is a chain
+//   while it does; when the keep bits are wanted, the four lanes of a quad
+//   assemble their rows' 32-bit words with shuffles and each warp stores 32
+//   neighbouring words (512 bytes a tile, ~5 us a launch at GPT-2 medium's
+//   shapes), with no staging in shared memory.  The online softmax runs in
+//   registers on the accumulator layout (flash_tc.cuh), where the four lanes
+//   of a quad hold one row; P times the keep-scale goes to acc += P V as
+//   bf16 A fragments from registers (rounded as the TPU kernel rounds P to
+//   the input dtype), with V read transposed (MN-major) from its tile.  Each block's tile is a chain
 //   of product, softmax, product; at ~126 registers four blocks share an SM
 //   and overlap their chains.  Two variants were no faster and were not
 //   kept (PERF.md): the next tile's S issued before this tile's softmax
@@ -44,8 +54,9 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_fma(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const int* __restrict__ kv_mask,
-                  float* __restrict__ o, float* __restrict__ lse, View qv, View kvw, View vv,
-                  View ov, int H, int seq, float scale, int causal, Dropout dr) {
+                  float* __restrict__ o, float* __restrict__ lse,
+                  uint32_t* __restrict__ keep_out, View qv, View kvw, View vv, View ov, int H,
+                  int seq, float scale, int causal, Dropout dr) {
   constexpr int LD = D + 1, LDP = kBlockK + 1, DPT = D / 16;
   extern __shared__ float smem[];
   float* Qs = smem;
@@ -56,6 +67,8 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int q0 = blockIdx.x * kBlockQ;
+  const int n_kt = key_tiles(q0, seq, causal);
+  if (keep_out != nullptr) tc::zero_keep_tiles(keep_out, bh, blockIdx.x, n_kt, gridDim.x);
 
   load_tile<D, LD>(Qs, q, qv, b, h, q0, seq);
 
@@ -69,7 +82,6 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = 0; e < DPT; ++e) acc[i][e] = 0.f;
   }
 
-  const int n_kt = key_tiles(q0, seq, causal);
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kBlockK;
     __syncthreads();  // Qs ready; last tile's readers of Ks/Vs/Ps done
@@ -123,6 +135,18 @@ __global__ void __launch_bounds__(kThreads)
         dropout4(dr, bh, qpos, (k0 >> 2) + tx, keep);
 #pragma unroll
         for (int j = 0; j < 4; ++j) p[j] *= keep[j];
+        if (keep_out != nullptr) {
+          // Keys tx*4 .. tx*4+3 are bits 4 (tx % 8) .. of word tx / 8 of the
+          // row: the 8 lanes of a word OR their parts, and the first stores it.
+          uint32_t w = 0u;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) w |= (uint32_t)(keep[j] != 0.f) << (4 * (tx & 7) + j);
+          w |= __shfl_xor_sync(0xffffffffu, w, 1);
+          w |= __shfl_xor_sync(0xffffffffu, w, 2);
+          w |= __shfl_xor_sync(0xffffffffu, w, 4);
+          if ((tx & 7) == 0)
+            tc::keep_tile(keep_out, bh, blockIdx.x, kt, gridDim.x)[2 * (ty * 4 + i) + (tx >> 3)] = w;
+        }
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j) Ps[(ty * 4 + i) * LDP + tx * 4 + j] = p[j];
@@ -161,8 +185,8 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int D>
 int launch_fwd_fma(const void* q, const void* k, const void* v, const int* kv_mask, void* o,
-                   float* lse, int B, int H, int seq, View qv, View kvw, View vv, View ov,
-                   float scale, int causal, Dropout dr, cudaStream_t stream) {
+                   float* lse, uint32_t* keep_out, int B, int H, int seq, View qv, View kvw,
+                   View vv, View ov, float scale, int causal, Dropout dr, cudaStream_t stream) {
   constexpr int LD = D + 1;
   constexpr int smem = sizeof(float) * (kBlockQ * LD + 2 * kBlockK * LD + kBlockQ * (kBlockK + 1));
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -170,8 +194,8 @@ int launch_fwd_fma(const void* q, const void* k, const void* v, const int* kv_ma
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((seq + kBlockQ - 1) / kBlockQ, B * H);
   flash_fwd_fma<D><<<grid, kThreads, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, kv_mask, (float*)o, lse, qv, kvw, vv,
-      ov, H, seq, scale, causal, dr);
+      (const float*)q, (const float*)k, (const float*)v, kv_mask, (float*)o, lse, keep_out, qv,
+      kvw, vv, ov, H, seq, scale, causal, dr);
   return (int)cudaGetLastError();
 }
 
@@ -210,12 +234,36 @@ __device__ __forceinline__ void fwd_keep_bits(const Dropout& dr, int bh, int qr0
   keep[1] = e ? own : got;
 }
 
+// Stores fwd_keep_bits' bits of one score tile as the tile's 128 keep words
+// (flash_bwd_keep.cu's layout: word 2r + w holds keys 32w .. 32w + 31 of row
+// r, bit i key 32w + i).  Word w of row r0 + 8i is bits 8w .. 8w + 7 of
+// keep[i] in each of the quad's four lanes, whose bit pairs 2j', 2j' + 1 are
+// the word's bits 8j' + c0, 8j' + c0 + 1: each lane spreads its pairs to
+// their places, the quad ORs the four parts, and lane q of the quad stores
+// word x = 2i + w = q, so a warp writes 32 neighbouring words.
+__device__ __forceinline__ void store_keep_words(uint32_t* __restrict__ tile,
+                                                 const uint32_t (&keep)[2]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, quad = lane & 3;
+  uint32_t mine = 0u;
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    const uint32_t p = (keep[x >> 1] >> (8 * (x & 1))) & 0xFFu;
+    uint32_t word = ((p & 0x03u) | (p & 0x0Cu) << 6 | (p & 0x30u) << 12 | (p & 0xC0u) << 18)
+                    << (2 * quad);
+    word |= __shfl_xor_sync(0xffffffffu, word, 1);
+    word |= __shfl_xor_sync(0xffffffffu, word, 2);
+    if (x == quad) mine = word;
+  }
+  tile[2 * (16 * warp + (lane >> 2) + 8 * (quad >> 1)) + (quad & 1)] = mine;
+}
+
 template <int D>
 __global__ void __launch_bounds__(tc::kThreadsTC)
     flash_fwd_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, const int* __restrict__ kv_mask,
-                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse, View qv, View kvw,
-                 View vv, View ov, int H, int seq, float scale, int causal, Dropout dr) {
+                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                 uint32_t* __restrict__ keep_out, View qv, View kvw, View vv, View ov, int H,
+                 int seq, float scale, int causal, Dropout dr) {
   using namespace tc;
   constexpr int TB = tile_bytes<D>(), NP = panels<D>();
   extern __shared__ uint8_t smem_raw[];
@@ -227,7 +275,7 @@ __global__ void __launch_bounds__(tc::kThreadsTC)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r0 = 16 * warp + (lane >> 2), c0 = 2 * (lane & 3);
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * 64;  // the longest rows first (causal)
+  const int qt = gridDim.y - 1 - blockIdx.y, q0 = qt * 64;  // the longest rows first (causal)
   const int n_kt = key_tiles(q0, seq, causal);
   // Scores in log2 units: exp(scale s - m) = 2^(s sl2 - m'), one FMA; with
   // scale > 0 the largest raw score gives the largest scaled one.
@@ -237,6 +285,7 @@ __global__ void __launch_bounds__(tc::kThreadsTC)
   load_tile_async<D>(Ks, k, kvw, b, h, 0, seq);
   load_tile_async<D>(Vs, v, vv, b, h, 0, seq);
   cp_async_commit();
+  if (keep_out != nullptr) zero_keep_tiles(keep_out, bh, qt, n_kt, gridDim.y);
 
   float acc[NP][32];
 #pragma unroll
@@ -267,7 +316,10 @@ __global__ void __launch_bounds__(tc::kThreadsTC)
     gemm_rows<D>(s, Qs, Ks + cur * TB);  // S = Q K^T
     wg_commit();
     uint32_t keep[2] = {0u, 0u};
-    if (dr.on) fwd_keep_bits(dr, bh, q0 + r0, k0, keep);  // while the product runs
+    if (dr.on) {  // while the product runs
+      fwd_keep_bits(dr, bh, q0 + r0, k0, keep);
+      if (keep_out != nullptr) store_keep_words(keep_tile(keep_out, bh, qt, kt, gridDim.y), keep);
+    }
     wg_wait<0>();
     fence_regs(s);
 
@@ -356,8 +408,8 @@ __global__ void __launch_bounds__(tc::kThreadsTC)
 
 template <int D>
 int launch_fwd_tc(const void* q, const void* k, const void* v, const int* kv_mask, void* o,
-                  float* lse, int B, int H, int seq, View qv, View kvw, View vv, View ov,
-                  float scale, int causal, Dropout dr, cudaStream_t stream) {
+                  float* lse, uint32_t* keep_out, int B, int H, int seq, View qv, View kvw,
+                  View vv, View ov, float scale, int causal, Dropout dr, cudaStream_t stream) {
   constexpr int smem = 5 * tc::tile_bytes<D>() + 1024;
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_fwd_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -365,18 +417,21 @@ int launch_fwd_tc(const void* q, const void* k, const void* v, const int* kv_mas
   const dim3 grid(B * H, (seq + 63) / 64);
   flash_fwd_tc<D><<<grid, tc::kThreadsTC, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, kv_mask,
-      (__nv_bfloat16*)o, lse, qv, kvw, vv, ov, H, seq, scale, causal, dr);
+      (__nv_bfloat16*)o, lse, keep_out, qv, kvw, vv, ov, H, seq, scale, causal, dr);
   return (int)cudaGetLastError();
 }
 
 }  // namespace dtt
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements.  kv_mask
-// (B, T) int32 and lse (B, H, T) float32 may be null.  bf16 tensors need
-// 16-byte aligned rows and scale > 0.  Returns the CUDA error code of the
-// launch (0 = launched).
+// (B, T) int32 and lse (B, H, T) float32 may be null.  keep_bits, when not
+// null (and drop_on), receives the dropout mask's bits as flash_bwd_keep
+// lays them out: (B*H, n, n, 128) words, n = ceil(seq / 64), 16-byte
+// aligned.  bf16 tensors need 16-byte aligned rows and scale > 0.  Returns
+// the CUDA error code of the launch (0 = launched).
 extern "C" int dtt_flash_fwd(int dtype, int head_dim, const void* q, const void* k, const void* v,
-                             const int* kv_mask, void* o, float* lse, int B, int H, int seq,
+                             const int* kv_mask, void* o, float* lse, unsigned int* keep_bits,
+                             int B, int H, int seq,
                              long long q_sb, long long q_st, long long q_sh, long long k_sb,
                              long long k_st, long long k_sh, long long v_sb, long long v_st,
                              long long v_sh, long long o_sb, long long o_st, long long o_sh,
@@ -387,8 +442,9 @@ extern "C" int dtt_flash_fwd(int dtype, int head_dim, const void* q, const void*
   const View qv{q_sb, q_st, q_sh}, kvw{k_sb, k_st, k_sh}, vv{v_sb, v_st, v_sh}, ov{o_sb, o_st, o_sh};
   const Dropout dr{seed_lo, seed_hi, drop_thresh, drop_scale, drop_on};
   const cudaStream_t st = (cudaStream_t)stream;
-#define DTT_FWD_FMA(D) launch_fwd_fma<D>(q, k, v, kv_mask, o, lse, B, H, seq, qv, kvw, vv, ov, scale, causal, dr, st)
-#define DTT_FWD_TC(D) launch_fwd_tc<D>(q, k, v, kv_mask, o, lse, B, H, seq, qv, kvw, vv, ov, scale, causal, dr, st)
+  uint32_t* keep_out = drop_on ? keep_bits : nullptr;
+#define DTT_FWD_FMA(D) launch_fwd_fma<D>(q, k, v, kv_mask, o, lse, keep_out, B, H, seq, qv, kvw, vv, ov, scale, causal, dr, st)
+#define DTT_FWD_TC(D) launch_fwd_tc<D>(q, k, v, kv_mask, o, lse, keep_out, B, H, seq, qv, kvw, vv, ov, scale, causal, dr, st)
   if (dtype == 0) {
     DTT_HEAD_DIMS(head_dim, DTT_FWD_FMA);
   } else if (dtype == 1 && scale > 0.f) {

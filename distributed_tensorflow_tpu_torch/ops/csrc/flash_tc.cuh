@@ -1,7 +1,8 @@
 // Tensor-core pieces of the bf16 kernels for Hopper (sm_90a):
 // asynchronous tile loads into 128-byte-swizzled shared memory, wgmma
 // descriptors and the wgmma forms the kernels use, and the tiles of the
-// dropout keep bits that the flash_bwd_keep pre-pass draws.
+// dropout keep bits that the forward emits (or the flash_bwd_keep pre-pass
+// draws) for the backward kernels.
 //
 // A block is one warpgroup (128 threads) that owns 64 rows.  A tile of 64
 // rows by D bf16 is held as ceil(D / 64) panels of 64 rows x 64 columns
@@ -238,11 +239,18 @@ __device__ __forceinline__ void to_a_frags(const float (&x)[R], uint32_t (&a)[R 
   }
 }
 
-// The 128 keep words of tile (query tile qt, key tile kt) in the pre-pass's
-// buffer (flash_bwd_keep.cu) of n x n tiles a head.
-__device__ __forceinline__ const uint32_t* keep_tile(const uint32_t* bits, int bh, int qt, int kt,
-                                                     int n) {
+// The 128 keep words of tile (query tile qt, key tile kt) in a buffer of
+// n x n tiles a head (flash_bwd_keep.cu's layout; the forward writes it too).
+template <typename W>
+__device__ __forceinline__ W* keep_tile(W* bits, int bh, int qt, int kt, int n) {
   return bits + (((long long)bh * n + qt) * n + kt) * 128;
+}
+
+// Zeros the keep tiles kt0 .. n - 1 of row (bh, qt), the tiles a causal
+// query tile does not reach, 16 bytes a thread.
+__device__ __forceinline__ void zero_keep_tiles(uint32_t* bits, int bh, int qt, int kt0, int n) {
+  uint4* z = reinterpret_cast<uint4*>(keep_tile(bits, bh, qt, kt0, n));
+  for (int i = threadIdx.x; i < (n - kt0) * 32; i += blockDim.x) z[i] = make_uint4(0u, 0u, 0u, 0u);
 }
 
 // Copies a 512-byte keep tile to shared memory (threads 0..31, 16 bytes each).

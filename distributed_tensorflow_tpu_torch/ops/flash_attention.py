@@ -2,11 +2,14 @@
 
 Port of ``distributed_tensorflow_tpu/ops/flash_attention.py``.  The three
 TPU kernels (forward, dQ, dK/dV) become CUDA kernels for Hopper in
-``ops/csrc`` (built by ``ops/_build.py``), with two pre-passes that give
-both backward kernels what each would otherwise recompute: Delta =
-rowsum(dO * O) - g_lse, and the dropout mask's keep bits.  Each kernel has
-a plain PyTorch version beside it in this module, which computes the same
-function with dense (T, T) tensors.
+``ops/csrc`` (built by ``ops/_build.py``).  Both backward kernels need
+Delta = rowsum(dO * O) - g_lse and the dropout mask's keep bits.  In
+training the forward writes the bits it draws (``keep_out``) and dQ
+computes Delta for its rows where none is given and hands it on to dK/dV
+(``return_delta``), so the backward is two launches.  Two pre-pass kernels give the same for
+callers of the backward kernels that have neither: ``flash_bwd_delta`` and
+``flash_bwd_keep``.  Each kernel has a plain PyTorch version beside it in
+this module, which computes the same function with dense (T, T) tensors.
 
 - Layout: q/k/v are (B, T, H, D), read through their strides (no head
   transpose); lse is (B, H, T) float32.  D is 16, 32, 64 or 128; any T.
@@ -22,8 +25,8 @@ function with dense (T, T) tensors.
   (b*H + h, query, key): word ``key % 4`` of the draw at counter
   ``(key // 4, query, b*H + h, 0)``.  Kernel and plain version build the
   identical mask.  It differs from the TPU PRNG's and ``jax.random``'s.
-  The forward kernel draws it in place; the backward draws it once into
-  bits (``flash_bwd_keep``) that dQ and dK/dV read.
+  The forward kernel draws it in place and, in training, stores it as the
+  bits (``keep_bits``' layout) that dQ and dK/dV read.
 - ``flash_attention_with_lse`` is differentiable in both outputs; the lse
   cotangent folds into Delta (dS = P (dP - Delta + g_lse) scale).
 """
@@ -44,16 +47,16 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _c_ptr, _c_int, _c_ll, _c_f, _c_u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                                      ctypes.c_float, ctypes.c_uint)
-# (dtype, head_dim, tensors..., B, H, T, 3 strides per tensor, then the
-#  forward's scale, causal, seed_lo, seed_hi, thresh, drop_scale, drop_on,
+# (dtype, head_dim, pointers..., B, H, T, 3 strides per strided tensor, then
+#  the forward's scale, causal, seed_lo, seed_hi, thresh, drop_scale, drop_on,
 #  stream, or the backward kernels' scale, causal, keep bits, drop_scale, stream)
 _TAIL = [_c_f, _c_int, _c_u, _c_u, _c_u, _c_f, _c_int, _c_ptr]
 _BWD_TAIL = [_c_f, _c_int, _c_ptr, _c_f, _c_ptr]
 _ARGTYPES = {
-    "flash_fwd": [_c_int, _c_int] + [_c_ptr] * 6 + [_c_int] * 3 + [_c_ll] * 12 + _TAIL,
+    "flash_fwd": [_c_int, _c_int] + [_c_ptr] * 7 + [_c_int] * 3 + [_c_ll] * 12 + _TAIL,
     "flash_bwd_delta": [_c_int, _c_int] + [_c_ptr] * 4 + [_c_int] * 3 + [_c_ll] * 6 + [_c_ptr],
     "flash_bwd_keep": [_c_ptr] + [_c_int] * 4 + [_c_u] * 3 + [_c_ptr],
-    "flash_bwd_dq": [_c_int, _c_int] + [_c_ptr] * 8 + [_c_int] * 3 + [_c_ll] * 15 + _BWD_TAIL,
+    "flash_bwd_dq": [_c_int, _c_int] + [_c_ptr] * 11 + [_c_int] * 3 + [_c_ll] * 18 + _BWD_TAIL,
     "flash_bwd_dkv": [_c_int, _c_int] + [_c_ptr] * 9 + [_c_int] * 3 + [_c_ll] * 18 + _BWD_TAIL,
 }
 
@@ -99,7 +102,7 @@ def keep_bits(B: int, H: int, T: int, rate: float, seed: int, *, causal: bool,
     128) int32 words, n = ceil(T / 64).  Word 2r + w of tile (qt, kt) holds
     keys 64 kt + 32 w .. + 31 of query 64 qt + r (bit i: key 64 kt + 32 w + i,
     1 = kept); tiles a causal row does not reach are 0.  The plain version
-    of the keep-bit pre-pass kernel."""
+    of the keep-bit pre-pass kernel and of the bits the forward emits."""
     n = -(-T // 64)
     keep = dropout_mask(B, H, n * 64, rate, seed, device=device) > 0
     keep = keep.view(B * H, n, 64, n, 2, 32)
@@ -285,7 +288,7 @@ def _keep_args(rate: float, keep: Optional[torch.Tensor], shape):
     if (keep is None or keep.shape != (B * H, n, n, 128) or keep.dtype != torch.int32
             or not keep.is_contiguous()):
         raise ValueError(f"dropout needs the (B*H, {n}, {n}, 128) int32 keep bits of "
-                         "flash_bwd_keep")
+                         "flash_fwd(keep_out=True) or flash_bwd_keep")
     return [keep.data_ptr(), 1.0 / (1.0 - rate)]
 
 
@@ -304,26 +307,40 @@ def _launch(name: str, *args) -> None:
     LAUNCHES[name] += 1
 
 
-def flash_fwd(q, k, v, kv_mask=None, *, causal, scale, dropout_rate=0.0,
-              seed=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Forward kernel: (out (B, T, H, D), lse (B, H, T) float32)."""
+def flash_fwd(q, k, v, kv_mask=None, *, causal, scale, dropout_rate=0.0, seed=None,
+              keep_out=False) -> tuple:
+    """Forward kernel: (out (B, T, H, D), lse (B, H, T) float32).  With
+    ``keep_out`` it returns (out, lse, bits): the dropout mask's bits as
+    ``keep_bits`` lays them out, which the backward kernels read (None
+    without dropout)."""
+    B, T, H, D = q.shape
     if _on_cpu(q, k, v, kv_mask):
-        return _dense_with_lse(q, k, v, causal=causal, scale=scale, kv_mask=kv_mask,
-                               dropout_rate=dropout_rate, dropout_rng=seed)
+        out, lse = _dense_with_lse(q, k, v, causal=causal, scale=scale, kv_mask=kv_mask,
+                                   dropout_rate=dropout_rate, dropout_rng=seed)
+        if not keep_out:
+            return out, lse
+        bits = None
+        if dropout_rate > 0.0:
+            bits = keep_bits(B, H, T, dropout_rate, seed, causal=causal, device=q.device)
+        return out, lse, bits
     _check(q, k, v)
     if q.dtype == torch.bfloat16 and not scale > 0.0:  # its row max is on the raw scores
         raise ValueError(f"the bf16 flash forward kernel takes a positive scale, got {scale}")
-    B, T, H, D = q.shape
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    bits = None
+    if keep_out and dropout_rate > 0.0:  # every word is written, zero tiles included
+        n = -(-T // 64)
+        bits = torch.empty((B * H, n, n, 128), dtype=torch.int32, device=q.device)
     mask, mask_ptr = _mask_ptr(kv_mask, B, T)
     _launch("flash_fwd", _DTYPE_CODE[q.dtype], D,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(), lse.data_ptr(),
+            None if bits is None else bits.data_ptr(),
             B, H, T, *_strides(q), *_strides(k), *_strides(v), *_strides(out),
             scale, int(causal), *_drop_args(dropout_rate, seed),
             torch.cuda.current_stream(q.device).cuda_stream)
-    return out, lse
+    return (out, lse, bits) if keep_out else (out, lse)
 
 
 def flash_bwd_delta(o, g, g_lse=None) -> torch.Tensor:
@@ -344,7 +361,7 @@ def flash_bwd_delta(o, g, g_lse=None) -> torch.Tensor:
 def flash_bwd_keep(q, *, causal, dropout_rate, seed) -> torch.Tensor:
     """Keep-bit pre-pass kernel: the dropout mask of (dropout_rate, seed) for
     q's (B, T, H) as ``keep_bits`` lays it out, drawn once for both backward
-    kernels."""
+    kernels where no forward emitted it (``flash_fwd(keep_out=True)``)."""
     B, T, H, _ = q.shape
     if _on_cpu(q):
         return keep_bits(B, H, T, dropout_rate, seed, causal=causal, device=q.device)
@@ -357,12 +374,11 @@ def flash_bwd_keep(q, *, causal, dropout_rate, seed) -> torch.Tensor:
 
 
 def _bwd_operands(q, k, v, o, g, lse, g_lse, delta, keep, causal, dropout_rate, seed):
-    """The backward kernels' inputs: aligned q/k/v/dO, float32 lse and Delta,
-    and the keep bits under dropout (each from its pre-pass unless given)."""
+    """The backward kernels' inputs: aligned q/k/v/dO, float32 lse and Delta
+    (None if not given), and the keep bits under dropout (from the keep
+    pre-pass unless given)."""
     _check(q, k, v, o, g)
     B, T, H, _ = q.shape
-    if delta is None:
-        delta = flash_bwd_delta(o, g, g_lse)
     if dropout_rate > 0.0 and keep is None:
         keep = flash_bwd_keep(q, causal=causal, dropout_rate=dropout_rate, seed=seed)
     lse, lse_ptr = _f32_ptr(lse, (B, H, T))
@@ -378,36 +394,54 @@ def _fold_delta(o, g, g_lse, delta):
 
 
 def flash_bwd_dq(q, k, v, o, g, lse, g_lse=None, kv_mask=None, *, causal, scale,
-                 dropout_rate=0.0, seed=None, delta=None, keep=None) -> torch.Tensor:
+                 dropout_rate=0.0, seed=None, delta=None, keep=None, return_delta=False):
     """dQ kernel: (B, T, H, D) in the input dtype.  ``delta`` (B, H, T), when
-    given, replaces rowsum(dO * O) - g_lse (``flash_bwd_delta``); ``keep``,
-    when given, is the mask's bits (``flash_bwd_keep``) for (dropout_rate,
-    seed), which the plain version draws itself."""
+    given, is Delta = rowsum(dO * O) - g_lse (``flash_bwd_delta``); else the
+    kernel computes it for its own rows.  ``keep``, when given, is the
+    mask's bits (``flash_fwd(keep_out=True)`` or ``flash_bwd_keep``) for
+    (dropout_rate, seed), which the plain version draws itself.  With
+    ``return_delta`` it returns (dq, delta), the float32 Delta for
+    ``flash_bwd_dkv``."""
     if _on_cpu(q, k, v, o, g, lse, g_lse, kv_mask, delta, keep):
-        return _plain_bwd_dq(q, k, v, o, g, lse, _fold_delta(o, g, g_lse, delta), kv_mask,
-                             causal=causal, scale=scale, dropout_rate=dropout_rate, seed=seed)
+        dq = _plain_bwd_dq(q, k, v, o, g, lse, _fold_delta(o, g, g_lse, delta), kv_mask,
+                           causal=causal, scale=scale, dropout_rate=dropout_rate, seed=seed)
+        if not return_delta:
+            return dq
+        return dq, _plain_bwd_delta(o, g, g_lse) if delta is None else delta
+    fuse = delta is None
     (q, k, v, g), (lse, lse_ptr), (delta, delta_ptr), (keep, keep_args) = _bwd_operands(
         q, k, v, o, g, lse, g_lse, delta, keep, causal, dropout_rate, seed)
     B, T, H, D = q.shape
     mask, mask_ptr = _mask_ptr(kv_mask, B, T)
+    o_ptr = g_lse_ptr = delta_out_ptr = None
+    o_strides = [0] * 3
+    if fuse:  # the kernel reads O and g_lse and writes Delta
+        o = _aligned(o)
+        o_ptr, o_strides = o.data_ptr(), _strides(o)
+        g_lse, g_lse_ptr = _f32_ptr(g_lse, (B, H, T))
+        delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+        delta_out_ptr = delta.data_ptr()
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     _launch("flash_bwd_dq", _DTYPE_CODE[q.dtype], D,
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-            lse_ptr, delta_ptr, mask_ptr, dq.data_ptr(), B, H, T,
-            *_strides(q), *_strides(k), *_strides(v), *_strides(g),
-            *_strides(dq), scale, int(causal), *keep_args,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o_ptr, g.data_ptr(),
+            lse_ptr, g_lse_ptr, delta_ptr, delta_out_ptr, mask_ptr, dq.data_ptr(), B, H, T,
+            *_strides(q), *_strides(k), *_strides(v), *o_strides,
+            *_strides(g), *_strides(dq), scale, int(causal), *keep_args,
             torch.cuda.current_stream(q.device).cuda_stream)
-    return dq
+    return (dq, delta) if return_delta else dq
 
 
 def flash_bwd_dkv(q, k, v, o, g, lse, g_lse=None, kv_mask=None, *, causal, scale,
                   dropout_rate=0.0, seed=None, delta=None,
                   keep=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """dK/dV kernel: two (B, T, H, D) tensors in the input dtype.  ``delta``
-    and ``keep`` as for ``flash_bwd_dq``."""
+    and ``keep`` as for ``flash_bwd_dq``, but a Delta not given comes from
+    the ``flash_bwd_delta`` pre-pass."""
     if _on_cpu(q, k, v, o, g, lse, g_lse, kv_mask, delta, keep):
         return _plain_bwd_dkv(q, k, v, o, g, lse, _fold_delta(o, g, g_lse, delta), kv_mask,
                               causal=causal, scale=scale, dropout_rate=dropout_rate, seed=seed)
+    if delta is None:
+        delta = flash_bwd_delta(o, g, g_lse)
     (q, k, v, g), (lse, lse_ptr), (delta, delta_ptr), (keep, keep_args) = _bwd_operands(
         q, k, v, o, g, lse, g_lse, delta, keep, causal, dropout_rate, seed)
     B, T, H, D = q.shape
@@ -431,38 +465,43 @@ class _FlashAttention(torch.autograd.Function):
     cotangent is unused arrives here as ``None`` (no g_lse term)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_mask, seed, causal, scale, dropout_rate):
-        out, lse = flash_fwd(q, k, v, kv_mask, causal=causal, scale=scale,
-                             dropout_rate=dropout_rate, seed=seed)
-        ctx.save_for_backward(q, k, v, out, lse, kv_mask)
+    def forward(ctx, q, k, v, kv_mask, seed, causal, scale, dropout_rate, want_bits):
+        # With want_bits (dropout, and a backward to come) the forward also
+        # stores the mask's bits for the backward kernels.
+        out, lse, *bits = flash_fwd(q, k, v, kv_mask, causal=causal, scale=scale,
+                                    dropout_rate=dropout_rate, seed=seed, keep_out=want_bits)
+        ctx.save_for_backward(q, k, v, out, lse, kv_mask, *bits)
         ctx.args = dict(causal=causal, scale=scale, dropout_rate=dropout_rate, seed=seed)
         ctx.set_materialize_grads(False)
         return out, lse
 
     @staticmethod
     def backward(ctx, g_out, g_lse):
-        q, k, v, out, lse, kv_mask = ctx.saved_tensors
+        q, k, v, out, lse, kv_mask, *bits = ctx.saved_tensors
         if g_out is None:
             g_out = torch.zeros_like(out)
         elif g_out.stride(-1) != 1:
             g_out = g_out.contiguous()
-        # Delta and the dropout bits once, for both kernels.
-        pre = dict(delta=flash_bwd_delta(out, g_out, g_lse), **ctx.args)
-        if ctx.args["dropout_rate"] > 0.0:
-            pre["keep"] = flash_bwd_keep(q, causal=ctx.args["causal"],
-                                         dropout_rate=ctx.args["dropout_rate"],
-                                         seed=ctx.args["seed"])
-        dq = flash_bwd_dq(q, k, v, out, g_out, lse, g_lse, kv_mask, **pre)
-        dk, dv = flash_bwd_dkv(q, k, v, out, g_out, lse, g_lse, kv_mask, **pre)
-        return dq, dk, dv, None, None, None, None, None
+        keep = bits[0] if bits else None
+        # Two launches on one stream: dQ computes Delta, which dK/dV reads.
+        dq, delta = flash_bwd_dq(q, k, v, out, g_out, lse, g_lse, kv_mask, keep=keep,
+                                 return_delta=True, **ctx.args)
+        dk, dv = flash_bwd_dkv(q, k, v, out, g_out, lse, g_lse, kv_mask, delta=delta,
+                               keep=keep, **ctx.args)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
-def _prepare(q, scale, dropout_rate, dropout_rng):
+def _prepare(q, k, v, scale, dropout_rate, dropout_rng):
+    """(scale, seed, want_bits): want_bits when the forward should store the
+    dropout bits for a backward, decided here because grad mode is off
+    inside ``_FlashAttention.forward``."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if dropout_rate > 0.0 and dropout_rng is None:
         raise ValueError("dropout_rate > 0 requires dropout_rng")
-    return float(scale), (int(dropout_rng) if dropout_rate > 0.0 else None)
+    want_bits = (dropout_rate > 0.0 and torch.is_grad_enabled()
+                 and any(x.requires_grad for x in (q, k, v)))
+    return float(scale), (int(dropout_rng) if dropout_rate > 0.0 else None), want_bits
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -476,8 +515,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     probability dropout keyed by the integer seed ``dropout_rng`` (the
     Philox key), regenerated identically by the backward kernels.
     """
-    scale, seed = _prepare(q, scale, dropout_rate, dropout_rng)
-    out, _ = _FlashAttention.apply(q, k, v, kv_mask, seed, causal, scale, float(dropout_rate))
+    scale, seed, want_bits = _prepare(q, k, v, scale, dropout_rate, dropout_rng)
+    out, _ = _FlashAttention.apply(q, k, v, kv_mask, seed, causal, scale, float(dropout_rate),
+                                   want_bits)
     return out
 
 
@@ -494,5 +534,6 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
     use the undropped probabilities, so dropout composes exactly with ring
     attention's lse combine.
     """
-    scale, seed = _prepare(q, scale, dropout_rate, dropout_rng)
-    return _FlashAttention.apply(q, k, v, kv_mask, seed, causal, scale, float(dropout_rate))
+    scale, seed, want_bits = _prepare(q, k, v, scale, dropout_rate, dropout_rng)
+    return _FlashAttention.apply(q, k, v, kv_mask, seed, causal, scale, float(dropout_rate),
+                                 want_bits)

@@ -163,30 +163,69 @@ class TestPhilox:
         and l^1 swap the bits of each other's columns.  The bits each thread
         ends with are the mask's."""
         B, H, T, rate, seed, bh = 1, 2, 256, 0.3, 77, 1
-        key0, key1, thresh, _ = tfa._dropout_params(rate, seed)
+        keep = _fwd_lane_keep_bits(q0, k0, bh, rate, seed)
         t = torch.arange(128, dtype=torch.int64)
         warp, lane = t // 32, t % 32
-        r0, c0, e = 16 * warp + lane // 4, 2 * (lane % 4), lane % 2
+        r0, c0 = 16 * warp + lane // 4, 2 * (lane % 4)
         j = torch.arange(8, dtype=torch.int64)
-        k4 = (k0 // 4 + (lane // 2) % 2)[:, None] + 2 * j  # (thread, j)
-        qd = (q0 + r0 + 8 * e)[:, None].expand_as(k4)
-        words = tfa.philox4x32_10(k4, qd, torch.full_like(k4, bh), torch.zeros_like(k4),
-                                  key0, key1)
-        bits = [w >= thresh for w in words]
-        lo, hi = torch.stack(bits[:2], -1), torch.stack(bits[2:], -1)  # (thread, j, c)
-        odd = (e == 1)[:, None, None]
-        own, give = torch.where(odd, hi, lo), torch.where(odd, lo, hi)
-        got = give[t ^ 1]
-        keep = torch.stack([torch.where(odd, got, own), torch.where(odd, own, got)], 1)
         mask = tfa.dropout_mask(B, H, T, rate, seed)[0, bh] > 0
         rows = (q0 + r0)[:, None, None, None] + 8 * torch.arange(2)[None, :, None, None]
         cols = (k0 + c0)[:, None, None, None] + 8 * j[None, None, :, None] + torch.arange(2)
         assert torch.equal(keep, mask[rows, cols])
 
+    @pytest.mark.parametrize("q0,k0", [(0, 0), (64, 128), (192, 64)])
+    def test_forward_kernel_word_assembly_rebuilds_the_keep_tile(self, q0, k0):
+        """flash_fwd_tc's store_keep_words: each lane takes bits 8w .. 8w+7
+        of its row-i bits (x = 2i + w), spreads bit pair j' to bits 8j' +
+        2(l%4), the quad ORs its four parts with two xor-shuffles, and lane q
+        of the quad stores word x = q at index 2(16 warp + l/4 + 8(q/2)) +
+        q%2.  The 128 stores hit each word of the tile once and rebuild the
+        tile keep_bits (and flash_bwd_keep) gives."""
+        B, H, T, rate, seed, bh = 1, 2, 256, 0.3, 77, 1
+        keep = _fwd_lane_keep_bits(q0, k0, bh, rate, seed)  # (thread, i, j, c)
+        bit = (2 * torch.arange(8)[:, None] + torch.arange(2))  # bit 2j + c
+        per_row = (keep.to(torch.int64) << bit).sum((2, 3))  # (thread, i): keep[i]
+        t = torch.arange(128, dtype=torch.int64)
+        warp, lane, quad = t // 32, t % 32, t % 4
+        parts = []
+        for x in range(4):
+            p = (per_row[:, x >> 1] >> (8 * (x & 1))) & 0xFF
+            word = ((p & 0x03) | (p & 0x0C) << 6 | (p & 0x30) << 12 | (p & 0xC0) << 18) << (2 * quad)
+            word = word | word[t ^ 1]
+            word = word | word[t ^ 2]
+            parts.append(word)
+        mine = torch.stack(parts, 1)[t, quad]
+        index = 2 * (16 * warp + lane // 4 + 8 * (quad // 2)) + quad % 2
+        assert sorted(index.tolist()) == list(range(128))
+        tile = torch.zeros(128, dtype=torch.int64)
+        tile[index] = mine
+        want = tfa.keep_bits(B, H, T, rate, seed, causal=False)[bh, q0 // 64, k0 // 64]
+        assert torch.equal(tile, want.to(torch.int64) & 0xFFFFFFFF)
+
     def test_keep_rate(self):
         m = tfa.dropout_mask(4, 4, 128, 0.1, seed=5)
         keep = float((m > 0).float().mean())
         assert abs(keep - 0.9) < 0.005, keep
+
+
+def _fwd_lane_keep_bits(q0, k0, bh, rate, seed):
+    """The keep bits each thread of flash_fwd_tc holds after fwd_keep_bits
+    for the score tile at (q0, k0): (thread, row i, j, c), the bit of
+    column 8j + 2(l%4) + c of row 16w + l/4 + 8i."""
+    key0, key1, thresh, _ = tfa._dropout_params(rate, seed)
+    t = torch.arange(128, dtype=torch.int64)
+    warp, lane = t // 32, t % 32
+    r0, e = 16 * warp + lane // 4, lane % 2
+    j = torch.arange(8, dtype=torch.int64)
+    k4 = (k0 // 4 + (lane // 2) % 2)[:, None] + 2 * j  # (thread, j)
+    qd = (q0 + r0 + 8 * e)[:, None].expand_as(k4)
+    words = tfa.philox4x32_10(k4, qd, torch.full_like(k4, bh), torch.zeros_like(k4), key0, key1)
+    bits = [w >= thresh for w in words]
+    lo, hi = torch.stack(bits[:2], -1), torch.stack(bits[2:], -1)  # (thread, j, c)
+    odd = (e == 1)[:, None, None]
+    own, give = torch.where(odd, hi, lo), torch.where(odd, lo, hi)
+    got = give[t ^ 1]
+    return torch.stack([torch.where(odd, got, own), torch.where(odd, own, got)], 1)
 
 
 class TestDropout:
@@ -345,6 +384,116 @@ class TestDeltaPrepass:
         for name, a, b in zip(("dq", "dk", "dv"), got, want):
             torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12, msg=name)
         assert not torch.allclose(other, want[0])
+
+
+class TestFusedPrepasses:
+    """The forward's keep bits (keep_out) and dQ's Delta (return_delta),
+    which take the two pre-pass kernels off the training path."""
+
+    @pytest.mark.parametrize("causal", [False, True])
+    @pytest.mark.parametrize("T", [64, 200, 130])
+    def test_forward_keep_out_gives_the_keep_bits(self, causal, T):
+        """keep_out adds the mask's bits in keep_bits' layout and leaves out
+        and lse as they are."""
+        q, k, v = (torch.from_numpy(x) for x in make_inputs(B=2, T=T, H=3, D=16, seed=T)[:3])
+        kw = dict(causal=causal, scale=0.25, dropout_rate=0.2, seed=41)
+        out, lse = tfa.flash_fwd(q, k, v, **kw)
+        out_b, lse_b, bits = tfa.flash_fwd(q, k, v, **kw, keep_out=True)
+        assert torch.equal(out_b, out) and torch.equal(lse_b, lse)
+        n = -(-T // 64)
+        assert bits.shape == (6, n, n, 128) and bits.dtype == torch.int32
+        assert torch.equal(bits, tfa.keep_bits(2, 3, T, 0.2, 41, causal=causal))
+        assert tfa.flash_fwd(q, k, v, causal=causal, scale=0.25, keep_out=True)[2] is None
+
+    @pytest.mark.parametrize("with_glse", [False, True])
+    def test_dq_return_delta_gives_the_plain_delta(self, with_glse):
+        rng = np.random.RandomState(23)
+        q, k, v, g = (torch.from_numpy(rng.randn(2, 72, 3, 16).astype(np.float32))
+                      for _ in range(4))
+        g_lse = torch.from_numpy(rng.randn(2, 3, 72).astype(np.float32)) if with_glse else None
+        kw = dict(causal=True, scale=0.25, dropout_rate=0.2, seed=9)
+        o, lse = tfa._dense_with_lse(q, k, v, causal=True, scale=0.25, dropout_rate=0.2,
+                                     dropout_rng=9)
+        args = (q, k, v, o, g, lse, g_lse, None)
+        dq, delta = tfa.flash_bwd_dq(*args, return_delta=True, **kw)
+        assert torch.equal(dq, tfa.flash_bwd_dq(*args, **kw))
+        assert torch.equal(delta, tfa._plain_bwd_delta(o, g, g_lse))
+        given = tfa.flash_bwd_delta(o, g, g_lse)
+        assert tfa.flash_bwd_dq(*args, delta=given, return_delta=True, **kw)[1] is given
+
+    @pytest.mark.parametrize("rate", [0.0, 0.2])
+    @pytest.mark.parametrize("with_lse", [False, True])
+    def test_two_launch_backward_matches_reference(self, jfa, monkeypatch, rate, with_lse):
+        """The autograd backward with the pre-pass kernels made to raise: dQ
+        with Delta, then dK/dV with the forward's bits and dQ's Delta.  At
+        rate 0 the reference runs its interpreted Pallas kernels; under
+        dropout the interpreter has no TPU PRNG, so the reference takes its
+        dense path, here with the port's Philox mask in place of
+        jax.random's."""
+        def refuse(*_, **__):
+            raise AssertionError("a backward pre-pass kernel ran")
+
+        monkeypatch.setattr(tfa, "flash_bwd_keep", refuse)
+        monkeypatch.setattr(tfa, "flash_bwd_delta", refuse)
+        seen = {}
+        dkv = tfa.flash_bwd_dkv
+
+        def spy(*a, **kw):
+            seen.update(delta=kw["delta"], keep=kw["keep"])
+            return dkv(*a, **kw)
+
+        monkeypatch.setattr(tfa, "flash_bwd_dkv", spy)
+        q, k, v, g = make_inputs(seed=17 + with_lse)
+        B, T, H, _ = q.shape
+        seed = 7
+        mask = tfa.dropout_mask(B, H, T, rate, seed) if rate else None
+        monkeypatch.setattr(jfa, "_dropout_mask",
+                            lambda rng, shape, r: jnp.asarray(mask.numpy()))
+        g_lse = np.random.RandomState(12).randn(B, H, T).astype(np.float32)
+        drop = dict(dropout_rate=rate, dropout_rng=seed if rate else None)
+        jdrop = dict(dropout_rate=rate, dropout_rng=jax.random.PRNGKey(0) if rate else None)
+
+        def jfn(q_, k_, v_):
+            if with_lse:
+                return jfa.flash_attention_with_lse(q_, k_, v_, causal=True, **jdrop)
+            return jfa.flash_attention(q_, k_, v_, causal=True, **jdrop)
+
+        jout, vjp = jax.vjp(jfn, *map(jnp.asarray, (q, k, v)))
+        jgrads = vjp((jnp.asarray(g), jnp.asarray(g_lse)) if with_lse else jnp.asarray(g))
+        xs = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+        if with_lse:
+            outs = tfa.flash_attention_with_lse(*xs, causal=True, **drop)
+            grads = torch.autograd.grad(outs, xs, (torch.from_numpy(g), torch.from_numpy(g_lse)))
+            jout = jout[0]
+        else:
+            outs = (tfa.flash_attention(*xs, causal=True, **drop),)
+            grads = torch.autograd.grad(outs, xs, torch.from_numpy(g))
+        np.testing.assert_allclose(outs[0].detach().numpy(), np.asarray(jout), rtol=FWD_TOL,
+                                   atol=FWD_TOL)
+        for name, a, b in zip(("dq", "dk", "dv"), grads, jgrads):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=BWD_TOL, atol=BWD_TOL,
+                                       err_msg=name)
+        assert seen["delta"] is not None
+        if rate:
+            assert torch.equal(seen["keep"], tfa.keep_bits(B, H, T, rate, seed, causal=True))
+        else:
+            assert seen["keep"] is None
+
+    def test_forward_stores_bits_only_for_a_backward(self, monkeypatch):
+        """The bits are drawn only with dropout, grad mode on and an input
+        that requires grad: inference keeps the plain forward."""
+        calls = []
+        real = tfa.keep_bits
+        monkeypatch.setattr(tfa, "keep_bits", lambda *a, **kw: calls.append(1) or real(*a, **kw))
+        q, k, v = (torch.from_numpy(x) for x in make_inputs(B=1, T=64, H=2, D=16, seed=3)[:3])
+        drop = dict(dropout_rate=0.1, dropout_rng=5)
+        tfa.flash_attention(q, k, v, **drop)
+        with torch.no_grad():
+            tfa.flash_attention(q.requires_grad_(), k, v, **drop)
+        tfa.flash_attention(q, k, v)
+        assert not calls
+        tfa.flash_attention(q, k, v, **drop)
+        assert len(calls) == 1
 
 
 def _c_params(name):
