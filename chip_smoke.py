@@ -19,10 +19,15 @@ Phases (any failure raises; there is no CPU path):
    plain gradients: GPT-2 medium's attention shapes (B=8, T=1024, H=16,
    D=64, bf16, causal) at dropout 0 and 0.1, a ragged shape (T=200, D=32,
    non-causal, key mask and lse cotangent), a batch row with no valid key,
-   bf16 at D=128, float32 (the FMA design) and D=16; then tiny GPT-2's
-   loss and gradients: in float32 with the kernels against the dense
-   attention branch, and in bf16 on the card against the same weights and
-   tokens on the CPU (plain versions).
+   bf16 at D=128, float32 (the FMA design) and D=16, and BERT-base's
+   training shapes (B=256, H=12, D=64, bf16, non-causal, key lengths as
+   synthetic_mlm draws them, T=512 and T=128, each at dropout 0.1 and 0;
+   float32 at T=128, the FMA kernels, at B=4); then
+   tiny GPT-2's loss and gradients: in float32 with the kernels against
+   the dense attention branch, and in bf16 on the card against the same
+   weights and tokens on the CPU (plain versions); tiny BERT in bf16
+   (flash, ragged keys) likewise; tiny ResNet (cuDNN) against the CPU in
+   float32 and, in bf16, against the float32 gradient.
 3. Time each kernel at GPT-2 medium's shapes beside its plain version, its
    bound and one PyTorch call for the same function (the yardstick, which
    the port never calls), at dropout 0.1 and 0: the forward with and
@@ -30,7 +35,11 @@ Phases (any failure raises; there is no CPU path):
    backward's two launches against the four of the pre-passes' path and
    SDPA's backward.  Each is timed by events around back-to-back calls
    (host included), by the profiler's per-call device time, and as device
-   time alone in turns with the others (``queued_ms``).
+   time alone in turns with the others (``queued_ms``).  Then the forward,
+   dQ and dK/dV at BERT-base's training shape (B=256) as device time alone
+   beside SDPA given the same boolean key mask (the kernels SDPA runs are
+   printed), the bound of this data's valid keys, and the wrappers'
+   key-mask conversion.
 4. Train GPT-2 medium through ``train_lib.run`` (flash attention, batch
    32, 4 microbatches, bf16, dropout 0.1, remat) for 5 steps; the loss must
    be finite every step and the kernels' launch counts must show that the
@@ -39,6 +48,14 @@ Phases (any failure raises; there is no CPU path):
    kernels), against the other steps' wall time, gives the device's idle
    share, and each flash kernel's device time a launch; the host's time
    to enqueue each step is printed beside it.
+5. Train BERT-base (batch 256) at seq 512 (flash, the reference's phase-2
+   default) and at seq 128 (the CLI's ``--flash_attention``), ResNet-50
+   (batch 256, 224x224) and then the port's bench (its JSON line), and
+   MNIST through the default ``--model``, 5 steps each, reported as in 4
+   (tokens or images a second, MFU from the shapes), each with the launch
+   counts set to 0 just before and read just after: BERT must launch 12
+   dQ and dK/dV and at least 12 forwards a step and no pre-pass; ResNet
+   and MNIST no flash kernel.
 
 The line before the last is a JSON object of the kernels' numbers; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -47,6 +64,7 @@ line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -64,6 +82,7 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 # compare, logic and shift on another, each at 64 operations a clock per SM.
 INT_OPS_PER_CLOCK_SM = 64
 MEDIUM = dict(B=8, T=1024, H=16, D=64)  # one microbatch of GPT-2 medium
+BERT = dict(B=256, T=512, H=12, D=64)  # BERT-base's phase-2 attention, its training batch
 DROPOUT, SEED = 0.1, 1234
 # Each element must satisfy |kernel - plain| <= ELEM * |plain| + ROW * rowmax
 # + ATOL, where rowmax is the largest |plain| in the element's row (the D
@@ -449,7 +468,7 @@ def device_ms(fn, calls=10, tries=2):
     return None
 
 
-def bounds(B, T, H, D, causal, itemsize, philox_per_draw):
+def bounds(B, T, H, D, causal, itemsize, philox_per_draw, key_lens=None):
     """({rate: operations}, bytes) per kernel as the training path runs it
     (dropout on): 4/6/8 * D tensor-core flops per attended (q, k) pair (2 *
     D per row for Delta), and for each Philox draw of 4 keep bits the
@@ -457,12 +476,19 @@ def bounds(B, T, H, D, causal, itemsize, philox_per_draw):
     input read once and each output written once.  The forward and the keep
     pre-pass write all n x n tiles of the keep bits (zero tiles included);
     dQ and dK/dV read only the tiles their causal rows visit.  The forward
-    writes the keep bits, dQ reads O and writes Delta."""
-    pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
+    writes the keep bits, dQ reads O and writes Delta.  With ``key_lens``
+    (non-causal, a key mask) only this data's valid keys count: the pairs
+    (q, k) with k below its row's length, and the 64-key tiles that hold
+    one (the draws and the bits the backward reads)."""
+    nt = -(-T // 64)
+    if key_lens is not None:
+        pairs = H * T * sum(key_lens)
+        tiles = H * nt * sum(-(-n // 64) for n in key_lens)
+    else:
+        pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
+        tiles = B * H * (nt * (nt + 1) // 2 if causal else nt * nt)  # 64x64 tiles drawn
     n = B * T * H * D * itemsize
     row = B * H * T * 4  # one float32 row statistic (lse or Delta)
-    nt = -(-T // 64)
-    tiles = B * H * (nt * (nt + 1) // 2 if causal else nt * nt)  # 64x64 tiles drawn
     bits_written = B * H * nt * nt * 512
     bits_read = tiles * 512
     draws = 1024 * tiles
@@ -474,6 +500,13 @@ def bounds(B, T, H, D, causal, itemsize, philox_per_draw):
             "flash_bwd_dq": ({"bf16": 6 * D * pairs + 2 * D * B * T * H},
                              5 * n + row + bits_read + row + n),
             "flash_bwd_dkv": ({"bf16": 8 * D * pairs}, 4 * n + 2 * row + bits_read + 2 * n)}
+
+
+def bound_ms(ops, nbytes, peak):
+    """(bound ms, "operations" or "bytes") of one kernel's work."""
+    t_ops = max(count / peak[kind] for kind, count in ops.items()) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def pair_times(fns):
@@ -711,73 +744,422 @@ class StepRecorder:
         pass
 
 
+# Device-time parts of a profiled step, by kernel name; the first match wins
+# (cuDNN's BatchNorm kernels carry "cudnn" and its convolution kernels
+# "gemm" in their names).
+PARTS = (("BatchNorm", ("batch_norm", "batchnorm", "welford", "bn_fw", "bn_bw")),
+         ("convolutions (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "winograd", "cudnn")),
+         ("GEMMs (cuBLAS)", ("gemm", "xmma", "cutlass", "sm90_", "nvjet")))
+
+
+def kernel_part(name: str) -> str:
+    flash = next((k for k in ("flash_fwd", *BACKWARD) if k in name), None)
+    if flash:
+        return flash
+    low = name.lower()
+    return next((part for part, keys in PARTS if any(k in low for k in keys)), "other kernels")
+
+
 def step_breakdown(prof, step_s, top=8):
-    """Device time of one profiled step by part, and the ``top`` kernels of
-    "other kernels" by device time, beside the median wall time of the
-    unprofiled steps after the first."""
-    parts, counts, other = {}, {}, []
+    """Device time of one profiled step by part, the 3 largest kernels of
+    each part that is not a flash kernel, and the ``top`` kernels of "other
+    kernels" by device time, beside the median wall time of the unprofiled
+    steps after the first.  Returns (ms a launch of each flash kernel, ms
+    by part, the idle share)."""
+    parts, counts, kernels = {}, {}, {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-        name = e.key
-        part = next((k for k in ("flash_fwd", *BACKWARD) if k in name), None)
-        if part is None:
-            gemm = any(t in name.lower() for t in ("gemm", "xmma", "cutlass", "sm90_", "nvjet"))
-            part = "GEMMs (cuBLAS)" if gemm else "other kernels"
-        if part == "other kernels" and us:
-            other.append((us / 1e3, e.count, name))
+        if not us:
+            continue
+        part = kernel_part(e.key)
+        kernels.setdefault(part, []).append((us / 1e3, e.count, e.key))
         parts[part] = parts.get(part, 0.0) + us / 1e3
         counts[part] = counts.get(part, 0) + e.count
     busy = sum(parts.values())
     for part, ms in sorted(parts.items(), key=lambda kv: -kv[1]):
-        each = f", {counts[part]} launches, {ms / counts[part]:.4f} ms each" if part.startswith(
-            "flash_") else ""
-        print(f"[step] {part}: {ms:.1f} ms of device time in the profiled step{each}")
-    for ms, count, name in sorted(other, reverse=True)[:top]:
-        print(f"[step]   other: {ms:.1f} ms, {count} launches: {name[:160]}")
+        if part.startswith("flash_"):
+            print(f"[step] {part}: {ms:.1f} ms of device time in the profiled step, "
+                  f"{counts[part]} launches, {ms / counts[part]:.4f} ms each")
+            continue
+        print(f"[step] {part}: {ms:.1f} ms of device time in the profiled step, "
+              f"{counts[part]} launches")
+        for k_ms, count, name in sorted(kernels[part], reverse=True)[
+                :top if part == "other kernels" else 3]:
+            print(f"[step]   {part.split()[0]}: {k_ms:.1f} ms, {count} launches: {name[:160]}")
+    idle = 1 - busy / (1e3 * step_s)
     print(f"[step] device busy {busy:.1f} ms; unprofiled step wall (median) {1e3 * step_s:.1f} ms;"
-          f" busy share {busy / (1e3 * step_s):.1%}, idle share {1 - busy / (1e3 * step_s):.1%}")
-    return {part: ms / counts[part] for part, ms in parts.items() if part.startswith("flash_")}
+          f" busy share {busy / (1e3 * step_s):.1%}, idle share {idle:.1%}")
+    per_launch = {part: ms / counts[part] for part, ms in parts.items() if part.startswith("flash_")}
+    return per_launch, parts, idle
 
 
-def train_medium(fa):
+def run_workload(args, hooks, **factory):
+    """``train_lib.run`` for a workload built with factory arguments that no
+    flag reaches (BERT's ``seq_len``), as the reference's
+    scripts/bench_model.py builds one: ``get_workload``, then train_lib's
+    ``build_state_and_step`` and ``TrainLoop`` with the same hooks."""
+    from distributed_tensorflow_tpu_torch import train_lib
+    from distributed_tensorflow_tpu_torch.data.pipeline import DevicePrefetchIterator
+    from distributed_tensorflow_tpu_torch.models import get_workload
+    from distributed_tensorflow_tpu_torch.training import LoggingHook, NanHook, TrainLoop
+
+    device = train_lib.resolve_device(args.device)
+    workload = get_workload(args.model, device=device, batch_size=args.batch_size, **factory)
+    state, step = train_lib.build_state_and_step(
+        workload, grad_accum_steps=workload.grad_accum_steps, total_steps=args.steps,
+        seed=args.seed)
+    data = DevicePrefetchIterator(workload.data_fn(workload.batch_size), device, prefetch=2)
+    loop = TrainLoop(step, state, data,
+                     hooks=[LoggingHook(every_steps=args.log_every), NanHook(), *hooks],
+                     examples_per_step=workload.batch_size,
+                     metrics_every=min(10, args.log_every), seed=args.seed + 1)
+    try:
+        final = loop.run(args.steps)
+    finally:
+        data.close()
+    return {"final_step": final.step, **loop.last_logged_metrics}
+
+
+def train_phase(fa, label, argv, *, units, per_step, factory=None, profiled=3,
+                flops_per_step=None):
+    """Drive ``train_lib.run(argv)`` (or ``run_workload`` with ``factory``'s
+    arguments) with the launch counts set to 0 just before and read just
+    after; step ``profiled`` runs under torch.profiler.
+    Prints the losses (finite every step or it raises), the step seconds,
+    ``units``/s (``per_step`` of them a step), the MFU where
+    ``flops_per_step`` is given, peak memory, the host's enqueue time and
+    the device time by part.  Returns a summary dict."""
     from distributed_tensorflow_tpu_torch import train_lib
 
-    steps, batch, accum, profiled = 5, 32, 4, 3
-    argv = ["--model=gpt2", "--flash_attention", f"--batch_size={batch}",
-            f"--grad_accum_steps={accum}", "--precision=bf16", f"--steps={steps}",
-            "--log_every=1", "--device=cuda", "--seed=0"]
+    args = train_lib.parse_args(argv)
     rec = StepRecorder(profiled)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     for name in fa.LAUNCHES:
         fa.LAUNCHES[name] = 0
-    result = train_lib.run(train_lib.parse_args(argv), hooks=[rec])
+    result = (train_lib.run(args, hooks=[rec]) if factory is None
+              else run_workload(args, [rec], **factory))
     torch.cuda.synchronize()
     launches = dict(fa.LAUNCHES)
+    steps = args.steps
     step_s = [b - a for a, b in zip(rec.t, rec.t[1:])]
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
     losses = [rec.losses.get(s) for s in range(1, steps + 1)]
-    print(f"[train] GPT-2 medium {' '.join(argv)}")
-    print(f"[train] losses {losses}  result {result}")
+    print(f"[train] {label}: {' '.join(argv)} {factory or ''}")
+    print(f"[train] {label}: losses {losses}  result {result}")
     unprofiled = statistics.median(s for i, s in enumerate(step_s[1:], 2) if i != profiled)
     host = statistics.median(s for i, s in enumerate(rec.host[1:], 2) if i != profiled)
-    print(f"[train] step seconds {[round(s, 4) for s in step_s]} (step {profiled} profiled)  "
-          f"tokens/s (median of the unprofiled steps after the first) "
-          f"{batch * 1024 / unprofiled:.1f}  peak memory {peak_mib:.1f} MiB")
-    print(f"[train] host enqueue seconds {[round(s, 4) for s in rec.host]}: median "
+    rate = per_step / unprofiled
+    mfu = "" if flops_per_step is None else (
+        f"  MFU {flops_per_step / unprofiled / PEAK_BF16_FLOPS:.1%} "
+        f"({flops_per_step / 1e12:.2f} TFLOP a step over {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s)")
+    print(f"[train] {label}: step seconds {[round(s, 4) for s in step_s]} (step {profiled} "
+          f"profiled)  {units}/s (median of the unprofiled steps after the first) {rate:.1f}"
+          f"{mfu}  peak memory {peak_mib:.1f} MiB")
+    print(f"[train] {label}: host enqueue seconds {[round(s, 4) for s in rec.host]}: median "
           f"{1e3 * host:.1f} ms, {host / unprofiled:.1%} of the step wall")
-    per_launch = step_breakdown(rec.prof, unprofiled)
-    print(f"[train] launches {launches}: per step "
+    per_launch, parts, idle = step_breakdown(rec.prof, unprofiled)
+    print(f"[train] {label}: launches {launches}: per step "
           f"{ {name: n / steps for name, n in launches.items()} }")
     if len(losses) != steps or not all(x is not None and math.isfinite(x) for x in losses):
-        raise AssertionError(f"loss not finite every step: {losses}")
-    # Per step: dQ and dK/dV once a layer and microbatch, the forward at
-    # least as often (twice under remat), and neither pre-pass.
-    per_run = 24 * accum * steps
+        raise AssertionError(f"{label}: loss not finite every step: {losses}")
+    return {"launches": launches, "per_launch": per_launch, "parts": parts, "idle": idle,
+            "step_s": unprofiled, "rate": rate, "peak_mib": peak_mib, "steps": steps}
+
+
+def assert_flash_launches(label, launches, per_step, steps):
+    """dQ and dK/dV once a layer and microbatch, the forward at least as
+    often (twice under remat), and neither pre-pass."""
+    per_run = per_step * steps
     if (any(launches[name] != per_run for name in ("flash_bwd_dq", "flash_bwd_dkv"))
             or launches["flash_fwd"] < per_run or any(launches[n] for n in PREPASSES)):
-        raise AssertionError(f"expected {per_run} dQ and dK/dV launches, at least {per_run} "
-                             f"forward launches and no pre-pass launch, got {launches}")
-    return launches, per_launch
+        raise AssertionError(f"{label}: expected {per_run} dQ and dK/dV launches, at least "
+                             f"{per_run} forward launches and no pre-pass launch, got {launches}")
+
+
+def train_medium(fa):
+    steps, batch, accum = 5, 32, 4
+    argv = ["--model=gpt2", "--flash_attention", f"--batch_size={batch}",
+            f"--grad_accum_steps={accum}", "--precision=bf16", f"--steps={steps}",
+            "--log_every=1", "--device=cuda", "--seed=0"]
+    r = train_phase(fa, "GPT-2 medium", argv, units="tokens", per_step=batch * 1024)
+    assert_flash_launches("GPT-2 medium", r["launches"], 24 * accum, steps)
+    return r["launches"], r["per_launch"]
+
+
+def resnet_forward_flops(image_size=224) -> float:
+    """Forward FLOPs of one ResNet-50 image (convolutions and the logits
+    GEMM), counted by torch's FlopCounterMode from the port's own forward."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from distributed_tensorflow_tpu_torch.models import resnet
+
+    model = resnet.ResNet(device="cuda")
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        model(torch.zeros(1, image_size, image_size, 3, device="cuda"))
+    return float(counter.get_total_flops())
+
+
+def bert_step_flops(B, T, cfg, K) -> float:
+    """Training FLOPs of a BERT step from its shapes (3x the forward; remat's
+    recompute not counted): the encoder's GEMMs, QK^T and PV over all T x T
+    pairs, and the MLM head's dense and tied vocabulary product on K rows."""
+    d, L = cfg.d_model, cfg.n_layer
+    enc = 2 * B * T * L * (4 * d * d + 2 * d * cfg.d_ff)
+    attn = 4 * B * T * T * d * L
+    head = 2 * B * K * (d * d + d * cfg.vocab_size)
+    return 3.0 * (enc + attn + head)
+
+
+def train_resnet(fa):
+    """ResNet-50 through train_lib (batch 256, 224x224, bf16, SGD Nesterov,
+    augmentation), then the port's bench (its own JSON line)."""
+    from distributed_tensorflow_tpu_torch import bench
+
+    fwd = resnet_forward_flops()
+    print(f"[train] ResNet-50 forward: {fwd / 1e9:.3f} GFLOP an image at 224x224 "
+          f"(FlopCounterMode), x3 for a training step")
+    argv = ["--model=resnet50", "--batch_size=256", "--steps=5", "--log_every=1",
+            "--device=cuda", "--seed=0"]
+    r = train_phase(fa, "ResNet-50", argv, units="images", per_step=256,
+                    flops_per_step=3 * fwd * 256)
+    if any(r["launches"].values()):
+        raise AssertionError(f"ResNet-50 launched flash kernels: {r['launches']}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = bench.main([])
+    print(f"[bench] peak memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; MFU "
+          f"{out['value'] * 3 * fwd / PEAK_BF16_FLOPS:.1%}")
+
+
+def train_bert(fa):
+    """BERT-base: seq 512 with flash (the reference's phase-2 default),
+    batch 256, built with the factory's seq_len (``run_workload``); then
+    seq 128 through the CLI's --flash_attention."""
+    from distributed_tensorflow_tpu_torch.data.pipeline import mlm_max_predictions
+    from distributed_tensorflow_tpu_torch.models import bert
+
+    cfg, results = bert.BertConfig.base(), {}
+    for seq, argv_extra, factory in ((512, [], {"seq_len": 512}),
+                                     (128, ["--flash_attention"], None)):
+        label = f"BERT-base seq {seq}"
+        argv = ["--model=bert", "--batch_size=256", "--steps=5", "--log_every=1",
+                "--device=cuda", "--seed=0", *argv_extra]
+        r = train_phase(fa, label, argv, units="tokens", per_step=256 * seq,
+                        factory=factory,
+                        flops_per_step=bert_step_flops(256, seq, cfg, mlm_max_predictions(seq)))
+        assert_flash_launches(label, r["launches"], cfg.n_layer, r["steps"])
+        results[seq] = r
+    return results
+
+
+def mlm_key_lengths(B, T, seed=0):
+    """Key lengths as synthetic_mlm draws them (in [T / 2, T])."""
+    from distributed_tensorflow_tpu_torch.data.pipeline import synthetic_mlm
+
+    return [int(n) for n in next(synthetic_mlm(batch_size=B, seq_len=T, vocab_size=30522,
+                                               seed=seed))["input_mask"].sum(1)]
+
+
+def train_mnist(fa):
+    argv = ["--steps=5", "--log_every=1", "--device=cuda", "--seed=0"]  # the default model
+    r = train_phase(fa, "MNIST", argv, units="images", per_step=256)
+    if any(r["launches"].values()):
+        raise AssertionError(f"MNIST launched flash kernels: {r['launches']}")
+
+
+def _leafwise(results, what):
+    (lc, gc), (lp, gp) = results["cuda"], results["cpu"]
+    elem = max(max_err(a, b) / (float(b.abs().max()) + 1e-12) for a, b in zip(gc, gp))
+    l2 = max(float((a - b).norm() / (b.norm() + 1e-12)) for a, b in zip(gc, gp))
+    glob = math.sqrt(sum(float((a - b).norm()) ** 2 for a, b in zip(gc, gp))) / math.sqrt(
+        sum(float(b.norm()) ** 2 for b in gp))
+    print(f"[compare] {what} card vs CPU: loss {lc:.6f} vs {lp:.6f}; worst gradient leaf: "
+          f"max err / its largest entry {elem:.4f}, L2 err / its L2 {l2:.4f}; global L2 {glob:.4f}")
+    return abs(lc - lp), elem, l2, glob
+
+
+def check_tiny_resnet():
+    """Tiny ResNet (stages (1,1,1,1), 16 filters, 32x32, batch 8) on the card
+    (cuDNN, no TF32) against the same weights and images on the CPU.  In
+    float32: the loss to 1e-5, every gradient entry to 1e-3 of its leaf's
+    largest and the new running statistics to 1e-5.  In bf16 the loss to
+    1e-2; its gradient is held against the float32 one on the CPU, no
+    farther from it than 1.5x the CPU's bf16 gradient is (the two bf16
+    gradients differ by far more than their rounding: BatchNorm's backward
+    over few values cancels, and the CPU tests find the reference's own
+    bf16 gradient 28% from its f32 one in the global L2 norm)."""
+    from distributed_tensorflow_tpu_torch.models import resnet
+    from distributed_tensorflow_tpu_torch.training.train_state import BF16, FP32
+
+    gen = torch.Generator().manual_seed(0)
+    image = torch.randn(8, 32, 32, 3, generator=gen)
+    label = torch.randint(0, 10, (8,), generator=gen)
+    tiny = dict(stage_sizes=(1, 1, 1, 1), num_filters=16, num_classes=10)
+    base = resnet.ResNet(**tiny, dtype=torch.float32, norm_dtype=torch.float32)
+    with torch.no_grad():  # no identity BatchNorm, no dead branch
+        for name, p in base.named_parameters():
+            if name.endswith(("bn1.weight", "bn2.weight", "bn3.weight", "bn_init.weight")):
+                p.normal_(1.0, 0.2, generator=gen)
+    results = {}
+    for dtype, precision in ((torch.float32, FP32), (torch.bfloat16, BF16)):
+        model = resnet.ResNet(**tiny, dtype=dtype, norm_dtype=dtype)
+        model.load_state_dict(base.state_dict())
+        stats = {}
+        for dev in ("cuda", "cpu"):
+            params = precision.cast_for_compute(
+                {k: v.to(dev) for k, v in model.named_parameters()})
+            state = {k: v.to(dev) for k, v in model.named_buffers()}
+            batch = {"image": image.to(dev), "label": label.to(dev)}
+            loss, _, new = resnet._loss_fn(model, 0.1, params, state, batch, None)
+            grads = torch.autograd.grad(loss, list(params.values()))
+            results[dtype, dev] = (float(loss.detach()), [g.float().cpu() for g in grads])
+            stats[dev] = {k: v.cpu() for k, v in new.items()}
+        dloss, elem, _, _ = _leafwise({d: results[dtype, d] for d in ("cuda", "cpu")},
+                                      f"tiny ResNet {dtype}")
+        serr = max(max_err(stats["cuda"][k], stats["cpu"][k]) for k in stats["cpu"])
+        print(f"[compare] tiny ResNet {dtype}: running statistics max_abs_err {serr:.3e}")
+        if dtype == torch.float32:
+            ok = dloss <= 1e-5 * max(1.0, results[dtype, "cpu"][0]) and elem <= 1e-3 and serr <= 1e-5
+        else:
+            truth = results[torch.float32, "cpu"][1]
+
+            def dist(grads):
+                return math.sqrt(sum(float((a - b).norm()) ** 2 for a, b in zip(grads, truth)))
+
+            card, cpu = dist(results[dtype, "cuda"][1]), dist(results[dtype, "cpu"][1])
+            scale = math.sqrt(sum(float(b.norm()) ** 2 for b in truth))
+            print(f"[compare] tiny ResNet bf16 gradient's L2 distance from the f32 one (CPU): "
+                  f"card {card / scale:.4f}, CPU {cpu / scale:.4f} of its norm (tolerance: card "
+                  f"<= 1.5x CPU)")
+            ok = dloss < 1e-2 and card <= 1.5 * cpu
+        if not ok:
+            raise AssertionError(f"tiny ResNet {dtype} on the card differs from the CPU")
+
+
+def check_tiny_bert_bf16(fa):
+    """Tiny BERT (head dim 64) in bf16 with the flash kernels on the card,
+    non-causal with synthetic_mlm's ragged key mask, against the same
+    weights and batch on the CPU (plain versions): the loss to 1e-2, each
+    gradient leaf to 5% of its largest entry, as for GPT-2."""
+    from distributed_tensorflow_tpu_torch.data.pipeline import synthetic_mlm
+    from distributed_tensorflow_tpu_torch.models import bert
+    from distributed_tensorflow_tpu_torch.training.train_state import BF16
+
+    cfg = dataclasses.replace(bert.BertConfig.tiny(dtype=torch.bfloat16, use_flash_attention=True),
+                              d_model=128, n_head=2, d_ff=256, max_positions=128, remat=False)
+    model = bert.BertPretrain(cfg, device="cpu", seed=0)
+    batch = next(synthetic_mlm(batch_size=4, seq_len=128, vocab_size=256, seed=1))
+    results = {}
+    for dev in ("cuda", "cpu"):
+        before = dict(fa.LAUNCHES)
+        params = BF16.cast_for_compute({k: v.to(dev) for k, v in model.named_parameters()})
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        loss, _ = bert._loss_fn(model, True, params, tb, None)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        results[dev] = (float(loss.detach()), [x.float().cpu() for x in grads])
+        ran = {n: fa.LAUNCHES[n] - before[n] for n in fa.LAUNCHES}
+        on_path = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+        if ((dev == "cuda") != all(ran[n] > 0 for n in on_path)
+                or any(ran[n] for n in PREPASSES)):
+            raise AssertionError(f"tiny BERT bf16 on {dev}: kernel launches {ran}")
+    dloss, elem, _, _ = _leafwise(results, "tiny BERT bf16 (flash, D=64, ragged keys)")
+    if not (dloss < 1e-2 and elem <= 0.05):
+        raise AssertionError("tiny BERT bf16 through the kernels differs from the CPU")
+
+
+def sdpa_backend(fn) -> str:
+    """The names of the kernels one call of ``fn`` runs, by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = sorted(((getattr(e, "self_device_time_total", None)
+                      or getattr(e, "self_cuda_time_total", 0), e.key)
+                     for e in prof.key_averages()), reverse=True)
+    return "; ".join(name[:100] for us, name in events[:3] if us)
+
+
+def time_bert_kernels(fa, philox_per_draw, int_rate):
+    """The forward, dQ and dK/dV at BERT-base's training shape (B=256, T=512,
+    H=12, D=64, bf16, non-causal, synthetic_mlm's key lengths), as device
+    time alone (``queued_ms``), at dropout 0.1 and 0, beside SDPA's forward
+    and backward given the same boolean key mask, and the bound of this
+    data's work."""
+    from distributed_tensorflow_tpu_torch.models import bert
+
+    B, T, H, D = BERT["B"], BERT["T"], BERT["H"], BERT["D"]
+    lens = mlm_key_lengths(B, T, seed=3)
+    q, k, v, g, mask, _ = make_inputs(B, T, H, D, torch.bfloat16, seed=11, mask_lens=lens)
+    args = dict(causal=False, scale=1.0 / math.sqrt(D), dropout_rate=DROPOUT, seed=SEED)
+    out, lse, bits = fa.flash_fwd(q, k, v, mask, keep_out=True, **args)
+    bwd = (q, k, v, out, g, lse, None, mask)
+    _, delta = fa.flash_bwd_dq(*bwd, keep=bits, return_delta=True, **args)
+
+    def backward(rate):
+        a = dict(args, dropout_rate=rate, keep=bits if rate else None)
+        _, dlt = fa.flash_bwd_dq(*bwd, return_delta=True, **a)
+        return fa.flash_bwd_dkv(*bwd, delta=dlt, **a)
+
+    fns = {"flash_fwd": lambda: fa.flash_fwd(q, k, v, mask, keep_out=True, **args),
+           "flash_bwd_dq": lambda: fa.flash_bwd_dq(*bwd, keep=bits, return_delta=True, **args),
+           "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(*bwd, delta=delta, keep=bits, **args),
+           "backward (dQ, dK/dV)": lambda: backward(DROPOUT),
+           "flash_fwd at dropout 0": lambda: fa.flash_fwd(q, k, v, mask,
+                                                          **dict(args, dropout_rate=0.0)),
+           "backward at dropout 0": lambda: backward(0.0),
+           # each wrapper call converts the key mask (ops/flash_attention.py:_mask_ptr)
+           "key-mask conversion": lambda: fa._mask_ptr(mask, B, T)}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
+    gt, keys = g.transpose(1, 2), (mask > 0)[:, None, None, :]
+    for rate in (DROPOUT, 0.0):
+        fns[f"SDPA fwd at dropout {rate}"] = lambda r=rate: sdpa(qt, kt, vt, attn_mask=keys,
+                                                                 dropout_p=r)
+        fns[f"SDPA bwd at dropout {rate}"] = lambda o=fns[f"SDPA fwd at dropout {rate}"](): \
+            torch.autograd.grad(o, (qt, kt, vt), gt, retain_graph=True)
+    backend = {rate: sdpa_backend(fns[f"SDPA fwd at dropout {rate}"]) for rate in (DROPOUT, 0.0)}
+    for rate, names in backend.items():
+        print(f"[time] BERT shape: SDPA with a boolean key mask at dropout {rate} runs: {names}")
+    queued = queued_ms(fns)
+    for label, ms in queued.items():
+        print(f"[time] BERT shape {BERT} (key lengths {min(lens)}-{max(lens)}), queued "
+              f"(device time alone): {label}: {ms:.4f} ms")
+    work = bounds(B, T, H, D, False, 2, philox_per_draw, key_lens=lens)
+    peak = {"bf16": PEAK_BF16_FLOPS, "int": int_rate}
+    rows = {}
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        bms, by = bound_ms(*work[name], peak)
+        lib = queued[f"SDPA {'fwd' if name == 'flash_fwd' else 'bwd'} at dropout {DROPOUT}"]
+        rows[name] = {"queued_ms": queued[name], "bound_ms": bms, "bound_by": by,
+                      "library_queued_ms": lib, "library_backend": backend[DROPOUT]}
+        print(f"[time] BERT shape {name}: queued {queued[name]:.4f} ms, bound {bms:.4f} ms ({by}, "
+              f"valid keys only) -> {100 * bms / queued[name]:.2f}% of bound; SDPA "
+              f"({'fwd' if name == 'flash_fwd' else 'bwd, dq+dk+dv'}) {lib:.4f} ms")
+    for rate in (DROPOUT, 0.0):
+        mine = queued["backward (dQ, dK/dV)" if rate else "backward at dropout 0"]
+        fwd = queued["flash_fwd" if rate else "flash_fwd at dropout 0"]
+        print(f"[time] BERT shape at dropout {rate}: forward {fwd:.4f} vs SDPA "
+              f"{queued[f'SDPA fwd at dropout {rate}']:.4f} ms "
+              f"({fwd / queued[f'SDPA fwd at dropout {rate}']:.3f}x); backward {mine:.4f} vs "
+              f"SDPA {queued[f'SDPA bwd at dropout {rate}']:.4f} ms "
+              f"({mine / queued[f'SDPA bwd at dropout {rate}']:.3f}x)")
+    # a layer's calls: the forward twice (remat), dQ and dK/dV
+    per_step = 4 * bert.BertConfig.base().n_layer
+    print(f"[time] BERT shape: the key-mask conversion of each wrapper call takes "
+          f"{queued['key-mask conversion']:.4f} ms: {per_step} calls, "
+          f"{per_step * queued['key-mask conversion']:.3f} ms of a BERT-base step")
+    rows["flash_fwd"]["queued_ms_dropout_0"] = queued["flash_fwd at dropout 0"]
+    rows["flash_fwd"]["mask_conversion_queued_ms"] = queued["key-mask conversion"]
+    rows["flash_fwd"]["backward_queued_ms"] = queued["backward (dQ, dK/dV)"]
+    rows["flash_fwd"]["library_fwd_queued_ms_dropout_0"] = queued["SDPA fwd at dropout 0.0"]
+    rows["flash_fwd"]["library_bwd_queued_ms"] = queued[f"SDPA bwd at dropout {DROPOUT}"]
+    return rows
 
 
 def main() -> int:
@@ -817,15 +1199,42 @@ def main() -> int:
                  rate=DROPOUT)
     compare_case(fa, "head_dim 16", B=2, T=128, H=4, D=16, dtype=torch.bfloat16, causal=True,
                  rate=DROPOUT)
+    # BERT-base at the shapes its training steps give the kernels (the
+    # seq-512 and seq-128 phases of train_bert), bf16: the tensor-core kernels
+    bert_errors = {}
+    for T in (512, 128):
+        bert = dict(BERT, T=T, dtype=torch.bfloat16, causal=False,
+                    mask_lens=mlm_key_lengths(BERT["B"], T))
+        bert_errors[T] = kernel_errors(compare_case(fa, f"BERT-base T={T} dropout 0.1",
+                                                    rate=DROPOUT, **bert))
+        compare_case(fa, f"BERT-base T={T} dropout 0", rate=0.0, **bert)
+        torch.cuda.empty_cache()  # the plain versions' (B, H, T, T) tensors
+    # float32 (--precision=fp32) runs the FMA kernels
+    compare_case(fa, "BERT-base float32 T=128", B=4, T=128, H=12, D=64, dtype=torch.float32,
+                 causal=False, rate=DROPOUT, mask_lens=mlm_key_lengths(4, 128))
     check_tiny_model()
     check_tiny_model_bf16(fa)
+    check_tiny_bert_bf16(fa)
+    check_tiny_resnet()
 
     timing = time_kernels(fa, philox_per_draw, int_rate)
+    bert_timing = time_bert_kernels(fa, philox_per_draw, int_rate)
     launches, step_device_ms = train_medium(fa)
+    bert_runs = train_bert(fa)
+    train_resnet(fa)
+    train_mnist(fa)
 
     kernels = []
     for name in _build.KERNELS:
         r = timing[name]
+        by_path = {"gpt2_medium": launches[name],
+                   **{f"bert_base_seq{seq}": run["launches"][name]
+                      for seq, run in bert_runs.items()}}
+        bert_row = bert_timing.get(name)
+        if bert_row is not None:
+            bert_row = dict(bert_row, step_device_ms=bert_runs[512]["per_launch"].get(name),
+                            max_abs_err=bert_errors[512][name],
+                            max_abs_err_seq128=bert_errors[128][name])
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"distributed_tensorflow_tpu_torch/ops/csrc/{name}.cu",
@@ -834,7 +1243,8 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "library_scope": r["library_scope"],
             "device_ms": r["device_ms"], "queued_ms": r["queued_ms"],
-            "step_device_ms": step_device_ms.get(name),
+            "step_device_ms": step_device_ms.get(name), "launches_by_path": by_path,
+            "bert_base": bert_row,
             **{key: val for key, val in r.items() if key.startswith(("ms_", "device_ms_",
                                                                      "queued_ms_", "library_",
                                                                      "backward_"))

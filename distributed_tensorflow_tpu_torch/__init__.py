@@ -2,7 +2,9 @@
 ``distributed_tensorflow_tpu`` for NVIDIA Hopper.
 
 It imports ``torch`` and never JAX or the JAX package.  So far it holds the
-GPT-2 training path (``train_lib``) on the hand-written flash-attention
-kernels (``ops/flash_attention.py``, ``ops/csrc``).  Entry points run on
-``cuda`` unless the caller asks for ``cpu``.
+training paths (``train_lib``) of MNIST, ResNet-50, BERT and GPT-2, the
+last two on the hand-written flash-attention kernels
+(``ops/flash_attention.py``, ``ops/csrc``), and the train-mode bench
+(``bench``).  Entry points run on ``cuda`` unless the caller asks for
+``cpu``.
 """

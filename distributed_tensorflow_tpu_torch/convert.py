@@ -1,18 +1,30 @@
-"""GPT-2 weights between the flax parameter tree and the port's state dict.
+"""Weights between the flax variable trees and the port's state dicts.
 
-Flax Dense kernels are stored (in, out) and ``nn.Linear.weight`` is
-(out, in); a LayerNorm ``scale`` is ``weight``; ``wte`` stays tied to the
-head.  The flax tree comes in two layouts: the scanned stack
-(``blocks/<module>/<leaf>`` with a leading layer dim, the reference's
-default) and one ``h_<i>`` subtree per layer.
+GPT-2 (``params_from_flax``/``params_to_flax``): Flax Dense kernels are
+stored (in, out) and ``nn.Linear.weight`` is (out, in); a LayerNorm
+``scale`` is ``weight``; ``wte`` stays tied to the head.  The flax tree
+comes in two layouts: the scanned stack (``blocks/<module>/<leaf>`` with a
+leading layer dim, the reference's default) and one ``h_<i>`` subtree per
+layer.
+
+MNIST, ResNet and BERT (``variables_from_flax``/``variables_to_flax``): the
+port's modules carry the flax names, so a torch name is the flax path
+joined by dots, and the owning module's type says how the leaf converts:
+Conv kernels HWIO <-> OIHW ``weight``, Dense kernels (in, out) <->
+``weight`` (out, in), ``embedding`` <-> an ``nn.Embedding``'s ``weight``, a
+norm's ``scale`` <-> ``weight``.  BatchNorm's ``batch_stats`` collection
+(``mean``, ``var``) is the port's buffers of the same names.  A subtree
+scanned over layers (BERT's ``layers``, leading axis ``n_layer``) is the
+port's ``ModuleList`` of the same name.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Iterable, List, Mapping, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 _DENSE = ("c_attn", "c_proj", "mlp_c_fc", "mlp_c_proj")
 _NORMS = ("ln_1", "ln_2")
@@ -78,4 +90,95 @@ def params_to_flax(state_dict: Mapping[str, torch.Tensor], *, scanned: bool = Tr
                               for leaf in layers[0][m]} for m in _DENSE + _NORMS}
     else:
         tree.update({f"h_{i}": layer for i, layer in enumerate(layers)})
+    return tree
+
+
+# -- MNIST, ResNet, BERT -------------------------------------------------------
+
+def _flax_leaf(module: nn.Module, name: str, is_buffer: bool,
+               scanned: Iterable[str]) -> Tuple[str, List[str], int, str]:
+    """(collection, flax path, layer index or -1, kind) of a torch name."""
+    parts = name.split(".")
+    owner = module.get_submodule(".".join(parts[:-1])) if len(parts) > 1 else module
+    leaf = parts[-1]
+    kind = "copy"
+    if is_buffer:
+        collection = "batch_stats"
+    else:
+        collection = "params"
+        if leaf == "weight" and isinstance(owner, nn.Conv2d):
+            leaf, kind = "kernel", "conv"
+        elif leaf == "weight" and isinstance(owner, nn.Linear):
+            leaf, kind = "kernel", "dense"
+        elif leaf == "weight" and isinstance(owner, nn.Embedding):
+            leaf = "embedding"
+        elif leaf == "weight" and owner is not module:  # LayerNorm, BatchNorm
+            leaf = "scale"
+    path, index = parts[:-1] + [leaf], -1
+    if parts[0] in scanned:
+        index = int(parts[1])
+        path = [parts[0]] + path[2:]
+    return collection, path, index, kind
+
+
+def _to_torch_layout(x: np.ndarray, kind: str) -> np.ndarray:
+    if kind == "conv":
+        return np.transpose(x, (3, 2, 0, 1))  # HWIO -> OIHW
+    return x.T if kind == "dense" else x
+
+
+def _to_flax_layout(x: np.ndarray, kind: str) -> np.ndarray:
+    if kind == "conv":
+        return np.transpose(x, (2, 3, 1, 0))  # OIHW -> HWIO
+    return x.T if kind == "dense" else x
+
+
+def _named_tensors(module: nn.Module):
+    yield from ((n, False) for n, _ in module.named_parameters())
+    yield from ((n, True) for n, _ in module.named_buffers())
+
+
+def variables_from_flax(module: nn.Module, variables: Mapping[str, Any], *,
+                        scanned: Iterable[str] = ("layers",)) -> Dict[str, torch.Tensor]:
+    """Flax variables ({"params": ..., "batch_stats": ...}) -> a state dict
+    for ``module`` (float32 CPU tensors), ready for ``load_state_dict``."""
+    out = {}
+    for name, is_buffer in _named_tensors(module):
+        collection, path, index, kind = _flax_leaf(module, name, is_buffer, tuple(scanned))
+        x = variables[collection]
+        for key in path:
+            x = x[key]
+        x = _np(x)
+        if index >= 0:
+            x = x[index]
+        out[name] = torch.from_numpy(np.array(_to_torch_layout(x, kind), order="C"))
+    return out
+
+
+def variables_to_flax(module: nn.Module, tensors: Mapping[str, torch.Tensor], *,
+                      scanned: Iterable[str] = ("layers",)) -> Dict[str, Any]:
+    """Tensors named as ``module``'s parameters and buffers (its state dict,
+    or a dict of its gradients or optimizer moments) -> flax variables of
+    float32 numpy arrays; a collection none of whose tensors is given is
+    left out."""
+    scanned = tuple(scanned)
+    stacks: Dict[Tuple[str, Tuple[str, ...]], Dict[int, np.ndarray]] = {}
+    tree: Dict[str, Any] = {}
+    for name, is_buffer in _named_tensors(module):
+        if name not in tensors:
+            continue
+        collection, path, index, kind = _flax_leaf(module, name, is_buffer, scanned)
+        x = np.array(_to_flax_layout(tensors[name].detach().float().cpu().numpy(), kind))
+        if index >= 0:
+            stacks.setdefault((collection, tuple(path)), {})[index] = x
+            continue
+        node = tree.setdefault(collection, {})
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = x
+    for (collection, path), layers in stacks.items():
+        node = tree.setdefault(collection, {})
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.stack([layers[i] for i in range(len(layers))])
     return tree

@@ -1,12 +1,15 @@
-"""Input pipeline: host batch size, synthetic LM stream, device prefetch.
+"""Input pipeline: host batch size, synthetic streams, device batches.
 
 Port of the parts of ``distributed_tensorflow_tpu/data/pipeline.py`` that
-single-device GPT-2 training runs: ``shard_options``,
-``per_host_batch_size``, ``synthetic_lm`` (copied so that it yields the
-same bytes for the same seed) and a device-prefetch iterator in place of
-``DevicePrefetchIterator``.  One process feeds one device; the
-multi-process layouts (``host_batch_layout``, the stream override,
-``make_global_batches``) come with the parallelism slice.
+single-device training runs: ``shard_options``, ``per_host_batch_size``,
+the synthetic streams of the ported workloads (``synthetic_lm``,
+``synthetic_image_classification``, ``synthetic_mlm`` and
+``mlm_max_predictions``, copied so that they yield the same bytes for the
+same seed), ``make_global_batches`` (here: batches moved to one device) and
+a device-prefetch iterator in place of ``DevicePrefetchIterator``.  One
+process feeds one device; the multi-process layouts
+(``host_batch_layout``, the stream override) come with the parallelism
+slice.
 """
 
 from __future__ import annotations
@@ -42,6 +45,81 @@ def synthetic_lm(*, batch_size: int, seq_len: int, vocab_size: int, seed: int = 
         steps = rng.randint(1, 7, size=(batch_size, seq_len))
         tokens = (start + np.cumsum(steps, axis=1)) % vocab_size
         yield {"tokens": tokens.astype(np.int32)}
+
+
+def synthetic_image_classification(*, batch_size: int, image_size: tuple = (28, 28, 1),
+                                   num_classes: int = 10, seed: int = 0, dtype=np.float32,
+                                   holdout: bool = False) -> Iterator[Batch]:
+    """Deterministic synthetic (image, label) stream; the label depends on
+    the image (a class template plus noise), so the model can learn."""
+    num_shards, index = shard_options()
+    rng = np.random.RandomState(seed * 1009 + index + (500_009 if holdout else 0))
+    # Class templates are seed-derived but host-independent.
+    tmpl_rng = np.random.RandomState(seed)
+    templates = tmpl_rng.randn(num_classes, *image_size).astype(np.float32)
+    while True:
+        y = rng.randint(0, num_classes, size=(batch_size,)).astype(np.int32)
+        noise = rng.randn(batch_size, *image_size).astype(np.float32)
+        x = (0.7 * templates[y] + noise).astype(dtype)
+        yield {"image": x, "label": y}
+
+
+def mlm_max_predictions(seq_len: int, mask_rate: float = 0.15) -> int:
+    """The reference's ``max_predictions_per_seq``: a fixed count of
+    prediction slots, so the MLM head runs on a (B, K) gather."""
+    return max(1, int(seq_len * mask_rate))
+
+
+def synthetic_mlm(*, batch_size: int, seq_len: int, vocab_size: int, mask_token: int = 1,
+                  mask_rate: float = 0.15, seed: int = 0,
+                  holdout: bool = False) -> Iterator[Batch]:
+    """BERT-pretraining-style stream: masked tokens, segment ids, an NSP
+    label, variable lengths in [seq_len // 2, seq_len] marked by
+    ``input_mask``, and K = ``mlm_max_predictions(seq_len)`` prediction
+    slots per example inside the valid length."""
+    num_shards, index = shard_options()
+    rng = np.random.RandomState(seed * 3001 + index + (500_009 if holdout else 0))
+    half = seq_len // 2
+    K = mlm_max_predictions(seq_len, mask_rate)
+    positions_idx = np.arange(seq_len)[None, :]
+    while True:
+        start = rng.randint(2, vocab_size, size=(batch_size, 1))
+        steps = rng.randint(1, 7, size=(batch_size, seq_len))
+        tokens = (start + np.cumsum(steps, axis=1)) % vocab_size
+        tokens = np.maximum(tokens, 2)  # 0=pad, 1=mask reserved
+        # NSP: for half the examples the second segment is unrelated.
+        nsp = rng.randint(0, 2, size=(batch_size,))
+        rand_seg = rng.randint(2, vocab_size, size=(batch_size, seq_len - half))
+        second = np.where(nsp[:, None] == 1, tokens[:, half:], rand_seg)
+        tokens = np.concatenate([tokens[:, :half], second], axis=1)
+        lengths = rng.randint(half, seq_len + 1, size=(batch_size, 1))
+        input_mask = (positions_idx < lengths).astype(np.int32)
+        tokens = np.where(input_mask > 0, tokens, 0)
+        segment_ids = ((positions_idx >= half) & (positions_idx < lengths))
+        # K distinct masked positions per example, all within the valid
+        # length: padded slots' sort keys lie past every valid slot's.
+        sort_keys = rng.rand(batch_size, seq_len) + (input_mask == 0) * 2.0
+        positions = np.argsort(sort_keys, axis=1)[:, :K].astype(np.int32)
+        targets = np.take_along_axis(tokens, positions, axis=1)
+        masked = tokens.copy()
+        np.put_along_axis(masked, positions, mask_token, axis=1)
+        yield {
+            "tokens": masked.astype(np.int32),
+            "input_mask": input_mask,
+            "mlm_positions": positions,
+            "mlm_targets": targets.astype(np.int32),
+            "mlm_weights": np.ones((batch_size, K), np.float32),
+            "segment_ids": segment_ids.astype(np.int32),
+            "nsp_label": nsp.astype(np.int32),
+        }
+
+
+def make_global_batches(host_iter: Iterable[Batch], device) -> Iterator[Dict[str, torch.Tensor]]:
+    """Per-host numpy batches as tensors on ``device`` (one process feeds
+    one device, so the global batch is the host's)."""
+    device = torch.device(device)
+    for batch in host_iter:
+        yield {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}
 
 
 _DONE = object()

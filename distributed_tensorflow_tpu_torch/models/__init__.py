@@ -2,16 +2,16 @@
 
 Port of ``distributed_tensorflow_tpu/models/__init__.py``.  Each model
 module exposes ``make_workload(**overrides) -> Workload``; the registry
-maps CLI names to factories.  Only GPT-2 is ported so far: the other names
-stay registered and raise ``NotImplementedError``, as the reference does
-for a registered model whose module is missing.
+maps CLI names to factories.  MNIST, ResNet-50, BERT and GPT-2 are
+ported; ``wide_deep`` stays registered and raises ``NotImplementedError``,
+as the reference does for a registered model whose module is missing.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Any, Callable, Dict, Iterator, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, Iterator, Optional, Tuple
 
 from torch import nn
 
@@ -19,20 +19,43 @@ from torch import nn
 @dataclasses.dataclass
 class Workload:
     name: str
-    module: nn.Module  # owns the float32 master parameters
-    loss_fn: Callable  # (params, batch, seed) -> (loss, aux_dict)
+    module: nn.Module  # owns the float32 master parameters (and model state)
+    # (params, batch, seed) -> (loss, aux_dict); with ``stateful`` it is
+    # (params, model_state, batch, seed) -> (loss, aux_dict, new_model_state)
+    loss_fn: Callable
     data_fn: Callable[[int], Iterator[Dict[str, Any]]]  # per-host batch iter
     batch_size: int  # default global batch size
     grad_accum_steps: int = 1
     clip_grad_norm: Optional[float] = None
     learning_rate: float = 1e-3
     warmup_steps: int = 100
+    # key in the batch dict whose leading dim counts "examples" for metrics
+    example_key: str = "image"
+    # True if the model carries state besides its parameters (BatchNorm's
+    # running statistics, the module's buffers): loss_fn then takes and
+    # returns it.
+    stateful: bool = False
+    # Inference-mode loss for evaluation, with loss_fn's signature; a
+    # stateful one uses the running statistics and returns the state
+    # unchanged.  None: reuse loss_fn.
+    eval_loss_fn: Optional[Callable] = None
+    # Optimizer factory: parameters -> torch.optim.Optimizer, whose learning
+    # rate TrainState sets from the schedule every update.  None: AdamW.
+    make_optimizer: Optional[Callable[[Iterable[nn.Parameter]], Any]] = None
+    # Host-side staging transform for record files (e.g. images to uint8)
+    # and its inverse, run on the device inside the step; from_record is a
+    # no-op on batches that were never staged.
+    to_record: Optional[Callable[[Dict[str, Any]], Dict[str, Any]]] = None
+    from_record: Optional[Callable[[Dict[str, Any]], Dict[str, Any]]] = None
+    # Per-step device-side augmentation of training batches, applied to the
+    # raw batch before from_record: (batch, seed) -> batch.
+    augment_fn: Optional[Callable[[Dict[str, Any], int], Dict[str, Any]]] = None
 
 
 _REGISTRY = {
-    "mnist": None,
-    "resnet50": None,
-    "bert": None,
+    "mnist": "distributed_tensorflow_tpu_torch.models.mnist_cnn",
+    "resnet50": "distributed_tensorflow_tpu_torch.models.resnet",
+    "bert": "distributed_tensorflow_tpu_torch.models.bert",
     "gpt2": "distributed_tensorflow_tpu_torch.models.gpt2",
     "wide_deep": None,
 }

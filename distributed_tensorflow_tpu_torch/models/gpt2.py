@@ -31,6 +31,13 @@ from torch.utils.checkpoint import checkpoint
 
 from distributed_tensorflow_tpu_torch.data.pipeline import synthetic_lm
 from distributed_tensorflow_tpu_torch.models import Workload
+from distributed_tensorflow_tpu_torch.models.layers import (
+    dense as _dense,
+    dropout as _dropout,
+    layer_norm as _layer_norm,
+    lecun_normal_,
+    tied_logits,
+)
 from distributed_tensorflow_tpu_torch.ops.flash_attention import flash_attention
 from distributed_tensorflow_tpu_torch.rng import fold_in
 
@@ -71,28 +78,6 @@ class GPT2Config:
     def mini(cls, **kw):
         return cls(vocab_size=256, n_positions=512, d_model=256, n_layer=4,
                    n_head=8, dropout=0.0, **kw)
-
-
-def _dropout(x: torch.Tensor, rate: float, seed: Optional[int]) -> torch.Tensor:
-    """flax ``nn.Dropout``: keep with probability 1-rate, scale by
-    1/(1-rate); the mask comes from a generator seeded with ``seed``."""
-    if seed is None or rate == 0.0:
-        return x
-    gen = torch.Generator(device=x.device)
-    gen.manual_seed(seed)
-    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
-    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
-
-
-def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
-    """flax ``nn.LayerNorm(dtype=float32)``: float32 in and out."""
-    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(), ln.bias.float(),
-                        ln.eps)
-
-
-def _dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """flax ``nn.Dense(dtype=dtype)``: input, weight and bias cast to dtype."""
-    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
 
 
 class Block(nn.Module):
@@ -140,14 +125,8 @@ class Block(nn.Module):
 
 
 def _head_logits(hidden: torch.Tensor, wte: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Weight-tied head with ``dtype`` operands and float32 logits.
-
-    The reference asks XLA for a bf16 x bf16 -> f32 product.  A bf16
-    ``torch.matmul`` rounds its result to bf16, so both operands are
-    rounded to ``dtype`` and the product runs in float32: the same
-    products, summed in float32.  It costs a float32 GEMM in place of a
-    bf16 one (PERF.md)."""
-    return torch.matmul(hidden.to(dtype).float(), wte.to(dtype).float().t())
+    """Weight-tied head with ``dtype`` operands and float32 logits."""
+    return tied_logits(hidden, wte, dtype)
 
 
 def _tied_head_ce(hidden: torch.Tensor, wte: torch.Tensor, tokens: torch.Tensor,
@@ -182,10 +161,7 @@ class GPT2(nn.Module):
         self.wpe.normal_(0.0, 0.01, generator=gen)
         for m in self.modules():
             if isinstance(m, nn.Linear):
-                # variance_scaling(1, fan_in, truncated_normal): the std of
-                # N(0, 1) cut at +-2 is 0.8796, hence the correction.
-                std = math.sqrt(1.0 / m.in_features) / 0.87962566103423978
-                nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
+                lecun_normal_(m.weight, m.in_features, gen)
                 m.bias.zero_()
             elif isinstance(m, nn.LayerNorm):
                 m.weight.fill_(1.0)
@@ -281,4 +257,5 @@ def make_workload(*, preset: str = "medium", batch_size: int = 32,
         clip_grad_norm=1.0,
         learning_rate=3e-4,
         warmup_steps=200,
+        example_key="tokens",
     )

@@ -9,6 +9,9 @@ names the missing slice; none is ignored.
 
     python -m distributed_tensorflow_tpu_torch.train_lib --model=gpt2 \
         --flash_attention --batch_size=32 --grad_accum_steps=4 --steps=200
+    python -m distributed_tensorflow_tpu_torch.train_lib --model=resnet50 --batch_size=256
+    python -m distributed_tensorflow_tpu_torch.train_lib --model=bert   # seq 128
+    python -m distributed_tensorflow_tpu_torch.train_lib                # mnist
 """
 
 from __future__ import annotations
@@ -188,19 +191,42 @@ def warmup_cosine_decay_schedule(peak_value: float, warmup_steps: int,
     return schedule
 
 
+def _wrap_from_record(workload: Workload, fn, *, train: bool = False):
+    """Apply the workload's device-side input transforms to the batch
+    before the loss, inside the step: per-step augmentation (``augment_fn``,
+    training only, on the raw batch, with the microbatch seed) then the
+    staging inverse (``from_record``, a no-op on unstaged batches)."""
+    aug = workload.augment_fn if train else None
+    fr = workload.from_record
+    if fn is None or (aug is None and fr is None):
+        return fn
+
+    def pre(b, seed):
+        if aug is not None:
+            b = aug(b, seed)
+        return fr(b) if fr is not None else b
+
+    if workload.stateful:
+        return lambda p, ms, b, seed: fn(p, ms, pre(b, seed), seed)
+    return lambda p, b, seed: fn(p, pre(b, seed), seed)
+
+
 def build_state_and_step(workload: Workload, *, precision=BF16, grad_accum_steps: int = 1,
                          learning_rate: Optional[float] = None, total_steps: int = 1000,
                          seed: int = 0):
-    """(TrainState, step fn): parameters initialized from ``seed``,
-    adamw(warmup-cosine schedule, weight_decay=1e-4)."""
+    """(TrainState, step fn): parameters initialized from ``seed``; the
+    workload's optimizer (``make_optimizer``) or adamw(weight_decay=1e-4),
+    on a warmup-cosine schedule."""
     lr = learning_rate if learning_rate is not None else workload.learning_rate
     schedule = warmup_cosine_decay_schedule(
         lr, warmup_steps=min(workload.warmup_steps, max(1, total_steps // 10)),
         decay_steps=max(2, total_steps))
     workload.module.reset_parameters(seed)
-    state = TrainState.create(module=workload.module, schedule=schedule, weight_decay=1e-4)
-    step = make_train_step(workload.loss_fn, grad_accum_steps=grad_accum_steps,
-                           precision=precision, clip_grad_norm=workload.clip_grad_norm)
+    state = TrainState.create(module=workload.module, schedule=schedule, weight_decay=1e-4,
+                              make_optimizer=workload.make_optimizer)
+    step = make_train_step(_wrap_from_record(workload, workload.loss_fn, train=True),
+                           grad_accum_steps=grad_accum_steps, precision=precision,
+                           clip_grad_norm=workload.clip_grad_norm, stateful=workload.stateful)
     return state, step
 
 

@@ -13,7 +13,11 @@ same contract:
 - in-step RNG: the caller passes the same base seed every step, and the
   microbatch seed is ``fold_in(seed, state.step, microbatch)``;
 - metrics are device tensors ``{loss, <aux>, grad_norm}``; nothing here
-  waits for the device.
+  waits for the device;
+- ``stateful``: the loss takes and returns the model state (BatchNorm's
+  running statistics, float32, never cast to the compute dtype), threaded
+  through the microbatches in order; the state after the step is the one
+  the last microbatch returned.
 """
 
 from __future__ import annotations
@@ -25,16 +29,21 @@ import torch
 from distributed_tensorflow_tpu_torch.rng import fold_in
 from distributed_tensorflow_tpu_torch.training.train_state import BF16, Precision, TrainState
 
+Tensors = Dict[str, torch.Tensor]
 # loss_fn(params, batch, seed) -> (loss, aux_metrics)
-LossFn = Callable[[Dict[str, torch.Tensor], Dict[str, torch.Tensor], int],
-                  Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
+LossFn = Callable[[Tensors, Tensors, int], Tuple[torch.Tensor, Tensors]]
+# stateful: loss_fn(params, model_state, batch, seed) -> (loss, aux, new_model_state)
+StatefulLossFn = Callable[[Tensors, Tensors, Tensors, int], Tuple[torch.Tensor, Tensors, Tensors]]
 
 
 def make_train_step(loss_fn: LossFn, *, grad_accum_steps: int = 1,
-                    precision: Precision = BF16, clip_grad_norm: Optional[float] = None):
+                    precision: Precision = BF16, clip_grad_norm: Optional[float] = None,
+                    stateful: bool = False):
     """Build ``step(state, batch, seed) -> (state, metrics)``.
 
     The batch's leading dim must be ``grad_accum_steps * microbatch``.
+    ``stateful=True`` takes a ``StatefulLossFn`` and threads
+    ``state.model_state`` through the step.
     """
     n = max(1, grad_accum_steps)
 
@@ -42,12 +51,17 @@ def make_train_step(loss_fn: LossFn, *, grad_accum_steps: int = 1,
         params = precision.cast_for_compute(state.params)
         names = list(params)
         leaves = list(params.values())
+        model_state = state.model_state if stateful else None
         acc = None
         loss_sum = None
         aux_sum: Dict[str, torch.Tensor] = {}
         for i in range(n):
             mb = {k: v.reshape((n, -1) + tuple(v.shape[1:]))[i] for k, v in batch.items()}
-            loss, aux = loss_fn(params, mb, fold_in(seed, state.step, i))
+            mb_seed = fold_in(seed, state.step, i)
+            if stateful:
+                loss, aux, model_state = loss_fn(params, model_state, mb, mb_seed)
+            else:
+                loss, aux = loss_fn(params, mb, mb_seed)
             grads = torch.autograd.grad(loss.float(), leaves)
             if acc is None:
                 acc = [g.float() for g in grads]
@@ -71,6 +85,22 @@ def make_train_step(loss_fn: LossFn, *, grad_accum_steps: int = 1,
             for g in acc:
                 g.mul_(scale)
             metrics["grad_norm"] = gnorm
-        return state.apply_gradients(grads), metrics
+        return state.apply_gradients(grads, new_model_state=model_state), metrics
+
+    return step
+
+
+def make_eval_step(loss_fn: LossFn, *, precision: Precision = BF16, stateful: bool = False):
+    """Build ``step(state, batch, seed) -> metrics``: the loss and aux
+    metrics in the compute precision, no gradient, the state unchanged."""
+
+    @torch.no_grad()
+    def step(state: TrainState, batch: Dict[str, torch.Tensor], seed: int):
+        params = precision.cast_for_compute(state.params)
+        if stateful:
+            loss, aux, _ = loss_fn(params, state.model_state, batch, seed)
+        else:
+            loss, aux = loss_fn(params, batch, seed)
+        return {"loss": loss.float(), **aux}
 
     return step

@@ -8,6 +8,7 @@ deferred metrics, the prefetch iterator and import hygiene.
 """
 
 import functools
+import json
 import math
 import os
 import subprocess
@@ -108,6 +109,31 @@ def test_schedule_matches_optax():
             assert math.isclose(got(count), float(want(count)), rel_tol=1e-6, abs_tol=1e-10)
 
 
+def test_sgd_nesterov_matches_optax_over_steps():
+    """ResNet's optimizer: torch's SGD (Nesterov, no dampening) with the lr
+    set from the schedule each update equals optax.sgd(schedule, 0.9,
+    nesterov=True) over several updates, the first (lr 0) included."""
+    from distributed_tensorflow_tpu_torch.training import TrainState, sgd_nesterov
+
+    rng = np.random.RandomState(0)
+    w0 = rng.randn(5, 3).astype(np.float32)
+    grads = [rng.randn(5, 3).astype(np.float32) for _ in range(6)]
+    schedule = optax.warmup_cosine_decay_schedule(0.0, 0.4, 2, 6)
+    tx = optax.sgd(schedule, momentum=0.9, nesterov=True)
+    w, opt = jnp.asarray(w0), tx.init(jnp.asarray(w0))
+    module = torch.nn.Linear(3, 5, bias=False)
+    with torch.no_grad():
+        module.weight.copy_(torch.from_numpy(w0))
+    state = TrainState.create(module=module, schedule=train_lib.warmup_cosine_decay_schedule(
+        0.4, 2, 6), make_optimizer=sgd_nesterov)
+    for g in grads:
+        upd, opt = tx.update(jnp.asarray(g), opt, w)
+        w = optax.apply_updates(w, upd)
+        state.apply_gradients({"weight": torch.from_numpy(g)})
+        np.testing.assert_allclose(module.weight.detach().numpy(), np.asarray(w), rtol=1e-6,
+                                   atol=1e-6)
+
+
 def test_synthetic_lm_is_byte_identical():
     a = jpipeline.synthetic_lm(batch_size=3, seq_len=17, vocab_size=50257, seed=5)
     b = pipeline.synthetic_lm(batch_size=3, seq_len=17, vocab_size=50257, seed=5)
@@ -140,8 +166,92 @@ def test_unported_flags_raise(flag):
 
 
 def test_unported_models_raise():
-    with pytest.raises(NotImplementedError):
-        train_lib.run(train_lib.parse_args(["--model=resnet50", "--device=cpu"]))
+    with pytest.raises(NotImplementedError, match="wide_deep"):
+        train_lib.run(train_lib.parse_args(["--model=wide_deep", "--device=cpu"]))
+
+
+def test_synthetic_image_classification_is_byte_identical():
+    for kw in (dict(batch_size=3, image_size=(28, 28, 1), num_classes=10, seed=2),
+               dict(batch_size=2, image_size=(8, 8, 3), num_classes=1000, holdout=True)):
+        a, b = jpipeline.synthetic_image_classification(**kw), \
+            pipeline.synthetic_image_classification(**kw)
+        for _ in range(3):
+            x, y = next(a), next(b)
+            for k in ("image", "label"):
+                assert x[k].dtype == y[k].dtype and np.array_equal(x[k], y[k]), k
+
+
+def test_synthetic_mlm_is_byte_identical():
+    for seq in (64, 512):
+        assert pipeline.mlm_max_predictions(seq) == jpipeline.mlm_max_predictions(seq)
+        a = jpipeline.synthetic_mlm(batch_size=3, seq_len=seq, vocab_size=30522, seed=4)
+        b = pipeline.synthetic_mlm(batch_size=3, seq_len=seq, vocab_size=30522, seed=4)
+        for _ in range(2):
+            x, y = next(a), next(b)
+            assert sorted(x) == sorted(y)
+            for k in x:
+                assert x[k].dtype == y[k].dtype and np.array_equal(x[k], y[k]), k
+
+
+def _tiny_model(real, name, **kw):
+    """The CLI's workloads at a size the CPU runs in seconds."""
+    from distributed_tensorflow_tpu_torch.models import bert
+
+    if name == "resnet50":
+        return real(name, image_size=32, stage_sizes=(1, 1, 1, 1), num_classes=10, **kw)
+    if name == "bert":
+        return real(name, config=bert.BertConfig.tiny(), seq_len=32, **kw)
+    return real(name, **kw)
+
+
+@pytest.mark.parametrize("argv", [
+    [],  # the default model: mnist
+    ["--model=resnet50", "--grad_accum_steps=2"],
+    ["--model=bert", "--flash_attention"],
+])
+def test_entry_point_runs_the_other_models_on_cpu(monkeypatch, argv):
+    monkeypatch.setattr(train_lib, "get_workload",
+                        functools.partial(_tiny_model, train_lib.get_workload))
+    result = train_lib.main(["--device=cpu", "--steps=2", "--batch_size=4", "--log_every=1",
+                             *argv])
+    assert result["final_step"] == 2
+    assert math.isfinite(result["loss"])
+    if argv:
+        assert train_lib.parse_args(argv).model in ("resnet50", "bert")
+    else:
+        assert train_lib.parse_args([]).model == "mnist" and "accuracy" in result
+
+
+def test_resnet_step_threads_running_statistics_and_eval_leaves_them():
+    from distributed_tensorflow_tpu_torch.models import resnet
+    from distributed_tensorflow_tpu_torch.training import make_eval_step
+
+    wl = resnet.make_workload(batch_size=4, image_size=32, stage_sizes=(1, 1, 1, 1),
+                              num_classes=10, device="cpu")
+    state, step = train_lib.build_state_and_step(wl, precision=FP32, total_steps=2)
+    assert isinstance(state.optimizer, torch.optim.SGD)
+    batch = {k: torch.from_numpy(v) for k, v in next(wl.data_fn(4)).items()}
+    before = {k: v.clone() for k, v in state.model_state.items()}
+    state, metrics = step(state, batch, 0)
+    assert set(metrics) == {"loss", "accuracy"}
+    assert all(not torch.equal(before[k], v) for k, v in state.model_state.items())
+    after = {k: v.clone() for k, v in state.model_state.items()}
+    ev = make_eval_step(wl.eval_loss_fn, precision=FP32, stateful=True)(state, batch, 0)
+    assert math.isfinite(float(ev["loss"]))
+    assert all(torch.equal(after[k], v) for k, v in state.model_state.items())
+
+
+def test_bench_prints_one_json_line_on_cpu(capsys):
+    from distributed_tensorflow_tpu_torch import bench
+
+    out = bench.main(["--device=cpu", "--windows=2"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1 and json.loads(lines[0]) == out
+    assert out["metric"] == "torch_resnet_tiny_cpu_smoke_images_per_sec"
+    assert out["value"] > 0 and out["spread"]["n"] == 2 and out["device"] == "cpu"
+    for flag in ("--mode=serve", "--input=loader", "--input=both"):
+        with pytest.raises(ValueError, match="not ported"):
+            bench.main(["--device=cpu", flag])
 
 
 def test_cuda_without_a_card_raises(monkeypatch):
