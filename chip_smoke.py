@@ -6,7 +6,8 @@
 Phases (any failure raises; there is no CPU path):
 
 1. Print the card (``nvidia-smi``), the torch and CUDA versions, and build
-   the flash-attention kernels from ``ops/csrc`` with nvcc for sm_90a;
+   the flash-attention kernels from ``ops/csrc`` with nvcc for sm_90a
+   (and, beside them, the native record loader with g++: it must build);
    print ptxas' registers and spills of every kernel instantiation, the
    count of HGMMA (wgmma) instructions in each forward, dQ and dK/dV
    instantiation, and the integer instructions of one Philox draw by pipe
@@ -50,12 +51,32 @@ Phases (any failure raises; there is no CPU path):
    to enqueue each step is printed beside it.
 5. Train BERT-base (batch 256) at seq 512 (flash, the reference's phase-2
    default) and at seq 128 (the CLI's ``--flash_attention``), ResNet-50
-   (batch 256, 224x224) and then the port's bench (its JSON line), and
+   (batch 256, 224x224) on the synthetic stream, then on 2,048 uint8
+   records staged with ``resolve_or_stage`` and read by the native loader
+   (``--data_dir``; the prefetch counters), then the port's bench with
+   ``--input=both`` (its JSON line: cached, loader, ``gap_pct``), and
    MNIST through the default ``--model``, 5 steps each, reported as in 4
    (tokens or images a second, MFU from the shapes), each with the launch
    counts set to 0 just before and read just after: BERT must launch 12
    dQ and dK/dV and at least 12 forwards a step and no pre-pass; ResNet
    and MNIST no flash kernel.
+6. Wide&Deep/DLRM: tiny Wide&Deep, DLRM and multi-table DLRM on the card
+   against the CPU (float32 loss 2e-5 and gradients 2e-4 of a leaf's
+   largest entry; bf16 loss 1e-2); then at full width through train_lib
+   (batch 4,096, vocab 100,000, emb 64, 26 sparse and 13 dense features,
+   deep 1024-512-256-1, bf16) as Wide&Deep, ``--arch=dlrm`` and
+   ``--table_dtype=bf16``, and the multi-table DLRM on ``criteo_tables()``
+   through ``build_state_and_step`` and ``TrainLoop``, 5 steps each,
+   reported as in 5 (examples a second, idle share, host enqueue, peak
+   memory, device time by part with the embedding gather/scatter and the
+   optimizer as parts of their own), none launching a flash kernel.
+7. Checkpoint resume of full-width Wide&Deep with bf16 tables: 6 steps
+   straight against 3, a checkpoint, a fresh state restored from it and 3
+   more on the same batches (losses to 1e-4, every state tensor to 1e-5
+   of its leaf, bf16 ones to 2^-8; whether they came out bit-identical is
+   printed); then train_lib with ``--eval_every`` and ``--checkpoint_dir``
+   for 4 steps and again to 6, resuming; the eval metrics and the save and
+   restore seconds.  Each phase prints its seconds.
 
 The line before the last is a JSON object of the kernels' numbers; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -68,9 +89,11 @@ import gc
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -749,7 +772,19 @@ class StepRecorder:
 # "gemm" in their names).
 PARTS = (("BatchNorm", ("batch_norm", "batchnorm", "welford", "bn_fw", "bn_bw")),
          ("convolutions (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "winograd", "cudnn")),
-         ("GEMMs (cuBLAS)", ("gemm", "xmma", "cutlass", "sm90_", "nvjet")))
+         ("GEMMs (cuBLAS)", ("gemm", "xmma", "cutlass", "sm90_", "nvjet")),
+         # the tables' gather (index_select; this torch runs it as
+         # vectorized_gather_kernel) and its dense scatter-add gradient
+         # (embedding_dense_backward: a sort of the ids, then segment sums;
+         # index_add where it is used); DLRM's pair gather and its
+         # backward (indexing_backward) land here too
+         ("gathers and scatter-adds", ("indexselect", "index_select", "gather_kernel",
+                                       "embedding", "index_add", "indexadd", "indexfunc",
+                                       "indexing_backward", "compute_grad_weight",
+                                       "sum_and_scatter", "segment", "radixsort",
+                                       "radix_sort")),
+         # torch.optim's foreach (multi-tensor) updates: AdamW, SGD
+         ("optimizer", ("multi_tensor_apply", "adam", "foreach")))
 
 
 def kernel_part(name: str) -> str:
@@ -832,6 +867,7 @@ def train_phase(fa, label, argv, *, units, per_step, factory=None, profiled=3,
     from distributed_tensorflow_tpu_torch import train_lib
 
     args = train_lib.parse_args(argv)
+    t_phase = time.perf_counter()
     rec = StepRecorder(profiled)
     gc.collect()
     torch.cuda.synchronize()
@@ -847,7 +883,7 @@ def train_phase(fa, label, argv, *, units, per_step, factory=None, profiled=3,
     step_s = [b - a for a, b in zip(rec.t, rec.t[1:])]
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
     losses = [rec.losses.get(s) for s in range(1, steps + 1)]
-    print(f"[train] {label}: {' '.join(argv)} {factory or ''}")
+    print(f"[train] {label}: {' '.join(argv)} {repr(factory or '')[:200]}")
     print(f"[train] {label}: losses {losses}  result {result}")
     unprofiled = statistics.median(s for i, s in enumerate(step_s[1:], 2) if i != profiled)
     host = statistics.median(s for i, s in enumerate(rec.host[1:], 2) if i != profiled)
@@ -865,8 +901,10 @@ def train_phase(fa, label, argv, *, units, per_step, factory=None, profiled=3,
           f"{ {name: n / steps for name, n in launches.items()} }")
     if len(losses) != steps or not all(x is not None and math.isfinite(x) for x in losses):
         raise AssertionError(f"{label}: loss not finite every step: {losses}")
+    print(f"[phase] {label}: {time.perf_counter() - t_phase:.1f} s")
     return {"launches": launches, "per_launch": per_launch, "parts": parts, "idle": idle,
-            "step_s": unprofiled, "rate": rate, "peak_mib": peak_mib, "steps": steps}
+            "step_s": unprofiled, "rate": rate, "peak_mib": peak_mib, "steps": steps,
+            "host_share": host / unprofiled, "result": result}
 
 
 def assert_flash_launches(label, launches, per_step, steps):
@@ -913,11 +951,11 @@ def bert_step_flops(B, T, cfg, K) -> float:
     return 3.0 * (enc + attn + head)
 
 
-def train_resnet(fa):
+def train_resnet(fa, data_dir: Path):
     """ResNet-50 through train_lib (batch 256, 224x224, bf16, SGD Nesterov,
-    augmentation), then the port's bench (its own JSON line)."""
-    from distributed_tensorflow_tpu_torch import bench
-
+    augmentation) on the synthetic stream, then on staged records through
+    the native loader, then the port's bench with --input=both (its own
+    JSON line)."""
     fwd = resnet_forward_flops()
     print(f"[train] ResNet-50 forward: {fwd / 1e9:.3f} GFLOP an image at 224x224 "
           f"(FlopCounterMode), x3 for a training step")
@@ -925,13 +963,11 @@ def train_resnet(fa):
             "--device=cuda", "--seed=0"]
     r = train_phase(fa, "ResNet-50", argv, units="images", per_step=256,
                     flops_per_step=3 * fwd * 256)
-    if any(r["launches"].values()):
-        raise AssertionError(f"ResNet-50 launched flash kernels: {r['launches']}")
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    out = bench.main([])
-    print(f"[bench] peak memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; MFU "
-          f"{out['value'] * 3 * fwd / PEAK_BF16_FLOPS:.1%}")
+    assert_no_flash("ResNet-50", r["launches"])
+    records, out = train_records(fa, data_dir, r, 3 * fwd * 256)
+    print(f"[bench] MFU {out['value'] * 3 * fwd / PEAK_BF16_FLOPS:.1%} (cached), "
+          f"{out['loader']['value'] * 3 * fwd / PEAK_BF16_FLOPS:.1%} (loader)")
+    return {"ResNet-50": r, "ResNet-50 records": records}
 
 
 def train_bert(fa):
@@ -966,8 +1002,8 @@ def mlm_key_lengths(B, T, seed=0):
 def train_mnist(fa):
     argv = ["--steps=5", "--log_every=1", "--device=cuda", "--seed=0"]  # the default model
     r = train_phase(fa, "MNIST", argv, units="images", per_step=256)
-    if any(r["launches"].values()):
-        raise AssertionError(f"MNIST launched flash kernels: {r['launches']}")
+    assert_no_flash("MNIST", r["launches"])
+    return r
 
 
 def _leafwise(results, what):
@@ -1068,6 +1104,226 @@ def check_tiny_bert_bf16(fa):
     dloss, elem, _, _ = _leafwise(results, "tiny BERT bf16 (flash, D=64, ragged keys)")
     if not (dloss < 1e-2 and elem <= 0.05):
         raise AssertionError("tiny BERT bf16 through the kernels differs from the CPU")
+
+
+RECSYS_BATCH = 4096
+# PERF.md section 2's parity tolerances: float32 loss 2e-5, gradients 2e-4
+# of each leaf's largest entry; bf16 loss 1e-2.
+RECSYS_TOL = {"loss": 2e-5, "grad": 2e-4, "bf16_loss": 1e-2}
+
+
+def check_tiny_recsys():
+    """Tiny Wide&Deep, DLRM and multi-table DLRM (vocab 1,000, emb 8, deep
+    32-16-1, batch 16) on the card against the same weights and batch on
+    the CPU: in float32 the loss to 2e-5 and every gradient entry to 2e-4
+    of its leaf's largest; in bf16 the loss to 1e-2."""
+    from distributed_tensorflow_tpu_torch.data.pipeline import synthetic_recsys
+    from distributed_tensorflow_tpu_torch.models import wide_deep
+    from distributed_tensorflow_tpu_torch.training.train_state import BF16, FP32
+
+    batch = next(synthetic_recsys(batch_size=16, vocab_size=1000, seed=1))
+    fcs = wide_deep.criteo_tables(26, 8, vocab_sizes=(1000, 100, 10))
+    cases = {"Wide&Deep": lambda dt: wide_deep.WideDeep(1000, 8, (32, 16, 1), dtype=dt),
+             "DLRM": lambda dt: wide_deep.DLRM(1000, 8, (32, 16, 8), (32, 16, 1), dtype=dt),
+             "multi-table DLRM": lambda dt: wide_deep.DLRM(1000, 8, (32, 16, 8), (32, 16, 1),
+                                                           dtype=dt, feature_configs=fcs)}
+    for label, build in cases.items():
+        for dtype, precision in ((torch.float32, FP32), (torch.bfloat16, BF16)):
+            module = build(dtype)
+            results = {}
+            for dev in ("cuda", "cpu"):
+                params = precision.cast_for_compute(
+                    {k: v.to(dev) for k, v in module.named_parameters()})
+                tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+                loss, _ = wide_deep._loss_fn(module, params, tb, None)
+                grads = torch.autograd.grad(loss, list(params.values()))
+                results[dev] = (float(loss.detach()), [g.float().cpu() for g in grads])
+            dloss, elem, _, _ = _leafwise(results, f"tiny {label} {dtype}")
+            ok = (dloss <= RECSYS_TOL["loss"] and elem <= RECSYS_TOL["grad"]
+                  if dtype == torch.float32 else dloss <= RECSYS_TOL["bf16_loss"])
+            if not ok:
+                raise AssertionError(f"tiny {label} {dtype} on the card differs from the CPU")
+
+
+def assert_no_flash(label, launches):
+    if any(launches.values()):
+        raise AssertionError(f"{label} launched flash kernels: {launches}")
+
+
+def train_recsys(fa):
+    """Wide&Deep at full width through train_lib (batch 4,096, vocab
+    100,000, emb 64, 26 sparse and 13 dense features, deep 1024-512-256-1,
+    bf16 compute), then --arch=dlrm and --table_dtype=bf16; then the
+    multi-table DLRM on criteo_tables() (1M, 100k and 10k rows x 64, the
+    large table under its own Adagrad) through build_state_and_step and
+    TrainLoop (``run_workload``).  Each 5 steps, reported as the others."""
+    from distributed_tensorflow_tpu_torch.models.wide_deep import criteo_tables
+
+    base = ["--model=wide_deep", f"--batch_size={RECSYS_BATCH}", "--steps=5", "--log_every=1",
+            "--device=cuda", "--seed=0"]
+    runs = {}
+    for label, extra, factory in (
+            ("Wide&Deep", [], None), ("DLRM", ["--arch=dlrm"], None),
+            ("Wide&Deep bf16 tables", ["--table_dtype=bf16"], None),
+            ("multi-table DLRM", [], {"arch": "dlrm", "feature_configs": criteo_tables()})):
+        r = train_phase(fa, label, base + extra, units="examples", per_step=RECSYS_BATCH,
+                        factory=factory)
+        assert_no_flash(label, r["launches"])
+        print(f"[recsys] {label}: {r['rate']:.1f} examples/s, step {r['step_s']:.4f} s, idle "
+              f"{r['idle']:.1%}, host enqueue {r['host_share']:.1%} of the wall, peak "
+              f"{r['peak_mib']:.1f} MiB")
+        runs[label] = r
+    return runs
+
+
+def _state_errors(got, want):
+    """(worst |got - want| / the leaf's largest |want| over the state's
+    tensors, its name, whether every tensor is equal bit for bit)."""
+    worst, name, exact = 0.0, "", True
+    for k, w in want.items():
+        g = got[k]
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"{k}: {g.dtype} {tuple(g.shape)} vs {w.dtype} {tuple(w.shape)}")
+        exact = exact and torch.equal(g, w)
+        e = max_err(g, w) / (float(w.float().abs().max()) + 1e-30)
+        if e > worst:
+            worst, name = e, k
+    return worst, name, exact
+
+
+def check_resume_and_eval(data_dir: Path):
+    """Full-width Wide&Deep with --table_dtype=bf16 (bf16 tables, their
+    float32 masters, AdamW moments): 6 steps straight against 3 steps, a
+    checkpoint, a fresh state from another seed restored from it, and 3
+    more steps on the same batches.  Losses 4-6 are held to 1e-4 and each
+    tensor of the final state to 1e-5 of its leaf's largest entry (bf16
+    tensors: 2^-8, one rounding).  The card's sums of the gradient run in
+    a different order from run to run where they use atomics, and a
+    reordered float32 sum may flip isolated bf16 roundings; those move a
+    loss of ~2 by far less than 1e-4, while a state that lost its
+    masters or moments differs by O(lr) ~ 1e-3 of each leaf.  Then
+    train_lib with --eval_every on the holdout stream and --checkpoint_dir,
+    twice: 4 steps, then on to 6, resuming from step 4."""
+    from distributed_tensorflow_tpu_torch import train_lib
+    from distributed_tensorflow_tpu_torch.checkpoint.manager import (
+        CheckpointManager,
+        state_tensors,
+    )
+    from distributed_tensorflow_tpu_torch.models import get_workload
+    from distributed_tensorflow_tpu_torch.obs.metrics import default_registry
+
+    device = torch.device("cuda")
+
+    def fresh(seed):
+        wl = get_workload("wide_deep", table_dtype="bf16", batch_size=RECSYS_BATCH,
+                          device=device)
+        return train_lib.build_state_and_step(wl, total_steps=6, seed=seed) + (wl,)
+
+    state, step, wl = fresh(0)
+    batches = [{k: torch.from_numpy(v).to(device) for k, v in b.items()}
+               for b, _ in zip(wl.data_fn(RECSYS_BATCH), range(6))]
+    straight = []
+    for b in batches:
+        state, m = step(state, b, 1)
+        straight.append(float(m["loss"]))
+    want = {k: v.detach().clone() for k, v in state_tensors(state).items()}
+    state, step, wl = fresh(0)
+    resumed = []
+    for b in batches[:3]:
+        state, m = step(state, b, 1)
+        resumed.append(float(m["loss"]))
+    with CheckpointManager(str(data_dir / "resume"), max_to_keep=1) as mgr:
+        t0 = time.perf_counter()
+        mgr.save(3, state)
+        t1 = time.perf_counter()
+        mgr.wait_until_finished()
+        t2 = time.perf_counter()
+        state, step, wl = fresh(1)
+        t3 = time.perf_counter()
+        state = mgr.restore_or_init(state)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+    if state.step != 3:
+        raise AssertionError(f"restored step {state.step}, expected 3")
+    for b in batches[3:]:
+        state, m = step(state, b, 1)
+        resumed.append(float(m["loss"]))
+    worst, name, exact = _state_errors(state_tensors(state), want)
+    dloss = max(abs(a - b) for a, b in zip(resumed[3:], straight[3:]))
+    nbytes = sum(v.numel() * v.element_size() for v in want.values())
+    print(f"[resume] Wide&Deep bf16 tables: straight losses {straight}; resumed {resumed}")
+    print(f"[resume] checkpoint of {nbytes / 2**20:.1f} MiB: save {t1 - t0:.3f} s to stage + "
+          f"{t2 - t1:.3f} s to write (async), restore {t4 - t3:.3f} s")
+    print(f"[resume] steps 4-6: max |loss diff| {dloss:.3e} (tolerance 1e-4); final state: "
+          f"worst tensor {name} {worst:.3e} of its largest entry; bit-identical: {exact}")
+    bf16_tol = {k for k, v in want.items() if v.dtype == torch.bfloat16}
+    tol_ok = all(max_err(state_tensors(state)[k], v) / (float(v.float().abs().max()) + 1e-30)
+                 <= (2.0 ** -8 if k in bf16_tol else 1e-5) for k, v in want.items())
+    if dloss > 1e-4 or not tol_ok:
+        raise AssertionError("Wide&Deep resumed from its checkpoint differs from the straight run")
+
+    reg = {f.name: f for f in default_registry().families()}
+    before = {k: (reg[k].count, reg[k].sum) for k in
+              ("dtt_checkpoint_save_seconds", "dtt_checkpoint_restore_seconds")}
+    ckpt = data_dir / "train_lib_ckpt"
+    argv = ["--model=wide_deep", "--table_dtype=bf16", f"--batch_size={RECSYS_BATCH}",
+            "--eval_every=2", "--eval_batches=4", f"--checkpoint_dir={ckpt}",
+            "--checkpoint_every=2", "--log_every=1", "--device=cuda", "--seed=0"]
+    first = train_lib.run(train_lib.parse_args([*argv, "--steps=4"]))
+    second = train_lib.run(train_lib.parse_args([*argv, "--steps=6"]))
+    after = {k: (reg[k].count, reg[k].sum) for k in before}
+    for label, r in (("steps 1-4", first), ("steps 5-6, resumed", second)):
+        print(f"[eval] Wide&Deep bf16 tables {label}: final step {r['final_step']}, eval_loss "
+              f"{r.get('eval_loss')}, eval_accuracy {r.get('eval_accuracy')}, train loss "
+              f"{r.get('loss')}")
+    for k, (n0, s0) in before.items():
+        n1, s1 = after[k]
+        print(f"[eval] {k}: {n1 - n0} calls, {s1 - s0:.3f} s in all")
+    restores = after["dtt_checkpoint_restore_seconds"][0] - before[
+        "dtt_checkpoint_restore_seconds"][0]
+    if (first["final_step"] != 4 or second["final_step"] != 6 or restores != 1
+            or not all(math.isfinite(r.get("eval_loss", math.nan)) for r in (first, second))):
+        raise AssertionError(f"train_lib resume/eval: {first} {second}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def train_records(fa, data_dir: Path, synthetic, flops_per_step):
+    """Stage 2,048 ResNet-50 examples as uint8 records (resolve_or_stage),
+    train 5 steps through train_lib --data_dir on the native loader, then
+    the bench with --input=both on the same records (cached, loader and
+    gap_pct)."""
+    from distributed_tensorflow_tpu_torch import bench
+    from distributed_tensorflow_tpu_torch.data.records import resolve_or_stage
+    from distributed_tensorflow_tpu_torch.models import get_workload
+    from distributed_tensorflow_tpu_torch.native import native_available
+
+    if not native_available():
+        raise AssertionError("the native record loader did not build")
+    wl = get_workload("resnet50", batch_size=256, device="cpu")
+    t0 = time.perf_counter()
+    paths = resolve_or_stage(str(data_dir), wl, 2048)
+    size = sum(Path(p).stat().st_size for p in paths)
+    print(f"[records] staged 2048 ResNet-50 examples (uint8) in {time.perf_counter() - t0:.1f} s:"
+          f" {size / 1e6:.1f} MB in {[Path(p).name for p in paths]}")
+    del wl
+    argv = ["--model=resnet50", "--batch_size=256", "--steps=5", "--log_every=1",
+            "--device=cuda", "--seed=0", f"--data_dir={data_dir}"]
+    r = train_phase(fa, "ResNet-50 records", argv, units="images", per_step=256,
+                    flops_per_step=flops_per_step)
+    assert_no_flash("ResNet-50 records", r["launches"])
+    stats = {k: v for k, v in r["result"].items() if k.startswith("prefetch_")}
+    print(f"[records] ResNet-50 through train_lib on the native loader: {r['rate']:.1f} images/s,"
+          f" idle {r['idle']:.1%}; on the synthetic stream in this run {synthetic['rate']:.1f} "
+          f"images/s, idle {synthetic['idle']:.1%} (PR 5's runs: 172.9-197.2); prefetch {stats}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = bench.main(["--input=both", "--records=2048", f"--data_dir={data_dir}"])
+    print(f"[phase] bench --input=both: {time.perf_counter() - t0:.1f} s")
+    print(f"[bench] cached {out['value']} images/s, loader {out['loader']['value']} images/s, "
+          f"gap_pct {out['gap_pct']}; peak memory {torch.cuda.max_memory_allocated() / 2**20:.1f}"
+          f" MiB")
+    return r, out
 
 
 def sdpa_backend(fn) -> str:
@@ -1176,8 +1432,20 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
+    # The native record loader (g++) builds beside the kernels (nvcc).
+    from distributed_tensorflow_tpu_torch.native import native_available
+
+    native = {}
+    native_build = threading.Thread(
+        target=lambda: native.update(ok=native_available(), s=time.perf_counter() - t0))
+    native_build.start()
     secs, logs = _build.build_all(verbose=True)
+    native_build.join()
     print(f"[build] nvcc {' '.join(_build.NVCC_FLAGS)}: {secs:.1f} s")
+    print(f"[build] native record loader (g++): built {native.get('ok')} in "
+          f"{native.get('s', math.nan):.1f} s")
+    if not native.get("ok"):
+        raise AssertionError("the native record loader did not build")
     report_build(logs, _build.nvcc_path())
     philox_per_draw, int_rate = philox_pipe_ops(_build.nvcc_path()), int_ops_rate()
 
@@ -1216,20 +1484,32 @@ def main() -> int:
     check_tiny_model_bf16(fa)
     check_tiny_bert_bf16(fa)
     check_tiny_resnet()
+    t_phase = time.perf_counter()
+    check_tiny_recsys()
+    print(f"[phase] tiny Wide&Deep/DLRM card parity: {time.perf_counter() - t_phase:.1f} s")
 
     timing = time_kernels(fa, philox_per_draw, int_rate)
     bert_timing = time_bert_kernels(fa, philox_per_draw, int_rate)
     launches, step_device_ms = train_medium(fa)
     bert_runs = train_bert(fa)
-    train_resnet(fa)
-    train_mnist(fa)
+    data_dir = Path(__file__).resolve().parent / ".chip_smoke_data"  # git-ignored
+    try:
+        other_runs = train_resnet(fa, data_dir)
+        other_runs["MNIST"] = train_mnist(fa)
+        other_runs.update(train_recsys(fa))
+        t_resume = time.perf_counter()
+        check_resume_and_eval(data_dir)
+        print(f"[phase] checkpoint resume and evaluation: {time.perf_counter() - t_resume:.1f} s")
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)
 
     kernels = []
     for name in _build.KERNELS:
         r = timing[name]
         by_path = {"gpt2_medium": launches[name],
                    **{f"bert_base_seq{seq}": run["launches"][name]
-                      for seq, run in bert_runs.items()}}
+                      for seq, run in bert_runs.items()},
+                   **{label: run["launches"][name] for label, run in other_runs.items()}}
         bert_row = bert_timing.get(name)
         if bert_row is not None:
             bert_row = dict(bert_row, step_device_ms=bert_runs[512]["per_launch"].get(name),

@@ -7,12 +7,15 @@ comes in two layouts: the scanned stack (``blocks/<module>/<leaf>`` with a
 leading layer dim, the reference's default) and one ``h_<i>`` subtree per
 layer.
 
-MNIST, ResNet and BERT (``variables_from_flax``/``variables_to_flax``): the
+MNIST, ResNet, BERT and Wide&Deep/DLRM (``variables_from_flax``/
+``variables_to_flax``): the
 port's modules carry the flax names, so a torch name is the flax path
 joined by dots, and the owning module's type says how the leaf converts:
 Conv kernels HWIO <-> OIHW ``weight``, Dense kernels (in, out) <->
-``weight`` (out, in), ``embedding`` <-> an ``nn.Embedding``'s ``weight``, a
-norm's ``scale`` <-> ``weight``.  BatchNorm's ``batch_stats`` collection
+``weight`` (out, in), ``embedding`` <-> an ``nn.Embedding``'s ``weight`` (a
+``ShardedEmbed``'s is named ``embedding`` already), a norm's ``scale`` <->
+``weight``.  A tensor keeps the dtype of the module's (a bf16 table comes
+out of the flax tree bf16, exactly, through float32).  BatchNorm's ``batch_stats`` collection
 (``mean``, ``var``) is the port's buffers of the same names.  A subtree
 scanned over layers (BERT's ``layers``, leading axis ``n_layer``) is the
 port's ``ModuleList`` of the same name.
@@ -141,8 +144,10 @@ def _named_tensors(module: nn.Module):
 def variables_from_flax(module: nn.Module, variables: Mapping[str, Any], *,
                         scanned: Iterable[str] = ("layers",)) -> Dict[str, torch.Tensor]:
     """Flax variables ({"params": ..., "batch_stats": ...}) -> a state dict
-    for ``module`` (float32 CPU tensors), ready for ``load_state_dict``."""
+    for ``module`` (CPU tensors in the module's dtypes), ready for
+    ``load_state_dict``."""
     out = {}
+    dtypes = {n: t.dtype for n, t in (*module.named_parameters(), *module.named_buffers())}
     for name, is_buffer in _named_tensors(module):
         collection, path, index, kind = _flax_leaf(module, name, is_buffer, tuple(scanned))
         x = variables[collection]
@@ -151,7 +156,8 @@ def variables_from_flax(module: nn.Module, variables: Mapping[str, Any], *,
         x = _np(x)
         if index >= 0:
             x = x[index]
-        out[name] = torch.from_numpy(np.array(_to_torch_layout(x, kind), order="C"))
+        out[name] = torch.from_numpy(np.array(_to_torch_layout(x, kind), order="C")).to(
+            dtypes[name])
     return out
 
 

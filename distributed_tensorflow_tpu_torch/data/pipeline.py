@@ -3,10 +3,12 @@
 Port of the parts of ``distributed_tensorflow_tpu/data/pipeline.py`` that
 single-device training runs: ``shard_options``, ``per_host_batch_size``,
 the synthetic streams of the ported workloads (``synthetic_lm``,
-``synthetic_image_classification``, ``synthetic_mlm`` and
-``mlm_max_predictions``, copied so that they yield the same bytes for the
-same seed), ``make_global_batches`` (here: batches moved to one device) and
-a device-prefetch iterator in place of ``DevicePrefetchIterator``.  One
+``synthetic_image_classification``, ``synthetic_mlm``,
+``mlm_max_predictions`` and ``synthetic_recsys``, copied so that they
+yield the same bytes for the same seed), ``make_global_batches`` (here:
+batches moved to one device) and ``DevicePrefetchIterator``, a
+device-prefetch iterator with the reference's ``stats()`` counters and
+context manager.  One
 process feeds one device; the multi-process layouts
 (``host_batch_layout``, the stream override) come with the parallelism
 slice.
@@ -16,6 +18,7 @@ from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Dict, Iterable, Iterator
 
 import numpy as np
@@ -114,6 +117,24 @@ def synthetic_mlm(*, batch_size: int, seq_len: int, vocab_size: int, mask_token:
         }
 
 
+def synthetic_recsys(*, batch_size: int, num_dense: int = 13, num_sparse: int = 26,
+                     vocab_size: int = 100_000, seed: int = 0,
+                     holdout: bool = False) -> Iterator[Batch]:
+    """DLRM/Wide&Deep-style: dense features + categorical ids + CTR label."""
+    num_shards, index = shard_options()
+    # The CTR weight vector defines the task: derive it from `seed` alone so
+    # train and holdout streams share it, then fork the sample stream.
+    task_rng = np.random.RandomState(seed * 4001)
+    w_dense = task_rng.randn(num_dense).astype(np.float32)
+    rng = np.random.RandomState(seed * 4001 + index + (500_009 if holdout else 0))
+    while True:
+        dense = rng.randn(batch_size, num_dense).astype(np.float32)
+        sparse = rng.randint(0, vocab_size, size=(batch_size, num_sparse))
+        score = dense @ w_dense + 0.01 * (sparse.sum(-1) % 7 - 3)
+        label = (score > 0).astype(np.float32)
+        yield {"dense": dense, "sparse": sparse.astype(np.int32), "label": label}
+
+
 def make_global_batches(host_iter: Iterable[Batch], device) -> Iterator[Dict[str, torch.Tensor]]:
     """Per-host numpy batches as tensors on ``device`` (one process feeds
     one device, so the global batch is the host's)."""
@@ -133,27 +154,51 @@ class DevicePrefetchIterator:
     returns the batch whose host-to-device copy it started on the previous
     call and starts the copy of the next one with ``non_blocking=True`` on
     the current stream, so the copy overlaps the step in flight.  Errors of
-    the source surface on ``next``.  ``close()`` stops the thread.
+    the source surface on ``next``.
+
+    ``stats()`` exports the reference's overlap counters (queue depth and
+    capacity, batches enqueued and dequeued, the producer's and the
+    consumer's wait seconds; the reference's ``transfer_workers`` has no
+    counterpart: the copy is one non-blocking call), and the iterator
+    registers it in ``obs.metrics``' registry, where
+    ``obs.prefetch.PrefetchMonitorHook`` reads it.  ``close()`` (or leaving
+    the ``with`` block) stops the thread and unregisters.
     """
 
     def __init__(self, host_iter: Iterable[Batch], device, prefetch: int = 2):
+        from distributed_tensorflow_tpu_torch.obs import metrics as obs_metrics
+
         self._device = torch.device(device)
         self._pin = self._device.type == "cuda"
-        self._queue: queue.Queue = queue.Queue(maxsize=max(1, prefetch))
+        self._capacity = max(1, prefetch)
+        self._queue: queue.Queue = queue.Queue(maxsize=self._capacity)
         self._stop = threading.Event()
         self._next_dev = None  # the batch in flight, or the end marker
+        self._lock = threading.Lock()
+        self._enqueued = self._dequeued = 0
+        self._producer_wait_s = self._consumer_wait_s = 0.0
+        self._obs_registry = obs_metrics.default_registry()
+        self.obs_namespace = self._obs_registry.register_stats("prefetch", self.stats)
         self._thread = threading.Thread(target=self._fill, args=(iter(host_iter),),
                                         daemon=True)
         self._thread.start()
 
     def _put(self, item) -> bool:
-        while not self._stop.is_set():
-            try:
-                self._queue.put(item, timeout=0.1)
-                return True
-            except queue.Full:
-                continue
-        return False
+        t0 = time.perf_counter()
+        try:
+            while not self._stop.is_set():
+                try:
+                    self._queue.put(item, timeout=0.1)
+                    if isinstance(item, dict):  # a batch, not the end or an error
+                        with self._lock:
+                            self._enqueued += 1
+                    return True
+                except queue.Full:
+                    continue
+            return False
+        finally:
+            with self._lock:
+                self._producer_wait_s += time.perf_counter() - t0
 
     def _fill(self, it):
         try:
@@ -170,9 +215,14 @@ class DevicePrefetchIterator:
     def _start_copy(self):
         """The next queued item, its copy to the device started; the end
         marker and a source error pass through as they are."""
+        t0 = time.perf_counter()
         item = self._queue.get()
+        with self._lock:
+            self._consumer_wait_s += time.perf_counter() - t0
         if item is _DONE or isinstance(item, Exception):
             return item
+        with self._lock:
+            self._dequeued += 1
         return {k: v.to(self._device, non_blocking=True) for k, v in item.items()}
 
     def __iter__(self):
@@ -191,6 +241,27 @@ class DevicePrefetchIterator:
         self._next_dev = self._start_copy()
         return item
 
+    def stats(self) -> Dict[str, float]:
+        """Overlap counters: queue depth, totals, wait times."""
+        with self._lock:
+            return {
+                "queue_depth": float(self._queue.qsize()),
+                "capacity": float(self._capacity),
+                "enqueued": float(self._enqueued),
+                "dequeued": float(self._dequeued),
+                "producer_wait_s": self._producer_wait_s,
+                "consumer_wait_s": self._consumer_wait_s,
+            }
+
     def close(self) -> None:
+        if self.obs_namespace:
+            self._obs_registry.unregister_stats(self.obs_namespace)
+            self.obs_namespace = None
         self._stop.set()
         self._thread.join(timeout=30.0)
+
+    def __enter__(self) -> "DevicePrefetchIterator":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.close()

@@ -28,12 +28,13 @@ import functools
 import math
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from distributed_tensorflow_tpu_torch.data.pipeline import synthetic_mlm
+from distributed_tensorflow_tpu_torch.data.pipeline import mlm_max_predictions, synthetic_mlm
 from distributed_tensorflow_tpu_torch.models import Workload
 from distributed_tensorflow_tpu_torch.models.layers import (
     dense,
@@ -232,13 +233,26 @@ def make_workload(*, batch_size: int = 256, seq_len: int = 128,
         cfg = dataclasses.replace(cfg, use_flash_attention=use_flash_attention)
     seq = min(seq_len, cfg.max_positions)
     module = BertPretrain(cfg, device=device)
+    K = mlm_max_predictions(seq)
+    init_batch = {
+        "tokens": np.zeros((2, seq), np.int32),
+        "input_mask": np.ones((2, seq), np.int32),
+        "mlm_positions": np.zeros((2, K), np.int32),
+        "mlm_targets": np.zeros((2, K), np.int32),
+        "mlm_weights": np.zeros((2, K), np.float32),
+        "segment_ids": np.zeros((2, seq), np.int32),
+        "nsp_label": np.zeros((2,), np.int32),
+    }
     return Workload(
         name="bert",
         module=module,
         loss_fn=functools.partial(_loss_fn, module, False),
         eval_loss_fn=functools.partial(_loss_fn, module, True),
+        init_batch=init_batch,
         data_fn=lambda per_host_bs: synthetic_mlm(
             batch_size=per_host_bs, seq_len=seq, vocab_size=cfg.vocab_size),
+        eval_data_fn=lambda per_host_bs: synthetic_mlm(
+            batch_size=per_host_bs, seq_len=seq, vocab_size=cfg.vocab_size, holdout=True),
         batch_size=batch_size,
         clip_grad_norm=1.0,
         learning_rate=1e-4,

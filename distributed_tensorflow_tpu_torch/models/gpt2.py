@@ -3,8 +3,9 @@
 Port of ``distributed_tensorflow_tpu/models/gpt2.py`` (training only):
 ``GPT2Config`` and its presets, ``Block``'s flash and dense attention
 branches, ``GPT2.__call__``'s non-decode path, ``_tied_head_ce``,
-``_loss_fn``, ``_guard_dense_attention_memory`` and ``make_workload``.
-Decode, pipelining, ring attention and chunked CE come with later slices.
+``_chunked_ce`` (``ce_chunk``), ``_loss_fn``,
+``_guard_dense_attention_memory`` and ``make_workload``.  Decode,
+pipelining and ring attention come with later slices.
 
 Numerics follow the flax model: LayerNorm (eps 1e-6) computes and returns
 float32; Dense layers cast input, weight and bias to ``cfg.dtype``; the
@@ -24,6 +25,7 @@ import functools
 import math
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -60,6 +62,9 @@ class GPT2Config:
     # The hand-written flash-attention kernels (ops.flash_attention), with
     # attention-probability dropout in the kernel.
     use_flash_attention: bool = False
+    # > 0: the loss scans T in chunks of this length (``_chunked_ce``), so
+    # no (B, T, V) logits tensor lives at once.
+    ce_chunk: int = 0
 
     @classmethod
     def small(cls, **kw):
@@ -139,6 +144,35 @@ def _tied_head_ce(hidden: torch.Tensor, wte: torch.Tensor, tokens: torch.Tensor,
                            ignore_index=-100)
 
 
+def _chunk_ce_sum(hidden: torch.Tensor, wte: torch.Tensor, targets: torch.Tensor,
+                  weights: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Summed, weighted CE of one T-chunk of the tied head."""
+    logits = _head_logits(hidden, wte, dtype)
+    ce = F.cross_entropy(logits.flatten(0, 1), targets.reshape(-1).long(), reduction="none")
+    return (ce.view(targets.shape) * weights[None, :]).sum()
+
+
+def _chunked_ce(hidden: torch.Tensor, wte: torch.Tensor, tokens: torch.Tensor, chunk: int,
+                dtype: torch.dtype) -> torch.Tensor:
+    """Mean next-token CE without materializing (B, T, V) logits, as the
+    reference's ``_chunked_ce``: T in ``chunk``-length pieces, each chunk's
+    logits and CE computed and dropped; each chunk runs under
+    ``torch.utils.checkpoint``, so the backward recomputes its logits
+    instead of saving them and peak memory is one (B, chunk, V) tile."""
+    B, T, _ = hidden.shape
+    if T % chunk:
+        raise ValueError(f"seq_len {T} not divisible by ce_chunk {chunk}")
+    # Shifted targets with the final position masked (no next token).
+    targets = torch.cat([tokens[:, 1:], tokens.new_zeros((B, 1))], dim=1)
+    weights = (torch.arange(T, device=hidden.device) < T - 1).float()
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(T // chunk):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        total = total + checkpoint(_chunk_ce_sum, hidden[:, sl], wte, targets[:, sl],
+                                   weights[sl], dtype, use_reentrant=False)
+    return total / (B * (T - 1))
+
+
 class GPT2(nn.Module):
     def __init__(self, cfg: GPT2Config, *, device=None, seed: int = 0):
         super().__init__()
@@ -198,7 +232,10 @@ def _loss_fn(module: GPT2, deterministic: bool, params: Dict[str, torch.Tensor],
     hidden = torch.func.functional_call(
         module, params, (tokens,),
         {"seed": None if deterministic else seed, "return_hidden": True})
-    loss = _tied_head_ce(hidden, params["wte"], tokens, module.cfg.dtype)
+    if module.cfg.ce_chunk:
+        loss = _chunked_ce(hidden, params["wte"], tokens, module.cfg.ce_chunk, module.cfg.dtype)
+    else:
+        loss = _tied_head_ce(hidden, params["wte"], tokens, module.cfg.dtype)
     return loss, {"perplexity": torch.exp(torch.clamp(loss.detach(), max=20.0))}
 
 
@@ -235,11 +272,15 @@ def make_workload(*, preset: str = "medium", batch_size: int = 32,
                   seq_len: Optional[int] = None, grad_accum_steps: int = 4,
                   config: Optional[GPT2Config] = None,
                   use_flash_attention: Optional[bool] = None, device="cuda",
-                  ce_chunk: Optional[int] = None) -> Workload:
-    if ce_chunk:
-        raise ValueError("ce_chunk (chunked cross-entropy) is not ported yet; "
-                         "it comes with a later slice of the PyTorch port")
+                  ce_chunk: Optional[int] = None, ring_chunk_size: Optional[int] = None,
+                  pipe_schedule: Optional[str] = None) -> Workload:
+    if ring_chunk_size or pipe_schedule:
+        raise ValueError("ring_chunk_size and pipe_schedule (ring attention, pipelining) are "
+                         "not ported yet; they come with the parallelism slice of the "
+                         "PyTorch port")
     cfg = config or getattr(GPT2Config, preset)()
+    if ce_chunk is not None:
+        cfg = dataclasses.replace(cfg, ce_chunk=ce_chunk)
     if use_flash_attention is not None:
         cfg = dataclasses.replace(cfg, use_flash_attention=use_flash_attention)
     seq = seq_len or min(cfg.n_positions, 1024)
@@ -250,8 +291,12 @@ def make_workload(*, preset: str = "medium", batch_size: int = 32,
         name="gpt2",
         module=module,
         loss_fn=functools.partial(_loss_fn, module, False),
+        eval_loss_fn=functools.partial(_loss_fn, module, True),
+        init_batch={"tokens": np.zeros((2, seq), np.int32)},
         data_fn=lambda per_host_bs: synthetic_lm(
             batch_size=per_host_bs, seq_len=seq, vocab_size=cfg.vocab_size),
+        eval_data_fn=lambda per_host_bs: synthetic_lm(
+            batch_size=per_host_bs, seq_len=seq, vocab_size=cfg.vocab_size, holdout=True),
         batch_size=batch_size,
         grad_accum_steps=grad_accum_steps,
         clip_grad_norm=1.0,

@@ -16,6 +16,7 @@ import functools
 import math
 from typing import Dict
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -73,8 +74,13 @@ def make_workload(*, batch_size: int = 256, num_classes: int = 10, device="cuda"
         name="mnist",
         module=module,
         loss_fn=functools.partial(_loss_fn, module),
+        init_batch={"image": np.zeros((2, 28, 28, 1), np.float32),
+                    "label": np.zeros((2,), np.int32)},
         data_fn=lambda per_host_bs: synthetic_image_classification(
             batch_size=per_host_bs, image_size=(28, 28, 1), num_classes=num_classes),
+        eval_data_fn=lambda per_host_bs: synthetic_image_classification(
+            batch_size=per_host_bs, image_size=(28, 28, 1), num_classes=num_classes,
+            holdout=True),
         batch_size=batch_size,
         learning_rate=1e-3,
         example_key="image",

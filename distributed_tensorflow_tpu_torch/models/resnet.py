@@ -286,8 +286,12 @@ def make_workload(*, batch_size: int = 1024, num_classes: int = 1000, image_size
         name="resnet50",
         module=module,
         loss_fn=functools.partial(_loss_fn, module, 0.1),
+        init_batch={"image": np.zeros((2, *shape), np.float32),
+                    "label": np.zeros((2,), np.int32)},
         data_fn=lambda per_host_bs: synthetic_image_classification(
             batch_size=per_host_bs, image_size=shape, num_classes=num_classes),
+        eval_data_fn=lambda per_host_bs: synthetic_image_classification(
+            batch_size=per_host_bs, image_size=shape, num_classes=num_classes, holdout=True),
         batch_size=batch_size,
         learning_rate=learning_rate * batch_size / 256,
         warmup_steps=500,

@@ -1,15 +1,22 @@
 """Training entry point of the PyTorch port.
 
 Port of ``distributed_tensorflow_tpu/train_lib.py``: ``TrainArgs``,
-``parse_args``, ``build_state_and_step``, ``run`` and ``main``, with the
-reference's flags plus ``--device``.  Flags whose layer is not ported yet
-(cluster roles, mesh axes, record data, the data service, checkpoints,
-evaluation, profiling and observability sinks) raise a ``ValueError`` that
-names the missing slice; none is ignored.
+``parse_args``, ``build_state_and_step``, ``run``, ``make_eval_data`` and
+``main``, with the reference's flags plus ``--device``.  Record data
+(``--data_dir``, ``--auto_shard_policy``: the native loader),
+checkpoints with resume (``--checkpoint_*``, ``--max_to_keep``,
+``--sync_checkpoint``) and in-loop evaluation (``--eval_every``,
+``--eval_batches``) run as in the reference.  Flags whose layer is not
+ported yet (cluster roles, mesh axes, the data service, profiling and
+observability sinks) raise a ``ValueError`` that names the missing slice;
+none is ignored.
 
     python -m distributed_tensorflow_tpu_torch.train_lib --model=gpt2 \
         --flash_attention --batch_size=32 --grad_accum_steps=4 --steps=200
-    python -m distributed_tensorflow_tpu_torch.train_lib --model=resnet50 --batch_size=256
+    python -m distributed_tensorflow_tpu_torch.train_lib --model=resnet50 --batch_size=256 \
+        --data_dir=/data --checkpoint_dir=/ckpt --eval_every=1000
+    python -m distributed_tensorflow_tpu_torch.train_lib --model=wide_deep --arch=dlrm \
+        --table_dtype=bf16
     python -m distributed_tensorflow_tpu_torch.train_lib --model=bert   # seq 128
     python -m distributed_tensorflow_tpu_torch.train_lib                # mnist
 """
@@ -24,19 +31,26 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
+from distributed_tensorflow_tpu_torch.checkpoint.manager import CheckpointManager
 from distributed_tensorflow_tpu_torch.data.pipeline import (
     DevicePrefetchIterator,
+    make_global_batches,
     per_host_batch_size,
 )
+from distributed_tensorflow_tpu_torch.data.records import record_data_fn, record_paths
 from distributed_tensorflow_tpu_torch.models import Workload, available_models, get_workload
+from distributed_tensorflow_tpu_torch.obs.prefetch import PrefetchMonitorHook
 from distributed_tensorflow_tpu_torch.training import (
     BF16,
     FP32,
+    CheckpointHook,
+    EvalHook,
     Hook,
     LoggingHook,
     NanHook,
     TrainLoop,
     TrainState,
+    make_eval_step,
     make_train_step,
 )
 
@@ -134,19 +148,8 @@ _UNPORTED = (
      "the parallelism slice (meshes)"),
     ("--ring_chunk_size", lambda a: a.ring_chunk_size != 0, "the parallelism slice"),
     ("--pipe_schedule=1f1b", lambda a: a.pipe_schedule != "gpipe", "the parallelism slice"),
-    ("--arch", lambda a: a.arch is not None, "the remaining-workloads slice"),
-    ("--table_dtype=bf16", lambda a: a.table_dtype != "f32", "the remaining-workloads slice"),
-    ("--data_dir/--auto_shard_policy",
-     lambda a: a.data_dir is not None or a.auto_shard_policy != "auto",
-     "the training-runtime slice (record loader)"),
     ("--data_service", lambda a: a.data_service is not None,
      "the training-runtime slice (data service)"),
-    ("--checkpoint_dir/--checkpoint_every/--max_to_keep/--sync_checkpoint",
-     lambda a: (a.checkpoint_dir is not None or a.checkpoint_every != 1000
-                or a.max_to_keep != 3 or a.sync_checkpoint),
-     "the training-runtime slice (checkpoints)"),
-    ("--eval_every/--eval_batches", lambda a: a.eval_every > 0 or a.eval_batches != 10,
-     "the training-runtime slice (evaluation)"),
     ("--profile_dir", lambda a: a.profile_dir is not None,
      "the training-runtime slice (profiling)"),
     ("--tensorboard_dir", lambda a: a.tensorboard_dir is not None,
@@ -165,6 +168,12 @@ def validate_args(args: TrainArgs) -> None:
     for flag, is_set, where in _UNPORTED:
         if is_set(args):
             raise ValueError(f"{flag} is not ported to PyTorch yet; it comes with {where}")
+    if args.arch and args.model != "wide_deep":
+        raise ValueError(f"--arch only applies to --model=wide_deep, got "
+                         f"--model={args.model} --arch={args.arch}")
+    if args.table_dtype != "f32" and args.model != "wide_deep":
+        raise ValueError("--table_dtype applies to --model=wide_deep "
+                         "(the embedding-table workloads)")
     if args.flash_attention and args.model not in ("gpt2", "bert"):
         raise ValueError("--flash_attention applies to gpt2/bert (the attention workloads)")
 
@@ -247,30 +256,76 @@ def run(args: TrainArgs, hooks: Optional[List[Hook]] = None) -> Dict[str, Any]:
         overrides["batch_size"] = args.batch_size
     if args.grad_accum_steps:
         overrides["grad_accum_steps"] = args.grad_accum_steps
+    if args.arch:
+        overrides["arch"] = args.arch
+    if args.table_dtype != "f32":
+        overrides["table_dtype"] = args.table_dtype
     if args.flash_attention:
         overrides["use_flash_attention"] = True
     workload = get_workload(args.model, **overrides)
     grad_accum = args.grad_accum_steps or workload.grad_accum_steps
+    precision = BF16 if args.precision == "bf16" else FP32
     state, train_step = build_state_and_step(
-        workload, precision=BF16 if args.precision == "bf16" else FP32,
+        workload, precision=precision,
         grad_accum_steps=grad_accum, learning_rate=args.learning_rate,
         total_steps=args.steps, seed=args.seed)
 
-    host_iter = workload.data_fn(per_host_batch_size(workload.batch_size))
+    host_bs = per_host_batch_size(workload.batch_size)
+    if args.data_dir:
+        paths = record_paths(args.data_dir, args.model)
+        logger.info("native record loader: %d file(s), %s%s", len(paths), paths[0],
+                    "" if len(paths) == 1 else " ..")
+        host_iter = record_data_fn(paths, workload, seed=args.seed,
+                                   policy=args.auto_shard_policy)(host_bs)
+    else:
+        host_iter = workload.data_fn(host_bs)
     data_iter = DevicePrefetchIterator(host_iter, device, prefetch=2)
-    loop = TrainLoop(
-        train_step, state, data_iter,
-        hooks=[LoggingHook(every_steps=args.log_every), NanHook(), *(hooks or [])],
-        examples_per_step=workload.batch_size,
-        metrics_every=min(10, args.log_every),
-        seed=args.seed + 1)
+
+    all_hooks: List[Hook] = [
+        LoggingHook(every_steps=args.log_every), NanHook(),
+        PrefetchMonitorHook(data_iter, every_steps=max(args.log_every, 1))]
+    manager = None
     try:
+        if args.checkpoint_dir:
+            manager = CheckpointManager(args.checkpoint_dir, max_to_keep=args.max_to_keep,
+                                        save_interval_steps=args.checkpoint_every,
+                                        async_save=not args.sync_checkpoint)
+            state = manager.restore_or_init(state)
+            all_hooks.append(CheckpointHook(manager, every_steps=args.checkpoint_every))
+        if args.eval_every > 0:
+            eval_step = make_eval_step(
+                _wrap_from_record(workload, workload.eval_loss_fn or workload.loss_fn),
+                precision=precision, stateful=workload.stateful)
+            all_hooks.append(EvalHook(eval_step, make_eval_data(workload, device),
+                                      every_steps=args.eval_every,
+                                      num_batches=args.eval_batches))
+        loop = TrainLoop(train_step, state, data_iter, hooks=[*all_hooks, *(hooks or [])],
+                         examples_per_step=workload.batch_size,
+                         metrics_every=min(10, args.log_every), seed=args.seed + 1)
         final_state = loop.run(max(0, args.steps - state.step))
     finally:
+        # Teardown runs on errors too: the prefetch thread, the loader's
+        # threads and the checkpoint writer must not outlive the run.
         data_iter.close()
+        if callable(getattr(host_iter, "close", None)):
+            host_iter.close()
+        if manager is not None:
+            manager.close()
     result = {"final_step": final_state.step, **loop.last_logged_metrics}
     logger.info("done: %s", result)
     return result
+
+
+def make_eval_data(workload: Workload, device):
+    """Eval input stream: the workload's held-out split (``eval_data_fn``)
+    as batches on ``device``; the training stream, with a warning, where a
+    workload has none (eval-on-train cannot measure generalization)."""
+    fn = workload.eval_data_fn
+    if fn is None:
+        logger.warning("workload %r has no eval_data_fn; evaluating on the TRAINING stream",
+                       workload.name)
+        fn = workload.data_fn
+    return make_global_batches(fn(per_host_batch_size(workload.batch_size)), device)
 
 
 def main(argv=None):

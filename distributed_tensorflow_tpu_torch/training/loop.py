@@ -1,7 +1,8 @@
 """Training loop with hooks and deferred metrics.
 
 Port of ``distributed_tensorflow_tpu/training/loop.py`` (``Hook``,
-``LoggingHook``, ``NanHook``, ``TrainLoop``).  The hot path does not wait
+``LoggingHook``, ``NanHook``, ``CheckpointHook``, ``EvalHook``,
+``TrainLoop``).  The hot path does not wait
 for the device:
 
 - RNG: the loop passes the same base seed every step; the step folds
@@ -23,6 +24,7 @@ from typing import Callable, Dict, Iterable, List, Optional
 
 import torch
 
+from distributed_tensorflow_tpu_torch.rng import fold_in
 from distributed_tensorflow_tpu_torch.training.metrics import RunningMean, ThroughputMeter
 from distributed_tensorflow_tpu_torch.training.train_state import TrainState
 
@@ -85,6 +87,65 @@ class NanHook(Hook):
                 raise FloatingPointError(f"Non-finite loss at step {metrics_step}: {loss}")
             logger.error("Non-finite loss at step %d; requesting stop", metrics_step)
             loop.request_stop()
+
+
+class CheckpointHook(Hook):
+    """CheckpointSaverHook over ``checkpoint.manager.CheckpointManager``:
+    saves ``loop.state`` on the true step cadence (the deferred metrics do
+    not shift it) and once more, forced, at the end."""
+
+    def __init__(self, manager, every_steps: int = 1000):
+        self.manager = manager
+        self.every_steps = every_steps
+
+    def after_step(self, loop, step, metrics):
+        if step > 0 and step % self.every_steps == 0:
+            self.manager.save(step, loop.state)
+
+    def end(self, loop, step):
+        self.manager.save(step, loop.state, force=True)
+        self.manager.wait_until_finished()
+
+
+class EvalHook(Hook):
+    """Periodic in-training evaluation: every ``every_steps`` steps (and at
+    the end, off the cadence) the metrics of ``eval_step`` averaged over
+    ``num_batches`` batches of ``data_iter`` on the current ``loop.state``,
+    as ``eval_<name>`` in ``loop.last_logged_metrics``.  The host reads
+    each value, so evaluation waits for the device (it is off the hot
+    path).  Batch ``i`` of evaluation ``k`` gets the seed
+    ``fold_in(seed, k, i)``."""
+
+    def __init__(self, eval_step: Callable, data_iter: Iterable, *, every_steps: int,
+                 num_batches: int = 10, seed: int = 17):
+        self.eval_step = eval_step
+        self.data_iter = iter(data_iter)
+        self.every_steps = max(1, every_steps)
+        self.num_batches = num_batches
+        self.seed = seed
+        self._evals = 0
+        self.last_eval_metrics: Dict[str, float] = {}
+
+    def _evaluate(self, loop, step):
+        sums: Dict[str, float] = {}
+        for i in range(self.num_batches):
+            m = self.eval_step(loop.state, next(self.data_iter),
+                               fold_in(self.seed, self._evals, i))
+            for k, v in m.items():
+                sums[k] = sums.get(k, 0.0) + float(v)
+        self._evals += 1
+        self.last_eval_metrics = {f"eval_{k}": v / self.num_batches for k, v in sums.items()}
+        loop.last_logged_metrics.update(self.last_eval_metrics)
+        logger.info("eval @ step %d: %s", step, ", ".join(
+            f"{k}={v:.4g}" for k, v in sorted(self.last_eval_metrics.items())))
+
+    def after_step(self, loop, step, metrics):
+        if step % self.every_steps == 0 and step > 0:
+            self._evaluate(loop, step)
+
+    def end(self, loop, step):
+        if step > 0 and step % self.every_steps != 0:
+            self._evaluate(loop, step)
 
 
 class TrainLoop:

@@ -2,16 +2,18 @@
 model state.
 
 Port of ``distributed_tensorflow_tpu/training/train_state.py``.  The JAX
-state is an immutable pytree; here the module owns the master parameters
-and the model state (its buffers: BatchNorm's running statistics, float32),
-and ``apply_gradients`` updates them and the optimizer's state in place (no
-second copy of either), then returns the same object.
+state is an immutable pytree; here the module owns the stored parameters
+(float32, except embedding tables stored in bf16, whose float32 masters
+live in the optimizer: ``training/optim.py``) and the model state (its
+buffers: BatchNorm's running statistics, float32), and ``apply_gradients``
+updates them and the optimizer's state in place (no second copy of
+either), then returns the same object.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 from torch import nn
@@ -43,11 +45,15 @@ class TrainState:
                 for name, buf in self.module.named_buffers():
                     if new_model_state[name] is not buf:
                         buf.copy_(new_model_state[name])
+        # A low-precision parameter's float32 gradient goes to its float32
+        # master (MultiTransform.grad_targets), never rounded to its dtype.
+        targets = getattr(self.optimizer, "grad_targets", {})
         for name, p in self.module.named_parameters():
-            p.grad = grads[name]
+            targets.get(name, p).grad = grads[name]
         lr = self.schedule(self.step)
         for group in self.optimizer.param_groups:
-            group["lr"] = lr
+            if not group.get("fixed_lr", False):  # e.g. a table's own Adagrad rate
+                group["lr"] = lr
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
         self.step += 1
@@ -56,23 +62,25 @@ class TrainState:
     @classmethod
     def create(cls, *, module: nn.Module, schedule: Callable[[int], float],
                weight_decay: float = 1e-4,
-               make_optimizer: Optional[Callable[[Iterable[nn.Parameter]],
+               make_optimizer: Optional[Callable[[Iterable[Tuple[str, nn.Parameter]]],
                                                  torch.optim.Optimizer]] = None
                ) -> "TrainState":
         """The workload's optimizer over every parameter where it has one
-        (``make_optimizer``; its learning rate is set from ``schedule``
-        every update), else optax.adamw(schedule, weight_decay): b1 0.9,
-        b2 0.999, eps 1e-8, decoupled decay on every leaf (mask=None)."""
+        (``make_optimizer``, given the named parameters; its learning rate
+        is set from ``schedule`` every update, except in param groups
+        marked ``fixed_lr``), else optax.adamw(schedule, weight_decay): b1
+        0.9, b2 0.999, eps 1e-8, decoupled decay on every leaf (mask=None)."""
         if make_optimizer is not None:
-            opt = make_optimizer(module.parameters())
+            opt = make_optimizer(module.named_parameters())
         else:
             opt = torch.optim.AdamW(module.parameters(), lr=schedule(0), betas=(0.9, 0.999),
                                     eps=1e-8, weight_decay=weight_decay)
         return cls(step=0, module=module, optimizer=opt, schedule=schedule)
 
 
-def sgd_nesterov(params: Iterable[nn.Parameter], momentum: float = 0.9) -> torch.optim.Optimizer:
-    """optax.sgd(schedule, momentum, nesterov=True): the trace starts at zero
+def sgd_nesterov(params: Iterable, momentum: float = 0.9) -> torch.optim.Optimizer:
+    """optax.sgd(schedule, momentum, nesterov=True) over parameters, named or
+    not: the trace starts at zero
     in optax and torch's buffer at the first gradient, which is the same
     first buffer (g); no dampening, no weight decay."""
     return torch.optim.SGD(params, lr=0.0, momentum=momentum, nesterov=True, dampening=0.0,

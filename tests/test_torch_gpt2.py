@@ -172,5 +172,9 @@ def test_dense_attention_memory_guard():
 
 
 def test_make_workload_rejects_unported_options():
-    with pytest.raises(ValueError, match="ce_chunk"):
-        tgpt2.make_workload(preset="tiny", ce_chunk=16, device="cpu")
+    """ce_chunk is ported (test_torch_wide_deep.py holds it to the
+    reference); ring attention and pipelining still raise."""
+    assert tgpt2.make_workload(preset="tiny", ce_chunk=16, device="cpu").module.cfg.ce_chunk == 16
+    for kw in (dict(ring_chunk_size=64), dict(pipe_schedule="1f1b")):
+        with pytest.raises(ValueError, match="parallelism slice"):
+            tgpt2.make_workload(preset="tiny", device="cpu", **kw)
