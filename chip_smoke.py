@@ -77,6 +77,25 @@ Phases (any failure raises; there is no CPU path):
    printed); then train_lib with ``--eval_every`` and ``--checkpoint_dir``
    for 4 steps and again to 6, resuming; the eval metrics and the save and
    restore seconds.  Each phase prints its seconds.
+8. Multi-worker training, full-width Wide&Deep (batch 4,096, bf16):
+   (a) one worker under ``TF_CONFIG`` (its group of one on NCCL, checked
+   with one all-reduce), 20 steps with ``--tensorboard_dir``,
+   ``--metrics_file``, ``--metrics_port`` (scraped at step 10),
+   ``--trace_out``, ``--profile_dir`` and a checkpoint every 10 steps:
+   the event file's CRCs and scalar count, the JSONL lines, the
+   Prometheus text, the checkpoint spans and the profiler trace's CUDA
+   kernels are checked; then the same with the five flags off, and the
+   hooks' cost a step; (b) two workers sharing the card over gloo
+   (processes of this script, ``--worker``), 5 steps: the ranks' final
+   states bit-identical, and equal to this process's run of the same
+   global batch as two microbatches (loss 2e-5, tensors 1e-5 of a leaf),
+   with the step and the all-reduce's seconds (one card: not a scaling
+   figure); (c) SIGTERM to worker 1 after step 3: both save at one step
+   and exit 0, a relaunch resumes to step 8 equal to the one-process run
+   of the same batches (phase 7's resume tolerances), and an evaluator
+   task reports eval_loss at step 8 equal to EvalHook's on that checkpoint;
+   (d) SIGKILL to worker 1: worker 0 raises within interval x 3 +
+   timeout seconds.  Every worker is killed at its deadline.
 
 The line before the last is a JSON object of the kernels' numbers; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -748,7 +767,8 @@ class StepRecorder:
 
     def after_step(self, loop, step, metrics):
         enqueued = time.perf_counter()
-        torch.cuda.synchronize()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
         self.host.append(enqueued - self.t[-1])
         self.t.append(time.perf_counter())
         if step == self.profile_step - 1:
@@ -1418,6 +1438,482 @@ def time_bert_kernels(fa, philox_per_draw, int_rate):
     return rows
 
 
+# -- Phase 8: multi-worker training on the card ----------------------------------
+#
+# Workers are this script run again with ``--worker OUT TAG [train_lib flags]``
+# under a TF_CONFIG of their own: each builds train_lib.run's path with a
+# StepRecorder, drops a marker file after every step (the parent signals
+# them by those), optionally dumps its final state, and prints one
+# WORKER_RESULT (or WORKER_RAISED) JSON line.
+
+DEVICE = "cuda"  # a rehearsal of these phases on a CPU sets "cpu"
+DP_STEPS, PREEMPT_STEPS, PREEMPT_AFTER = 5, 8, 3
+HEALTH_INTERVAL_S = 2.0  # DTT_HEALTH_INTERVAL_S of the health phase
+DP_TOL = {"loss": 2e-5, "tensor": 1e-5}  # the single-process float32 ones
+WORKER_DEADLINE_S = 240.0
+
+
+def free_ports(n):
+    import socket
+
+    socks = []
+    try:
+        for _ in range(n):
+            s = socket.socket()
+            s.bind(("127.0.0.1", 0))
+            socks.append(s)
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def worker_main(argv) -> int:
+    """One task of a TF_CONFIG cluster: ``train_lib.run(flags)`` (the
+    evaluator role included) with a StepRecorder and the marker hook."""
+    import os
+
+    from distributed_tensorflow_tpu_torch import train_lib
+    from distributed_tensorflow_tpu_torch.checkpoint.manager import state_tensors
+    from distributed_tensorflow_tpu_torch.obs.metrics import default_registry
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+    from distributed_tensorflow_tpu_torch.training import Hook
+
+    out, tag, flags = Path(argv[0]), argv[1], argv[2:]
+    dump = "--dump" in flags
+    flags = [f for f in flags if f != "--dump"]
+    task = json.loads(os.environ["TF_CONFIG"])["task"]
+    rank = task["index"]
+    rec = StepRecorder(0)  # wall time a step after a sync; no profiler
+    after_first = {}
+
+    def allreduce_totals():
+        fam = {f.name: f for f in default_registry().families()}.get(
+            "dtt_grad_allreduce_seconds")
+        children = [c for _, c in fam.samples()] if fam is not None else []
+        return sum(c.count for c in children), sum(c.sum for c in children)
+
+    class Mark(Hook):
+        def after_step(self, loop, step, metrics):
+            (out / f"{tag}_rank{rank}_step{step}").touch()
+            if not after_first:  # the run's first step
+                after_first["totals"] = allreduce_totals()
+
+        def end(self, loop, step):
+            if dump:
+                torch.save({k: v.detach().cpu() for k, v in state_tensors(loop.state).items()},
+                           out / f"{tag}_rank{rank}.pt")
+
+    try:
+        result = train_lib.run(train_lib.parse_args(flags), hooks=[rec, Mark()])
+    except Exception as e:  # the health phase's survivor: report when it raised
+        print("WORKER_RAISED " + json.dumps({"time": time.time(), "type": type(e).__name__,
+                                             "message": str(e)[:400]}), flush=True)
+        return 3
+    (n, total), (n1, total1) = allreduce_totals(), after_first.get("totals", (0, 0.0))
+    print("WORKER_RESULT " + json.dumps({
+        "role": task["type"], "rank": rank, "result": result,
+        "losses": [rec.losses.get(s) for s in sorted(rec.losses)],
+        "step_s": [b - a for a, b in zip(rec.t, rec.t[1:])],
+        # the first step's all-reduce also waits for the slower rank's
+        # start-up; the figures below leave it out
+        "allreduce_calls": n - n1, "allreduce_s": total - total1,
+        "launches": dict(fa.LAUNCHES)}), flush=True)
+    return 0
+
+
+def spawn_cluster(out: Path, tag: str, roles, flags, *, env=None):
+    """One worker process a (job, index) of ``roles`` on this card, under a
+    localhost TF_CONFIG of those tasks; ``flags[job]`` are its train_lib
+    flags.  Output goes to ``out/<tag>_<job><index>.log``."""
+    import os
+
+    cluster = {}
+    for (job, _), port in zip(roles, free_ports(len(roles))):
+        cluster.setdefault(job, []).append(f"localhost:{port}")
+    procs = []
+    for job, index in roles:
+        penv = dict(os.environ, TF_CONFIG=json.dumps(
+            {"cluster": cluster, "task": {"type": job, "index": index}}), **(env or {}))
+        log = open(out / f"{tag}_{job}{index}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--worker", str(out), tag,
+             *flags[job]], env=penv, stdout=log, stderr=subprocess.STDOUT), log, job, index))
+    return procs
+
+
+def join_cluster(procs, deadline_s=WORKER_DEADLINE_S):
+    """Wait for every process until the deadline, killing all on expiry;
+    returns [(returncode, WORKER_RESULT dict or None, raised dict or None,
+    log text)]."""
+    end = time.monotonic() + deadline_s
+    expired = False
+    for p, _, _, _ in procs:
+        try:
+            p.wait(timeout=max(0.1, end - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            expired = True
+            break
+    if expired:
+        for p, _, _, _ in procs:
+            p.kill()
+            p.wait()
+    results = []
+    for p, log, job, index in procs:
+        log.close()
+        text = Path(log.name).read_text()
+        res = re.search(r"^WORKER_RESULT (.*)$", text, re.M)
+        raised = re.search(r"^WORKER_RAISED (.*)$", text, re.M)
+        results.append((p.returncode, json.loads(res.group(1)) if res else None,
+                        json.loads(raised.group(1)) if raised else None, text))
+    if expired:
+        raise AssertionError("workers still running at their deadline; killed: " + " | ".join(
+            f"{job}{index}: {r[3][-1500:]}" for (_, _, job, index), r in zip(procs, results)))
+    return results
+
+
+def wait_for_step(out: Path, tag: str, step: int, procs, seconds=WORKER_DEADLINE_S):
+    end = time.monotonic() + seconds
+    while time.monotonic() < end:
+        if all((out / f"{tag}_rank{r}_step{step}").exists() for r in (0, 1)):
+            return
+        if any(p.poll() is not None for p, _, job, _ in procs if job == "worker"):
+            break
+        time.sleep(0.05)
+    for p, _, _, _ in procs:
+        p.kill()
+    raise AssertionError(f"{tag}: the workers did not both reach step {step}: " + " | ".join(
+        Path(log.name).read_text()[-1500:] for _, log, _, _ in procs))
+
+
+def expect_ok(label, results):
+    for code, res, _, text in results:
+        if code != 0 or res is None:
+            raise AssertionError(f"{label}: a task exited {code}: {text[-3000:]}")
+        assert_no_flash(f"{label} ({res['role']} {res['rank']})", res["launches"])
+    return [res for _, res, _, _ in results]
+
+
+def summed_launches(*results):
+    """The flash kernels' launches of worker processes, summed."""
+    total = {}
+    for res in results:
+        for name, n in res["launches"].items():
+            total[name] = total.get(name, 0) + n
+    return total
+
+
+def shard_stream(workload, shards: int, index: int):
+    """Stream shard ``index`` of ``shards`` at the per-host batch, as a
+    rank's train_lib draws it (the generator reads its shard on its first
+    draw, so that draw happens while the override holds)."""
+    import itertools
+
+    from distributed_tensorflow_tpu_torch.data.pipeline import set_stream_shard_override
+
+    set_stream_shard_override(shards, index)
+    try:
+        it = workload.data_fn(workload.batch_size // shards)
+        first = next(it)
+    finally:
+        set_stream_shard_override(None)
+    return itertools.chain([first], it)
+
+
+def one_process_reference(segments, total_steps):
+    """Full-width Wide&Deep in this process, on the global batch the two
+    ranks feed: rows of stream shard (2, 0) then of (2, 1), as two
+    microbatches (grad_accum_steps=2: microbatch i is rank i's rows).
+    ``segments`` are step counts; the streams start over at each one, as a
+    relaunch's do.  Returns (losses, the state's tensors on the CPU)."""
+    import numpy as np
+
+    from distributed_tensorflow_tpu_torch import train_lib
+    from distributed_tensorflow_tpu_torch.checkpoint.manager import state_tensors
+    from distributed_tensorflow_tpu_torch.models import get_workload
+
+    device = torch.device(DEVICE)
+    wl = get_workload("wide_deep", batch_size=RECSYS_BATCH, device=device)
+    state, step = train_lib.build_state_and_step(wl, grad_accum_steps=2,
+                                                 total_steps=total_steps, seed=0)
+    losses = []
+    for n in segments:
+        streams = [shard_stream(wl, 2, i) for i in (0, 1)]
+        for _ in range(n):
+            parts = [next(s) for s in streams]
+            batch = {k: torch.from_numpy(np.concatenate([p[k] for p in parts])).to(device)
+                     for k in parts[0]}
+            state, m = step(state, batch, 1)
+            losses.append(float(m["loss"]))
+    return losses, {k: v.detach().cpu() for k, v in state_tensors(state).items()}, wl, state
+
+
+def check_state(label, got, want, tol):
+    worst, name, exact = _state_errors(got, want)
+    print(f"[cluster] {label}: worst tensor {name} {worst:.3e} of its largest entry "
+          f"(tolerance {tol}); bit-identical: {exact}")
+    if worst > tol:
+        raise AssertionError(f"{label}: {name} differs by {worst:.3e} of its largest entry")
+    return exact
+
+
+class _Scrape:
+    """Hook: GET /metrics once, at ``step`` (where ``port`` is given); and
+    (begin) one all-reduce on the training group, which must run NCCL."""
+
+    def __init__(self, port, step):
+        self.port, self.step, self.body = port, step, None
+
+    def begin(self, loop):
+        import torch.distributed as dist
+
+        t = torch.ones(1, device=DEVICE)
+        dist.all_reduce(t)
+        if dist.get_backend() != ("nccl" if DEVICE == "cuda" else "gloo") or float(t) != 1.0:
+            raise AssertionError(f"training group: {dist.get_backend()}, all-reduce {t}")
+
+    def after_step(self, loop, step, metrics):
+        if step == self.step and self.port is not None:
+            import urllib.request
+
+            self.body = urllib.request.urlopen(
+                f"http://127.0.0.1:{self.port}/metrics", timeout=10).read().decode()
+
+    def on_metrics(self, loop, metrics_step, metrics):
+        pass
+
+    def end(self, loop, step):
+        pass
+
+
+def check_observability(fa, data_dir: Path):
+    """Phase 8a: one worker under TF_CONFIG (NCCL, world size 1), full-width
+    Wide&Deep, 20 steps with --tensorboard_dir, --metrics_file,
+    --metrics_port (scraped at step 10), --trace_out and --profile_dir
+    (steps 11-15) and a checkpoint every 10 steps; each output is checked;
+    then the same with the five flags off.  Returns the launch counts."""
+    import os
+
+    from distributed_tensorflow_tpu_torch import train_lib
+    from distributed_tensorflow_tpu_torch.obs.tensorboard import read_events
+    from distributed_tensorflow_tpu_torch.obs.trace import default_tracer
+
+    t_phase = time.perf_counter()
+    d = data_dir / "obs"
+    store_port, metrics_port = free_ports(2)
+    os.environ["TF_CONFIG"] = json.dumps({"cluster": {"worker": [f"localhost:{store_port}"]},
+                                          "task": {"type": "worker", "index": 0}})
+    base = ["--model=wide_deep", f"--batch_size={RECSYS_BATCH}", "--steps=20", "--log_every=1",
+            "--checkpoint_every=10", f"--device={DEVICE}", "--seed=0"]
+    flags = [f"--tensorboard_dir={d / 'tb'}", f"--metrics_file={d / 'metrics.jsonl'}",
+             f"--metrics_port={metrics_port}", f"--trace_out={d / 'trace.json'}",
+             f"--profile_dir={d / 'profile'}"]
+    steps_s, by_path = {"flags on": [], "flags off": []}, {}
+    (d / "again").mkdir(parents=True)
+    try:
+        # In turns (on, off, off, on); the first run's outputs are checked.
+        for run, label in enumerate(("flags on", "flags off", "flags off", "flags on")):
+            for name in fa.LAUNCHES:
+                fa.LAUNCHES[name] = 0
+            extra = flags if run == 0 else [] if label == "flags off" else [
+                f.replace(str(d), str(d / "again")) for f in flags]
+            rec, scrape = StepRecorder(0), _Scrape(metrics_port if extra else None, 10)
+            argv = [*base, f"--checkpoint_dir={d / f'ckpt{run}'}", *extra]
+            result = train_lib.run(train_lib.parse_args(argv), hooks=[rec, scrape])
+            launches = by_path[f"wide_deep_tf_config_{label.replace(' ', '_')}"] = dict(
+                fa.LAUNCHES)
+            assert_no_flash(f"Wide&Deep TF_CONFIG {label}", launches)
+            if result["final_step"] != 20:
+                raise AssertionError(f"{label}: {result}")
+            steps_s[label].append([b - a for a, b in zip(rec.t, rec.t[1:])])
+            if run == 0:
+                body, losses = scrape.body, rec.losses
+            default_tracer().disable()  # train_lib enables it, and leaves it so
+            default_tracer().clear()
+    finally:
+        del os.environ["TF_CONFIG"]
+        default_tracer().disable()
+    lines = [json.loads(line) for line in (d / "metrics.jsonl").read_text().splitlines()]
+    (event_file,) = (d / "tb").iterdir()
+    events = read_events(str(event_file))  # raises on a bad CRC
+    scalars = [s for e in events for s in e["scalars"]]
+    want_scalars = sum(len(line) - 2 for line in lines)  # less step and time
+    spans = [(e["name"], e.get("args", {}).get("step"))
+             for e in json.loads((d / "trace.json").read_text())["traceEvents"]]
+    (prof_file,) = (d / "profile").iterdir()
+    prof = json.loads(prof_file.read_text())["traceEvents"]
+    kernels = [e for e in prof if e.get("cat") == "kernel"]
+    print(f"[obs] event file {event_file.name}: {len(events)} events, CRCs valid, {len(scalars)} "
+          f"scalars (JSONL holds {want_scalars}), tags {sorted({t for t, _ in scalars})}")
+    print(f"[obs] JSONL: {len(lines)} lines, steps {[line['step'] for line in lines]}")
+    print(f"[obs] /metrics at step 10: {len(body.splitlines())} lines, "
+          f"{sum(line.startswith('# TYPE') for line in body.splitlines())} families")
+    print(f"[obs] Chrome trace: {spans}")
+    print(f"[obs] profiler trace {prof_file.name}: {len(prof)} events, {len(kernels)} CUDA "
+          f"kernel events ({len({k['name'] for k in kernels})} names), "
+          f"{prof_file.stat().st_size / 2**20:.1f} MiB")
+    if (len(scalars) != want_scalars or [line["step"] for line in lines] != list(range(1, 21))
+            or not all(math.isfinite(line["loss"]) for line in lines)
+            or "# TYPE dtt_checkpoint_save_seconds histogram" not in body
+            or "# TYPE dtt_train_step_seconds histogram" not in body
+            or [s for s in spans if s[0] == "checkpoint_save"] != [("checkpoint_save", 10),
+                                                                   ("checkpoint_save", 20)]
+            or (DEVICE == "cuda" and not kernels) or sorted(losses) != list(range(1, 21))):
+        raise AssertionError("an observability output is missing or malformed")
+    # Steps 2-9 and 17-20: not the first, the checkpoint's (10) or the
+    # profiler's window (11-16).
+    keep = [s for s in range(2, 21) if s < 10 or s > 16]
+    on, off = (statistics.median(run[s - 1] for run in steps_s[label] for s in keep)
+               for label in ("flags on", "flags off"))
+    print(f"[obs] Wide&Deep one worker (NCCL, world size 1), median step over steps {keep} of "
+          f"two runs each (on, off, off, on): flags on {1e3 * on:.3f} ms, off {1e3 * off:.3f} "
+          f"ms: the hooks cost {1e3 * (on - off):.3f} ms a step ({(on - off) / off:.1%}); "
+          f"profiled steps 11-15 of the first run "
+          f"{[round(1e3 * s, 2) for s in steps_s['flags on'][0][10:15]]} ms")
+    print(f"[phase] TF_CONFIG worker with the observability flags: "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
+def check_two_workers(data_dir: Path):
+    """Phase 8b: two workers sharing the card (gloo), global batch 4,096,
+    DP_STEPS steps: the ranks' final states bit-identical, and equal to a
+    one-process run of the same global batch as two microbatches."""
+    t_phase = time.perf_counter()
+    out = data_dir / "cluster"
+    out.mkdir(parents=True, exist_ok=True)
+    flags = ["--model=wide_deep", f"--batch_size={RECSYS_BATCH}", f"--steps={DP_STEPS}",
+             "--log_every=1", f"--device={DEVICE}", "--seed=0", "--dump"]
+    procs = spawn_cluster(out, "dp", [("worker", 0), ("worker", 1)], {"worker": flags})
+    r0, r1 = expect_ok("two workers", join_cluster(procs))
+    s0, s1 = (torch.load(out / f"dp_rank{r}.pt") for r in (0, 1))
+    same = all(torch.equal(s0[k], s1[k]) for k in s0) and r0["losses"] == r1["losses"]
+    if not same:
+        raise AssertionError("the two ranks' final states or losses differ")
+    losses, want, _, _ = one_process_reference([DP_STEPS], DP_STEPS)
+    dloss = max(abs(a - b) for a, b in zip(r0["losses"], losses))
+    print(f"[cluster] two workers on one card (gloo): losses {r0['losses']}; one process "
+          f"(two microbatches) {losses}; max |diff| {dloss:.3e} (tolerance {DP_TOL['loss']})")
+    exact = check_state("two workers vs one process", s0, want, DP_TOL["tensor"])
+    if dloss > DP_TOL["loss"]:
+        raise AssertionError("two workers' losses differ from the one-process run")
+    for r in (r0, r1):
+        steps = r["step_s"][1:]
+        print(f"[cluster] rank {r['rank']} (two ranks sharing ONE card over gloo: not a scaling "
+              f"figure): step seconds {[round(s, 4) for s in r['step_s']]}, median after the "
+              f"first {1e3 * statistics.median(steps):.2f} ms; gradient all-reduce (pinned host "
+              f"copies + gloo) after the first step: {r['allreduce_calls']} calls, "
+              f"{1e3 * r['allreduce_s'] / max(1, r['allreduce_calls']):.2f} ms each")
+    print(f"[phase] two workers sharing the card: {time.perf_counter() - t_phase:.1f} s")
+    return {"wide_deep_2_workers": summed_launches(r0, r1)}
+
+
+def check_preemption(data_dir: Path):
+    """Phase 8c: two workers and an evaluator; SIGTERM worker 1 after step
+    PREEMPT_AFTER: both save at the same step and exit 0; relaunched, they
+    resume to PREEMPT_STEPS, and the final state equals the one-process
+    run of the same batches (the relaunch's streams start over), with the
+    resume tolerances of ``check_resume_and_eval``.  The evaluator reports
+    eval_loss at the last step, equal to EvalHook on that checkpoint in
+    this process."""
+    import signal
+
+    from distributed_tensorflow_tpu_torch import train_lib
+    from distributed_tensorflow_tpu_torch.checkpoint.manager import CheckpointManager, _read_all
+    from distributed_tensorflow_tpu_torch.training import EvalHook, make_eval_step
+
+    t_phase = time.perf_counter()
+    out, ckpt = data_dir / "cluster", data_dir / "cluster" / "ckpt"
+    out.mkdir(parents=True, exist_ok=True)
+    flags = ["--model=wide_deep", f"--batch_size={RECSYS_BATCH}", f"--steps={PREEMPT_STEPS}",
+             "--log_every=1", f"--device={DEVICE}", "--seed=0", f"--checkpoint_dir={ckpt}",
+             "--checkpoint_every=1000", "--eval_batches=2"]
+    roles = [("worker", 0), ("worker", 1), ("evaluator", 0)]
+    first = spawn_cluster(out, "preempt", roles, {"worker": flags, "evaluator": flags})
+    workers, evaluator = first[:2], first[2:]
+    try:
+        wait_for_step(out, "preempt", PREEMPT_AFTER, first)
+        t_signal = time.perf_counter()
+        workers[1][0].send_signal(signal.SIGTERM)
+        w0, w1 = expect_ok("preempted workers", join_cluster(workers))
+        t_stopped = time.perf_counter()
+        stop = w0["result"]["final_step"]
+        saved = sorted(int(p.name) for p in ckpt.iterdir() if p.name.isdigit())
+        print(f"[preempt] SIGTERM to worker 1 after step {PREEMPT_AFTER}: workers stopped at "
+              f"steps {stop} and {w1['result']['final_step']} {t_stopped - t_signal:.2f} s "
+              f"later; checkpoints {saved}")
+        if w1["result"]["final_step"] != stop or saved != [stop] or stop >= PREEMPT_STEPS:
+            raise AssertionError("the workers did not stop and save at one step")
+        second = spawn_cluster(out, "resume", roles[:2], {"worker": flags})
+        r0, r1 = expect_ok("relaunched workers", join_cluster(second))
+        (ev,) = expect_ok("evaluator", join_cluster(evaluator))
+    finally:
+        for p, _, _, _ in first:
+            if p.poll() is None:
+                p.kill()
+    resumed = [f"resumed from checkpoint step {stop}" in Path(log.name).read_text()
+               for _, log, _, _ in second]
+    if not all(resumed) or r0["result"]["final_step"] != PREEMPT_STEPS:
+        raise AssertionError(f"the relaunch did not resume from step {stop}: {r0['result']}")
+    losses, want, wl, _ = one_process_reference([stop, PREEMPT_STEPS - stop], PREEMPT_STEPS)
+    got = _read_all(str(ckpt / str(PREEMPT_STEPS)))
+    dloss = max(abs(a - b) for a, b in zip(w0["losses"] + r0["losses"], losses))
+    print(f"[preempt] losses {w0['losses']} | {r0['losses']}; one process {losses}; max |diff| "
+          f"{dloss:.3e} (tolerance 1e-4)")
+    exact = check_state(f"resumed to step {PREEMPT_STEPS} vs one process", got, want, 1e-5)
+    if dloss > 1e-4:
+        raise AssertionError("the resumed losses differ from the one-process run")
+    # The evaluator against EvalHook's first evaluation of the same checkpoint.
+    state, _ = train_lib.build_state_and_step(wl, total_steps=PREEMPT_STEPS, seed=1)
+    with CheckpointManager(str(ckpt)) as mgr:
+        state = mgr.restore(PREEMPT_STEPS, template=state)
+    hook = EvalHook(make_eval_step(wl.loss_fn), train_lib.make_eval_data(wl, DEVICE),
+                    every_steps=PREEMPT_STEPS, num_batches=2)
+
+    class Loop:
+        last_logged_metrics: dict = {}
+
+    Loop.state = state
+    hook.after_step(Loop, PREEMPT_STEPS, None)
+    print(f"[preempt] evaluator @ step {ev['result']['final_step']}: {ev['result']}; EvalHook "
+          f"on that checkpoint: {hook.last_eval_metrics}")
+    if ev["result"]["final_step"] != PREEMPT_STEPS or any(
+            abs(ev["result"][k] - v) > 1e-6 * max(1.0, abs(v))
+            for k, v in hook.last_eval_metrics.items()):
+        raise AssertionError("the evaluator's metrics differ from EvalHook's")
+    print(f"[phase] preemption, resume and evaluator: {time.perf_counter() - t_phase:.1f} s")
+    return {"wide_deep_preempt_resume": summed_launches(w0, w1, r0, r1),
+            "wide_deep_evaluator": ev["launches"]}
+
+
+def check_health(data_dir: Path):
+    """Phase 8d: SIGKILL worker 1 after step 3; worker 0 must raise within
+    interval x (failures_before_action + 1) + timeout seconds."""
+    import signal
+
+    t_phase = time.perf_counter()
+    out = data_dir / "cluster"
+    out.mkdir(parents=True, exist_ok=True)
+    flags = ["--model=wide_deep", f"--batch_size={RECSYS_BATCH}", "--steps=100000",
+             "--log_every=1", f"--device={DEVICE}", "--seed=0"]
+    procs = spawn_cluster(out, "health", [("worker", 0), ("worker", 1)], {"worker": flags},
+                          env={"DTT_HEALTH_INTERVAL_S": str(HEALTH_INTERVAL_S)})
+    wait_for_step(out, "health", 3, procs)
+    killed = time.time()
+    procs[1][0].send_signal(signal.SIGKILL)
+    (code0, _, raised, text0), (code1, _, _, _) = join_cluster(procs)
+    timeout = min(20.0, max(1.0, HEALTH_INTERVAL_S * 0.75))
+    bound = HEALTH_INTERVAL_S * (2 + 1) + timeout
+    if code0 != 3 or raised is None or code1 != -signal.SIGKILL:
+        raise AssertionError(f"worker 0 did not raise (exit {code0}): {text0[-3000:]}")
+    detect = raised["time"] - killed
+    print(f"[health] SIGKILL to worker 1: worker 0 raised {raised['type']} after {detect:.3f} s "
+          f"(bound {HEALTH_INTERVAL_S} x 3 + {timeout} = {bound} s): {raised['message'][:200]}")
+    if detect > bound:
+        raise AssertionError(f"worker 0 raised after {detect:.3f} s, beyond {bound} s")
+    print(f"[phase] health: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only", file=sys.stderr)
@@ -1500,6 +1996,15 @@ def main() -> int:
         t_resume = time.perf_counter()
         check_resume_and_eval(data_dir)
         print(f"[phase] checkpoint resume and evaluation: {time.perf_counter() - t_resume:.1f} s")
+        # Phase 8: multi-worker training (each path's flash launches: 0).
+        t_cluster = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        other_runs.update({label: {"launches": n} for label, n in {
+            **check_observability(fa, data_dir), **check_two_workers(data_dir),
+            **check_preemption(data_dir)}.items()})
+        check_health(data_dir)
+        print(f"[phase] multi-worker phases: {time.perf_counter() - t_cluster:.1f} s")
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
 
@@ -1539,4 +2044,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--worker"]:
+        sys.exit(worker_main(sys.argv[2:]))
     sys.exit(main())

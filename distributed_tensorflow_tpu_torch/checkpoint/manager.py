@@ -5,7 +5,9 @@ its surface: ``max_to_keep``, ``save_interval_steps``, ``latest_step``,
 ``all_steps``, ``poll``, ``save`` (False for a step that exists),
 ``restore``, ``restore_or_init``, ``restore_params``,
 ``wait_until_finished``, ``close``, the context manager and the save and
-restore histograms in ``obs.metrics``' registry.
+restore histograms in ``obs.metrics``' registry and the
+``checkpoint_save`` / ``checkpoint_restore`` spans of ``obs.trace``'s
+flight recorder.
 
 A checkpoint is the directory ``<directory>/<step>`` written by
 ``dcp.save`` from a flat dict of tensors:
@@ -28,6 +30,17 @@ as the write, as orbax finalises a save.)  One save runs at a time: a new
 save waits for the one in flight.  ``restore`` reads the checkpoint's
 metadata, loads every tensor it lists, and writes them into the given
 state in place.
+
+Data-parallel ranks (``torch.distributed`` with more than one process)
+hold the same replicated state, so only the coordinator writes; ``dcp``
+runs with ``no_dist`` on every rank, off the training group.  A save
+counts as done on every rank only after ``wait_until_finished``: the
+coordinator joins its writer, then every rank meets at a barrier on the
+host-control group (from the calling thread, never the writer's) and
+learns whether the write succeeded.  The list of steps comes from the
+coordinator's scan, so ``latest_step`` and ``restore_or_init`` agree on
+every rank; each rank reads the checkpoint itself, from a directory every
+rank sees, as orbax's restore does.
 """
 
 from __future__ import annotations
@@ -44,7 +57,9 @@ import torch
 import torch.distributed.checkpoint as dcp
 from torch.distributed.checkpoint.metadata import TensorStorageMetadata
 
+from distributed_tensorflow_tpu_torch.cluster import coordination
 from distributed_tensorflow_tpu_torch.obs import metrics as obs_metrics
+from distributed_tensorflow_tpu_torch.obs.trace import default_tracer
 from distributed_tensorflow_tpu_torch.training.optim import optimizer_branches
 from distributed_tensorflow_tpu_torch.training.train_state import TrainState
 
@@ -119,7 +134,7 @@ def _read_all(path: str, prefixes: Tuple[str, ...] = ("",)) -> Dict[str, torch.T
             raise ValueError(f"{path}: {fqn} is not a tensor; not a checkpoint of this manager")
         if fqn.startswith(prefixes):
             template[fqn] = torch.empty(meta.size, dtype=meta.properties.dtype)
-    dcp.load(template, checkpoint_id=path)
+    dcp.load(template, checkpoint_id=path, no_dist=True)
     return template
 
 
@@ -134,7 +149,11 @@ class CheckpointManager:
         self.save_interval_steps = max(1, save_interval_steps)
         self.async_save = async_save
         self._obs = _ckpt_instruments()
-        self._steps: List[int] = self._scan()
+        self._tracer = default_tracer()
+        self._writes = coordination.is_coordinator()
+        self._steps: List[int] = coordination.broadcast_from_coordinator(
+            self._scan() if self._writes else None)
+        self._pending = False  # a save started that wait_until_finished has not closed
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
         self._closed = False
@@ -192,18 +211,25 @@ class CheckpointManager:
             return False
         self.wait_until_finished()
         t0 = time.monotonic()
-        staged = {k: v.detach().to("cpu", copy=True) for k, v in state_tensors(state).items()}
         self._steps = sorted(self._steps + [step])
         drop = self._steps[:-self.max_to_keep] if self.max_to_keep else []
         self._steps = [s for s in self._steps if s not in drop]
-        if self.async_save:
-            self._thread = threading.Thread(target=self._write, args=(step, staged, drop),
-                                            daemon=True, name=f"dtt-ckpt-{step}")
-            self._thread.start()
-        else:
-            self._write(step, staged, drop)
-            self._raise_error()
-        self._obs["save"].observe(time.monotonic() - t0)
+        self._pending = True
+        if self._writes:
+            staged = {k: v.detach().to("cpu", copy=True)
+                      for k, v in state_tensors(state).items()}
+            if self.async_save:
+                self._thread = threading.Thread(target=self._write, args=(step, staged, drop),
+                                                daemon=True, name=f"dtt-ckpt-{step}")
+                self._thread.start()
+        if not self.async_save:
+            if self._writes:
+                self._write(step, staged, drop)
+            self.wait_until_finished()
+        t1 = time.monotonic()
+        self._obs["save"].observe(t1 - t0)
+        self._tracer.add_span("checkpoint_save", cat="checkpoint", start=t0, end=t1,
+                              args={"step": int(step)})
         logger.info("checkpoint save %s at step %d -> %s",
                     "started" if self.async_save else "done", step, self._directory)
         return True
@@ -212,17 +238,12 @@ class CheckpointManager:
         final, tmp = self._path(step), self._path(step) + ".tmp"
         try:
             shutil.rmtree(tmp, ignore_errors=True)
-            dcp.save(staged, checkpoint_id=tmp)
+            dcp.save(staged, checkpoint_id=tmp, no_dist=True)
             os.replace(tmp, final)
             for s in drop:
                 shutil.rmtree(self._path(s), ignore_errors=True)
         except BaseException as e:  # surfaced by wait_until_finished()
             self._error = e
-
-    def _raise_error(self) -> None:
-        if self._error is not None:
-            e, self._error = self._error, None
-            raise RuntimeError("checkpoint save failed") from e
 
     def restore(self, step: Optional[int] = None, *, template: TrainState) -> TrainState:
         """Restore the checkpoint at ``step`` (default: the latest) into
@@ -235,8 +256,14 @@ class CheckpointManager:
             raise FileNotFoundError(f"No checkpoint found in {self.directory}")
         t0 = time.monotonic()
         load_state_tensors(template, _read_all(self._path(step)))
-        self._obs["restore"].observe(time.monotonic() - t0)
+        self._observe_restore(step, t0)
         return template
+
+    def _observe_restore(self, step: int, t0: float) -> None:
+        t1 = time.monotonic()
+        self._obs["restore"].observe(t1 - t0)
+        self._tracer.add_span("checkpoint_restore", cat="checkpoint", start=t0, end=t1,
+                              args={"step": int(step)})
 
     def restore_or_init(self, state: TrainState) -> TrainState:
         """Resume if a checkpoint exists, else return ``state`` unchanged."""
@@ -258,7 +285,7 @@ class CheckpointManager:
             raise FileNotFoundError(f"No checkpoint found in {self.directory}")
         t0 = time.monotonic()
         flat = _read_all(self._path(step), ("params/", "model_state/"))
-        self._obs["restore"].observe(time.monotonic() - t0)
+        self._observe_restore(step, t0)
         params = {k[len("params/"):]: v for k, v in flat.items() if k.startswith("params/")}
         model_state = {k[len("model_state/"):]: v for k, v in flat.items()
                        if k.startswith("model_state/")}
@@ -266,10 +293,21 @@ class CheckpointManager:
 
     # -- teardown surface ----------------------------------------------------
     def wait_until_finished(self) -> None:
+        """Block until the last save is on disk; on data-parallel ranks also
+        until every rank got here (a collective when a save is pending).
+        Raises on every rank if the coordinator's write failed."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
-        self._raise_error()
+        if not self._pending:
+            return
+        self._pending = False
+        error, self._error = self._error, None
+        coordination.barrier("checkpoint_saved")
+        failed = coordination.broadcast_from_coordinator(
+            None if error is None else repr(error))
+        if failed is not None:
+            raise RuntimeError(f"checkpoint save failed: {failed}") from error
 
     def close(self) -> None:
         if self._closed:

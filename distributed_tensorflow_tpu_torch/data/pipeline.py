@@ -1,17 +1,18 @@
-"""Input pipeline: host batch size, synthetic streams, device batches.
+"""Input pipeline: per-host sharding, synthetic streams, device batches.
 
-Port of the parts of ``distributed_tensorflow_tpu/data/pipeline.py`` that
-single-device training runs: ``shard_options``, ``per_host_batch_size``,
-the synthetic streams of the ported workloads (``synthetic_lm``,
-``synthetic_image_classification``, ``synthetic_mlm``,
-``mlm_max_predictions`` and ``synthetic_recsys``, copied so that they
-yield the same bytes for the same seed), ``make_global_batches`` (here:
-batches moved to one device) and ``DevicePrefetchIterator``, a
-device-prefetch iterator with the reference's ``stats()`` counters and
-context manager.  One
-process feeds one device; the multi-process layouts
-(``host_batch_layout``, the stream override) come with the parallelism
-slice.
+Port of ``distributed_tensorflow_tpu/data/pipeline.py``: the DATA
+auto-shard parameters (``shard_options``, ``set_stream_shard_override``,
+``host_batch_layout``, ``per_host_batch_size``, keyed on this process's
+rank and world size in ``torch.distributed``), the synthetic streams of the
+ported workloads (``synthetic_lm``, ``synthetic_image_classification``,
+``synthetic_mlm``, ``mlm_max_predictions`` and ``synthetic_recsys``,
+copied so that they yield the same bytes for the same seed and shard),
+``make_global_batches`` (here: batches moved to this rank's device) and
+``DevicePrefetchIterator``, a device-prefetch iterator with the
+reference's ``stats()`` counters and context manager.  Each data-parallel
+rank feeds its own device with its slice of the global batch; the layouts
+where the batch is not split over processes (context- or model-parallel
+meshes) come with the parallelism slice.
 """
 
 from __future__ import annotations
@@ -19,23 +20,50 @@ from __future__ import annotations
 import queue
 import threading
 import time
-from typing import Dict, Iterable, Iterator
+from typing import Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
+from distributed_tensorflow_tpu_torch.cluster.coordination import process_count, process_index
+
 Batch = Dict[str, np.ndarray]
 
 
-def shard_options():
-    """The DATA AutoShardPolicy parameters (num_shards, index) of this
-    host: one process feeds the whole batch in this slice."""
-    return 1, 0
+# Stream-sharding override (train_lib sets it from the batch layout):
+# None = the default one-shard-per-process policy.
+_stream_override: Optional[Tuple[int, int]] = None
+
+
+def set_stream_shard_override(num_shards: Optional[int], index: Optional[int] = None) -> None:
+    """Pin (num_shards, index) for every subsequent ``shard_options()``
+    call in this process; ``set_stream_shard_override(None)`` clears."""
+    global _stream_override
+    _stream_override = None if num_shards is None else (num_shards, index)
+
+
+def shard_options(num_shards: Optional[int] = None, index: Optional[int] = None):
+    """The DATA AutoShardPolicy parameters (num_shards, index) of this host."""
+    if num_shards is None and _stream_override is not None:
+        return _stream_override
+    return (num_shards if num_shards is not None else process_count(),
+            index if index is not None else process_index())
+
+
+def host_batch_layout(global_batch_size: int) -> Tuple[int, int, int]:
+    """(host_rows, num_stream_shards, stream_index): data parallelism over
+    the processes, each feeding its own rows of the global batch as stream
+    shard ``rank`` of ``world size``: (B/P, P, rank)."""
+    return per_host_batch_size(global_batch_size), process_count(), process_index()
 
 
 def per_host_batch_size(global_batch_size: int) -> int:
-    """Rows this host feeds per step: all of them, in one process."""
-    return global_batch_size
+    """Rows of the global batch this process feeds each step."""
+    n = process_count()
+    if global_batch_size % n:
+        raise ValueError(f"global_batch_size {global_batch_size} not divisible by "
+                         f"{n} processes")
+    return global_batch_size // n
 
 
 def synthetic_lm(*, batch_size: int, seq_len: int, vocab_size: int, seed: int = 0,
@@ -136,8 +164,8 @@ def synthetic_recsys(*, batch_size: int, num_dense: int = 13, num_sparse: int = 
 
 
 def make_global_batches(host_iter: Iterable[Batch], device) -> Iterator[Dict[str, torch.Tensor]]:
-    """Per-host numpy batches as tensors on ``device`` (one process feeds
-    one device, so the global batch is the host's)."""
+    """Per-host numpy batches as tensors on ``device``: each data-parallel
+    rank holds its own rows of the global batch on its own device."""
     device = torch.device(device)
     for batch in host_iter:
         yield {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}

@@ -1,23 +1,41 @@
 """Training entry point of the PyTorch port.
 
 Port of ``distributed_tensorflow_tpu/train_lib.py``: ``TrainArgs``,
-``parse_args``, ``build_state_and_step``, ``run``, ``make_eval_data`` and
-``main``, with the reference's flags plus ``--device``.  Record data
-(``--data_dir``, ``--auto_shard_policy``: the native loader),
-checkpoints with resume (``--checkpoint_*``, ``--max_to_keep``,
-``--sync_checkpoint``) and in-loop evaluation (``--eval_every``,
-``--eval_batches``) run as in the reference.  Flags whose layer is not
-ported yet (cluster roles, mesh axes, the data service, profiling and
-observability sinks) raise a ``ValueError`` that names the missing slice;
-none is ignored.
+``parse_args``, ``build_state_and_step``, ``run``, ``run_evaluator``,
+``make_eval_data`` and ``main``, with the reference's flags plus
+``--device``, and the reference's run order:
+
+1. the launcher contract: ``TF_CONFIG`` or ``--job_name/--task_index``
+   resolve the task (``cluster.resolve``) and start its server; a ``ps``
+   task parks in ``join()``, an ``evaluator`` with ``--checkpoint_dir``
+   evaluates each new checkpoint (``run_evaluator``); chief and worker
+   tasks train data-parallel over ``torch.distributed``, one rank each
+   (``cluster.server``; a cluster of one trains alone in a group of one);
+2. the workload and its state, built alike on every rank from the seed,
+   and the collective-mismatch guard (``assert_same_program``) before the
+   first collective;
+3. the input: each rank feeds its rows of the global batch, synthetic
+   stream shard or record stripe ``rank`` of ``world size``;
+4. the hooks: logging, NaN, prefetch, the peer health check (world size >
+   1), checkpoints with resume and the preemption hook
+   (``--checkpoint_dir``), ``--profile_dir``, ``--tensorboard_dir``,
+   ``--metrics_file``, ``--eval_every``; ``--metrics_port`` serves
+   ``/metrics`` and ``--trace_out`` writes the flight recorder at the end;
+5. the loop, then the teardown in the reference's order, the process group
+   last.
+
+Flags whose layer is not ported yet (the data service; the fsdp, tensor,
+pipe, context and expert mesh axes; ``--data`` other than the world size)
+raise a ``ValueError`` that names the missing slice; none is ignored.
 
     python -m distributed_tensorflow_tpu_torch.train_lib --model=gpt2 \
         --flash_attention --batch_size=32 --grad_accum_steps=4 --steps=200
     python -m distributed_tensorflow_tpu_torch.train_lib --model=resnet50 --batch_size=256 \
         --data_dir=/data --checkpoint_dir=/ckpt --eval_every=1000
-    python -m distributed_tensorflow_tpu_torch.train_lib --model=wide_deep --arch=dlrm \
-        --table_dtype=bf16
-    python -m distributed_tensorflow_tpu_torch.train_lib --model=bert   # seq 128
+    TF_CONFIG='{"cluster": {"worker": ["host0:2222", "host1:2222"]},
+                "task": {"type": "worker", "index": 0}}' \
+        python -m distributed_tensorflow_tpu_torch.train_lib --model=wide_deep \
+        --checkpoint_dir=/shared/ckpt --tensorboard_dir=/shared/tb
     python -m distributed_tensorflow_tpu_torch.train_lib                # mnist
 """
 
@@ -27,19 +45,29 @@ import argparse
 import dataclasses
 import logging
 import math
+import os
+import time
+import types
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
+from distributed_tensorflow_tpu_torch import cluster as cluster_lib
 from distributed_tensorflow_tpu_torch.checkpoint.manager import CheckpointManager
 from distributed_tensorflow_tpu_torch.data.pipeline import (
     DevicePrefetchIterator,
+    host_batch_layout,
     make_global_batches,
     per_host_batch_size,
+    set_stream_shard_override,
 )
 from distributed_tensorflow_tpu_torch.data.records import record_data_fn, record_paths
+from distributed_tensorflow_tpu_torch.ft import HealthCheckHook, PreemptionCheckpointHook
 from distributed_tensorflow_tpu_torch.models import Workload, available_models, get_workload
+from distributed_tensorflow_tpu_torch.obs.exporters import MetricsServer, write_chrome_trace
 from distributed_tensorflow_tpu_torch.obs.prefetch import PrefetchMonitorHook
+from distributed_tensorflow_tpu_torch.obs.tensorboard import MetricsFileWriter, TensorBoardHook
+from distributed_tensorflow_tpu_torch.obs.trace import default_tracer
 from distributed_tensorflow_tpu_torch.training import (
     BF16,
     FP32,
@@ -48,6 +76,7 @@ from distributed_tensorflow_tpu_torch.training import (
     Hook,
     LoggingHook,
     NanHook,
+    ProfilerHook,
     TrainLoop,
     TrainState,
     make_eval_step,
@@ -140,26 +169,13 @@ def parse_args(argv=None) -> TrainArgs:
 
 # (flag, is it set, the slice of the port that brings its layer)
 _UNPORTED = (
-    ("--job_name/--task_index", lambda a: a.job_name is not None or a.task_index is not None,
-     "the training-runtime slice (cluster roles)"),
-    ("--data/--fsdp/--tensor/--pipe/--context/--expert > 1",
-     lambda a: a.data not in (-1, 1) or max(a.fsdp, a.tensor, a.pipe, a.context,
-                                            a.expert) > 1,
+    ("--fsdp/--tensor/--pipe/--context/--expert > 1",
+     lambda a: max(a.fsdp, a.tensor, a.pipe, a.context, a.expert) > 1,
      "the parallelism slice (meshes)"),
     ("--ring_chunk_size", lambda a: a.ring_chunk_size != 0, "the parallelism slice"),
     ("--pipe_schedule=1f1b", lambda a: a.pipe_schedule != "gpipe", "the parallelism slice"),
     ("--data_service", lambda a: a.data_service is not None,
-     "the training-runtime slice (data service)"),
-    ("--profile_dir", lambda a: a.profile_dir is not None,
-     "the training-runtime slice (profiling)"),
-    ("--tensorboard_dir", lambda a: a.tensorboard_dir is not None,
-     "the training-runtime slice (observability)"),
-    ("--metrics_file", lambda a: a.metrics_file is not None,
-     "the training-runtime slice (observability)"),
-    ("--metrics_port", lambda a: a.metrics_port != 0,
-     "the training-runtime slice (observability)"),
-    ("--trace_out", lambda a: a.trace_out is not None,
-     "the training-runtime slice (observability)"),
+     "the training-runtime slice, part C (data service)"),
 )
 
 
@@ -239,18 +255,7 @@ def build_state_and_step(workload: Workload, *, precision=BF16, grad_accum_steps
     return state, step
 
 
-def run(args: TrainArgs, hooks: Optional[List[Hook]] = None) -> Dict[str, Any]:
-    """Full entry point; ``hooks`` are added after the logging and NaN
-    hooks.  Returns the last logged metrics and the final step."""
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(name)s %(levelname)s: %(message)s",
-                        force=True)
-    validate_args(args)
-    device = resolve_device(args.device)
-    # Float32 products stay float32 (no TF32), as on the reference's CPU path.
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
+def _make_workload(args: TrainArgs, device) -> Workload:
     overrides: Dict[str, Any] = {"device": device}
     if args.batch_size:
         overrides["batch_size"] = args.batch_size
@@ -262,58 +267,150 @@ def run(args: TrainArgs, hooks: Optional[List[Hook]] = None) -> Dict[str, Any]:
         overrides["table_dtype"] = args.table_dtype
     if args.flash_attention:
         overrides["use_flash_attention"] = True
-    workload = get_workload(args.model, **overrides)
+    return get_workload(args.model, **overrides)
+
+
+def run(args: TrainArgs, hooks: Optional[List[Hook]] = None) -> Dict[str, Any]:
+    """Full entry point; ``hooks`` are added after the run's own.  Returns
+    the last logged metrics and the final step (``{}`` for a ps task)."""
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(name)s %(levelname)s: %(message)s",
+                        force=True)
+    validate_args(args)
+    # Float32 products stay float32 (no TF32), as on the reference's CPU path.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # 1. Launcher contract: resolve the cluster role.
+    resolver = cluster_lib.resolve(args.job_name, args.task_index)
+    server = cluster_lib.Server.from_resolver(resolver, device=args.device)
+    if not resolver.is_compute_task():
+        if resolver.task_type == "evaluator" and args.checkpoint_dir:
+            # The reference's evaluator job evaluates new checkpoints (TF
+            # estimator train-and-evaluate contract).
+            result = run_evaluator(args)
+            server.shutdown()
+            return result
+        logger.info("task %s:%s is a %s task: parameters are replicated over the "
+                    "data-parallel ranks; parking in join() for launcher compatibility",
+                    resolver.task_type, resolver.task_id, resolver.task_type)
+        server.join()
+        return {}
+    failed = True
+    try:
+        result = _train(args, hooks, server)
+        failed = False
+    finally:
+        # The process group goes last, and waits for the peers only on a
+        # clean exit (after a failure they may be gone).
+        server.shutdown(barrier=not failed)
+    logger.info("done: %s", result)
+    return result
+
+
+def _train(args: TrainArgs, hooks: Optional[List[Hook]],
+           server: cluster_lib.Server) -> Dict[str, Any]:
+    rt = server.runtime
+    world = rt.world_size if rt is not None else 1
+    if args.data not in (-1, world):
+        raise ValueError(f"--data={args.data} with {world} process(es) is not ported to "
+                         "PyTorch yet: the port splits the batch over its data-parallel "
+                         "processes only; other layouts come with the parallelism slice")
+    device = rt.device if rt is not None else resolve_device(args.device)
+
+    # 2. Workload and state.
+    workload = _make_workload(args, device)
     grad_accum = args.grad_accum_steps or workload.grad_accum_steps
     precision = BF16 if args.precision == "bf16" else FP32
     state, train_step = build_state_and_step(
         workload, precision=precision,
         grad_accum_steps=grad_accum, learning_rate=args.learning_rate,
         total_steps=args.steps, seed=args.seed)
+    # Cross-host consistency guard before the first collective (SURVEY §6.2).
+    cluster_lib.assert_same_program("train_state", state)
 
-    host_bs = per_host_batch_size(workload.batch_size)
-    if args.data_dir:
-        paths = record_paths(args.data_dir, args.model)
-        logger.info("native record loader: %d file(s), %s%s", len(paths), paths[0],
-                    "" if len(paths) == 1 else " ..")
-        host_iter = record_data_fn(paths, workload, seed=args.seed,
-                                   policy=args.auto_shard_policy)(host_bs)
-    else:
-        host_iter = workload.data_fn(host_bs)
-    data_iter = DevicePrefetchIterator(host_iter, device, prefetch=2)
-
-    all_hooks: List[Hook] = [
-        LoggingHook(every_steps=args.log_every), NanHook(),
-        PrefetchMonitorHook(data_iter, every_steps=max(args.log_every, 1))]
-    manager = None
+    # 3. Input: this rank's rows of the global batch, as stream shard
+    # `index` of `stream_shards`.
+    host_bs, stream_shards, stream_index = host_batch_layout(workload.batch_size)
+    set_stream_shard_override(stream_shards, stream_index)
+    manager = metrics_server = None
+    data_iter = host_iter = None
     try:
+        if args.data_dir:
+            paths = record_paths(args.data_dir, args.model)
+            logger.info("native record loader: %d file(s), %s%s", len(paths), paths[0],
+                        "" if len(paths) == 1 else " ..")
+            host_iter = record_data_fn(paths, workload, seed=args.seed,
+                                       shard_index=stream_index, shard_count=stream_shards,
+                                       policy=args.auto_shard_policy)(host_bs)
+        else:
+            host_iter = workload.data_fn(host_bs)
+        data_iter = DevicePrefetchIterator(host_iter, device, prefetch=2)
+
+        # 4. Hooks.
+        all_hooks: List[Hook] = [
+            LoggingHook(every_steps=args.log_every), NanHook(),
+            PrefetchMonitorHook(data_iter, every_steps=max(args.log_every, 1))]
+        if world > 1:
+            # Peer-liveness fail-fast (MWMS check-health, SURVEY §6.3): a dead
+            # peer raises at the next step boundary instead of hanging here.
+            interval = float(os.environ.get("DTT_HEALTH_INTERVAL_S", "30"))
+            all_hooks.append(HealthCheckHook(
+                interval_s=interval, timeout_s=min(20.0, max(1.0, interval * 0.75)),
+                # Skewed startup beyond 10 min is legitimate for big models.
+                startup_grace_s=float(os.environ.get("DTT_HEALTH_STARTUP_GRACE_S", "600"))))
         if args.checkpoint_dir:
             manager = CheckpointManager(args.checkpoint_dir, max_to_keep=args.max_to_keep,
                                         save_interval_steps=args.checkpoint_every,
                                         async_save=not args.sync_checkpoint)
             state = manager.restore_or_init(state)
             all_hooks.append(CheckpointHook(manager, every_steps=args.checkpoint_every))
+            # Preemption signal -> coordinated checkpoint + stop; a relaunch
+            # resumes through restore_or_init above.
+            all_hooks.append(PreemptionCheckpointHook(manager))
+        if args.profile_dir:
+            all_hooks.append(ProfilerHook(args.profile_dir))
+        if args.tensorboard_dir:
+            all_hooks.append(TensorBoardHook(args.tensorboard_dir, every_steps=args.log_every))
+        if args.metrics_file:
+            all_hooks.append(MetricsFileWriter(args.metrics_file))
         if args.eval_every > 0:
             eval_step = make_eval_step(
                 _wrap_from_record(workload, workload.eval_loss_fn or workload.loss_fn),
                 precision=precision, stateful=workload.stateful)
+            writers = [h for h in all_hooks if isinstance(h, (TensorBoardHook,
+                                                              MetricsFileWriter))]
             all_hooks.append(EvalHook(eval_step, make_eval_data(workload, device),
                                       every_steps=args.eval_every,
-                                      num_batches=args.eval_batches))
+                                      num_batches=args.eval_batches, writers=writers))
+
+        # 5. Loop.
+        if args.metrics_port:
+            # One endpoint a rank: ranks sharing a host take consecutive ports.
+            metrics_server = MetricsServer(
+                port=args.metrics_port + (rt.local_rank if rt is not None else 0))
+        if args.trace_out:
+            default_tracer().enable()
         loop = TrainLoop(train_step, state, data_iter, hooks=[*all_hooks, *(hooks or [])],
                          examples_per_step=workload.batch_size,
                          metrics_every=min(10, args.log_every), seed=args.seed + 1)
         final_state = loop.run(max(0, args.steps - state.step))
     finally:
         # Teardown runs on errors too: the prefetch thread, the loader's
-        # threads and the checkpoint writer must not outlive the run.
-        data_iter.close()
+        # threads, the checkpoint writer and the metrics server must not
+        # outlive the run.
+        if data_iter is not None:
+            data_iter.close()
         if callable(getattr(host_iter, "close", None)):
             host_iter.close()
+        set_stream_shard_override(None)
         if manager is not None:
             manager.close()
-    result = {"final_step": final_state.step, **loop.last_logged_metrics}
-    logger.info("done: %s", result)
-    return result
+        if args.trace_out and cluster_lib.is_coordinator():
+            write_chrome_trace(args.trace_out)
+        if metrics_server is not None:
+            metrics_server.close()
+    return {"final_step": final_state.step, **loop.last_logged_metrics}
 
 
 def make_eval_data(workload: Workload, device):
@@ -326,6 +423,60 @@ def make_eval_data(workload: Workload, device):
                        workload.name)
         fn = workload.data_fn
     return make_global_batches(fn(per_host_batch_size(workload.batch_size)), device)
+
+
+def run_evaluator(args: TrainArgs) -> Dict[str, Any]:
+    """Sidecar evaluator: poll the checkpoint directory and evaluate each
+    new step, until ``--steps`` is evaluated or no checkpoint came for
+    ``DTT_EVAL_IDLE_TIMEOUT_S`` seconds (default 600).
+
+    The reference runs this as the ``evaluator`` job of TF_CONFIG
+    (estimator train_and_evaluate): a read-only process outside the
+    training group.  Each checkpoint is evaluated as an in-loop
+    ``EvalHook``'s first evaluation would be: ``--eval_batches`` batches
+    from the start of the held-out stream (the same batches for every
+    checkpoint), on the global batch.
+    """
+    device = resolve_device(args.device)
+    workload = _make_workload(args, device)
+    precision = BF16 if args.precision == "bf16" else FP32
+    state, _ = build_state_and_step(workload, precision=precision,
+                                    total_steps=max(args.steps, 2), seed=args.seed)
+    eval_step = make_eval_step(
+        _wrap_from_record(workload, workload.eval_loss_fn or workload.loss_fn),
+        precision=precision, stateful=workload.stateful)
+    idle_timeout_s = float(os.environ.get("DTT_EVAL_IDLE_TIMEOUT_S", "600"))
+    last_seen, results = -1, {}
+    last_progress = time.monotonic()
+    with CheckpointManager(args.checkpoint_dir, save_interval_steps=1) as manager:
+        while True:
+            step = manager.poll()
+            if time.monotonic() - last_progress > idle_timeout_s:
+                logger.warning("evaluator: no new checkpoint in %.0fs (last step %d); "
+                               "assuming the trainer is gone and exiting",
+                               idle_timeout_s, last_seen)
+                break
+            if step is not None and step > last_seen:
+                last_progress = time.monotonic()
+                try:
+                    state = manager.restore(step, template=state)
+                except FileNotFoundError:  # pruned by the trainer since the poll
+                    logger.info("evaluator: checkpoint %d is gone; polling again", step)
+                    continue
+                hook = EvalHook(eval_step, make_eval_data(workload, device), every_steps=1,
+                                num_batches=args.eval_batches)
+                view = types.SimpleNamespace(state=state, last_logged_metrics={})
+                hook.evaluate(view, step)
+                results = dict(hook.last_eval_metrics)
+                logger.info("evaluator @ step %d: %s", step, results)
+                last_seen = step
+            if last_seen >= args.steps:
+                break
+            time.sleep(_EVAL_POLL_S)
+    return {"final_step": last_seen, **results}
+
+
+_EVAL_POLL_S = 2.0  # the evaluator's checkpoint-directory poll, as the reference's
 
 
 def main(argv=None):

@@ -6,6 +6,7 @@ from distributed_tensorflow_tpu_torch.training.loop import (
     Hook,
     LoggingHook,
     NanHook,
+    ProfilerHook,
     TrainLoop,
 )
 from distributed_tensorflow_tpu_torch.training.step import make_eval_step, make_train_step

@@ -1,8 +1,8 @@
 """Training loop with hooks and deferred metrics.
 
 Port of ``distributed_tensorflow_tpu/training/loop.py`` (``Hook``,
-``LoggingHook``, ``NanHook``, ``CheckpointHook``, ``EvalHook``,
-``TrainLoop``).  The hot path does not wait
+``LoggingHook``, ``NanHook``, ``CheckpointHook``, ``ProfilerHook``,
+``EvalHook``, ``TrainLoop``).  The hot path does not wait
 for the device:
 
 - RNG: the loop passes the same base seed every step; the step folds
@@ -13,6 +13,10 @@ for the device:
   event.  Hooks see step-N values one interval late, with
   ``loop.last_metrics_step == N``; ``run`` flushes the last interval
   before the hooks' ``end``.
+
+The loop reports into ``obs.metrics``' registry as the reference's does:
+``dtt_train_step_seconds`` (the host's dispatch time of a step),
+``dtt_train_steps_total`` and ``dtt_train_metrics_flush_total``.
 """
 
 from __future__ import annotations
@@ -20,10 +24,12 @@ from __future__ import annotations
 import logging
 import math
 import sys
+import time
 from typing import Callable, Dict, Iterable, List, Optional
 
 import torch
 
+from distributed_tensorflow_tpu_torch.obs import metrics as obs_metrics
 from distributed_tensorflow_tpu_torch.rng import fold_in
 from distributed_tensorflow_tpu_torch.training.metrics import RunningMean, ThroughputMeter
 from distributed_tensorflow_tpu_torch.training.train_state import TrainState
@@ -107,6 +113,34 @@ class CheckpointHook(Hook):
         self.manager.wait_until_finished()
 
 
+class ProfilerHook(Hook):
+    """``torch.profiler`` trace over a step window (tf.profiler equivalent,
+    SURVEY.md §6.1): steps ``start_step + 1`` to ``start_step +
+    num_steps``, written into ``log_dir`` by ``obs.profiling.Profile``."""
+
+    def __init__(self, log_dir: str, start_step: int = 10, num_steps: int = 5):
+        self.log_dir = log_dir
+        self.start_step = start_step
+        self.stop_step = start_step + num_steps
+        self._active = None
+
+    def after_step(self, loop, step, metrics):
+        if step == self.start_step and self._active is None:
+            from distributed_tensorflow_tpu_torch.obs.profiling import Profile
+
+            self._active = Profile(self.log_dir).__enter__()
+        elif step >= self.stop_step and self._active is not None:
+            self._stop()
+
+    def _stop(self):
+        active, self._active = self._active, None
+        active.__exit__(None, None, None)
+
+    def end(self, loop, step):
+        if self._active is not None:
+            self._stop()
+
+
 class EvalHook(Hook):
     """Periodic in-training evaluation: every ``every_steps`` steps (and at
     the end, off the cadence) the metrics of ``eval_step`` averaged over
@@ -114,19 +148,23 @@ class EvalHook(Hook):
     as ``eval_<name>`` in ``loop.last_logged_metrics``.  The host reads
     each value, so evaluation waits for the device (it is off the hot
     path).  Batch ``i`` of evaluation ``k`` gets the seed
-    ``fold_in(seed, k, i)``."""
+    ``fold_in(seed, k, i)``.  The eval points also go to ``writers``'
+    ``write(step, metrics)`` (TensorBoard, JSONL), which see only the
+    training metrics otherwise."""
 
     def __init__(self, eval_step: Callable, data_iter: Iterable, *, every_steps: int,
-                 num_batches: int = 10, seed: int = 17):
+                 num_batches: int = 10, seed: int = 17, writers: Optional[List[Hook]] = None):
         self.eval_step = eval_step
         self.data_iter = iter(data_iter)
         self.every_steps = max(1, every_steps)
         self.num_batches = num_batches
         self.seed = seed
+        self.writers = writers or []
         self._evals = 0
         self.last_eval_metrics: Dict[str, float] = {}
 
-    def _evaluate(self, loop, step):
+    def evaluate(self, loop, step):
+        """Evaluate ``loop.state`` now, as at step ``step``."""
         sums: Dict[str, float] = {}
         for i in range(self.num_batches):
             m = self.eval_step(loop.state, next(self.data_iter),
@@ -138,14 +176,16 @@ class EvalHook(Hook):
         loop.last_logged_metrics.update(self.last_eval_metrics)
         logger.info("eval @ step %d: %s", step, ", ".join(
             f"{k}={v:.4g}" for k, v in sorted(self.last_eval_metrics.items())))
+        for w in self.writers:
+            w.write(step, self.last_eval_metrics)
 
     def after_step(self, loop, step, metrics):
         if step % self.every_steps == 0 and step > 0:
-            self._evaluate(loop, step)
+            self.evaluate(loop, step)
 
     def end(self, loop, step):
         if step > 0 and step % self.every_steps != 0:
-            self._evaluate(loop, step)
+            self.evaluate(loop, step)
 
 
 class TrainLoop:
@@ -166,6 +206,12 @@ class TrainLoop:
         # (step, host tensors in flight, event marking their arrival)
         self._pending_metrics: Optional[tuple] = None
         self._stop = False
+        reg = obs_metrics.default_registry()
+        self._obs_step_time = reg.histogram(
+            "dtt_train_step_seconds", "Host-side dispatch duration of one train step")
+        self._obs_steps = reg.counter("dtt_train_steps_total", "Train steps dispatched")
+        self._obs_flushes = reg.counter("dtt_train_metrics_flush_total",
+                                        "Deferred-metrics fetches consumed on the host")
 
     def request_stop(self) -> None:
         self._stop = True
@@ -185,6 +231,7 @@ class TrainLoop:
         self._pending_metrics = None
         if event is not None:
             event.synchronize()
+        self._obs_flushes.inc()
         return step, {k: float(v) for k, v in host.items()}
 
     def _deliver(self, metrics_step: int, host: Dict[str, float]) -> None:
@@ -206,7 +253,10 @@ class TrainLoop:
         except StopIteration:
             self.request_stop()
             return completed_steps
+        t0 = time.perf_counter()
         self.state, metrics = self.train_step(self.state, batch, self.seed)
+        self._obs_step_time.observe(time.perf_counter() - t0)
+        self._obs_steps.inc()
         completed_steps += 1
         host_metrics = None
         if completed_steps % self.metrics_every == 0:

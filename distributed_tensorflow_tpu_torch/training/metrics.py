@@ -8,10 +8,12 @@ from __future__ import annotations
 import time
 from typing import Dict, Optional
 
+from distributed_tensorflow_tpu_torch.cluster.coordination import process_count
+
 
 class ThroughputMeter:
-    """steps/sec and examples/sec over the steps after warmup.  One
-    process drives one device in this slice, so per chip is the same."""
+    """steps/sec and examples/sec over the steps after warmup; per chip
+    divides by the data-parallel processes, one device each."""
 
     def __init__(self, examples_per_step: int, warmup_steps: int = 2):
         self.examples_per_step = examples_per_step
@@ -39,7 +41,7 @@ class ThroughputMeter:
         sps = self._steps / (time.perf_counter() - self._t0)
         eps = sps * self.examples_per_step
         return {"steps_per_sec": sps, "examples_per_sec": eps,
-                "examples_per_sec_per_chip": eps}
+                "examples_per_sec_per_chip": eps / process_count()}
 
 
 class RunningMean:
