@@ -2,6 +2,8 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --cluster_only   # phases 8b and 8c alone; with
+                                           # two or more cards, over NCCL
 
 Phases (any failure raises; there is no CPU path):
 
@@ -90,10 +92,11 @@ Phases (any failure raises; there is no CPU path):
    states bit-identical, and equal to this process's run of the same
    global batch as two microbatches (loss 2e-5, tensors 1e-5 of a leaf),
    with the step and the all-reduce's seconds (one card: not a scaling
-   figure); (c) SIGTERM to worker 1 after step 3: both save at one step
-   and exit 0, a relaunch resumes to step 8 equal to the one-process run
-   of the same batches (phase 7's resume tolerances), and an evaluator
-   task reports eval_loss at step 8 equal to EvalHook's on that checkpoint;
+   figure); (c) SIGTERM to worker 1 after step 3: both save at step 10,
+   the next sync point of the preemption OR-reduce, and exit 0, a relaunch
+   resumes to step 13 equal to the one-process run of the same batches
+   (phase 7's resume tolerances), and an evaluator task reports eval_loss
+   at step 13 equal to EvalHook's on that checkpoint;
    (d) SIGKILL to worker 1: worker 0 raises within interval x 3 +
    timeout seconds.  Every worker is killed at its deadline.
 
@@ -767,8 +770,7 @@ class StepRecorder:
 
     def after_step(self, loop, step, metrics):
         enqueued = time.perf_counter()
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
+        torch.cuda.synchronize()
         self.host.append(enqueued - self.t[-1])
         self.t.append(time.perf_counter())
         if step == self.profile_step - 1:
@@ -1446,8 +1448,8 @@ def time_bert_kernels(fa, philox_per_draw, int_rate):
 # them by those), optionally dumps its final state, and prints one
 # WORKER_RESULT (or WORKER_RAISED) JSON line.
 
-DEVICE = "cuda"  # a rehearsal of these phases on a CPU sets "cpu"
-DP_STEPS, PREEMPT_STEPS, PREEMPT_AFTER = 5, 8, 3
+DP_STEPS, PREEMPT_STEPS, PREEMPT_AFTER = 5, 13, 3
+PREEMPT_SYNC = 10  # train_lib's PreemptionCheckpointHook OR-reduces every 10 steps
 HEALTH_INTERVAL_S = 2.0  # DTT_HEALTH_INTERVAL_S of the health phase
 DP_TOL = {"loss": 2e-5, "tensor": 1e-5}  # the single-process float32 ones
 WORKER_DEADLINE_S = 240.0
@@ -1498,6 +1500,7 @@ def worker_main(argv) -> int:
             (out / f"{tag}_rank{rank}_step{step}").touch()
             if not after_first:  # the run's first step
                 after_first["totals"] = allreduce_totals()
+                after_first["backend"] = torch.distributed.get_backend()
 
         def end(self, loop, step):
             if dump:
@@ -1518,14 +1521,16 @@ def worker_main(argv) -> int:
         # the first step's all-reduce also waits for the slower rank's
         # start-up; the figures below leave it out
         "allreduce_calls": n - n1, "allreduce_s": total - total1,
+        "backend": after_first.get("backend"),
         "launches": dict(fa.LAUNCHES)}), flush=True)
     return 0
 
 
 def spawn_cluster(out: Path, tag: str, roles, flags, *, env=None):
-    """One worker process a (job, index) of ``roles`` on this card, under a
-    localhost TF_CONFIG of those tasks; ``flags[job]`` are its train_lib
-    flags.  Output goes to ``out/<tag>_<job><index>.log``."""
+    """One worker process a (job, index) of ``roles``, on card ``local rank
+    % count`` of this host, under a localhost TF_CONFIG of those tasks;
+    ``flags[job]`` are its train_lib flags.  Output goes to
+    ``out/<tag>_<job><index>.log``."""
     import os
 
     cluster = {}
@@ -1632,7 +1637,7 @@ def one_process_reference(segments, total_steps):
     from distributed_tensorflow_tpu_torch.checkpoint.manager import state_tensors
     from distributed_tensorflow_tpu_torch.models import get_workload
 
-    device = torch.device(DEVICE)
+    device = torch.device("cuda")
     wl = get_workload("wide_deep", batch_size=RECSYS_BATCH, device=device)
     state, step = train_lib.build_state_and_step(wl, grad_accum_steps=2,
                                                  total_steps=total_steps, seed=0)
@@ -1667,9 +1672,9 @@ class _Scrape:
     def begin(self, loop):
         import torch.distributed as dist
 
-        t = torch.ones(1, device=DEVICE)
+        t = torch.ones(1, device="cuda")
         dist.all_reduce(t)
-        if dist.get_backend() != ("nccl" if DEVICE == "cuda" else "gloo") or float(t) != 1.0:
+        if dist.get_backend() != "nccl" or float(t) != 1.0:
             raise AssertionError(f"training group: {dist.get_backend()}, all-reduce {t}")
 
     def after_step(self, loop, step, metrics):
@@ -1704,7 +1709,7 @@ def check_observability(fa, data_dir: Path):
     os.environ["TF_CONFIG"] = json.dumps({"cluster": {"worker": [f"localhost:{store_port}"]},
                                           "task": {"type": "worker", "index": 0}})
     base = ["--model=wide_deep", f"--batch_size={RECSYS_BATCH}", "--steps=20", "--log_every=1",
-            "--checkpoint_every=10", f"--device={DEVICE}", "--seed=0"]
+            "--checkpoint_every=10", "--device=cuda", "--seed=0"]
     flags = [f"--tensorboard_dir={d / 'tb'}", f"--metrics_file={d / 'metrics.jsonl'}",
              f"--metrics_port={metrics_port}", f"--trace_out={d / 'trace.json'}",
              f"--profile_dir={d / 'profile'}"]
@@ -1758,7 +1763,7 @@ def check_observability(fa, data_dir: Path):
             or "# TYPE dtt_train_step_seconds histogram" not in body
             or [s for s in spans if s[0] == "checkpoint_save"] != [("checkpoint_save", 10),
                                                                    ("checkpoint_save", 20)]
-            or (DEVICE == "cuda" and not kernels) or sorted(losses) != list(range(1, 21))):
+            or not kernels or sorted(losses) != list(range(1, 21))):
         raise AssertionError("an observability output is missing or malformed")
     # Steps 2-9 and 17-20: not the first, the checkpoint's (10) or the
     # profiler's window (11-16).
@@ -1776,41 +1781,46 @@ def check_observability(fa, data_dir: Path):
 
 
 def check_two_workers(data_dir: Path):
-    """Phase 8b: two workers sharing the card (gloo), global batch 4,096,
-    DP_STEPS steps: the ranks' final states bit-identical, and equal to a
-    one-process run of the same global batch as two microbatches."""
+    """Phase 8b: two workers sharing the card (gloo; with a card each,
+    NCCL), global batch 4,096, DP_STEPS steps: the ranks' final states
+    bit-identical, and equal to a one-process run of the same global batch
+    as two microbatches."""
     t_phase = time.perf_counter()
     out = data_dir / "cluster"
     out.mkdir(parents=True, exist_ok=True)
     flags = ["--model=wide_deep", f"--batch_size={RECSYS_BATCH}", f"--steps={DP_STEPS}",
-             "--log_every=1", f"--device={DEVICE}", "--seed=0", "--dump"]
+             "--log_every=1", "--device=cuda", "--seed=0", "--dump"]
     procs = spawn_cluster(out, "dp", [("worker", 0), ("worker", 1)], {"worker": flags})
     r0, r1 = expect_ok("two workers", join_cluster(procs))
     s0, s1 = (torch.load(out / f"dp_rank{r}.pt") for r in (0, 1))
+    where = {"gloo": "sharing ONE card over gloo: not a scaling figure",
+             "nccl": "a card each, NCCL over NVLink"}[r0["backend"]]
     same = all(torch.equal(s0[k], s1[k]) for k in s0) and r0["losses"] == r1["losses"]
     if not same:
         raise AssertionError("the two ranks' final states or losses differ")
     losses, want, _, _ = one_process_reference([DP_STEPS], DP_STEPS)
     dloss = max(abs(a - b) for a, b in zip(r0["losses"], losses))
-    print(f"[cluster] two workers on one card (gloo): losses {r0['losses']}; one process "
+    print(f"[cluster] two workers ({where}): losses {r0['losses']}; one process "
           f"(two microbatches) {losses}; max |diff| {dloss:.3e} (tolerance {DP_TOL['loss']})")
     exact = check_state("two workers vs one process", s0, want, DP_TOL["tensor"])
     if dloss > DP_TOL["loss"]:
         raise AssertionError("two workers' losses differ from the one-process run")
     for r in (r0, r1):
         steps = r["step_s"][1:]
-        print(f"[cluster] rank {r['rank']} (two ranks sharing ONE card over gloo: not a scaling "
-              f"figure): step seconds {[round(s, 4) for s in r['step_s']]}, median after the "
-              f"first {1e3 * statistics.median(steps):.2f} ms; gradient all-reduce (pinned host "
-              f"copies + gloo) after the first step: {r['allreduce_calls']} calls, "
+        print(f"[cluster] rank {r['rank']} ({where}): step seconds "
+              f"{[round(s, 4) for s in r['step_s']]}, median after the first "
+              f"{1e3 * statistics.median(steps):.2f} ms; gradient all-reduce (pinned host "
+              f"copies + gloo; NCCL's is device time, untimed) after the first step: "
+              f"{r['allreduce_calls']} calls, "
               f"{1e3 * r['allreduce_s'] / max(1, r['allreduce_calls']):.2f} ms each")
-    print(f"[phase] two workers sharing the card: {time.perf_counter() - t_phase:.1f} s")
+    print(f"[phase] two workers ({r0['backend']}): {time.perf_counter() - t_phase:.1f} s")
     return {"wide_deep_2_workers": summed_launches(r0, r1)}
 
 
 def check_preemption(data_dir: Path):
     """Phase 8c: two workers and an evaluator; SIGTERM worker 1 after step
-    PREEMPT_AFTER: both save at the same step and exit 0; relaunched, they
+    PREEMPT_AFTER: both save at the next sync point, step PREEMPT_SYNC, and
+    exit 0; relaunched, they
     resume to PREEMPT_STEPS, and the final state equals the one-process
     run of the same batches (the relaunch's streams start over), with the
     resume tolerances of ``check_resume_and_eval``.  The evaluator reports
@@ -1826,7 +1836,7 @@ def check_preemption(data_dir: Path):
     out, ckpt = data_dir / "cluster", data_dir / "cluster" / "ckpt"
     out.mkdir(parents=True, exist_ok=True)
     flags = ["--model=wide_deep", f"--batch_size={RECSYS_BATCH}", f"--steps={PREEMPT_STEPS}",
-             "--log_every=1", f"--device={DEVICE}", "--seed=0", f"--checkpoint_dir={ckpt}",
+             "--log_every=1", "--device=cuda", "--seed=0", f"--checkpoint_dir={ckpt}",
              "--checkpoint_every=1000", "--eval_batches=2"]
     roles = [("worker", 0), ("worker", 1), ("evaluator", 0)]
     first = spawn_cluster(out, "preempt", roles, {"worker": flags, "evaluator": flags})
@@ -1842,7 +1852,7 @@ def check_preemption(data_dir: Path):
         print(f"[preempt] SIGTERM to worker 1 after step {PREEMPT_AFTER}: workers stopped at "
               f"steps {stop} and {w1['result']['final_step']} {t_stopped - t_signal:.2f} s "
               f"later; checkpoints {saved}")
-        if w1["result"]["final_step"] != stop or saved != [stop] or stop >= PREEMPT_STEPS:
+        if w1["result"]["final_step"] != stop or saved != [stop] or stop != PREEMPT_SYNC:
             raise AssertionError("the workers did not stop and save at one step")
         second = spawn_cluster(out, "resume", roles[:2], {"worker": flags})
         r0, r1 = expect_ok("relaunched workers", join_cluster(second))
@@ -1867,7 +1877,7 @@ def check_preemption(data_dir: Path):
     state, _ = train_lib.build_state_and_step(wl, total_steps=PREEMPT_STEPS, seed=1)
     with CheckpointManager(str(ckpt)) as mgr:
         state = mgr.restore(PREEMPT_STEPS, template=state)
-    hook = EvalHook(make_eval_step(wl.loss_fn), train_lib.make_eval_data(wl, DEVICE),
+    hook = EvalHook(make_eval_step(wl.loss_fn), train_lib.make_eval_data(wl, "cuda"),
                     every_steps=PREEMPT_STEPS, num_batches=2)
 
     class Loop:
@@ -1895,7 +1905,7 @@ def check_health(data_dir: Path):
     out = data_dir / "cluster"
     out.mkdir(parents=True, exist_ok=True)
     flags = ["--model=wide_deep", f"--batch_size={RECSYS_BATCH}", "--steps=100000",
-             "--log_every=1", f"--device={DEVICE}", "--seed=0"]
+             "--log_every=1", "--device=cuda", "--seed=0"]
     procs = spawn_cluster(out, "health", [("worker", 0), ("worker", 1)], {"worker": flags},
                           env={"DTT_HEALTH_INTERVAL_S": str(HEALTH_INTERVAL_S)})
     wait_for_step(out, "health", 3, procs)
@@ -2043,7 +2053,32 @@ def main() -> int:
     return 0
 
 
+def cluster_main() -> int:
+    """``--cluster_only``: phases 8b and 8c alone.  On a host with two or
+    more cards each worker owns one, so the ranks run NCCL."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on a GPU only", file=sys.stderr)
+        return 2
+    card = card_line()
+    print(f"[card] {card} ({torch.cuda.device_count()} cards)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    data_dir = Path(__file__).resolve().parent / ".chip_smoke_data"  # git-ignored
+    try:
+        check_two_workers(data_dir)
+        check_preemption(data_dir)
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--worker"]:
         sys.exit(worker_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--cluster_only"]:
+        sys.exit(cluster_main())
     sys.exit(main())

@@ -16,8 +16,6 @@ from distributed_tensorflow_tpu_torch.ft.preemption import (
     PreemptionCheckpointHook,
     PreemptionWatcher,
     TerminationConfig,
-    notify_platform_preemption,
-    reached_platform_sync_point,
 )
 
 __all__ = [
@@ -28,6 +26,4 @@ __all__ = [
     "PreemptionWatcher",
     "TerminationConfig",
     "make_default_probe",
-    "notify_platform_preemption",
-    "reached_platform_sync_point",
 ]

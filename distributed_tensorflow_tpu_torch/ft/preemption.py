@@ -9,18 +9,20 @@ fires, every worker agrees on a stopping step, a cluster-wide checkpoint is
 written, and the job exits so the scheduler can restart it; on restart,
 ``CheckpointManager.restore_or_init`` resumes.
 
-Two agreements, as in the reference:
+One agreement: the watcher's flag, OR-reduced over the hosts every
+``sync_every`` steps on the host-control group (``cluster.server``).  The
+reduce is a host barrier, so no host passes a multiple of ``sync_every``
+before every host has reached it, however far its queued device work lets
+it run ahead of the others (NCCL).  A notice on any host is therefore seen
+by every host at the same multiple, and all save at it.
 
-- the *signal path*: the watcher's flag, OR-reduced over the hosts every
-  ``sync_every`` steps on the host-control group (``cluster.server``);
-- the *platform path*: the reference asks JAX's preemption sync manager,
-  which picks one stop step for every host.  torch has none, so the port
-  keeps the agreement on the cluster runtime's TCP store: the first host
-  that holds a notice publishes a stop step, the step after its current
-  one, and every host reads it at every step with a non-blocking
-  ``check``.  Data-parallel ranks are never more than one step apart
-  (every step all-reduces), so a host that sees the key has not passed
-  that step, and all save at it.
+The reference also asks JAX's preemption sync manager every step (its
+*platform path*), which picks one stop step for every host.  torch has
+none, and the port does not build one: a stop step that a notified host
+published for the others could only be read safely at a barrier, and the
+first barrier after any notice is the OR-reduce, which already stops every
+host there.  The reference's own fallback when the manager is unavailable
+is this signal path alone.
 """
 
 from __future__ import annotations
@@ -39,8 +41,6 @@ from distributed_tensorflow_tpu_torch.cluster.server import runtime
 from distributed_tensorflow_tpu_torch.training.loop import Hook
 
 logger = logging.getLogger(__name__)
-
-_STOP_KEY = "dtt/preemption/stop_step"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,26 +117,6 @@ class PreemptionWatcher:
         self._event.set()
 
 
-def notify_platform_preemption(step: int) -> Optional[int]:
-    """Publish the cluster's stop step for a notice this host holds at
-    ``step``: ``step + 1``, unless a host published one first.  Returns
-    the agreed stop step; None outside a multi-process cluster."""
-    rt = runtime()
-    if rt is None or rt.world_size <= 1:
-        return None
-    return int(rt.store.compare_set(_STOP_KEY, "", str(step + 1)))
-
-
-def reached_platform_sync_point(step: int) -> bool:
-    """Whether ``step`` is the stop step some host published (a
-    non-blocking read of the store).  Call at EVERY step with the global
-    step.  False single-process, as the reference's."""
-    rt = runtime()
-    if rt is None or rt.world_size <= 1 or not rt.store.check([_STOP_KEY]):
-        return False
-    return step >= int(rt.store.get(_STOP_KEY))
-
-
 def _any_host_preempted(local: bool) -> bool:
     """Cluster OR-reduce of the local preemption flag."""
     rt = runtime()
@@ -150,10 +130,10 @@ def _any_host_preempted(local: bool) -> bool:
 class PreemptionCheckpointHook(Hook):
     """TrainLoop hook: on preemption, force a checkpoint and stop the loop.
 
-    A notice on this host is published as the cluster's stop step at once
-    (the platform path), and the flags are OR-reduced every ``sync_every``
-    steps (the signal path); either way every host stops at the same step,
-    the "coordinated checkpoint-then-exit" contract of TF's handler.
+    The cross-host agreement runs every ``sync_every`` steps (a host
+    OR-reduce on the control group, off the device critical path); within
+    one sync window all hosts observe the same flag and stop at the same
+    step — the "coordinated checkpoint-then-exit" contract of TF's handler.
     """
 
     def __init__(self, manager, watcher: Optional[PreemptionWatcher] = None,
@@ -165,27 +145,13 @@ class PreemptionCheckpointHook(Hook):
         self.sync_every = max(1, sync_every)
         self.exit_fn = exit_fn
         self.handled = False
-        self._published = False
 
     def end(self, loop, step):
         if self._owns_watcher:
             self.watcher.uninstall()
 
     def after_step(self, loop, step, metrics):
-        if self.handled:
-            return
-        if self.watcher.preempted and not self._published:
-            self._published = True
-            stop = notify_platform_preemption(step)
-            if stop is not None:
-                logger.warning("preemption notice at step %d: the cluster stops at step %d",
-                               step, stop)
-        if reached_platform_sync_point(step):
-            self._save_and_stop(loop, step, "platform preemption notice")
-            return
-        # Signal path: our watcher's flag, OR-reduced over hosts on the
-        # sync_every cadence.
-        if step % self.sync_every != 0:
+        if self.handled or step % self.sync_every != 0:
             return
         if _any_host_preempted(self.watcher.preempted):
             self._save_and_stop(loop, step, "preemption signal")

@@ -1,9 +1,10 @@
 """The port's fault tolerance against the JAX package's: the health checker
 with the reference's fake probes, the preemption watcher and hook in one
-process, the store-based stop-step agreement, and real gloo workers:
-a timed store barrier that sees a dead peer, a SIGKILLed worker whose
-survivor raises in bound, and a SIGTERMed worker after which both save at
-the same step and a relaunch resumes.  The workers train MNIST's CNN at
+process, and real gloo workers: a timed store barrier that sees a dead
+peer and a frozen one, two hosts a few steps apart that stop at one step
+on a notice, a SIGKILLed worker whose survivor raises in bound, and a
+SIGTERMed worker after which both save at the same step and a relaunch
+resumes.  The workers train MNIST's CNN at
 batch 8 (the default model; milliseconds a step on one thread), slowed
 by 50 ms a step so that a signal lands mid-run.
 """
@@ -26,12 +27,9 @@ from distributed_tensorflow_tpu.training import make_train_step as jmake_train_s
 from distributed_tensorflow_tpu.training.loop import Hook as JHook  # noqa: E402
 from distributed_tensorflow_tpu_torch import ft as tft  # noqa: E402
 from distributed_tensorflow_tpu_torch.checkpoint.manager import CheckpointManager  # noqa: E402
-from distributed_tensorflow_tpu_torch.cluster import server as tserver  # noqa: E402
-from distributed_tensorflow_tpu_torch.ft import preemption as tpreemption  # noqa: E402
 from distributed_tensorflow_tpu_torch.training import FP32, TrainLoop, TrainState  # noqa: E402
 from distributed_tensorflow_tpu_torch.training import make_train_step  # noqa: E402
 from distributed_tensorflow_tpu_torch.training.loop import Hook  # noqa: E402
-from tests.helpers import free_ports  # noqa: E402
 from tests.test_torch_cluster import join, spawn  # noqa: E402
 from tests.test_training import linear_batch, make_linear_state, quadratic_loss  # noqa: E402
 
@@ -158,39 +156,20 @@ def test_preemption_saves_and_stops_at_the_reference_step_then_resumes(tmp_path)
     assert state.step == 10
 
 
-def test_store_agrees_on_one_stop_step(monkeypatch):
-    """The platform path on a real TCP store: the first notice publishes the
-    step after it; a later notice gets the same stop step; the sync point
-    is reached at that step and not before."""
-    (port,) = free_ports(1)
-    store = torch.distributed.TCPStore("localhost", port, 1, is_master=True,
-                                       wait_for_workers=False)
-    rt = tserver.Runtime(rank=0, world_size=2, local_rank=0, backend="gloo",
-                         device=torch.device("cpu"), store=store,
-                         address=f"localhost:{port}", control_group=None)
-    monkeypatch.setattr(tpreemption, "runtime", lambda: rt)
-    assert not tpreemption.reached_platform_sync_point(7)
-    assert tpreemption.notify_platform_preemption(7) == 8
-    assert tpreemption.notify_platform_preemption(9) == 8  # first notice wins
-    assert not tpreemption.reached_platform_sync_point(7)
-    assert tpreemption.reached_platform_sync_point(8)
-    monkeypatch.setattr(tpreemption, "runtime", lambda: None)
-    assert tpreemption.notify_platform_preemption(3) is None
-    assert not tpreemption.reached_platform_sync_point(100)
-
-
 # -- real workers ---------------------------------------------------------------
 
 PROBE = r"""
-import os, sys, time
+import os, signal, sys, time
 from distributed_tensorflow_tpu_torch import cluster
 from distributed_tensorflow_tpu_torch.ft import HealthChecker
 server = cluster.Server.from_resolver(cluster.resolve(), device="cpu")
 cluster.barrier("probe_start")
 checker = HealthChecker(interval_s=1.0, timeout_s=0.75, failures_before_action=2).start()
 if cluster.process_index() == 1:
-    time.sleep(3.5)  # healthy probes, then die without cleanup
+    time.sleep(3.5)  # healthy probes, then die without cleanup or freeze
     print("DYING", repr(time.time()), flush=True)
+    if sys.argv[1] == "stop":  # its connections stay open; it answers nothing
+        os.kill(os.getpid(), signal.SIGSTOP)
     os._exit(1)
 t0 = time.time()
 while time.time() - t0 < 3.0:  # the peer is alive: every probe must pass
@@ -212,11 +191,87 @@ def test_store_probe_passes_then_sees_a_dead_peer():
     """Timed barrier on the store: healthy while both live; after rank 1
     exits, rank 0's checker raises within interval x (failures + 1) +
     timeout = 3.75 s."""
-    (code0, out0), (_, out1) = join(spawn(PROBE, WORKERS), 90)
+    (code0, out0), (_, out1) = join(spawn(PROBE, WORKERS, args=["exit"]), 90)
     assert code0 == 0 and "HEALTHY_PHASE_OK" in out0 and "RAISED" in out0, out0[-3000:]
     died = float(out1.split("DYING")[1].split()[0])
     raised = float(out0.split("RAISED")[1].split()[0])
     assert 0 < raised - died <= 1.0 * (2 + 1) + 0.75, (died, raised)
+
+
+def test_store_probe_sees_a_peer_that_stops_answering():
+    """Rank 1 freezes (SIGSTOP) with its store and gloo connections open, so
+    no transport sees it go: rank 0's probe, a timed barrier, must time out
+    and its checker raise within the same 3.75 s bound."""
+    procs = spawn(PROBE, WORKERS, args=["stop"])
+    try:
+        ((code0, out0),) = join(procs[:1], 90)
+    finally:
+        procs[1].kill()
+    ((code1, out1),) = join(procs[1:], 30)
+    assert code1 == -signal.SIGKILL, out1[-3000:]
+    assert code0 == 0 and "HEALTHY_PHASE_OK" in out0 and "RAISED" in out0, out0[-3000:]
+    died = float(out1.split("DYING")[1].split()[0])
+    raised = float(out0.split("RAISED")[1].split()[0])
+    assert 0 < raised - died <= 1.0 * (2 + 1) + 0.75, (died, raised)
+
+
+RUN_AHEAD = r"""
+import os, sys, time
+from distributed_tensorflow_tpu_torch import cluster
+from distributed_tensorflow_tpu_torch.ft import PreemptionCheckpointHook, PreemptionWatcher
+from distributed_tensorflow_tpu_torch.ft import TerminationConfig
+server = cluster.Server.from_resolver(cluster.resolve(), device="cpu")
+rank = cluster.process_index()
+cluster.barrier("run_ahead_start")
+
+
+class Manager:
+    saved = []
+
+    def save(self, step, state, force=False):
+        self.saved.append(step)
+
+    def wait_until_finished(self):
+        pass
+
+
+class Loop:
+    state, stopped = None, False
+
+    def request_stop(self):
+        self.stopped = True
+
+
+watcher = PreemptionWatcher(TerminationConfig(signals=()))
+hook, loop = PreemptionCheckpointHook(Manager(), watcher, sync_every=5), Loop()
+for step in range(1, 101):
+    # No collective in the step: rank 0's host runs ahead of rank 1's, as a
+    # host whose device work is only queued (NCCL) does.
+    if rank == 1:
+        time.sleep(0.3)
+        if step == 3:
+            print("NOTICE", repr(time.time()), flush=True)
+            watcher.signal_preemption()
+    elif step == 5:
+        print("AT5", repr(time.time()), flush=True)
+    hook.after_step(loop, step, {})
+    if loop.stopped:
+        break
+print("STOP", step, Manager.saved, flush=True)
+os._exit(0)
+"""
+
+
+def test_a_host_running_ahead_stops_at_the_same_step():
+    """Rank 0 reaches step 5 before rank 1 gets its notice at step 3; with
+    sync_every=5 both must save and stop at step 5, the first sync point
+    after the notice, and neither may hang."""
+    outs = join(spawn(RUN_AHEAD, WORKERS), 60)
+    for code, out in outs:
+        assert code == 0 and "STOP" in out, out[-3000:]
+    (_, out0), (_, out1) = outs
+    assert float(out0.split("AT5")[1].split()[0]) < float(out1.split("NOTICE")[1].split()[0])
+    assert [out.split("STOP")[1].strip() for _, out in outs] == ["5 [5]", "5 [5]"]
 
 
 TRAIN_WORKER = r"""
