@@ -2,8 +2,9 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --cluster_only   # phases 8b and 8c alone; with
-                                           # two or more cards, over NCCL
+    python3 chip_smoke.py --cluster_only   # phases 8b, 8c and 9c's two ranks
+                                           # alone; with two or more cards,
+                                           # over NCCL
 
 Phases (any failure raises; there is no CPU path):
 
@@ -99,6 +100,31 @@ Phases (any failure raises; there is no CPU path):
    at step 13 equal to EvalHook's on that checkpoint;
    (d) SIGKILL to worker 1: worker 0 raises within interval x 3 +
    timeout seconds.  Every worker is killed at its deadline.
+9. The TF-compat surface and the data service, each path with the launch
+   counts set to 0 just before and read just after (no flash launch but
+   9b's BERT): (a) ResNet-50 (batch 256, 224x224, synthetic stream)
+   through ``compat.fit.Model``: 2 epochs of 10 steps with validation and
+   EarlyStopping, images/s beside (4)'s train_lib phase, History's
+   epochs and val_ keys, then save_weights, load_weights into a fresh
+   Model and evaluate, bit-identical; (b) the TF1 session on BERT-base
+   (seq 512, batch 256, flash): SyncReplicasOptimizer(adam(1e-4), 2),
+   StopAtStepHook(6), a checkpoint every 3 steps, ``while not
+   sess.should_stop(): sess.run(train_op)``, then a second session that
+   restores step 6 on enter and runs to 8; finite losses, 12 dQ and dK/dV
+   launches a step, tokens/s; then the port's examples.tf1_ps_launcher
+   with a parked ps process (its worker is this script re-run with
+   ``--launcher``); (c) OneDeviceStrategy's reduce(run(loss)) of
+   full-width Wide&Deep equal to the direct call, a ClusterCoordinator's
+   8 closures on 2 threads equal to the sequential results, and two
+   ranks (``--strategy_worker``; gloo on one card, NCCL on a card each)
+   whose MultiWorkerMirroredStrategy.reduce of their shards' logits equals
+   this process's over the whole batch; (d) ResNet-50 on (5)'s records
+   from the data service: a standalone server process (one loader
+   thread) whose first batches equal the in-process loader's byte for
+   byte, train_lib --data_service for 20 steps, a dispatcher with two
+   workers (one SIGKILLed after step 10) for 20 steps, each beside the
+   --data_dir phase, and last a SIGKILLed server under a trainer, which
+   must raise DataServiceError naming it within 10 s.
 
 The line before the last is a JSON object of the kernels' numbers; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -878,14 +904,15 @@ def run_workload(args, hooks, **factory):
 
 
 def train_phase(fa, label, argv, *, units, per_step, factory=None, profiled=3,
-                flops_per_step=None):
+                flops_per_step=None, hooks=()):
     """Drive ``train_lib.run(argv)`` (or ``run_workload`` with ``factory``'s
     arguments) with the launch counts set to 0 just before and read just
     after; step ``profiled`` runs under torch.profiler.
     Prints the losses (finite every step or it raises), the step seconds,
     ``units``/s (``per_step`` of them a step), the MFU where
     ``flops_per_step`` is given, peak memory, the host's enqueue time and
-    the device time by part.  Returns a summary dict."""
+    the device time by part; ``hooks`` run after the recorder.  Returns a
+    summary dict."""
     from distributed_tensorflow_tpu_torch import train_lib
 
     args = train_lib.parse_args(argv)
@@ -897,8 +924,8 @@ def train_phase(fa, label, argv, *, units, per_step, factory=None, profiled=3,
     torch.cuda.reset_peak_memory_stats()
     for name in fa.LAUNCHES:
         fa.LAUNCHES[name] = 0
-    result = (train_lib.run(args, hooks=[rec]) if factory is None
-              else run_workload(args, [rec], **factory))
+    result = (train_lib.run(args, hooks=[rec, *hooks]) if factory is None
+              else run_workload(args, [rec, *hooks], **factory))
     torch.cuda.synchronize()
     launches = dict(fa.LAUNCHES)
     steps = args.steps
@@ -1526,11 +1553,12 @@ def worker_main(argv) -> int:
     return 0
 
 
-def spawn_cluster(out: Path, tag: str, roles, flags, *, env=None):
+def spawn_cluster(out: Path, tag: str, roles, flags, *, env=None, mode="--worker"):
     """One worker process a (job, index) of ``roles``, on card ``local rank
     % count`` of this host, under a localhost TF_CONFIG of those tasks;
-    ``flags[job]`` are its train_lib flags.  Output goes to
-    ``out/<tag>_<job><index>.log``."""
+    ``flags[job]`` are its train_lib flags (``mode`` picks the worker's
+    body: ``--worker``, train_lib; ``--strategy_worker``, phase 9c's).
+    Output goes to ``out/<tag>_<job><index>.log``."""
     import os
 
     cluster = {}
@@ -1542,7 +1570,7 @@ def spawn_cluster(out: Path, tag: str, roles, flags, *, env=None):
             {"cluster": cluster, "task": {"type": job, "index": index}}), **(env or {}))
         log = open(out / f"{tag}_{job}{index}.log", "w")
         procs.append((subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()), "--worker", str(out), tag,
+            [sys.executable, str(Path(__file__).resolve()), mode, str(out), tag,
              *flags[job]], env=penv, stdout=log, stderr=subprocess.STDOUT), log, job, index))
     return procs
 
@@ -1924,6 +1952,479 @@ def check_health(data_dir: Path):
     print(f"[phase] health: {time.perf_counter() - t_phase:.1f} s")
 
 
+# -- Phase 9: the TF-compat surface and the data service -------------------------
+
+SESSION = dict(batch=256, seq=512, k=2, first=6, second=8, save_every=3)
+SERVICE_STEPS, DISPATCH_KILL_STEP, DEATH_KILL_STEP = 20, 10, 3
+DEATH_BOUND_S = 10.0  # a killed server's socket resets at once; the bound is generous
+STRATEGY_TOL = 2.0 ** -8  # bf16 logits: at most one rounding each, as a share of sum |x|
+
+
+def zero_launches(fa):
+    for name in fa.LAUNCHES:
+        fa.LAUNCHES[name] = 0
+
+
+def _as_hook(cls):
+    """``cls`` as a ``training.Hook`` subclass: ``compat.fit`` attaches
+    Hooks to its TrainLoop (its other callbacks are keras callbacks)."""
+    from distributed_tensorflow_tpu_torch.training import Hook
+
+    return type(cls.__name__, (cls, Hook), {})
+
+
+def check_fit(fa, synthetic):
+    """Phase 9a: ``compat.fit.Model("resnet50")`` (batch 256, 224x224,
+    bf16, the synthetic stream), fit 2 epochs of 10 steps with validation
+    (2 batches) and EarlyStopping; History has both epochs and val_ keys;
+    images/s beside train_lib's ResNet-50 phase of this call; then
+    save_weights, load_weights into a fresh Model and evaluate: the
+    evaluation must be bit-identical to the first model's."""
+    from distributed_tensorflow_tpu_torch.compat.fit import EarlyStopping, Model
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_launches(fa)
+    model = Model("resnet50", batch_size=256)
+    model.compile()
+    rec = _as_hook(StepRecorder)(0)  # wall a step after a sync; no profiler
+    hist = model.fit(epochs=2, steps_per_epoch=10, validation_steps=2,
+                     validation_data=model.workload.eval_data_fn,
+                     callbacks=[EarlyStopping(monitor="val_loss", patience=2), rec])
+    launches = dict(fa.LAUNCHES)
+    step_s = [b - a for a, b in zip(rec.t, rec.t[1:])]
+    # The first step of each epoch waits for the stream's start (and, in
+    # the second, for the first epoch's validation): left out.
+    steady = [s for i, s in enumerate(step_s, 1) if i not in (1, 11)]
+    rate = 256 / statistics.median(steady)
+    print(f"[fit] ResNet-50 Model.fit: history {hist.history} epochs {hist.epoch}")
+    print(f"[fit] ResNet-50 Model.fit: step seconds {[round(s, 4) for s in step_s]}; images/s "
+          f"(median of steps 2-10, 12-20) {rate:.1f}; train_lib on the same synthetic stream in "
+          f"this call {synthetic['rate']:.1f} ({rate / synthetic['rate'] - 1:+.1%})")
+    if hist.epoch != [0, 1] or not {"loss", "val_loss", "val_accuracy"} <= set(hist.history) \
+            or any(len(v) != 2 or not math.isfinite(v[0]) for v in hist.history.values()):
+        raise AssertionError(f"fit's History: {hist.epoch} {hist.history}")
+    assert_no_flash("ResNet-50 fit", launches)
+    first = model.evaluate(steps=2)
+    ckpt = Path(__file__).resolve().parent / ".chip_smoke_data" / "fit_weights"
+    t0 = time.perf_counter()
+    model.save_weights(str(ckpt))
+    t_save = time.perf_counter() - t0
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    fresh = Model("resnet50", batch_size=256)
+    t0 = time.perf_counter()
+    fresh.load_weights(str(ckpt))
+    t_load = time.perf_counter() - t0
+    second = fresh.evaluate(steps=2)
+    print(f"[fit] evaluate {first}; after save_weights ({t_save:.2f} s) and load_weights into a "
+          f"fresh Model ({t_load:.2f} s): {second}; bit-identical: {first == second}")
+    if first != second or fresh.state.step != 20:
+        raise AssertionError("the reloaded Model evaluates differently")
+    del fresh
+    shutil.rmtree(ckpt, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[phase] Keras fit (ResNet-50): {time.perf_counter() - t_phase:.1f} s")
+    return {"resnet50_fit": launches}, rate
+
+
+def check_session(fa):
+    """Phase 9b: the TF1 session idiom on BERT-base (seq 512, batch 256,
+    flash): SyncReplicasOptimizer(adam(1e-4), 2), StopAtStepHook(6), a
+    checkpoint every 3 steps, ``while not sess.should_stop():
+    sess.run(train_op)``; a second session on the directory restores step 6
+    on enter and runs to 8.  The loss is finite every step and the flash
+    kernels launch as BERT's steps need.  Then the port's
+    ``examples.tf1_ps_launcher`` with a parked ps process."""
+    from distributed_tensorflow_tpu_torch import compat
+    from distributed_tensorflow_tpu_torch.data.pipeline import DevicePrefetchIterator
+    from distributed_tensorflow_tpu_torch.models import bert, get_workload
+    from distributed_tensorflow_tpu_torch.train_lib import build_state_and_step
+    from distributed_tensorflow_tpu_torch.training import LoggingHook, NanHook
+    from distributed_tensorflow_tpu_torch.training.optim import adam
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    device = torch.device("cuda")
+    B, T = SESSION["batch"], SESSION["seq"]
+    ckpt = Path(__file__).resolve().parent / ".chip_smoke_data" / "session"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    wl = get_workload("bert", seq_len=T, batch_size=B, use_flash_attention=True, device=device)
+    opt = compat.SyncReplicasOptimizer(adam(1e-4), replicas_to_aggregate=SESSION["k"])
+    wl.make_optimizer = opt.as_gradient_transformation()
+    zero_launches(fa)
+    losses, steps_at_enter, rec = {}, [], None
+    for last in (SESSION["first"], SESSION["second"]):
+        state, train_op = build_state_and_step(wl, total_steps=SESSION["second"],
+                                               grad_accum_steps=wl.grad_accum_steps)
+        data = DevicePrefetchIterator(wl.data_fn(B), device, prefetch=2)
+        rec = StepRecorder(0)
+        hooks = [compat.StopAtStepHook(last_step=last), LoggingHook(every_steps=1), NanHook(),
+                 opt.make_session_run_hook(True), rec]
+        try:
+            with compat.MonitoredTrainingSession(
+                    checkpoint_dir=str(ckpt), hooks=hooks,
+                    save_checkpoint_steps=SESSION["save_every"], state=state, data_iter=data,
+                    examples_per_step=B, metrics_every=1) as sess:
+                steps_at_enter.append(sess.state.step)
+                while not sess.should_stop():
+                    sess.run(train_op)
+        finally:
+            data.close()
+        losses.update(rec.losses)
+        if last == SESSION["first"]:
+            first_steps = [b - a for a, b in zip(rec.t, rec.t[1:])]
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    saved = sorted(int(p.name) for p in ckpt.iterdir() if p.name.isdigit())
+    rate = B * T / statistics.median(first_steps[1:])
+    loss_list = [losses.get(s) for s in range(1, SESSION["second"] + 1)]
+    print(f"[session] BERT-base seq {T} batch {B}, SyncReplicasOptimizer(adam(1e-4), "
+          f"{SESSION['k']}): sessions entered at steps {steps_at_enter}; checkpoints {saved}; "
+          f"losses {loss_list}")
+    print(f"[session] step seconds of the first session {[round(s, 4) for s in first_steps]}: "
+          f"tokens/s (median after the first) {rate:.1f}; Adam updates {state.optimizer.update_count}"
+          f" of {state.step} steps")
+    if steps_at_enter != [0, SESSION["first"]] or state.step != SESSION["second"] \
+            or not all(x is not None and math.isfinite(x) for x in loss_list):
+        raise AssertionError("the TF1 session did not resume at step 6, reach 8 with finite losses")
+    if state.optimizer.update_count != SESSION["second"] // SESSION["k"]:
+        raise AssertionError(f"{state.optimizer.update_count} Adam updates in 8 steps at k=2")
+    assert_flash_launches("BERT-base session", launches, bert.BertConfig.base().n_layer,
+                          SESSION["second"])
+    del wl, state, opt
+    shutil.rmtree(ckpt, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launcher = check_launcher()
+    print(f"[phase] TF1 session (BERT-base) and the PS launcher: "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"bert_base_session": launches, "tf1_ps_launcher": launcher}, rate
+
+
+LAUNCHER_FLAGS = ["--train_steps", "4", "--batch_size", "8", "--seq_len", "32", "--log_every",
+                  "2"]
+
+
+def launcher_main(argv) -> int:
+    """The port's examples.tf1_ps_launcher ``main(argv)`` (a worker task),
+    then this process's flash launch counts."""
+    from distributed_tensorflow_tpu_torch.examples import tf1_ps_launcher
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+
+    tf1_ps_launcher.main(argv)
+    print("LAUNCHER_LAUNCHES " + json.dumps(dict(fa.LAUNCHES)), flush=True)
+    return 0
+
+
+def check_launcher():
+    """A ps process of the port's launcher parks in join() while a worker
+    (this script re-run with ``--launcher``: the launcher's main) trains
+    BERT-tiny 4 steps and prints TF1_PS_LAUNCHER_DONE with a finite loss."""
+    ps_port, w_port = free_ports(2)
+    common = ["--ps_hosts", f"localhost:{ps_port}", "--worker_hosts", f"localhost:{w_port}",
+              *LAUNCHER_FLAGS]
+    t0 = time.perf_counter()
+    ps = subprocess.Popen([sys.executable, "-m",
+                           "distributed_tensorflow_tpu_torch.examples.tf1_ps_launcher",
+                           "--job_name", "ps", "--task_index", "0", *common],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        worker = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--launcher",
+                                 "--job_name", "worker", "--task_index", "0", *common],
+                                capture_output=True, text=True, timeout=WORKER_DEADLINE_S)
+        parked = ps.poll() is None
+    finally:
+        ps.kill()
+        ps.wait()
+    done = re.search(r"^TF1_PS_LAUNCHER_DONE loss=(\S+)$", worker.stdout, re.M)
+    counts = re.search(r"^LAUNCHER_LAUNCHES (.*)$", worker.stdout, re.M)
+    if worker.returncode != 0 or not done or not counts or not parked \
+            or not math.isfinite(float(done.group(1))):
+        raise AssertionError(f"the TF1 PS launcher (ps parked: {parked}): exit "
+                             f"{worker.returncode}: {worker.stdout[-1500:]} {worker.stderr[-3000:]}")
+    launches = json.loads(counts.group(1))
+    assert_no_flash("tf1_ps_launcher", launches)
+    print(f"[session] examples.tf1_ps_launcher, a ps task parked and a worker on the card "
+          f"(BERT-tiny, 4 steps): loss {done.group(1)}, {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def strategy_batch():
+    """A global Wide&Deep batch of RECSYS_BATCH rows from a seed (numpy:
+    the ranks and this process draw the same rows)."""
+    import numpy as np
+
+    rng = np.random.RandomState(7)
+    return {"dense": rng.randn(RECSYS_BATCH, 13).astype(np.float32),
+            "sparse": rng.randint(0, 100_000, (RECSYS_BATCH, 26)).astype(np.int32),
+            "label": (rng.rand(RECSYS_BATCH) > 0.5).astype(np.float32)}
+
+
+def strategy_worker_main(argv) -> int:
+    """Phase 9c's rank: MultiWorkerMirroredStrategy over the TF_CONFIG
+    cluster; full-width Wide&Deep's per-example logits on this rank's rows,
+    reduced (sum and mean) over the ranks."""
+    from distributed_tensorflow_tpu_torch import cluster as cluster_lib
+    from distributed_tensorflow_tpu_torch.distribute import MultiWorkerMirroredStrategy
+    from distributed_tensorflow_tpu_torch.models import get_workload
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+
+    resolver = cluster_lib.resolve()
+    server = cluster_lib.Server.from_resolver(resolver, device="cuda")
+    rt = server.runtime
+    strategy = MultiWorkerMirroredStrategy(resolver)
+    wl = get_workload("wide_deep", batch_size=RECSYS_BATCH, device=strategy.device)
+    wl.module.reset_parameters(0)
+    rows = RECSYS_BATCH // strategy.num_replicas_in_sync
+    shard = {k: v[rt.rank * rows:(rt.rank + 1) * rows] for k, v in strategy_batch().items()}
+    with torch.no_grad(), strategy.scope():
+        logits = strategy.run(lambda b: wl.module(b).float(), (shard,))
+        total = strategy.reduce("sum", logits, axis=0)
+        mean = strategy.reduce("mean", logits, axis=0)
+    print("STRATEGY_RESULT " + json.dumps({
+        "rank": rt.rank, "backend": rt.backend, "world": strategy.num_replicas_in_sync,
+        "sum": float(total), "mean": float(mean), "launches": dict(fa.LAUNCHES)}), flush=True)
+    server.shutdown()
+    return 0
+
+
+def check_strategy_workers(data_dir: Path):
+    """Phase 9c, two ranks (phase 8's machinery: gloo sharing one card, or
+    a card each over NCCL): MultiWorkerMirroredStrategy.reduce of
+    run(logits) on each rank equals this process's sum and mean over the
+    whole batch (bf16 logits: STRATEGY_TOL of sum |x|)."""
+    from distributed_tensorflow_tpu_torch.models import get_workload
+
+    out = data_dir / "cluster"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = spawn_cluster(out, "strategy", [("worker", 0), ("worker", 1)],
+                          {"worker": []}, mode="--strategy_worker")
+    results = []
+    for code, _, _, text in join_cluster(procs):
+        res = re.search(r"^STRATEGY_RESULT (.*)$", text, re.M)
+        if code != 0 or not res:
+            raise AssertionError(f"a strategy rank exited {code}: {text[-3000:]}")
+        results.append(json.loads(res.group(1)))
+    wl = get_workload("wide_deep", batch_size=RECSYS_BATCH, device="cuda")
+    wl.module.reset_parameters(0)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in strategy_batch().items()}
+    with torch.no_grad():
+        logits = wl.module(batch).float()
+    want_sum, want_mean, scale = float(logits.sum()), float(logits.mean()), float(
+        logits.abs().sum())
+    for r in results:
+        assert_no_flash(f"strategy rank {r['rank']}", r["launches"])
+        err = max(abs(r["sum"] - want_sum), abs(r["mean"] - want_mean) * RECSYS_BATCH)
+        print(f"[strategy] MultiWorkerMirroredStrategy rank {r['rank']} of {r['world']} "
+              f"({r['backend']}): reduce sum {r['sum']!r} mean {r['mean']!r}; one process on the "
+              f"whole batch: sum {want_sum!r} mean {want_mean!r}; |diff| {err:.3e} = "
+              f"{err / scale:.2e} of sum |x| (tolerance {STRATEGY_TOL:.2e})")
+        if r["world"] != 2 or err > STRATEGY_TOL * scale:
+            raise AssertionError("the two ranks' reduction differs from the whole batch's")
+    return summed_launches(*results)
+
+
+def check_strategies(fa, data_dir: Path):
+    """Phase 9c: OneDeviceStrategy on the card: reduce(run(loss)) of
+    full-width Wide&Deep equals the direct call; two ranks' reductions
+    (``check_strategy_workers``); ClusterCoordinator: 8 closures on 2 pool
+    threads, fetched, equal to the sequential results."""
+    from distributed_tensorflow_tpu_torch.distribute import ClusterCoordinator, OneDeviceStrategy
+    from distributed_tensorflow_tpu_torch.models import get_workload
+
+    t_phase = time.perf_counter()
+    zero_launches(fa)
+    wl = get_workload("wide_deep", batch_size=RECSYS_BATCH, device="cuda")
+    wl.module.reset_parameters(0)
+    params = {n: p.detach() for n, p in wl.module.named_parameters()}
+    batch = strategy_batch()
+    strategy = OneDeviceStrategy()
+    with torch.no_grad(), strategy.scope():
+        loss_fn = lambda b: wl.loss_fn(params, b, 0)[0]  # noqa: E731
+        via = strategy.reduce("mean", strategy.run(loss_fn, (batch,)), axis=None)
+        direct = loss_fn({k: torch.from_numpy(v).cuda() for k, v in batch.items()})
+    print(f"[strategy] OneDeviceStrategy on {strategy.device}: reduce(run(loss)) "
+          f"{float(via)!r}, the direct call {float(direct)!r}; equal: {torch.equal(via, direct)}")
+    if not torch.equal(via, direct):
+        raise AssertionError("OneDeviceStrategy's loss differs from the direct call")
+    one_device = dict(fa.LAUNCHES)
+    zero_launches(fa)
+    logits_fn = lambda b: wl.module(b).float()  # noqa: E731
+    slices = [{k: v[i * 512:(i + 1) * 512] for k, v in batch.items()} for i in range(8)]
+    coord = ClusterCoordinator(strategy, num_workers=2)
+    try:
+        def closure(b):
+            with torch.no_grad():
+                return strategy.run(logits_fn, (b,))
+
+        fetched = coord.fetch([coord.schedule(closure, args=(b,)) for b in slices])
+        coord.join()
+    finally:
+        coord.shutdown()
+    with torch.no_grad():
+        sequential = [strategy.run(logits_fn, (b,)).cpu().numpy() for b in slices]
+    same = all((f == s).all() for f, s in zip(fetched, sequential))
+    print(f"[strategy] ClusterCoordinator: 8 closures on {coord.num_workers} pool threads, "
+          f"fetched equal to the sequential results: {same}")
+    if not same:
+        raise AssertionError("the coordinator's results differ from the sequential ones")
+    coordinator = dict(fa.LAUNCHES)
+    del wl, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    two_ranks = check_strategy_workers(data_dir)
+    assert_no_flash("OneDeviceStrategy", one_device)
+    assert_no_flash("ClusterCoordinator", coordinator)
+    print(f"[phase] strategies and coordinator: {time.perf_counter() - t_phase:.1f} s")
+    return {"wide_deep_one_device_strategy": one_device, "wide_deep_strategy_2_ranks": two_ranks,
+            "wide_deep_coordinator": coordinator}
+
+
+def start_service(data_dir: Path, log: Path, *args):
+    """``python -m distributed_tensorflow_tpu_torch.data.service`` (a worker
+    on ResNet-50's records, batch 256, or ``--role=dispatcher``); returns
+    (process, address) once it prints its READY line."""
+    f = open(log, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "distributed_tensorflow_tpu_torch.data.service", *args],
+        stdout=subprocess.PIPE, stderr=f, text=True)
+    f.close()
+    ready = proc.stdout.readline()
+    if not ready.startswith(("DATA_SERVICE_READY ", "DATA_DISPATCHER_READY ")):
+        proc.kill()
+        raise AssertionError(f"the data service did not come up: {ready!r} {log.read_text()}")
+    return proc, ready.split()[1]
+
+
+def service_worker_args(data_dir: Path, *extra):
+    return ["--model=resnet50", f"--data_dir={data_dir}", "--batch_size=256", *extra]
+
+
+class _KillAt:
+    """Hook: SIGKILL ``proc`` after step ``step`` (and note when)."""
+
+    def __init__(self, proc, step):
+        self.proc, self.step, self.t = proc, step, None
+
+    def begin(self, loop):
+        pass
+
+    def after_step(self, loop, step, metrics):
+        if step == self.step and self.t is None:
+            import signal
+
+            self.proc.send_signal(signal.SIGKILL)
+            self.t = time.perf_counter()
+
+    def on_metrics(self, loop, metrics_step, metrics):
+        pass
+
+    def end(self, loop, step):
+        pass
+
+
+def check_data_service(fa, data_dir: Path, records):
+    """Phase 9d, ResNet-50 (batch 256) on phase 5's 2,048 staged uint8
+    records: a standalone server process (one loader thread), whose first
+    batches equal the in-process loader's byte for byte, then train_lib
+    --data_service for 20 steps; a dispatcher with two workers, a stripe
+    each, for 20 steps, one worker SIGKILLed after step 10; each beside
+    this call's --data_dir phase (images/s, the prefetch consumer wait).
+    Last the standalone server is SIGKILLed under a trainer, which must
+    raise DataServiceError naming it within DEATH_BOUND_S."""
+    from distributed_tensorflow_tpu_torch import train_lib
+    from distributed_tensorflow_tpu_torch.data.records import record_paths, record_schema
+    from distributed_tensorflow_tpu_torch.data.service import (
+        DataServiceError,
+        DataServiceIterator,
+    )
+    from distributed_tensorflow_tpu_torch.models import get_workload
+    from distributed_tensorflow_tpu_torch.native import make_record_loader
+
+    t_phase = time.perf_counter()
+    logs = data_dir / "service"
+    logs.mkdir(parents=True, exist_ok=True)
+    procs = []
+    by_path, rates = {}, {}
+    try:
+        t0 = time.perf_counter()
+        server, addr = start_service(data_dir, logs / "standalone.log",
+                                     *service_worker_args(data_dir, "--num_threads=1"))
+        procs.append(server)
+        print(f"[service] standalone server at {addr} ({time.perf_counter() - t0:.1f} s to ready)")
+        schema = record_schema(get_workload("resnet50", batch_size=256, device="cpu"))
+        loader = make_record_loader(record_paths(str(data_dir), "resnet50"), schema,
+                                    batch_size=256, shuffle=True, num_threads=1, seed=0)
+        client = DataServiceIterator(addr, schema, 256)
+        want, got = [next(loader) for _ in range(3)], [next(client) for _ in range(3)]
+        loader.close()
+        client.close()
+        same = all(g[k].tobytes() == w[k].tobytes() for g, w in zip(got, want) for k in w)
+        print(f"[service] the first 3 batches from the service (one loader thread) and the "
+              f"in-process loader: byte-identical {same}")
+        if not same:
+            raise AssertionError("the service's batches differ from the in-process loader's")
+        base = ["--model=resnet50", "--batch_size=256", f"--steps={SERVICE_STEPS}",
+                "--log_every=1", "--device=cuda", "--seed=0"]
+        r = train_phase(fa, "ResNet-50 data service", base + [f"--data_service={addr}"],
+                        units="images", per_step=256)
+        by_path["resnet50_data_service"], rates["ResNet-50 data service"] = r["launches"], r
+        disp, daddr = start_service(data_dir, logs / "dispatcher.log", "--role=dispatcher")
+        procs.append(disp)
+        workers = []
+        for i in range(2):
+            w, waddr = start_service(
+                data_dir, logs / f"worker{i}.log",
+                *service_worker_args(data_dir, f"--dispatcher={daddr}", f"--shard_index={i}",
+                                     "--shard_count=2"))
+            procs.append(w)
+            workers.append((w, waddr))
+        kill = _KillAt(workers[1][0], DISPATCH_KILL_STEP)
+        r = train_phase(fa, "ResNet-50 dispatcher", base + [f"--data_service=dispatch://{daddr}"],
+                        units="images", per_step=256, hooks=[kill])
+        by_path["resnet50_dispatcher"], rates["ResNet-50 dispatcher"] = r["launches"], r
+        if kill.t is None or workers[1][0].poll() is None or r["result"]["final_step"] != \
+                SERVICE_STEPS:
+            raise AssertionError("the dispatcher run did not survive its worker's loss")
+        print(f"[service] dispatcher {daddr}, workers {[a for _, a in workers]}: worker 1 "
+              f"SIGKILLed after step {DISPATCH_KILL_STEP}, training reached step "
+              f"{r['result']['final_step']}")
+        for label, run in (("ResNet-50 records (--data_dir, 5 steps)", records), *rates.items()):
+            stats = {k: v for k, v in run["result"].items() if k.startswith("prefetch_")}
+            print(f"[service] {label}: {run['rate']:.1f} images/s, idle {run['idle']:.1%}, "
+                  f"prefetch {stats}")
+        # A dead standalone server under a trainer.
+        zero_launches(fa)
+        kill = _KillAt(server, DEATH_KILL_STEP)
+        args = train_lib.parse_args(["--model=resnet50", "--batch_size=256", "--steps=1000",
+                                     "--log_every=1", "--device=cuda", f"--data_service={addr}"])
+        try:
+            train_lib.run(args, hooks=[kill])
+            raise AssertionError("the trainer did not raise when its data service died")
+        except DataServiceError as e:
+            waited = time.perf_counter() - kill.t
+            print(f"[service] standalone server SIGKILLed after step {DEATH_KILL_STEP}: the "
+                  f"trainer raised DataServiceError {waited:.3f} s later (bound {DEATH_BOUND_S} "
+                  f"s): {str(e)[:160]}")
+            if addr not in str(e) or waited > DEATH_BOUND_S:
+                raise AssertionError("the error does not name the service or came too late")
+        by_path["resnet50_data_service_death"] = dict(fa.LAUNCHES)
+        assert_no_flash("data service death", by_path["resnet50_data_service_death"])
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for label in ("resnet50_data_service", "resnet50_dispatcher"):
+        assert_no_flash(label, by_path[label])
+    print(f"[phase] data service: {time.perf_counter() - t_phase:.1f} s")
+    return by_path, rates
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only", file=sys.stderr)
@@ -2015,6 +2516,22 @@ def main() -> int:
             **check_preemption(data_dir)}.items()})
         check_health(data_dir)
         print(f"[phase] multi-worker phases: {time.perf_counter() - t_cluster:.1f} s")
+        # Phase 9: the TF-compat surface and the data service.
+        t_compat = time.perf_counter()
+        paths, fit_rate = check_fit(fa, other_runs["ResNet-50"])
+        session_paths, session_rate = check_session(fa)
+        paths.update(session_paths)
+        paths.update(check_strategies(fa, data_dir))
+        service_paths, service_runs = check_data_service(fa, data_dir,
+                                                         other_runs["ResNet-50 records"])
+        paths.update(service_paths)
+        other_runs.update({label: {"launches": n} for label, n in paths.items()})
+        print(f"[compat] fit {fit_rate:.1f} images/s (train_lib {other_runs['ResNet-50']['rate']:.1f}"
+              f"); TF1 session {session_rate:.1f} tokens/s; data service "
+              f"{service_runs['ResNet-50 data service']['rate']:.1f}, dispatcher "
+              f"{service_runs['ResNet-50 dispatcher']['rate']:.1f} images/s (--data_dir "
+              f"{other_runs['ResNet-50 records']['rate']:.1f})")
+        print(f"[phase] TF-compat and data-service phases: {time.perf_counter() - t_compat:.1f} s")
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
 
@@ -2054,8 +2571,9 @@ def main() -> int:
 
 
 def cluster_main() -> int:
-    """``--cluster_only``: phases 8b and 8c alone.  On a host with two or
-    more cards each worker owns one, so the ranks run NCCL."""
+    """``--cluster_only``: phases 8b, 8c and 9c's two ranks alone.  On a
+    host with two or more cards each worker owns one, so the ranks run
+    NCCL."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only", file=sys.stderr)
         return 2
@@ -2067,6 +2585,7 @@ def cluster_main() -> int:
     try:
         check_two_workers(data_dir)
         check_preemption(data_dir)
+        check_strategy_workers(data_dir)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
     print(card)
@@ -2079,6 +2598,10 @@ def cluster_main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--worker"]:
         sys.exit(worker_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--strategy_worker"]:
+        sys.exit(strategy_worker_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--launcher"]:
+        sys.exit(launcher_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--cluster_only"]:
         sys.exit(cluster_main())
     sys.exit(main())

@@ -83,7 +83,7 @@ def record_paths(data_dir: str, workload_name: str) -> list:
             f"no record dataset for {workload_name!r} in {data_dir!r}: "
             f"neither {single!r} nor a {workload_name}-NNNNN-of-MMMMM.rec "
             "fileset; stage one with stage_synthetic_to_records or "
-            "convert_tfrecords")
+            "data.convert.convert_tfrecords")
     rx = _re.compile(
         _re.escape(workload_name) + r"-(\d{5})-of-(\d{5})\.rec$")
     totals = set()

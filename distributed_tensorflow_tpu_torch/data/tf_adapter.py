@@ -1,0 +1,146 @@
+"""tf.data input adapter: run a reference input_fn unchanged.
+
+Copied from ``distributed_tensorflow_tpu/data/tf_adapter.py``; a data_fn
+shards by the port's process group (``cluster.process_index`` and
+``process_count``) where the reference asks ``jax.process_index()`` and
+``jax.process_count()``.
+
+Role: the reference's training scripts build ``tf.data.Dataset`` pipelines
+(SURVEY.md §3.4 — input_lib consumed them).  Users migrating a workload
+arrive with an ``input_fn``/dataset they trust; this adapter lets them feed
+it to this framework's trainer directly while (or instead of) converting to
+the native record format:
+
+    ds = tf.data.TFRecordDataset(files).map(parse).shuffle(...).batch(bs)
+    workload.data_fn = tf_dataset_data_fn(lambda bs: ds)
+
+The adapter is HOST-side glue only — tensorflow never touches the device
+(the dataset runs its C++ pipeline on the CPU; numpy arrays cross into
+torch, and the trainer moves them to the card).  It is
+intentionally NOT the performance path: the native loader + data service
+own that; this is the porting on-ramp.
+
+tensorflow is imported lazily so the module (and the package) stays
+importable in TF-less deployments.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Callable, Dict, Iterator, Optional
+
+import numpy as np
+
+logger = logging.getLogger(__name__)
+
+
+def iterate_tf_dataset(dataset, *, field_map: Optional[Dict[str, str]] = None,
+                       repeat: bool = True) -> Iterator[dict]:
+    """Yield numpy batch dicts from a tf.data.Dataset.
+
+    - Dict-element datasets pass through; tuple elements ``(features,
+      labels)`` with dict features follow the estimator input_fn
+      convention: tensor labels land under ``"label"``, dict labels (the
+      multi-head convention) are merged by their own keys.  Key collisions
+      with the features are a loud error, not a silent overwrite.
+    - ``field_map`` renames dataset keys to the workload's batch keys
+      (e.g. ``{"inputs": "image", "targets": "label"}``).
+    - ``repeat=True`` restarts the dataset at exhaustion (training streams
+      are infinite here; the dataset's own ``.repeat()`` also works).
+    """
+    while True:
+        count = 0
+        for elem in dataset.as_numpy_iterator():
+            count += 1
+            if isinstance(elem, tuple) and len(elem) == 2 \
+                    and isinstance(elem[0], dict):
+                features, labels = elem
+                batch = dict(features)
+                label_fields = (labels if isinstance(labels, dict)
+                                else {"label": labels})
+                clash = batch.keys() & label_fields.keys()
+                if clash:
+                    raise ValueError(
+                        f"tf.data adapter: label field(s) {sorted(clash)} "
+                        "collide with feature keys; rename via field_map or "
+                        ".map() the dataset into one dict")
+                batch.update(label_fields)
+            elif isinstance(elem, dict):
+                batch = dict(elem)
+            else:
+                raise ValueError(
+                    "tf.data adapter needs dict elements or (features-dict, "
+                    f"labels) tuples, got {type(elem)!r}; .map() the dataset "
+                    "into the workload's batch-dict shape first")
+            if field_map:
+                batch = {field_map.get(k, k): v for k, v in batch.items()}
+            yield {k: np.asarray(v) for k, v in batch.items()}
+        if not repeat:
+            return
+        if count == 0:
+            raise ValueError("tf.data adapter: dataset yielded no batches")
+        logger.info("tf.data adapter: dataset exhausted after %d batches; "
+                    "restarting (repeat=True)", count)
+
+
+def tf_dataset_data_fn(dataset_fn: Callable[[int], object], *,
+                       field_map: Optional[Dict[str, str]] = None,
+                       repeat: bool = True,
+                       auto_shard: bool = True):
+    """A ``Workload.data_fn`` built from a reference-style input_fn.
+
+    ``dataset_fn(per_host_batch_size)`` returns a ``tf.data.Dataset`` whose
+    batch dimension matches the per-host batch size (the same contract the
+    reference's input_fns had per worker).  The returned data_fn plugs into
+    ``Workload.data_fn`` / ``train_lib`` unchanged.
+
+    Multi-host: the pipeline contract is that each host yields only ITS
+    slice of the global batch — ``dataset_fn`` alone would build identical
+    datasets everywhere and silently duplicate data.  Two mechanisms, in
+    preference order:
+
+    1. If ``dataset_fn`` accepts ``(batch_size, shard_index,
+       shard_count)``, the adapter calls it with this host's coordinates
+       so the input_fn shards BEFORE its own shuffle — the exact tf.data
+       auto-shard semantics, correct for any pipeline.
+    2. Otherwise, with ``auto_shard`` (default), the adapter applies
+       ``dataset.shard(process_count, process_index)`` to the FINAL
+       dataset.  This is only disjoint when the pre-shard order is
+       identical across hosts — an UNSEEDED ``.shuffle()`` inside the
+       input_fn breaks that (each host shuffles differently, then keeps
+       every Nth batch of its own order → overlap).  The adapter cannot
+       see inside the pipeline, so it warns; seed the shuffle or use
+       form (1).
+
+    Set ``auto_shard=False`` only when the input_fn already shards itself
+    (e.g. by ``cluster.process_index()``).
+    """
+    import inspect
+
+    takes_shard_args = len(
+        inspect.signature(dataset_fn).parameters) >= 3
+
+    def data_fn(per_host_batch_size: int) -> Iterator[dict]:
+        from distributed_tensorflow_tpu_torch.cluster.coordination import (
+            process_count,
+            process_index,
+        )
+
+        nproc, pidx = process_count(), process_index()
+        if takes_shard_args:
+            dataset = dataset_fn(per_host_batch_size, pidx, nproc)
+        else:
+            dataset = dataset_fn(per_host_batch_size)
+            if auto_shard and nproc > 1:
+                dataset = dataset.shard(nproc, pidx)
+                logger.warning(
+                    "tf.data adapter: sharding the FINAL dataset %d/%d — "
+                    "this is only disjoint across hosts if the input_fn's "
+                    "ordering is host-identical (seed any .shuffle()!); "
+                    "for exact pre-shuffle sharding accept (batch_size, "
+                    "shard_index, shard_count) in the input_fn",
+                    pidx, nproc)
+        return iterate_tf_dataset(dataset, field_map=field_map,
+                                  repeat=repeat)
+
+    return data_fn

@@ -15,7 +15,8 @@ Port of ``distributed_tensorflow_tpu/train_lib.py``: ``TrainArgs``,
    and the collective-mismatch guard (``assert_same_program``) before the
    first collective;
 3. the input: each rank feeds its rows of the global batch, synthetic
-   stream shard or record stripe ``rank`` of ``world size``;
+   stream shard or record stripe ``rank`` of ``world size``, or batches
+   pulled from the data service's one shared stream;
 4. the hooks: logging, NaN, prefetch, the peer health check (world size >
    1), checkpoints with resume and the preemption hook
    (``--checkpoint_dir``), ``--profile_dir``, ``--tensorboard_dir``,
@@ -24,9 +25,12 @@ Port of ``distributed_tensorflow_tpu/train_lib.py``: ``TrainArgs``,
 5. the loop, then the teardown in the reference's order, the process group
    last.
 
-Flags whose layer is not ported yet (the data service; the fsdp, tensor,
-pipe, context and expert mesh axes; ``--data`` other than the world size)
-raise a ``ValueError`` that names the missing slice; none is ignored.
+Flags whose layer is not ported yet (the fsdp, tensor, pipe, context and
+expert mesh axes, ring attention's chunks, 1F1B; ``--data`` other than the
+world size) raise a ``ValueError`` that names the missing slice; none is
+ignored.  ``--data_service=HOST:PORT`` (or ``dispatch://HOST:PORT``) feeds
+the ranks from the out-of-process input service (``data/service.py``); it
+excludes ``--data_dir``.
 
     python -m distributed_tensorflow_tpu_torch.train_lib --model=gpt2 \
         --flash_attention --batch_size=32 --grad_accum_steps=4 --steps=200
@@ -174,8 +178,6 @@ _UNPORTED = (
      "the parallelism slice (meshes)"),
     ("--ring_chunk_size", lambda a: a.ring_chunk_size != 0, "the parallelism slice"),
     ("--pipe_schedule=1f1b", lambda a: a.pipe_schedule != "gpipe", "the parallelism slice"),
-    ("--data_service", lambda a: a.data_service is not None,
-     "the training-runtime slice, part C (data service)"),
 )
 
 
@@ -336,7 +338,20 @@ def _train(args: TrainArgs, hooks: Optional[List[Hook]],
     manager = metrics_server = None
     data_iter = host_iter = None
     try:
-        if args.data_dir:
+        if args.data_service and args.data_dir:
+            raise ValueError("--data_service and --data_dir are mutually exclusive "
+                             "(the service owns the record file)")
+        if args.data_service:
+            from distributed_tensorflow_tpu_torch.data.service import data_service_data_fn
+
+            if stream_shards != world and world > 1:
+                raise ValueError(
+                    "--data_service splits ONE stream across consumers, which cannot "
+                    "express a batch dim that is not split over the processes 1:1; use "
+                    "--data_dir or synthetic input")
+            logger.info("out-of-process input service: %s", args.data_service)
+            host_iter = data_service_data_fn(args.data_service, workload)(host_bs)
+        elif args.data_dir:
             paths = record_paths(args.data_dir, args.model)
             logger.info("native record loader: %d file(s), %s%s", len(paths), paths[0],
                         "" if len(paths) == 1 else " ..")

@@ -191,7 +191,7 @@ class EvalHook(Hook):
 class TrainLoop:
     """Drives (state, batch) -> state for a number of steps."""
 
-    def __init__(self, train_step: Callable, state: TrainState, data_iter: Iterable,
+    def __init__(self, train_step: Optional[Callable], state: TrainState, data_iter: Iterable,
                  *, hooks: Optional[List[Hook]] = None, examples_per_step: int = 0,
                  metrics_every: int = 10, seed: int = 0):
         self.train_step = train_step
@@ -202,6 +202,9 @@ class TrainLoop:
         self.metrics_every = max(1, metrics_every)
         self.seed = seed
         self.last_logged_metrics: Dict[str, float] = {}
+        # The metrics delivered by the last step (None on the steps between
+        # deliveries), as the TF1 session's run() returns them.
+        self.last_step_metrics: Optional[Dict[str, float]] = None
         self.last_metrics_step: Optional[int] = None
         # (step, host tensors in flight, event marking their arrival)
         self._pending_metrics: Optional[tuple] = None
@@ -215,6 +218,12 @@ class TrainLoop:
 
     def request_stop(self) -> None:
         self._stop = True
+
+    @property
+    def stopped(self) -> bool:
+        """Whether a stop was requested (hook, NaN, or data exhaustion) —
+        further ``run`` calls will make no progress."""
+        return self._stop
 
     def _start_metrics_fetch(self, step: int, metrics: Dict[str, torch.Tensor]) -> None:
         host = {k: v.detach().to("cpu", non_blocking=True) for k, v in metrics.items()}
@@ -236,6 +245,7 @@ class TrainLoop:
 
     def _deliver(self, metrics_step: int, host: Dict[str, float]) -> None:
         self.last_metrics_step = metrics_step
+        self.last_step_metrics = host
         for h in self.hooks:
             h.on_metrics(self, metrics_step, host)
 
@@ -247,14 +257,23 @@ class TrainLoop:
         self.last_logged_metrics.update(host)
         return host
 
-    def run_one_step(self, completed_steps: int) -> int:
+    def run_one_step(self, completed_steps: int, train_step: Optional[Callable] = None) -> int:
+        """One step: feed a batch, run the step (``train_step``, or the
+        loop's own), drive the hooks; returns the new completed-step count.
+        Shared by ``run`` and the TF1 ``compat.v1.MonitoredTrainingSession``,
+        whose step arrives with each ``run(train_op)`` (that loop is built
+        with ``train_step=None``).  An exhausted data iterator requests stop
+        (the TF1 OutOfRangeError-ends-the-session contract) and leaves the
+        count unchanged."""
+        fn = train_step if train_step is not None else self.train_step
         try:
             batch = next(self.data_iter)
         except StopIteration:
             self.request_stop()
+            self.last_step_metrics = None
             return completed_steps
         t0 = time.perf_counter()
-        self.state, metrics = self.train_step(self.state, batch, self.seed)
+        self.state, metrics = fn(self.state, batch, self.seed)
         self._obs_step_time.observe(time.perf_counter() - t0)
         self._obs_steps.inc()
         completed_steps += 1
@@ -264,6 +283,7 @@ class TrainLoop:
             self._start_metrics_fetch(completed_steps, metrics)
             if host_metrics is not None:
                 self._deliver(mstep, host_metrics)
+        self.last_step_metrics = host_metrics
         for h in self.hooks:
             h.after_step(self, completed_steps, host_metrics)
         return completed_steps

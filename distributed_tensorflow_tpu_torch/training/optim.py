@@ -7,8 +7,11 @@ The reference composes optax transformations; the port keeps a
   0 and it divides by ``sqrt(acc) + eps``; optax starts at 0.1 and scales by
   ``rsqrt(acc + eps)``, 0 where the accumulator is 0).
 - ``Transform``: an optimizer recipe over a list of tensors, the role of an
-  ``optax.GradientTransformation``; ``adamw``, ``adagrad`` and
+  ``optax.GradientTransformation``; ``adamw``, ``adam``, ``adagrad`` and
   ``f32_master_of`` make them.
+- ``MultiSteps``: ``optax.MultiSteps`` (the TF1 ``SyncReplicasOptimizer``
+  of ``compat.v1``): the mean gradient of k calls, the inner optimizer
+  applied on the k-th, no update on the others.
 - ``MultiTransform``: ``optax.multi_transform`` over a module's named
   parameters.  A branch under ``f32_master_of`` runs its optimizer on
   float32 copies of its (low-precision) parameters, the masters, which take
@@ -76,6 +79,14 @@ def adamw(weight_decay: float = 1e-4) -> Transform:
     decoupled decay; the learning rate comes from the schedule."""
     return Transform(lambda ts: torch.optim.AdamW(ts, lr=0.0, betas=(0.9, 0.999), eps=1e-8,
                                                   weight_decay=weight_decay))
+
+
+def adam(learning_rate: float) -> Transform:
+    """``optax.adam(learning_rate)`` at a constant rate of its own: b1 0.9,
+    b2 0.999, eps 1e-8, no decay."""
+    return Transform(lambda ts: torch.optim.Adam(ts, lr=learning_rate, betas=(0.9, 0.999),
+                                                 eps=1e-8),
+                     fixed_lr=True)
 
 
 def adagrad(learning_rate: float, initial_accumulator_value: float = 0.1,
@@ -163,3 +174,83 @@ def optimizer_branches(optimizer, module: nn.Module) -> Sequence[Branch]:
     names = {id(p): n for n, p in module.named_parameters()}
     params = [p for g in optimizer.param_groups for p in g["params"]]
     return [Branch([names[id(p)] for p in params], params, None, optimizer)]
+
+
+class MultiSteps:
+    """``optax.MultiSteps(inner, every_k_schedule=k)`` over ``params``: each
+    ``step()`` folds the parameters' ``.grad`` into a running mean
+    (Welford's update, as optax's ``use_grad_mean``), and every k-th call
+    hands the mean to the inner optimizer and zeroes it; the other calls
+    leave the parameters as they are.  ``update_count`` is the number of
+    inner updates applied, the count optax reads the inner schedule at, and
+    ``TrainState`` sets the learning rate from it.
+
+    What ``TrainState`` and the checkpoint manager use of an optimizer is
+    here: ``param_groups`` (the inner's), ``step``, ``zero_grad``,
+    ``state_dict`` and ``load_state_dict``; each parameter's state holds
+    the inner optimizer's, its accumulator ``acc`` and the two counters
+    (the same for every parameter, as in optax's one state)."""
+
+    def __init__(self, params: Iterable[torch.Tensor], inner: Transform, every_k: int):
+        if inner.f32_master:
+            raise ValueError("MultiSteps over f32 masters is not supported")
+        if every_k < 1:
+            raise ValueError(f"every_k must be >= 1, got {every_k}")
+        self.params = list(params)
+        self.every_k = every_k
+        self.inner = inner.make(self.params)
+        if inner.fixed_lr:
+            for group in self.inner.param_groups:
+                group["fixed_lr"] = True
+        self.acc = [torch.zeros_like(p) for p in self.params]
+        self.mini_step = 0
+        self.update_count = 0
+
+    @property
+    def param_groups(self) -> List[dict]:
+        return self.inner.param_groups
+
+    @torch.no_grad()
+    def step(self) -> None:
+        emit = self.mini_step == self.every_k - 1
+        for p, acc in zip(self.params, self.acc):
+            if p.grad is not None:
+                acc.add_((p.grad - acc) / (self.mini_step + 1))
+            if emit:
+                p.grad = acc.clone()
+        if emit:
+            self.inner.step()
+            for acc in self.acc:
+                acc.zero_()
+            self.update_count += 1
+        self.mini_step = (self.mini_step + 1) % self.every_k
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        self.inner.zero_grad(set_to_none=set_to_none)
+
+    def state_dict(self) -> dict:
+        sd = self.inner.state_dict()
+        counters = {"mini_step": torch.tensor(self.mini_step, dtype=torch.int64),
+                    "gradient_step": torch.tensor(self.update_count, dtype=torch.int64)}
+        state = {i: {**sd["state"].get(i, {}), "acc": self.acc[i], **counters}
+                 for i in range(len(self.params))}
+        return {"state": state, "param_groups": sd["param_groups"]}
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: dict) -> None:
+        inner = {}
+        for i, entries in sd["state"].items():
+            entries = dict(entries)
+            self.acc[i].copy_(entries.pop("acc"))
+            self.mini_step = int(entries.pop("mini_step"))
+            self.update_count = int(entries.pop("gradient_step"))
+            if entries:
+                inner[i] = entries
+        self.inner.load_state_dict({"state": inner, "param_groups": sd["param_groups"]})
+
+
+def multi_steps(inner: Transform, every_k: int
+                ) -> Callable[[Iterable[Tuple[str, nn.Parameter]]], MultiSteps]:
+    """``optax.MultiSteps(inner, every_k)`` as a ``Workload.make_optimizer``
+    factory (named parameters -> ``MultiSteps``)."""
+    return lambda named: MultiSteps([p for _, p in named], inner, every_k)

@@ -50,7 +50,9 @@ class TrainState:
         targets = getattr(self.optimizer, "grad_targets", {})
         for name, p in self.module.named_parameters():
             targets.get(name, p).grad = grads[name]
-        lr = self.schedule(self.step)
+        # The schedule counts the optimizer's own updates where it keeps
+        # them (MultiSteps applies one every k calls), else every call.
+        lr = self.schedule(getattr(self.optimizer, "update_count", self.step))
         for group in self.optimizer.param_groups:
             if not group.get("fixed_lr", False):  # e.g. a table's own Adagrad rate
                 group["lr"] = lr

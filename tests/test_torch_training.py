@@ -156,8 +156,8 @@ def test_entry_point_runs_on_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [
-    "--data_service=h:1", "--pipe_schedule=1f1b", "--tensor=2", "--fsdp=2", "--pipe=2",
-    "--context=2", "--data=2", "--ring_chunk_size=64",
+    "--pipe_schedule=1f1b", "--tensor=2", "--fsdp=2", "--pipe=2", "--context=2", "--data=2",
+    "--ring_chunk_size=64",
 ])
 def test_unported_flags_raise(flag):
     with pytest.raises(ValueError, match="not ported"):
@@ -313,7 +313,9 @@ def test_port_imports_no_jax_and_no_reference():
     """In a fresh interpreter (this one already holds jax): import every
     module of the port, chip_smoke.py and chip_faults.py; nothing of JAX or of the JAX
     package may enter sys.modules, nor tensorboardX or tensorboard (the port
-    writes its event files itself: the card's machine has neither)."""
+    writes its event files itself: the card's machine has neither), nor
+    tensorflow (the TF-compat modules import it only inside the functions
+    that read a TF object; the card's machine has none)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import distributed_tensorflow_tpu_torch as pkg\n"
@@ -322,7 +324,8 @@ def test_port_imports_no_jax_and_no_reference():
         "    importlib.import_module(m)\n"
         "import chip_smoke, chip_faults\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',\n"
-        "                                                     'tensorboardX', 'tensorboard')\n"
+        "                                                     'tensorboardX', 'tensorboard',\n"
+        "                                                     'tensorflow')\n"
         "       or m == 'distributed_tensorflow_tpu'\n"
         "       or m.startswith('distributed_tensorflow_tpu.')]\n"
         "assert not bad, bad\n"
@@ -332,4 +335,4 @@ def test_port_imports_no_jax_and_no_reference():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 45  # every module was imported
+    assert int(proc.stdout.split()[-1]) >= 59  # every module was imported
