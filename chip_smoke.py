@@ -4,7 +4,8 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --cluster_only   # phases 8b, 8c and 9c's two ranks
                                            # alone; with two or more cards,
-                                           # over NCCL
+                                           # over NCCL; with four, the
+                                           # parallel configurations below
 
 Phases (any failure raises; there is no CPU path):
 
@@ -125,6 +126,33 @@ Phases (any failure raises; there is no CPU path):
    workers (one SIGKILLed after step 10) for 20 steps, each beside the
    --data_dir phase, and last a SIGKILLed server under a trainer, which
    must raise DataServiceError naming it within 10 s.
+10. Parallelism (meshes over ``torch.distributed``), run as two ranks of
+   this script (``--parallel_worker``) that share the card over gloo
+   (their lines say "gloo, shared card"), each with the launch counts set
+   to 0 just before and read just after, at full width and dropout 0
+   unless stated:
+   (a) ring attention at ``context=2`` at GPT-2 medium's attention shape
+   (B=8, T=1024, H=16, D=64, bf16, causal) and BERT-base's (B=32, T=512,
+   H=12, D=64, non-causal, synthetic_mlm's keys, 256-512), each at dropout
+   0 and 0.1: at 0 the ring's out, dQ, dK and dV are held to the float32
+   plain attention of the whole sequence under the kernel check's
+   per-element tolerance summed over the ring's partial products (each
+   launch rounds its part to bf16), one process's flash_attention to the
+   same truth under its own tolerance, and their difference printed; at
+   0.1 finite, with the 4 (shard, owner) blocks' keep masks pairwise
+   different; the forward, dQ and dK/dV must run and no pre-pass;
+   (b) GPT-2 medium (flash, batch 32 in 4 microbatches) 3 steps at
+   ``tensor=2`` and at ``fsdp=2``, the loss within 1e-2 of one process's
+   on the same global batches, 96 dQ and dK/dV launches a step a rank;
+   (c) ResNet-50 at ``data=2`` with synchronised BatchNorm (global batch
+   256), its loss and running statistics within 1e-2 of one process's.
+   ``--cluster_only`` on four cards (NCCL, a card a rank) runs GPT-2
+   medium at ``fsdp=2 x tensor=2`` and at ``context=4``, BERT-base seq 512
+   at ``data=2 x context=2`` (batch 256, ragged keys) and ResNet-50 at
+   ``data=4`` (batch 256), 3 steps each against one card's run of the same
+   global batches (loss within 1e-2), and prints the throughput a card,
+   the collective share of a profiled step's device time, the peak MiB of
+   each rank and the flash launches a step.
 
 The line before the last is a JSON object of the kernels' numbers; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -1041,11 +1069,22 @@ def train_bert(fa):
 
 
 def mlm_key_lengths(B, T, seed=0):
-    """Key lengths as synthetic_mlm draws them (in [T / 2, T])."""
-    from distributed_tensorflow_tpu_torch.data.pipeline import synthetic_mlm
+    """Key lengths as synthetic_mlm draws them (in [T / 2, T]): stream shard
+    0 of 1 in every process, a worker rank's too."""
+    b = global_stream("synthetic_mlm", batch_size=B, seq_len=T, vocab_size=30522, seed=seed)
+    return [int(n) for n in b["input_mask"].sum(1)]
 
-    return [int(n) for n in next(synthetic_mlm(batch_size=B, seq_len=T, vocab_size=30522,
-                                               seed=seed))["input_mask"].sum(1)]
+
+def global_stream(fn, **kw):
+    """The first batch of a synthetic stream as stream shard 0 of 1 (the
+    global batch), whatever this process's rank."""
+    from distributed_tensorflow_tpu_torch.data import pipeline
+
+    pipeline.set_stream_shard_override(1, 0)
+    try:
+        return next(getattr(pipeline, fn)(**kw))
+    finally:
+        pipeline.set_stream_shard_override(None)
 
 
 def train_mnist(fa):
@@ -2425,6 +2464,394 @@ def check_data_service(fa, data_dir: Path, records):
     return by_path, rates
 
 
+# -- phase 10: parallelism (meshes, ring attention, synchronised BatchNorm) ----
+
+PAR_STEPS = 3
+PAR_LOSS_RTOL = 1e-2  # bf16 runs of one global batch, the mesh's against one process's
+RING_CASES = {  # name: (B, T, H, D, causal, key lengths or None)
+    "gpt2_medium": (8, 1024, 16, 64, True, None),
+    "bert_base": (32, 512, 12, 64, False, "mlm"),
+}
+PAR_TRAIN = {  # name: (model, global batch)
+    "gpt2_medium": ("gpt2", 32), "bert_base_seq512": ("bert", 256), "resnet50": ("resnet", 256),
+}
+
+
+def ring_inputs(name, rate_seed=SEED):
+    """Phase 10a's global q, k, v, dO (bf16, on the card) and key mask."""
+    B, T, H, D, causal, lens = RING_CASES[name]
+    q, k, v, g, mask, _ = make_inputs(B, T, H, D, torch.bfloat16, seed=T + D,
+                                      mask_lens=mlm_key_lengths(B, T) if lens else None)
+    return q, k, v, g, mask, causal
+
+
+def par_workload(model, mesh):
+    """Phase 10's workloads at full width, dropout 0: GPT-2 medium (flash,
+    batch 32 in 4 microbatches), BERT-base at seq 512 (flash, batch 256),
+    ResNet-50 (batch 256, no augmentation)."""
+    from distributed_tensorflow_tpu_torch.models import bert, gpt2, resnet
+
+    if model == "gpt2":
+        return gpt2.make_workload(config=gpt2.GPT2Config.medium(dropout=0.0),
+                                  use_flash_attention=True, batch_size=32, seq_len=1024,
+                                  grad_accum_steps=4, device="cuda", mesh=mesh)
+    if model == "bert":
+        return bert.make_workload(config=bert.BertConfig.base(dropout=0.0),
+                                  use_flash_attention=True, batch_size=256, seq_len=512,
+                                  device="cuda", mesh=mesh)
+    return resnet.make_workload(batch_size=256, augment=False, device="cuda", mesh=mesh)
+
+
+def par_batch(model, step, batch):
+    """Global batch ``step`` of phase 10's runs, the same in every process."""
+    if model == "gpt2":
+        b = global_stream("synthetic_lm", batch_size=batch, seq_len=1024, vocab_size=50257,
+                          seed=step)
+    elif model == "bert":
+        b = global_stream("synthetic_mlm", batch_size=batch, seq_len=512, vocab_size=30522,
+                          seed=step)
+    else:
+        gen = torch.Generator(device="cuda").manual_seed(100 + step)
+        return {"image": torch.randn(batch, 224, 224, 3, device="cuda", generator=gen),
+                "label": torch.randint(0, 1000, (batch,), device="cuda", generator=gen)}
+    return {k: torch.from_numpy(v).cuda() for k, v in b.items()}
+
+
+def par_train(model, mesh, profile_step=None):
+    """PAR_STEPS steps of ``model`` on ``mesh`` (None: one process), each
+    rank on its batch shard's rows; returns the losses, step seconds,
+    launches, peak MiB, the profiled step's device and collective ms, and
+    ResNet's running statistics."""
+    from distributed_tensorflow_tpu_torch import train_lib
+    from distributed_tensorflow_tpu_torch.data.pipeline import host_batch_layout
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    wl = par_workload(model, mesh)
+    state, step = train_lib.build_state_and_step(wl, grad_accum_steps=wl.grad_accum_steps,
+                                                 total_steps=PAR_STEPS, seed=0)
+    rows, _, index = host_batch_layout(wl.batch_size, mesh)
+    batches = [{k: v[index * rows:(index + 1) * rows]
+                for k, v in par_batch(model, s, wl.batch_size).items()}
+               for s in range(PAR_STEPS)]
+    for name in fa.LAUNCHES:
+        fa.LAUNCHES[name] = 0
+    losses, step_s, prof = [], [], None
+    for s, b in enumerate(batches):
+        if s == profile_step:
+            from torch.profiler import ProfilerActivity, profile
+
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            prof.start()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, metrics = step(state, b, 1)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        if prof is not None and s == profile_step:
+            prof.stop()
+    out = {"losses": losses, "step_s": step_s, "launches": dict(fa.LAUNCHES),
+           "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+    if prof is not None:
+        busy = coll = 0.0
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", None) or getattr(
+                e, "self_cuda_time_total", 0)
+            busy += us / 1e3
+            if "nccl" in e.key.lower():
+                coll += us / 1e3
+        out.update(device_ms=busy, collective_ms=coll)
+    if model == "resnet":
+        out["stats"] = {n: b.detach().float().cpu() for n, b in wl.module.named_buffers()}
+    del state, step, wl
+    return out
+
+
+def par_ring(mesh, out: Path, rank: int):
+    """Phase 10a on this rank: each case's block of ring attention at
+    dropout 0 and 0.1 with the gradients of sum(out * dO); the blocks and
+    the launch counts go to ``out``."""
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+    from distributed_tensorflow_tpu_torch.parallel.ring_attention import ring_attention
+
+    n, my = mesh.axis_size("context"), mesh.axis_index("context")
+    res = {}
+    for name in RING_CASES:
+        q, k, v, g, mask, causal = ring_inputs(name)
+        T = q.shape[1]
+        cols = slice(my * T // n, (my + 1) * T // n)
+        for rate in (0.0, DROPOUT):
+            qs, ks, vs = (x[:, cols].detach().clone().requires_grad_() for x in (q, k, v))
+            for key in fa.LAUNCHES:
+                fa.LAUNCHES[key] = 0
+            t = time.perf_counter()
+            o = ring_attention(qs, ks, vs, mesh=mesh, causal=causal,
+                               kv_mask=None if mask is None else mask[:, cols],
+                               dropout_rate=rate, dropout_rng=SEED if rate else None)
+            o.backward(g[:, cols])
+            torch.cuda.synchronize()
+            res[f"{name}/{rate}"] = {
+                "tensors": [x.detach().cpu() for x in (o, qs.grad, ks.grad, vs.grad)],
+                "launches": dict(fa.LAUNCHES), "seconds": time.perf_counter() - t}
+    torch.save(res, out / f"ring_rank{rank}.pt")
+
+
+def parallel_worker_main(argv) -> int:
+    """One rank of phase 10 (``--parallel_worker OUT JOB``): a mesh over the
+    TF_CONFIG cluster's ranks, then the job: ``ring`` (10a) or a training
+    run of ``model`` for PAR_STEPS steps."""
+    import os
+
+    from distributed_tensorflow_tpu_torch import cluster
+
+    out, job = Path(argv[0]), json.loads(argv[2])  # argv[1]: the job's tag
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    server = cluster.Server.from_resolver(cluster.resolve(), device="cuda")
+    rank = json.loads(os.environ["TF_CONFIG"])["task"]["index"]
+    mesh = cluster.build_mesh(cluster.MeshConfig(**job["axes"]))
+    backend = torch.distributed.get_backend()
+    if job["kind"] == "ring":
+        par_ring(mesh, out, rank)
+        result = {}
+    else:
+        result = par_train(job["model"], mesh, job.get("profile_step"))
+        if rank != 0:
+            result.pop("stats", None)
+        torch.save(result, out / f"{job['tag']}_rank{rank}.pt")
+    server.shutdown()
+    print("PARALLEL_RESULT " + json.dumps({"rank": rank, "backend": backend,
+                                           "device": str(torch.cuda.current_device())}),
+          flush=True)
+    return 0
+
+
+def run_parallel(out: Path, job, ranks: int, deadline_s=WORKER_DEADLINE_S):
+    """Phase 10's ranks of ``job`` (this script, ``--parallel_worker``);
+    raises unless every rank reports; returns the ranks' reports."""
+    flags = {"worker": [json.dumps(job)]}
+    procs = spawn_cluster(out, job.get("tag", job["kind"]), [("worker", i) for i in range(ranks)],
+                          flags, mode="--parallel_worker")
+    reports = []
+    for code, _, _, text in join_cluster(procs, deadline_s):
+        m = re.search(r"^PARALLEL_RESULT (.*)$", text, re.M)
+        if code != 0 or m is None:
+            raise AssertionError(f"phase 10 {job}: a rank exited {code}: {text[-3000:]}")
+        reports.append(json.loads(m.group(1)))
+    return reports
+
+
+def transport(reports) -> str:
+    backends = {r["backend"] for r in reports}
+    if backends == {"gloo"}:
+        return "gloo, shared card" if torch.cuda.device_count() < len(reports) else "gloo"
+    return "/".join(sorted(backends))
+
+
+def ring_truth(fa, q, k, v, g, mask, causal, n, out):
+    """The float32 plain attention of the whole sequence, its output and
+    gradients (of sum(out * g)), and each one's tolerance for a ring of n
+    blocks: the kernel check's per-element tolerance (``tolerance``) of
+    every partial product a ring launch makes (dQ of a query block against
+    each key block it sees; dK and dV of a key block against each query
+    block), summed over the launches that add into the element, since each
+    launch rounds its part to bf16 before the ring sums them.  Delta is
+    rowsum(dO * out) of the bf16 ``out`` the backward under test reads, as
+    the kernel check gives its backward kernels the output they read."""
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
+    B, T, H, D = q.shape
+    s = fa._masked_scores(qf, kf, causal=causal, scale=1.0 / math.sqrt(D), kv_mask=mask)
+    p = torch.exp(s - torch.logsumexp(s, -1, keepdim=True))
+    del s
+    o = torch.einsum("bhqk,bkhd->bqhd", p, vf)
+    delta = (gf * out.float()).sum(-1).permute(0, 2, 1)
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", gf, vf) - delta[..., None]) / math.sqrt(D)
+    want = [o, torch.einsum("bhqk,bkhd->bqhd", ds, kf), torch.einsum("bhqk,bqhd->bkhd", ds, qf),
+            torch.einsum("bhqk,bqhd->bkhd", p, gf)]
+    tols = [tolerance("out", o, torch.bfloat16)] + [torch.zeros_like(o) for _ in range(3)]
+    L = T // n
+    for i in range(n):
+        for j in range(n if not causal else i + 1):
+            qs, ks = slice(i * L, (i + 1) * L), slice(j * L, (j + 1) * L)
+            tols[1][:, qs] += tolerance("dq", torch.einsum("bhqk,bkhd->bqhd", ds[:, :, qs, ks],
+                                                           kf[:, ks]), torch.bfloat16)
+            tols[2][:, ks] += tolerance("dk", torch.einsum("bhqk,bqhd->bkhd", ds[:, :, qs, ks],
+                                                           qf[:, qs]), torch.bfloat16)
+            tols[3][:, ks] += tolerance("dv", torch.einsum("bhqk,bqhd->bkhd", p[:, :, qs, ks],
+                                                           gf[:, qs]), torch.bfloat16)
+    return want, tols
+
+
+def check_against(name, got, want, tol, result):
+    """``check`` with a given per-element tolerance."""
+    diff = (got.float() - want).abs()
+    err, worst = float(diff.max()), float((diff / tol).max())
+    print(f"  {name:>8}: max_abs_err {err:.3e}  max err/tol {worst:.3f}  tolerance median "
+          f"{float(tol.median()):.3e}")
+    result["errors"][name], result["ratios"][name] = err, worst
+    if not worst <= 1.0:
+        result["failures"].append(name)
+
+
+def check_ring(fa, out: Path):
+    """10a: ring attention at context=2 on two ranks.  At dropout 0 its
+    out, dQ, dK and dV are held to the float32 plain attention of the whole
+    sequence under the kernel check's per-element tolerance summed over the
+    ring's partial products (``ring_truth``); one process's flash_attention
+    on the whole sequence is held to the same truth under the kernels' own
+    tolerance, and its difference from the ring printed.  At dropout 0.1
+    the ring must stay finite and the blocks' keep masks differ for every
+    (shard, owner).  Returns the ring's flash launches by case."""
+    from distributed_tensorflow_tpu_torch.rng import fold_in
+
+    t0 = time.perf_counter()
+    reports = run_parallel(out, {"kind": "ring", "axes": {"context": 2}}, 2)
+    how = transport(reports)
+    ranks = [torch.load(out / f"ring_rank{r}.pt") for r in (0, 1)]
+    launches = {}
+    for name in RING_CASES:
+        q, k, v, g, mask, causal = ring_inputs(name)
+        qs, ks, vs = (x.detach().clone().requires_grad_() for x in (q, k, v))
+        o = fa.flash_attention(qs, ks, vs, causal=causal, kv_mask=mask)
+        o.backward(g)
+        flash = [x.detach() for x in (o, qs.grad, ks.grad, vs.grad)]
+        truth, tols = ring_truth(fa, q, k, v, g, mask, causal, 2, flash[0])
+        one = {"errors": {}, "ratios": {}, "failures": []}
+        for label, x, w in zip(("out", "dq", "dk", "dv"), flash, truth):
+            check(label, x, w, torch.bfloat16, one)
+        print(f"[ring] {name}: one process's flash_attention against the float32 truth: worst "
+              f"err/tol {max(one['ratios'].values()):.3f}")
+        if one["failures"]:
+            raise AssertionError(f"{name}: flash_attention differs from its plain version")
+        for rate in (0.0, DROPOUT):
+            got = [torch.cat([r[f"{name}/{rate}"]["tensors"][i] for r in ranks], 1).cuda()
+                   for i in range(4)]
+            per_rank = [r[f"{name}/{rate}"]["launches"] for r in ranks]
+            launches[f"ring_{name}_context2_dropout{rate}"] = {
+                key: sum(p[key] for p in per_rank) for key in per_rank[0]}
+            secs = max(r[f"{name}/{rate}"]["seconds"] for r in ranks)
+            print(f"[ring] {name} context=2 dropout {rate} ({how}): forward+backward "
+                  f"{secs:.3f} s; launches {launches[f'ring_{name}_context2_dropout{rate}']}")
+            if not all(torch.isfinite(x.float()).all() for x in got):
+                raise AssertionError(f"ring {name} dropout {rate}: non-finite output")
+            if rate == 0.0:
+                truth, tols = ring_truth(fa, q, k, v, g, mask, causal, 2, got[0])
+                result = {"errors": {}, "ratios": {}, "failures": []}
+                for label, x, w, tol in zip(("out", "dq", "dk", "dv"), got, truth, tols):
+                    check_against(label, x, w, tol, result)
+                print(f"[ring] {name}: the ring against the float32 truth: worst err/tol "
+                      f"{max(result['ratios'].values()):.3f}; max |ring - flash_attention| "
+                      f"{[round(max_err(x, f), 5) for x, f in zip(got, flash)]} (out, dq, dk, dv)")
+                if result["failures"]:
+                    raise AssertionError(f"ring {name}: differs from the plain attention in "
+                                         f"{result['failures']}")
+                del truth, tols
+        B, T, H, _ = q.shape
+        masks = [fa.dropout_mask(B, H, T // 2, DROPOUT, fold_in(fold_in(SEED, my), owner),
+                                 device="cuda") for my in (0, 1) for owner in (0, 1)]
+        same = [(i, j) for i in range(4) for j in range(i + 1, 4)
+                if torch.equal(masks[i], masks[j])]
+        print(f"[ring] {name}: the 4 (shard, owner) blocks' keep masks pairwise differ: "
+              f"{not same}; kept {float(torch.stack(masks).gt(0).float().mean()):.4f}")
+        if same:
+            raise AssertionError(f"ring {name}: blocks {same} share a dropout mask")
+        del masks
+        torch.cuda.empty_cache()
+    for label, counts in launches.items():
+        if not all(counts[k] > 0 for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")) or any(
+                counts[k] for k in PREPASSES):
+            raise AssertionError(f"{label}: the ring did not run the forward, dQ and dK/dV "
+                                 f"kernels alone: {counts}")
+    print(f"[phase] 10a ring attention: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def compare_training(label, got, want, reports):
+    """A mesh run's losses (rank 0's) against one process's, relative
+    PAR_LOSS_RTOL; prints both and the step seconds."""
+    how = transport(reports)
+    print(f"[parallel] {label} ({how}): losses {got['losses']} one process "
+          f"{want['losses']}; step seconds {[round(s, 3) for s in got['step_s']]} (one process "
+          f"{[round(s, 3) for s in want['step_s']]}); peak {got['peak_mib']:.0f} MiB a rank")
+    for g, w in zip(got["losses"], want["losses"]):
+        if not (math.isfinite(g) and abs(g - w) <= PAR_LOSS_RTOL * abs(w)):
+            raise AssertionError(f"{label}: loss {got['losses']} vs one process "
+                                 f"{want['losses']}")
+
+
+def check_parallel_training(out: Path):
+    """10b and 10c on two ranks sharing the card: GPT-2 medium at tensor=2
+    and at fsdp=2, ResNet-50 at data=2 with synchronised BatchNorm (its
+    running statistics too), each against one process on the same global
+    batches.  Returns their launch counts (rank 0's)."""
+    launches = {}
+    for label, model, axes in (("gpt2_medium_tensor2", "gpt2", {"tensor": 2}),
+                               ("gpt2_medium_fsdp2", "gpt2", {"fsdp": 2}),
+                               ("resnet50_data2", "resnet", {"data": 2})):
+        t0 = time.perf_counter()
+        want = par_train(model, None)
+        reports = run_parallel(out, {"kind": "train", "tag": label, "model": model,
+                                     "axes": axes}, 2)
+        got = torch.load(out / f"{label}_rank0.pt")
+        compare_training(label, got, want, reports)
+        if model == "resnet":
+            worst = max(float((got["stats"][n] - w).abs().max() / (w.abs().max() + 1e-6))
+                        for n, w in want["stats"].items())
+            print(f"[parallel] {label}: running statistics against one process: worst "
+                  f"|diff| / max|stat| {worst:.3e}")
+            if not worst <= PAR_LOSS_RTOL:
+                raise AssertionError(f"{label}: running statistics differ by {worst}")
+        else:  # 24 layers x 4 microbatches a step on every rank
+            assert_flash_launches(label, got["launches"], 24 * 4, PAR_STEPS)
+        launches[label] = got["launches"]
+        print(f"[phase] 10 {label}: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+CLUSTER_CONFIGS = (  # label, model, mesh, units, units a step
+    ("gpt2_medium_fsdp2_tensor2", "gpt2", {"fsdp": 2, "tensor": 2}, "tokens", 32 * 1024),
+    ("gpt2_medium_context4", "gpt2", {"context": 4}, "tokens", 32 * 1024),
+    ("bert_base_seq512_data2_context2", "bert", {"data": 2, "context": 2}, "tokens", 256 * 512),
+    ("resnet50_data4", "resnet", {"data": 4}, "images", 256),
+)
+
+
+def check_cluster_parallel(out: Path):
+    """``--cluster_only`` on four cards (NCCL, a card a rank): the four
+    configurations of CLUSTER_CONFIGS, 3 steps each (dropout 0, bf16)
+    against one card's run of the same global batches; the throughput a
+    card (the last step; step 2 of 3 is profiled), the profiled step's
+    collective share of device time (rank 0), the peak MiB of every rank
+    and the flash launches a step (rank 0)."""
+    summary = {}
+    for label, model, axes, units, per_step in CLUSTER_CONFIGS:
+        t0 = time.perf_counter()
+        want = par_train(model, None)
+        ranks = math.prod(axes.values())
+        reports = run_parallel(out, {"kind": "train", "tag": label, "model": model,
+                                     "axes": axes, "profile_step": 1}, ranks)
+        got = [torch.load(out / f"{label}_rank{r}.pt") for r in range(ranks)]
+        compare_training(label, got[0], want, reports)
+        rate = per_step / got[0]["step_s"][-1] / ranks
+        share = got[0]["collective_ms"] / got[0]["device_ms"] if got[0]["device_ms"] else math.nan
+        row = {"per_card": rate, "one_card": per_step / want["step_s"][-1],
+               "collective_share": share, "collective_ms": got[0]["collective_ms"],
+               "device_ms": got[0]["device_ms"], "step_s": got[0]["step_s"][-1],
+               "peak_mib": [g["peak_mib"] for g in got],
+               "launches_per_step": {k: v / PAR_STEPS for k, v in got[0]["launches"].items()}}
+        print(f"[cluster] {label} ({transport(reports)}, {ranks} ranks): {rate:.1f} {units}/s a "
+              f"card (one card {row['one_card']:.1f}); collective share of the profiled step's "
+              f"device time {share:.1%} ({row['collective_ms']:.1f} of {row['device_ms']:.1f} "
+              f"ms); peak MiB by rank {[round(m) for m in row['peak_mib']]}; flash launches a "
+              f"step (rank 0) {row['launches_per_step']}")
+        summary[label] = row
+        print(f"[phase] cluster {label}: {time.perf_counter() - t0:.1f} s")
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only", file=sys.stderr)
@@ -2532,6 +2959,15 @@ def main() -> int:
               f"{service_runs['ResNet-50 dispatcher']['rate']:.1f} images/s (--data_dir "
               f"{other_runs['ResNet-50 records']['rate']:.1f})")
         print(f"[phase] TF-compat and data-service phases: {time.perf_counter() - t_compat:.1f} s")
+        # Phase 10: parallelism on two ranks sharing the card.
+        t_par = time.perf_counter()
+        par_dir = data_dir / "parallel"
+        par_dir.mkdir(parents=True, exist_ok=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        par_paths = {**check_ring(fa, par_dir), **check_parallel_training(par_dir)}
+        other_runs.update({label: {"launches": n} for label, n in par_paths.items()})
+        print(f"[phase] 10 parallelism: {time.perf_counter() - t_par:.1f} s")
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
 
@@ -2586,6 +3022,11 @@ def cluster_main() -> int:
         check_two_workers(data_dir)
         check_preemption(data_dir)
         check_strategy_workers(data_dir)
+        if torch.cuda.device_count() >= 4:
+            par_dir = data_dir / "parallel"
+            par_dir.mkdir(parents=True, exist_ok=True)
+            summary = check_cluster_parallel(par_dir)
+            print(f"[cluster] summary {json.dumps(summary)}")
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
     print(card)
@@ -2602,6 +3043,8 @@ if __name__ == "__main__":
         sys.exit(strategy_worker_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--launcher"]:
         sys.exit(launcher_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--parallel_worker"]:
+        sys.exit(parallel_worker_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--cluster_only"]:
         sys.exit(cluster_main())
     sys.exit(main())

@@ -31,8 +31,14 @@ save waits for the one in flight.  ``restore`` reads the checkpoint's
 metadata, loads every tensor it lists, and writes them into the given
 state in place.
 
-Data-parallel ranks (``torch.distributed`` with more than one process)
-hold the same replicated state, so only the coordinator writes; ``dcp``
+On a mesh (a state with a ``plan``) every tensor is written global: the
+ranks' compute copies (``params/``) and stored shards (``opt/``) are
+all-gathered over ``tensor`` and ``fsdp`` on every rank, padding dropped,
+and a restore takes this rank's part of each, so a checkpoint saved under
+one mesh restores under another (tensor=2 in one process, fsdp=2 as
+tensor=2); the optimizer's masters are then cut from the restored
+parameters.  The global tensors are the same on every rank, so only the
+coordinator writes; ``dcp``
 runs with ``no_dist`` on every rank, off the training group.  A save
 counts as done on every rank only after ``wait_until_finished``: the
 coordinator joins its writer, then every rank meets at a barrier on the
@@ -96,6 +102,43 @@ def state_tensors(state: TrainState) -> Dict[str, torch.Tensor]:
     return flat
 
 
+def _name_of(key: str) -> Optional[str]:
+    """The parameter a checkpoint key belongs to (None for others)."""
+    parts = key.split("/")
+    if parts[0] in ("params", "opt") and len(parts) >= 2:
+        return parts[1]
+    return None
+
+
+def global_tensors(state: TrainState, flat: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``flat`` (``state_tensors``) with each parameter's tensors made
+    global over the state's plan: a collective every rank calls."""
+    plan = state.plan
+    if plan is None:
+        return flat
+    out = {}
+    for key, t in flat.items():
+        name = _name_of(key)
+        if name in plan.layouts and t.dim() > 0:
+            t = plan.globalize(name, t, stored=key.startswith("opt/"))
+        out[key] = t
+    return out
+
+
+def local_tensors(state: TrainState, flat: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """This rank's part of a checkpoint's global tensors."""
+    plan = state.plan
+    if plan is None:
+        return flat
+    out = {}
+    for key, t in flat.items():
+        name = _name_of(key)
+        if name in plan.layouts and t.dim() > 0:
+            t = plan.localize(name, t, stored=key.startswith("opt/"))
+        out[key] = t
+    return out
+
+
 def load_state_tensors(state: TrainState, flat: Dict[str, torch.Tensor]) -> TrainState:
     """Write a checkpoint's flat dict into ``state`` in place: the step, the
     module's parameters and buffers, the optimizer's state and masters.
@@ -120,6 +163,8 @@ def load_state_tensors(state: TrainState, flat: Dict[str, torch.Tensor]) -> Trai
         sd = branch.optimizer.state_dict()
         branch.optimizer.load_state_dict({"state": per_param,
                                           "param_groups": sd["param_groups"]})
+    if hasattr(state.optimizer, "reshard"):  # fsdp masters from the parameters
+        state.optimizer.reshard()
     state.step = int(flat["step"])
     return state
 
@@ -215,9 +260,9 @@ class CheckpointManager:
         drop = self._steps[:-self.max_to_keep] if self.max_to_keep else []
         self._steps = [s for s in self._steps if s not in drop]
         self._pending = True
+        flat = global_tensors(state, state_tensors(state))  # every rank: a collective
         if self._writes:
-            staged = {k: v.detach().to("cpu", copy=True)
-                      for k, v in state_tensors(state).items()}
+            staged = {k: v.detach().to("cpu", copy=True) for k, v in flat.items()}
             if self.async_save:
                 self._thread = threading.Thread(target=self._write, args=(step, staged, drop),
                                                 daemon=True, name=f"dtt-ckpt-{step}")
@@ -255,7 +300,7 @@ class CheckpointManager:
         if step is None:
             raise FileNotFoundError(f"No checkpoint found in {self.directory}")
         t0 = time.monotonic()
-        load_state_tensors(template, _read_all(self._path(step)))
+        load_state_tensors(template, local_tensors(template, _read_all(self._path(step))))
         self._observe_restore(step, t0)
         return template
 

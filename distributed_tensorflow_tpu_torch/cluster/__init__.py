@@ -1,8 +1,9 @@
 """Cluster definition, discovery, launch, and coordination of the PyTorch port.
 
-Port of ``distributed_tensorflow_tpu/cluster/`` without its meshes
-(``build_mesh``, ``MeshConfig``, ``topology``: the parallelism slice) and
-without ``TPUClusterResolver`` (a TPU slice's own topology).
+Port of ``distributed_tensorflow_tpu/cluster/`` without
+``TPUClusterResolver`` (a TPU slice's own topology) and
+``build_hybrid_mesh`` (slices over DCN); the mesh (``topology``) is over
+the ranks of the ``torch.distributed`` world.
 """
 
 from distributed_tensorflow_tpu_torch.cluster.cluster_spec import (
@@ -31,6 +32,12 @@ from distributed_tensorflow_tpu_torch.cluster.resolver import (
     SlurmClusterResolver,
     TFConfigClusterResolver,
     resolve,
+)
+from distributed_tensorflow_tpu_torch.cluster.topology import (
+    MESH_AXES,
+    Mesh,
+    MeshConfig,
+    build_mesh,
 )
 from distributed_tensorflow_tpu_torch.cluster.server import (
     Runtime,
@@ -67,4 +74,8 @@ __all__ = [
     "is_coordinator",
     "process_count",
     "process_index",
+    "MESH_AXES",
+    "Mesh",
+    "MeshConfig",
+    "build_mesh",
 ]

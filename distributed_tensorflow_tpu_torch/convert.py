@@ -19,6 +19,14 @@ out of the flax tree bf16, exactly, through float32).  BatchNorm's ``batch_stats
 (``mean``, ``var``) is the port's buffers of the same names.  A subtree
 scanned over layers (BERT's ``layers``, leading axis ``n_layer``) is the
 port's ``ModuleList`` of the same name.
+
+On a mesh (``parallel.sharding.ParamPlan``): ``shard_params`` gives this
+rank's parts of a global state dict (the port's layout), and
+``gather_params`` the global state dict from every rank's parts (a
+collective over the mesh); the global layout stays the reference's
+(fused ``c_attn``, the whole vocab).  ``gpt2_flax_paths`` and
+``flax_paths`` name each parameter by its flax path, which the sharding
+rules match.
 """
 
 from __future__ import annotations
@@ -188,3 +196,46 @@ def variables_to_flax(module: nn.Module, tensors: Mapping[str, torch.Tensor], *,
             node = node.setdefault(key, {})
         node[path[-1]] = np.stack([layers[i] for i in range(len(layers))])
     return tree
+
+
+# -- flax paths (for the sharding rules) and the mesh's parts ------------------
+
+def gpt2_flax_paths(names: Iterable[str]) -> Dict[str, Tuple[str, str, bool]]:
+    """{GPT-2 name: (flax path in the per-layer layout, kind, False)}."""
+    out = {}
+    for name in names:
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            m, leaf = parts[2], parts[3]
+            flax_leaf = ("kernel" if m in _DENSE else "scale") if leaf == "weight" else leaf
+            kind = "dense" if m in _DENSE and leaf == "weight" else "copy"
+            out[name] = (f"h_{parts[1]}/{m}/{flax_leaf}", kind, False)
+        elif parts[0] == "ln_f":
+            out[name] = ("ln_f/" + ("scale" if parts[1] == "weight" else "bias"), "copy", False)
+        else:
+            out[name] = (name, "copy", False)
+    return out
+
+
+def flax_paths(module: nn.Module, *, scanned: Iterable[str] = ("layers",)
+               ) -> Dict[str, Tuple[str, str, bool]]:
+    """{parameter name: (flax path, kind, whether the leaf is scanned)} for
+    the modules that carry the flax names (MNIST, ResNet, BERT, Wide&Deep)."""
+    out = {}
+    for name, _ in module.named_parameters():
+        _, path, index, kind = _flax_leaf(module, name, False, tuple(scanned))
+        out[name] = ("/".join(path), kind, index >= 0)
+    return out
+
+
+def shard_params(state_dict: Mapping[str, torch.Tensor], plan) -> Dict[str, torch.Tensor]:
+    """This rank's compute copies of a global state dict (tensors without
+    a layout, buffers, are kept whole)."""
+    return {k: plan.local(k, v) if k in plan.layouts else v for k, v in state_dict.items()}
+
+
+def gather_params(state_dict: Mapping[str, torch.Tensor], plan) -> Dict[str, torch.Tensor]:
+    """The global state dict from this rank's compute copies; every rank
+    of the mesh calls it (all-gathers over ``tensor``)."""
+    return {k: plan.globalize(k, v, stored=False) if k in plan.layouts else v
+            for k, v in state_dict.items()}

@@ -9,10 +9,10 @@ ported workloads (``synthetic_lm``, ``synthetic_image_classification``,
 copied so that they yield the same bytes for the same seed and shard),
 ``make_global_batches`` (here: batches moved to this rank's device) and
 ``DevicePrefetchIterator``, a device-prefetch iterator with the
-reference's ``stats()`` counters and context manager.  Each data-parallel
-rank feeds its own device with its slice of the global batch; the layouts
-where the batch is not split over processes (context- or model-parallel
-meshes) come with the parallelism slice.
+reference's ``stats()`` counters and context manager.  Each rank feeds
+its own device with its batch shard's slice of the global batch: on a
+mesh the batch is split over data x fsdp only, so tensor and context
+ranks of one shard feed the same rows (``host_batch_layout``).
 """
 
 from __future__ import annotations
@@ -50,19 +50,29 @@ def shard_options(num_shards: Optional[int] = None, index: Optional[int] = None)
             index if index is not None else process_index())
 
 
-def host_batch_layout(global_batch_size: int) -> Tuple[int, int, int]:
-    """(host_rows, num_stream_shards, stream_index): data parallelism over
-    the processes, each feeding its own rows of the global batch as stream
-    shard ``rank`` of ``world size``: (B/P, P, rank)."""
-    return per_host_batch_size(global_batch_size), process_count(), process_index()
+def host_batch_layout(global_batch_size: int, mesh=None) -> Tuple[int, int, int]:
+    """(host_rows, num_stream_shards, stream_index): the batch dim split
+    over the processes' batch shards.  Without a mesh every process is a
+    shard: (B/P, P, rank).  On a mesh the batch is split over data x fsdp
+    (the reference's ``batch_sharding``), and the stream shard is the
+    rank's coordinate there, so the ranks of one shard along tensor and
+    context feed identical rows: (B/S, S, index), S = data * fsdp (the
+    reference's ``host_batch_layout`` of that sharding)."""
+    if mesh is None:
+        return per_host_batch_size(global_batch_size), process_count(), process_index()
+    return (per_host_batch_size(global_batch_size, mesh), mesh.axis_size(_BATCH_AXES),
+            mesh.axis_index(_BATCH_AXES))
 
 
-def per_host_batch_size(global_batch_size: int) -> int:
+_BATCH_AXES = ("data", "fsdp")
+
+
+def per_host_batch_size(global_batch_size: int, mesh=None) -> int:
     """Rows of the global batch this process feeds each step."""
-    n = process_count()
+    n = process_count() if mesh is None else mesh.axis_size(_BATCH_AXES)
     if global_batch_size % n:
         raise ValueError(f"global_batch_size {global_batch_size} not divisible by "
-                         f"{n} processes")
+                         f"{n} {'processes' if mesh is None else 'batch shards (data x fsdp)'}")
     return global_batch_size // n
 
 

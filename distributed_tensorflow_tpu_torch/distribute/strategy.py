@@ -47,12 +47,6 @@ PyTree = Any
 
 _CURRENT = threading.local()
 
-_PLACEMENT_UNPORTED = (
-    "placement by sharding rules over {} processes is not ported to PyTorch yet; it comes "
-    "with the parallelism slice (DTensor/FSDP placements). At world size 1 it places on "
-    "the device; data-parallel ranks hold replicated parameters (replicate())")
-
-
 def get_strategy() -> Optional["Strategy"]:
     """The innermost active strategy (tf.distribute.get_strategy equiv)."""
     return getattr(_CURRENT, "strategy", None)
@@ -80,11 +74,36 @@ def _all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-class Strategy:
-    """Base distribution strategy over the process group (one rank a card)."""
+def _path(kp) -> str:
+    """A pytree key path as the reference's 'a/b/c'."""
+    parts = []
+    for k in kp:
+        for attr in ("key", "idx", "name"):
+            if hasattr(k, attr):
+                parts.append(str(getattr(k, attr)))
+                break
+        else:
+            parts.append(str(k))
+    return "/".join(parts)
 
-    def __init__(self, device=None):
+
+class Strategy:
+    """Base distribution strategy over the process group (one rank a card).
+    ``mesh`` (``cluster.topology``) is the one ``place`` shards over; by
+    default the world as one ``data`` axis, built at the first ``place``
+    (a collective: every rank calls it)."""
+
+    def __init__(self, device=None, mesh=None):
         self._device = torch.device(device) if device is not None else _default_device()
+        self._mesh = mesh
+
+    @property
+    def mesh(self):
+        if self._mesh is None:
+            from distributed_tensorflow_tpu_torch.cluster.topology import MeshConfig, build_mesh
+
+            self._mesh = build_mesh(MeshConfig())
+        return self._mesh
 
     # -- core tf.distribute surface ------------------------------------------
     @contextlib.contextmanager
@@ -158,14 +177,24 @@ class Strategy:
     def place(self, tree: PyTree, rules=None) -> PyTree:
         """Place a tree of tensors per the strategy's variable-placement
         policy (the MirroredVariable creation-scope equivalent): on the
-        device at world size 1, replicated from the coordinator without
-        ``rules`` above it; ``rules`` (a sharding) at world size > 1 raise,
-        naming the parallelism slice."""
-        if self._world() > 1:
-            if rules is not None:
-                raise ValueError(_PLACEMENT_UNPORTED.format(self._world()))
-            return self.replicate(tree)
-        return pytree.tree_map(self._to_device, tree)
+        device at world size 1; above it the tree is replicated from the
+        coordinator, and with ``rules`` (``parallel.sharding.
+        ShardingRules``, matched on the leaves' '/'-joined paths) each rank
+        keeps its part of every leaf on the strategy's mesh."""
+        if self._world() <= 1:
+            return pytree.tree_map(self._to_device, tree)
+        tree = self.replicate(tree)
+        if rules is None:
+            return tree
+        return self._shard(tree, lambda path, x: rules.spec_for(path, tuple(x.shape)))
+
+    def _shard(self, tree: PyTree, spec_of) -> PyTree:
+        from distributed_tensorflow_tpu_torch.parallel.sharding import local_part
+
+        leaves, spec = pytree.tree_flatten_with_path(tree)
+        out = [local_part(x, spec_of(_path(kp), x), self.mesh) if torch.is_tensor(x) else x
+               for kp, x in leaves]
+        return pytree.tree_unflatten(out, spec)
 
     def replicate(self, tree: PyTree) -> PyTree:
         """The tree on the rank's device, every tensor broadcast from the
@@ -211,13 +240,13 @@ class MultiWorkerMirroredStrategy(Strategy):
     with a card a rank); the cluster must already be resolved and the
     server started, after which the strategy spans its ranks."""
 
-    def __init__(self, cluster_resolver=None, device=None):
+    def __init__(self, cluster_resolver=None, device=None, mesh=None):
         if cluster_resolver is not None and not cluster_resolver.is_compute_task():
             raise ValueError(
                 "MultiWorkerMirroredStrategy on a non-compute task; ps tasks "
                 "should park in Server.join()")
         self.cluster_resolver = cluster_resolver
-        super().__init__(device)
+        super().__init__(device, mesh)
 
 
 class TPUStrategy(Strategy):
@@ -238,19 +267,24 @@ class ParameterServerStrategy(Strategy):
 
     The reference places variables on ps tasks and ships them over gRPC each
     step (SURVEY.md §4.2 — the hot-loop RecvTensor); its TPU-native
-    version partitions them over the mesh.  The port's sharded residence
-    comes with the parallelism slice: ``place`` at world size > 1 raises and
-    names it; at world size 1 it places on the device.
-    ``variable_partitioner`` is accepted for config compatibility
-    (sharded_variable.py:84,:115,:176).
+    version partitions them over the mesh, and so does this one: ``place``
+    without rules splits each leaf per ``fsdp_sharding`` over ``fsdp``
+    where the mesh has it, else over ``data``.  ``variable_partitioner`` is
+    accepted for config compatibility (sharded_variable.py:84,:115,:176).
     """
 
-    def __init__(self, cluster_resolver=None, variable_partitioner=None, device=None):
-        super().__init__(device)
+    def __init__(self, cluster_resolver=None, variable_partitioner=None, device=None,
+                 mesh=None):
+        super().__init__(device, mesh)
         self.cluster_resolver = cluster_resolver
         self._partitioner = variable_partitioner
 
     def place(self, tree: PyTree, rules=None) -> PyTree:
-        if self._world() > 1:
-            raise ValueError(_PLACEMENT_UNPORTED.format(self._world()))
-        return super().place(tree, rules)
+        if rules is not None or self._world() <= 1:
+            return super().place(tree, rules)
+        from distributed_tensorflow_tpu_torch.parallel.sharding import fsdp_sharding
+
+        mesh = self.mesh
+        axis = "fsdp" if mesh.shape["fsdp"] > 1 else "data"
+        tree = self.replicate(tree)
+        return self._shard(tree, lambda path, x: fsdp_sharding(mesh, {"x": x}, axis=axis)["x"])

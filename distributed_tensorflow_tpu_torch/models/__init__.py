@@ -60,6 +60,13 @@ class Workload:
     # Per-step device-side augmentation of training batches, applied to the
     # raw batch before from_record: (batch, seed) -> batch.
     augment_fn: Optional[Callable[[Dict[str, Any], int], Dict[str, Any]]] = None
+    # The reference's sharding rules of the parameters (parallel.sharding;
+    # None: ``ShardingRules()``, every parameter replicated), the mesh the
+    # module was built on, and the layouts the rules give its parameters
+    # there (``ParamPlan``; None without a mesh or where nothing is split).
+    rules: Any = None
+    mesh: Any = None
+    plan: Any = None
 
 
 _REGISTRY = {

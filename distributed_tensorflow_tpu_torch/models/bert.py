@@ -1,10 +1,23 @@
 """BERT pretraining (MLM + NSP) of the PyTorch port.
 
 Port of ``distributed_tensorflow_tpu/models/bert.py`` (training path):
-``BertConfig`` and its presets, ``EncoderLayer``'s flash and dense
-attention branches, ``BertPretrain``, ``_loss_fn`` and ``make_workload``.
-Ring attention (the ``context`` mesh axis) comes with the parallelism
-slice.
+``BertConfig`` and its presets, ``EncoderLayer``'s flash, dense and ring
+attention branches, ``BertPretrain``, ``_loss_fn``, ``make_workload`` and
+``bert_rules``.
+
+On a mesh (``mesh=``) the layouts of ``bert_rules``: over ``tensor``,
+``qkv`` (by heads within each of q, k and v) and ``fc1`` are
+column-parallel, ``out_proj`` and ``fc2`` row-parallel, the MLM dense
+column-parallel with its output gathered for its LayerNorm, and the word
+embeddings vocab-parallel in the lookup and the tied MLM head (with
+``mlm_bias``).  Over ``context`` the sequence is split for the whole
+encoder (positions offset by the shard), attention is non-causal ring
+attention with ``input_mask`` rotating with the keys, each rank scores
+the MLM positions it holds (the weights' global sum the denominator), and
+NSP reads ``[CLS]`` on context rank 0 only; each rank's loss is its part
+of the whole, reported as the whole.  Dropout seeds fold in the tensor
+index for the attention probabilities and the context index where the
+sequence is split (``gpt2.site_seed``).
 
 Numerics follow the flax model: post-LN layers whose LayerNorms (eps 1e-6)
 compute and return float32; Dense layers cast input, weight and bias to
@@ -36,15 +49,37 @@ from torch.utils.checkpoint import checkpoint
 
 from distributed_tensorflow_tpu_torch.data.pipeline import mlm_max_predictions, synthetic_mlm
 from distributed_tensorflow_tpu_torch.models import Workload
+from distributed_tensorflow_tpu_torch.models.gpt2 import (
+    _axis,
+    _check_local_shapes,
+    _seq_shard,
+    site_seed,
+)
 from distributed_tensorflow_tpu_torch.models.layers import (
+    copy_to,
     dense,
     dropout,
+    gather_last,
+    global_value,
     layer_norm,
     lecun_normal_,
+    row_parallel,
     tied_logits,
+    vocab_embedding,
+    vocab_parallel_ce,
+    vocab_parallel_hits,
 )
 from distributed_tensorflow_tpu_torch.ops.flash_attention import flash_attention
+from distributed_tensorflow_tpu_torch.parallel import collectives
+from distributed_tensorflow_tpu_torch.parallel.ring_attention import ring_attention
 from distributed_tensorflow_tpu_torch.rng import fold_in
+from distributed_tensorflow_tpu_torch.parallel.sharding import (
+    P,
+    ParamPlan,
+    ShardingRules,
+    plan_for,
+    transformer_rules,
+)
 
 # Dropout sites inside a layer, and the embedding's layer index.
 _ATTN_PROBS, _ATTN_OUT, _MLP = 0, 1, 2
@@ -68,6 +103,8 @@ class BertConfig:
     # attention-probability dropout in the kernel).  make_workload turns it
     # on at seq >= 256, as the reference does.
     use_flash_attention: bool = False
+    # Ring attention's kv chunk on the CPU's einsum blocks (context > 1).
+    ring_chunk_size: int = 0
 
     @classmethod
     def base(cls, **kw):
@@ -80,31 +117,39 @@ class BertConfig:
 
 
 class EncoderLayer(nn.Module):
-    def __init__(self, cfg: BertConfig, layer: int, device=None):
+    def __init__(self, cfg: BertConfig, layer: int, device=None, mesh=None):
         super().__init__()
-        d = cfg.d_model
-        self.cfg, self.layer = cfg, layer
-        self.qkv = nn.Linear(d, 3 * d, device=device)
-        self.out_proj = nn.Linear(d, d, device=device)
+        d, tp = cfg.d_model, _axis(mesh, "tensor")
+        if cfg.n_head % tp or cfg.d_ff % tp:
+            raise ValueError(f"n_head {cfg.n_head} and d_ff {cfg.d_ff} must divide over "
+                             f"tensor={tp}")
+        self.cfg, self.layer, self.mesh = cfg, layer, mesh
+        self.qkv = nn.Linear(d, 3 * d // tp, device=device)  # column-parallel
+        self.out_proj = nn.Linear(d // tp, d, device=device)  # row-parallel
         self.ln_attn = nn.LayerNorm(d, eps=1e-6, device=device)
-        self.fc1 = nn.Linear(d, cfg.d_ff, device=device)
-        self.fc2 = nn.Linear(cfg.d_ff, d, device=device)
+        self.fc1 = nn.Linear(d, cfg.d_ff // tp, device=device)
+        self.fc2 = nn.Linear(cfg.d_ff // tp, d, device=device)
         self.ln_mlp = nn.LayerNorm(d, eps=1e-6, device=device)
 
     def _seed(self, seed: Optional[int], site: int) -> Optional[int]:
-        return None if seed is None else fold_in(seed, self.layer, site)
+        return site_seed(seed, self.mesh, self.layer, site, heads=site == _ATTN_PROBS)
 
     def forward(self, x: torch.Tensor, input_mask: Optional[torch.Tensor],
                 seed: Optional[int] = None) -> torch.Tensor:
-        cfg = self.cfg
-        dt, h = cfg.dtype, cfg.n_head
+        cfg, mesh = self.cfg, self.mesh
+        dt = cfg.dtype
+        h = cfg.n_head // _axis(mesh, "tensor")  # this rank's heads
         B, T, d = x.shape
-        hd = d // h
+        hd = d // cfg.n_head
         rate = cfg.dropout if seed is not None else 0.0
 
-        q, k, v = dense(self.qkv, x, dt).split(d, dim=-1)
+        q, k, v = dense(self.qkv, copy_to(x, mesh), dt).split(h * hd, dim=-1)
         q, k, v = (t.view(B, T, h, hd) for t in (q, k, v))
-        if cfg.use_flash_attention:
+        if _axis(mesh, "context") > 1:
+            ctx = ring_attention(q, k, v, mesh=mesh, causal=False,
+                                 chunk_size=cfg.ring_chunk_size or None, kv_mask=input_mask,
+                                 dropout_rate=rate, dropout_rng=self._seed(seed, _ATTN_PROBS))
+        elif cfg.use_flash_attention:
             ctx = flash_attention(q, k, v, causal=False, kv_mask=input_mask, dropout_rate=rate,
                                   dropout_rng=self._seed(seed, _ATTN_PROBS))
         else:
@@ -116,37 +161,51 @@ class EncoderLayer(nn.Module):
             probs = torch.softmax(scores.float(), dim=-1).to(dt)
             probs = dropout(probs, rate, self._seed(seed, _ATTN_PROBS))
             ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v)
-        attn = dense(self.out_proj, ctx.reshape(B, T, d), dt)
+        attn = row_parallel(self.out_proj, ctx.reshape(B, T, h * hd), dt, mesh)
         attn = dropout(attn, rate, self._seed(seed, _ATTN_OUT))
         x = layer_norm(self.ln_attn, x + attn)  # post-LN, float32
 
-        y = F.gelu(dense(self.fc1, x, dt), approximate="tanh")
-        y = dropout(dense(self.fc2, y, dt), rate, self._seed(seed, _MLP))
+        y = F.gelu(dense(self.fc1, copy_to(x, mesh), dt), approximate="tanh")
+        y = dropout(row_parallel(self.fc2, y, dt, mesh), rate, self._seed(seed, _MLP))
         return layer_norm(self.ln_mlp, x + y).to(dt)
 
 
 class BertPretrain(nn.Module):
-    def __init__(self, cfg: BertConfig, *, device=None, seed: int = 0):
+    def __init__(self, cfg: BertConfig, *, device=None, seed: int = 0, mesh=None):
         super().__init__()
-        d = cfg.d_model
-        self.cfg = cfg
-        self.word_embeddings = nn.Embedding(cfg.vocab_size, d, device=device)
+        d, tp = cfg.d_model, _axis(mesh, "tensor")
+        self.cfg, self.mesh = cfg, mesh
+        self.plan = None if mesh is None else bert_plan(cfg, mesh)
+        rows = -(-cfg.vocab_size // tp)  # vocab-parallel, the last shard zero-padded
+        self.word_embeddings = nn.Embedding(rows, d, device=device)
         self.position_embeddings = nn.Parameter(torch.empty(cfg.max_positions, d, device=device))
         self.segment_embeddings = nn.Embedding(cfg.type_vocab, d, device=device)
         self.ln_embed = nn.LayerNorm(d, eps=1e-6, device=device)
-        self.layers = nn.ModuleList(EncoderLayer(cfg, i, device) for i in range(cfg.n_layer))
-        self.mlm = nn.Linear(d, d, device=device)
+        self.layers = nn.ModuleList(EncoderLayer(cfg, i, device, mesh)
+                                    for i in range(cfg.n_layer))
+        self.mlm = nn.Linear(d, d // tp, device=device)  # column-parallel, output gathered
         self.mlm_ln = nn.LayerNorm(d, eps=1e-6, device=device)
-        self.mlm_bias = nn.Parameter(torch.empty(cfg.vocab_size, device=device))
+        self.mlm_bias = nn.Parameter(torch.empty(rows, device=device))
         self.pooler = nn.Linear(d, d, device=device)
         self.nsp = nn.Linear(d, 2, device=device)
+        if self.plan is not None:
+            _check_local_shapes(self, self.plan)
         self.reset_parameters(seed)
 
     @torch.no_grad()
     def reset_parameters(self, seed: int) -> None:
         """flax's initializers: embeddings N(0, 1/d) (``nn.Embed``'s
         variance_scaling(1, fan_in, normal)), positions N(0, 0.02), Dense
-        kernels lecun_normal, zero biases, LayerNorm scale 1 and bias 0."""
+        kernels lecun_normal, zero biases, LayerNorm scale 1 and bias 0.
+        On a mesh each rank draws the global weights and keeps its part."""
+        if self.position_embeddings.is_meta:
+            return
+        if self.plan is not None and self.plan.tp > 1:
+            whole = dict(BertPretrain(self.cfg, device=self.position_embeddings.device,
+                                      seed=seed).named_parameters())
+            for name, p in self.named_parameters():
+                p.copy_(self.plan.local(name, whole[name]))
+            return
         gen = torch.Generator(device=self.position_embeddings.device)
         gen.manual_seed(seed)
         for emb in (self.word_embeddings, self.segment_embeddings):
@@ -164,18 +223,26 @@ class BertPretrain(nn.Module):
     def forward(self, batch: Dict[str, torch.Tensor], *, seed: Optional[int] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(MLM logits (B, K, V), NSP logits (B, 2)), both float32.
-        ``seed=None`` runs without dropout (flax ``deterministic=True``)."""
-        cfg = self.cfg
-        tokens = batch["tokens"].long()
+        ``seed=None`` runs without dropout (flax ``deterministic=True``).
+        On a mesh: this tensor rank's vocab columns, and the MLM positions
+        (and, off context rank 0, the [CLS] row) scored from this context
+        rank's positions only (``_loss_fn`` weights the rest 0)."""
+        cfg, mesh = self.cfg, self.mesh
+        start, T = _seq_shard(batch["tokens"].shape[1], mesh)
+        sl = slice(start, start + T)
+        tokens = batch["tokens"].long()[:, sl]
         segment_ids = batch.get("segment_ids")
-        segment_ids = torch.zeros_like(tokens) if segment_ids is None else segment_ids.long()
+        segment_ids = (torch.zeros_like(tokens) if segment_ids is None
+                       else segment_ids.long()[:, sl])
         input_mask = batch.get("input_mask")
-        T = tokens.shape[1]
+        if input_mask is not None:
+            input_mask = input_mask[:, sl]
         word = self.word_embeddings.weight
-        x = (F.embedding(tokens, word.float()) + self.position_embeddings[:T].float()
+        x = (vocab_embedding(tokens, word.float(), mesh)
+             + self.position_embeddings[start:start + T].float()
              + F.embedding(segment_ids, self.segment_embeddings.weight.float()))
         x = layer_norm(self.ln_embed, x)
-        x = dropout(x, cfg.dropout, None if seed is None else fold_in(seed, _EMBED_LAYER))
+        x = dropout(x, cfg.dropout, site_seed(seed, mesh, _EMBED_LAYER))
         x = x.to(cfg.dtype)
         for i, layer in enumerate(self.layers):
             lseed = None if seed is None else fold_in(seed, i)
@@ -187,16 +254,41 @@ class BertPretrain(nn.Module):
             else:
                 x = layer(x, input_mask, lseed)
 
-        # MLM head on the K gathered prediction positions.
-        positions = batch["mlm_positions"].long()
+        # MLM head on the K gathered prediction positions (this rank's).
+        positions = (batch["mlm_positions"].long() - start).clamp(0, T - 1)
         gathered = torch.gather(x, 1, positions[..., None].expand(-1, -1, x.shape[-1]))
-        y = F.gelu(dense(self.mlm, gathered, cfg.dtype), approximate="tanh")
-        y = layer_norm(self.mlm_ln, y)
-        mlm_logits = tied_logits(y, word, cfg.dtype) + self.mlm_bias.float()
+        y = F.gelu(dense(self.mlm, copy_to(gathered, mesh), cfg.dtype), approximate="tanh")
+        y = layer_norm(self.mlm_ln, gather_last(y, mesh))
+        mlm_logits = tied_logits(copy_to(y, mesh), word, cfg.dtype) + self.mlm_bias.float()
 
         # NSP head on position 0 ([CLS]), float32.
         pooled = torch.tanh(dense(self.pooler, x[:, 0], torch.float32))
         return mlm_logits, dense(self.nsp, pooled, torch.float32)
+
+
+def _mesh_loss(module: BertPretrain, mlm_logits, nsp_logits, batch):
+    """The loss and metrics on a mesh: the vocab-parallel CE of the MLM
+    positions this context rank holds over the weights' global sum, NSP on
+    context rank 0; each a rank's part of the whole, reported as the
+    whole."""
+    mesh, cfg = module.mesh, module.cfg
+    start, T = _seq_shard(batch["tokens"].shape[1], mesh)
+    positions = batch["mlm_positions"].long()
+    weights = batch["mlm_weights"].float()
+    denom = torch.clamp(weights.sum(), min=1.0)
+    weights = weights * ((positions >= start) & (positions < start + T)).float()
+    targets = batch["mlm_targets"].long()
+    per_tok = vocab_parallel_ce(mlm_logits, targets, cfg.vocab_size, mesh)
+    mlm_loss = global_value((per_tok * weights).sum() / denom, mesh, "context")
+    hits = vocab_parallel_hits(mlm_logits.detach(), targets, cfg.vocab_size, mesh)
+    mlm_acc = collectives.psum((hits * weights).sum() / denom, mesh, "context")
+    nsp_label = batch["nsp_label"].long()
+    first = float(_axis(mesh, "context") == 1 or mesh.coords["context"] == 0)
+    nsp_loss = global_value(F.cross_entropy(nsp_logits, nsp_label) * first, mesh, "context")
+    nsp_acc = collectives.psum(
+        (nsp_logits.detach().argmax(-1) == nsp_label).float().mean() * first, mesh, "context")
+    return mlm_loss + nsp_loss, {"mlm_loss": mlm_loss.detach(), "nsp_loss": nsp_loss.detach(),
+                                 "mlm_accuracy": mlm_acc, "nsp_accuracy": nsp_acc}
 
 
 def _loss_fn(module: BertPretrain, deterministic: bool, params: Dict[str, torch.Tensor],
@@ -204,6 +296,8 @@ def _loss_fn(module: BertPretrain, deterministic: bool, params: Dict[str, torch.
     """(MLM + NSP loss, {mlm_loss, nsp_loss, mlm_accuracy, nsp_accuracy})."""
     mlm_logits, nsp_logits = torch.func.functional_call(
         module, params, (batch,), {"seed": None if deterministic else seed})
+    if _axis(module.mesh, "tensor") > 1 or _axis(module.mesh, "context") > 1:
+        return _mesh_loss(module, mlm_logits, nsp_logits, batch)
     weights = batch["mlm_weights"].float()
     targets = batch["mlm_targets"].long()
     per_tok = F.cross_entropy(mlm_logits.flatten(0, 1), targets.reshape(-1),
@@ -218,21 +312,54 @@ def _loss_fn(module: BertPretrain, deterministic: bool, params: Dict[str, torch.
                                  "mlm_accuracy": mlm_acc, "nsp_accuracy": nsp_acc}
 
 
+def bert_rules() -> ShardingRules:
+    """The reference's ``bert_rules``: its scanned-stack patterns match the
+    port's ``layers`` (``convert.flax_paths`` names them so)."""
+    return transformer_rules().extended(
+        [
+            # scanned-stack layout (leading layer dim)
+            (r"layers/.*qkv/kernel", P(None, "fsdp", "tensor")),
+            (r"layers/.*out_proj/kernel", P(None, "tensor", "fsdp")),
+            (r"layers/.*fc1/kernel", P(None, "fsdp", "tensor")),
+            (r"layers/.*fc2/kernel", P(None, "tensor", "fsdp")),
+            (r"layers/.*(bias|scale)", P()),
+            # shared / per-layer layout
+            (r"word_embeddings/embedding", P("tensor", "fsdp")),
+            (r"(segment_embeddings/embedding|position_embeddings)", P()),
+        ]
+    )
+
+
+def bert_plan(cfg: BertConfig, mesh) -> ParamPlan:
+    """The layouts of BERT's parameters under ``bert_rules`` on ``mesh``:
+    ``qkv`` split by heads within each of q, k and v; the column-parallel
+    layers' biases and ``mlm_bias`` split with their kernels' outputs."""
+    from distributed_tensorflow_tpu_torch.convert import flax_paths
+
+    meta = BertPretrain(cfg, device="meta")
+    shapes = [(n, tuple(p.shape)) for n, p in meta.named_parameters()]
+    names = [n for n, _ in shapes]
+    column_bias = [n for n in names
+                   if n.endswith((".qkv.bias", ".fc1.bias")) or n in ("mlm.bias", "mlm_bias")]
+    return plan_for(shapes, flax_paths(meta), bert_rules(), mesh,
+                    groups={n: 3 for n in names if ".qkv." in n},
+                    tensor_dims={n: 0 for n in column_bias})
+
+
 def make_workload(*, batch_size: int = 256, seq_len: int = 128,
                   config: Optional[BertConfig] = None,
                   use_flash_attention: Optional[bool] = None, device="cuda",
-                  ring_chunk_size: Optional[int] = None, **_unused) -> Workload:
-    if ring_chunk_size:
-        raise ValueError("ring_chunk_size (ring attention) is not ported yet; it comes "
-                         "with the parallelism slice of the PyTorch port")
+                  ring_chunk_size: Optional[int] = None, mesh=None, **_unused) -> Workload:
     cfg = config or BertConfig.base()
+    if ring_chunk_size is not None:
+        cfg = dataclasses.replace(cfg, ring_chunk_size=ring_chunk_size)
     if use_flash_attention is None and config is None:
         # The reference's per-phase default: dense at seq 128, flash at 512.
         use_flash_attention = seq_len >= 256
     if use_flash_attention is not None:
         cfg = dataclasses.replace(cfg, use_flash_attention=use_flash_attention)
     seq = min(seq_len, cfg.max_positions)
-    module = BertPretrain(cfg, device=device)
+    module = BertPretrain(cfg, device=device, mesh=mesh)
     K = mlm_max_predictions(seq)
     init_batch = {
         "tokens": np.zeros((2, seq), np.int32),
@@ -258,5 +385,8 @@ def make_workload(*, batch_size: int = 256, seq_len: int = 128,
         learning_rate=1e-4,
         warmup_steps=1000,
         example_key="tokens",
+        rules=bert_rules(),
+        mesh=mesh,
+        plan=module.plan,
     )
 

@@ -4,8 +4,29 @@ Port of ``distributed_tensorflow_tpu/models/gpt2.py`` (training only):
 ``GPT2Config`` and its presets, ``Block``'s flash and dense attention
 branches, ``GPT2.__call__``'s non-decode path, ``_tied_head_ce``,
 ``_chunked_ce`` (``ce_chunk``), ``_loss_fn``,
-``_guard_dense_attention_memory`` and ``make_workload``.  Decode,
-pipelining and ring attention come with later slices.
+``_guard_dense_attention_memory``, ``make_workload`` and ``gpt2_rules``
+(its per-layer patterns: the port has no scanned stack).  Decode and
+pipelining come with later slices.
+
+On a mesh (``mesh=``, ``cluster.topology``) the model runs the
+reference's parallel layouts, placed by ``gpt2_rules``:
+
+- ``tensor``: Megatron's layers.  ``c_attn`` and ``mlp_c_fc`` are
+  column-parallel (``c_attn``'s rank takes its heads' q, k and v columns,
+  and the bias follows the kernel's split); ``c_proj`` and ``mlp_c_proj``
+  are row-parallel, the bias added once after the sum.  ``wte`` is
+  vocab-parallel (rows split, the last shard zero-padded), in the lookup
+  and in the tied head's cross-entropy.
+- ``context``: the sequence is split over the axis for the whole model,
+  positions offset by the shard; attention is ring attention
+  (``parallel.ring_attention``).  Every context rank gets the whole token
+  rows, so a shard's last position takes the next shard's first token as
+  its target; the loss is the rank's part of the global mean (normalised
+  by B * (T - 1)), reported as the whole.
+- Dropout: activations replicated over ``tensor`` draw the same mask on
+  every tensor rank; attention-probability dropout on sharded heads folds
+  in the tensor index (the kernels key their mask by the local head), and
+  sequence-sharded activations fold in the context index.
 
 Numerics follow the flax model: LayerNorm (eps 1e-6) computes and returns
 float32; Dense layers cast input, weight and bias to ``cfg.dtype``; the
@@ -23,7 +44,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,13 +55,26 @@ from torch.utils.checkpoint import checkpoint
 from distributed_tensorflow_tpu_torch.data.pipeline import synthetic_lm
 from distributed_tensorflow_tpu_torch.models import Workload
 from distributed_tensorflow_tpu_torch.models.layers import (
+    copy_to,
     dense as _dense,
     dropout as _dropout,
+    global_value,
     layer_norm as _layer_norm,
     lecun_normal_,
+    row_parallel,
     tied_logits,
+    vocab_embedding,
+    vocab_parallel_ce,
 )
 from distributed_tensorflow_tpu_torch.ops.flash_attention import flash_attention
+from distributed_tensorflow_tpu_torch.parallel.ring_attention import ring_attention
+from distributed_tensorflow_tpu_torch.parallel.sharding import (
+    P,
+    ParamPlan,
+    ShardingRules,
+    plan_for,
+    transformer_rules,
+)
 from distributed_tensorflow_tpu_torch.rng import fold_in
 
 # Dropout sites inside a block, and the embedding's layer index.
@@ -65,6 +99,8 @@ class GPT2Config:
     # > 0: the loss scans T in chunks of this length (``_chunked_ce``), so
     # no (B, T, V) logits tensor lives at once.
     ce_chunk: int = 0
+    # Ring attention's kv chunk on the CPU's einsum blocks (context > 1).
+    ring_chunk_size: int = 0
 
     @classmethod
     def small(cls, **kw):
@@ -85,32 +121,57 @@ class GPT2Config:
                    n_head=8, dropout=0.0, **kw)
 
 
+def _axis(mesh, axis: str) -> int:
+    return 1 if mesh is None else mesh.shape[axis]
+
+
+def site_seed(seed: Optional[int], mesh, *data: int, heads: bool = False) -> Optional[int]:
+    """The seed of one dropout site: ``fold_in(seed, *data)``, then the
+    context index where the sequence is split, then (``heads``: attention
+    probabilities on this rank's heads) the tensor index."""
+    if seed is None:
+        return None
+    seed = fold_in(seed, *data)
+    if _axis(mesh, "context") > 1:
+        seed = fold_in(seed, mesh.coords["context"])
+    if heads and _axis(mesh, "tensor") > 1:
+        seed = fold_in(seed, mesh.coords["tensor"])
+    return seed
+
+
 class Block(nn.Module):
-    def __init__(self, cfg: GPT2Config, layer: int, device=None):
+    def __init__(self, cfg: GPT2Config, layer: int, device=None, mesh=None):
         super().__init__()
-        d = cfg.d_model
-        self.cfg, self.layer = cfg, layer
+        d, tp = cfg.d_model, _axis(mesh, "tensor")
+        if cfg.n_head % tp:
+            raise ValueError(f"n_head {cfg.n_head} does not divide over tensor={tp}")
+        self.cfg, self.layer, self.mesh = cfg, layer, mesh
         self.ln_1 = nn.LayerNorm(d, eps=1e-6, device=device)
-        self.c_attn = nn.Linear(d, 3 * d, device=device)
-        self.c_proj = nn.Linear(d, d, device=device)
+        self.c_attn = nn.Linear(d, 3 * d // tp, device=device)  # column-parallel
+        self.c_proj = nn.Linear(d // tp, d, device=device)  # row-parallel
         self.ln_2 = nn.LayerNorm(d, eps=1e-6, device=device)
-        self.mlp_c_fc = nn.Linear(d, 4 * d, device=device)
-        self.mlp_c_proj = nn.Linear(4 * d, d, device=device)
+        self.mlp_c_fc = nn.Linear(d, 4 * d // tp, device=device)
+        self.mlp_c_proj = nn.Linear(4 * d // tp, d, device=device)
 
     def _seed(self, seed: Optional[int], site: int) -> Optional[int]:
-        return None if seed is None else fold_in(seed, self.layer, site)
+        return site_seed(seed, self.mesh, self.layer, site, heads=site == _ATTN_PROBS)
 
     def forward(self, x: torch.Tensor, seed: Optional[int] = None) -> torch.Tensor:
-        cfg = self.cfg
-        dt, h = cfg.dtype, cfg.n_head
+        cfg, mesh = self.cfg, self.mesh
+        dt = cfg.dtype
+        h = cfg.n_head // _axis(mesh, "tensor")  # this rank's heads
         B, T, d = x.shape
-        hd = d // h
+        hd = d // cfg.n_head
         rate = cfg.dropout if seed is not None else 0.0
 
-        y = _layer_norm(self.ln_1, x)
-        q, k, v = _dense(self.c_attn, y, dt).split(d, dim=-1)
+        y = copy_to(_layer_norm(self.ln_1, x), mesh)
+        q, k, v = _dense(self.c_attn, y, dt).split(h * hd, dim=-1)
         q, k, v = (t.view(B, T, h, hd) for t in (q, k, v))
-        if cfg.use_flash_attention:
+        if _axis(mesh, "context") > 1:
+            ctx = ring_attention(q, k, v, mesh=mesh, causal=True,
+                                 chunk_size=cfg.ring_chunk_size or None, dropout_rate=rate,
+                                 dropout_rng=self._seed(seed, _ATTN_PROBS))
+        elif cfg.use_flash_attention:
             ctx = flash_attention(q, k, v, causal=True, dropout_rate=rate,
                                   dropout_rng=self._seed(seed, _ATTN_PROBS))
         else:
@@ -120,12 +181,12 @@ class Block(nn.Module):
             probs = torch.softmax(scores.float(), dim=-1).to(dt)
             probs = _dropout(probs, rate, self._seed(seed, _ATTN_PROBS))
             ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v)
-        attn_out = _dense(self.c_proj, ctx.reshape(B, T, d), dt)
+        attn_out = row_parallel(self.c_proj, ctx.reshape(B, T, h * hd), dt, mesh)
         x = x + _dropout(attn_out, rate, self._seed(seed, _ATTN_OUT))
 
-        y = _layer_norm(self.ln_2, x)
+        y = copy_to(_layer_norm(self.ln_2, x), mesh)
         mlp = F.gelu(_dense(self.mlp_c_fc, y, dt), approximate="tanh")
-        mlp = _dense(self.mlp_c_proj, mlp, dt)
+        mlp = row_parallel(self.mlp_c_proj, mlp, dt, mesh)
         return x + _dropout(mlp, rate, self._seed(seed, _MLP))
 
 
@@ -174,13 +235,18 @@ def _chunked_ce(hidden: torch.Tensor, wte: torch.Tensor, tokens: torch.Tensor, c
 
 
 class GPT2(nn.Module):
-    def __init__(self, cfg: GPT2Config, *, device=None, seed: int = 0):
+    def __init__(self, cfg: GPT2Config, *, device=None, seed: int = 0, mesh=None):
         super().__init__()
-        self.cfg = cfg
-        self.wte = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model, device=device))
+        self.cfg, self.mesh = cfg, mesh
+        # The layouts of the parameters on the mesh (None without one).
+        self.plan = None if mesh is None else gpt2_plan(cfg, mesh)
+        rows = -(-cfg.vocab_size // _axis(mesh, "tensor"))  # vocab-parallel, padded
+        self.wte = nn.Parameter(torch.empty(rows, cfg.d_model, device=device))
         self.wpe = nn.Parameter(torch.empty(cfg.n_positions, cfg.d_model, device=device))
-        self.blocks = nn.ModuleList(Block(cfg, i, device) for i in range(cfg.n_layer))
+        self.blocks = nn.ModuleList(Block(cfg, i, device, mesh) for i in range(cfg.n_layer))
         self.ln_f = nn.LayerNorm(cfg.d_model, eps=1e-6, device=device)
+        if self.plan is not None:
+            _check_local_shapes(self, self.plan)
         self.reset_parameters(seed)
 
     @torch.no_grad()
@@ -188,7 +254,15 @@ class GPT2(nn.Module):
         """flax's initializers: wte ~ N(0, 0.02), wpe ~ N(0, 0.01), Dense
         kernels lecun_normal (truncated normal, fan_in), zero biases,
         LayerNorm scale 1 and bias 0, drawn from a generator seeded with
-        ``seed``."""
+        ``seed``.  On a mesh each rank draws the global weights and keeps
+        its part, so every layout starts from the same model."""
+        if self.wte.is_meta:
+            return
+        if self.plan is not None and self.plan.tp > 1:
+            whole = GPT2(self.cfg, device=self.wte.device, seed=seed)
+            for name, p in self.named_parameters():
+                p.copy_(self.plan.local(name, dict(whole.named_parameters())[name]))
+            return
         gen = torch.Generator(device=self.wte.device)
         gen.manual_seed(seed)
         self.wte.normal_(0.0, 0.02, generator=gen)
@@ -206,11 +280,14 @@ class GPT2(nn.Module):
         """Logits (B, T, V) float32, or with ``return_hidden`` the final
         LayerNorm's output (B, T, d) float32.  ``seed=None`` runs without
         dropout (flax ``deterministic=True``)."""
-        cfg = self.cfg
+        cfg, mesh = self.cfg, self.mesh
         B, T = tokens.shape
         tokens = tokens.long()
-        x = F.embedding(tokens, self.wte).to(cfg.dtype) + self.wpe[:T].to(cfg.dtype)
-        x = _dropout(x, cfg.dropout, None if seed is None else fold_in(seed, _EMBED_LAYER))
+        start, T = _seq_shard(T, mesh)  # this context rank's positions
+        tokens = tokens[:, start:start + T]
+        x = (vocab_embedding(tokens, self.wte, mesh).to(cfg.dtype)
+             + self.wpe[start:start + T].to(cfg.dtype))
+        x = _dropout(x, cfg.dropout, site_seed(seed, mesh, _EMBED_LAYER))
         for i, block in enumerate(self.blocks):
             bseed = None if seed is None else fold_in(seed, i)
             if cfg.remat and torch.is_grad_enabled():
@@ -222,7 +299,48 @@ class GPT2(nn.Module):
         x = _layer_norm(self.ln_f, x)
         if return_hidden:
             return x
-        return _head_logits(x, self.wte, cfg.dtype)
+        # On a mesh: this context rank's positions and this tensor rank's
+        # vocab columns.
+        return _head_logits(copy_to(x, mesh), self.wte, cfg.dtype)
+
+
+def _seq_shard(T: int, mesh) -> Tuple[int, int]:
+    """(first position, length) of this rank's part of a length-T sequence
+    split over ``context``."""
+    n = _axis(mesh, "context")
+    if T % n:
+        raise ValueError(f"seq_len {T} does not divide over context={n}")
+    return (T // n) * (mesh.coords["context"] if n > 1 else 0), T // n
+
+
+def _mesh_ce_sum(hidden, wte, targets, weights, dtype, vocab, mesh):
+    """Summed, weighted CE of the tied head over this rank's positions and
+    vocab columns (``vocab_parallel_ce``)."""
+    logits = _head_logits(copy_to(hidden, mesh), wte, dtype)
+    return (vocab_parallel_ce(logits, targets, vocab, mesh) * weights[None, :]).sum()
+
+
+def _mesh_loss(module: GPT2, hidden: torch.Tensor, wte: torch.Tensor,
+               tokens: torch.Tensor) -> torch.Tensor:
+    """The mean next-token CE on a mesh: this context rank's positions
+    (their targets from the whole token rows, the last global position
+    weighted 0) over the global count B * (T - 1), reported as the whole
+    (``global_value``)."""
+    cfg, mesh = module.cfg, module.mesh
+    B, T = tokens.shape
+    start, Tl = _seq_shard(T, mesh)
+    targets = torch.cat([tokens[:, 1:], tokens.new_zeros((B, 1))], dim=1)[:, start:start + Tl]
+    weights = (torch.arange(start, start + Tl, device=hidden.device) < T - 1).float()
+    chunk = cfg.ce_chunk or Tl
+    if Tl % chunk:
+        raise ValueError(f"the rank's {Tl} positions are not divisible by ce_chunk {chunk}")
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, Tl, chunk):
+        sl = slice(i, i + chunk)
+        args = (hidden[:, sl], wte, targets[:, sl], weights[sl], cfg.dtype, cfg.vocab_size, mesh)
+        total = total + (checkpoint(_mesh_ce_sum, *args, use_reentrant=False)
+                         if cfg.ce_chunk else _mesh_ce_sum(*args))
+    return global_value(total / (B * (T - 1)), mesh, "context")
 
 
 def _loss_fn(module: GPT2, deterministic: bool, params: Dict[str, torch.Tensor],
@@ -232,7 +350,10 @@ def _loss_fn(module: GPT2, deterministic: bool, params: Dict[str, torch.Tensor],
     hidden = torch.func.functional_call(
         module, params, (tokens,),
         {"seed": None if deterministic else seed, "return_hidden": True})
-    if module.cfg.ce_chunk:
+    mesh = module.mesh
+    if _axis(mesh, "tensor") > 1 or _axis(mesh, "context") > 1:
+        loss = _mesh_loss(module, hidden, params["wte"], tokens.long())
+    elif module.cfg.ce_chunk:
         loss = _chunked_ce(hidden, params["wte"], tokens, module.cfg.ce_chunk, module.cfg.dtype)
     else:
         loss = _tied_head_ce(hidden, params["wte"], tokens, module.cfg.dtype)
@@ -249,15 +370,19 @@ def _device_memory_bytes(device) -> int:
 
 
 def _guard_dense_attention_memory(cfg: GPT2Config, *, seq: int, batch_size: int,
-                                  grad_accum_steps: int, device=None) -> None:
+                                  grad_accum_steps: int, device=None, mesh=None) -> None:
     """Refuse configs whose dense attention would run the card out of
     memory: ~6 live (micro, H, T, T) float32 buffers around the softmax in
-    the remat backward, against a quarter of device memory.  The fix is
-    --flash_attention or a larger --grad_accum_steps."""
-    if cfg.use_flash_attention:
+    the remat backward, against a quarter of device memory, per rank on a
+    mesh (the batch over data x fsdp, the heads over tensor; ring attention
+    under context has no (T, T) buffer).  The fix is --flash_attention or
+    a larger --grad_accum_steps."""
+    if cfg.use_flash_attention or _axis(mesh, "context") > 1:
         return
-    micro = max(1, batch_size // max(1, grad_accum_steps))
-    approx_bytes = 6 * micro * cfg.n_head * seq * seq * 4
+    dp = _axis(mesh, "data") * _axis(mesh, "fsdp")
+    micro = max(1, batch_size // (dp * max(1, grad_accum_steps)))
+    heads = max(1, cfg.n_head // _axis(mesh, "tensor"))
+    approx_bytes = 6 * micro * heads * seq * seq * 4
     budget = _device_memory_bytes(device) // 4
     if approx_bytes > budget:
         raise ValueError(
@@ -268,25 +393,67 @@ def _guard_dense_attention_memory(cfg: GPT2Config, *, seq: int, batch_size: int,
             "--grad_accum_steps to shrink the microbatch.")
 
 
+def gpt2_rules() -> ShardingRules:
+    """TP/fsdp rules for this module's parameter names, as the reference's
+    ``gpt2_rules`` (its per-layer patterns: the port has no scanned stack)."""
+    return transformer_rules().extended(
+        [
+            (r"wte$", P("tensor", "fsdp")),
+            (r"wpe$", P()),
+            (r"mlp_c_fc/kernel", P("fsdp", "tensor")),
+            (r"mlp_c_proj/kernel", P("tensor", "fsdp")),
+        ]
+    )
+
+
+def gpt2_plan(cfg: GPT2Config, mesh) -> ParamPlan:
+    """The layouts of GPT-2's parameters under ``gpt2_rules`` on ``mesh``:
+    ``c_attn`` split by heads within each of q, k and v, and the
+    column-parallel layers' biases split with their kernels' outputs."""
+    from distributed_tensorflow_tpu_torch.convert import gpt2_flax_paths
+
+    shapes = [(n, tuple(p.shape)) for n, p in GPT2(cfg, device="meta").named_parameters()]
+    names = [n for n, _ in shapes]
+    fused = [n for n in names if ".c_attn." in n]
+    column_bias = [n for n in names if n.endswith((".c_attn.bias", ".mlp_c_fc.bias"))]
+    return plan_for(shapes, gpt2_flax_paths(names), gpt2_rules(), mesh,
+                    groups={n: 3 for n in fused}, tensor_dims={n: 0 for n in column_bias})
+
+
+def _check_local_shapes(module: nn.Module, plan: ParamPlan) -> None:
+    """The module's parameters must have the shapes the plan gives them
+    (the rules split what the model computes split)."""
+    for name, p in module.named_parameters():
+        lay = plan.layouts[name]
+        want = list(lay.shape)
+        if plan.tensor_sharded(name):
+            size = want[lay.tensor_dim] // lay.groups
+            want[lay.tensor_dim] = -(-size // plan.tp) * lay.groups
+        if tuple(want) != tuple(p.shape):
+            raise ValueError(f"{name}: the sharding rules give a {tuple(want)} shard on the "
+                             f"mesh, the model computes a {tuple(p.shape)} one")
+
+
 def make_workload(*, preset: str = "medium", batch_size: int = 32,
                   seq_len: Optional[int] = None, grad_accum_steps: int = 4,
                   config: Optional[GPT2Config] = None,
                   use_flash_attention: Optional[bool] = None, device="cuda",
                   ce_chunk: Optional[int] = None, ring_chunk_size: Optional[int] = None,
-                  pipe_schedule: Optional[str] = None) -> Workload:
-    if ring_chunk_size or pipe_schedule:
-        raise ValueError("ring_chunk_size and pipe_schedule (ring attention, pipelining) are "
-                         "not ported yet; they come with the parallelism slice of the "
-                         "PyTorch port")
+                  pipe_schedule: Optional[str] = None, mesh=None) -> Workload:
+    if pipe_schedule and pipe_schedule != "gpipe":
+        raise ValueError("pipe_schedule (pipelining) is not ported yet; it comes with the "
+                         "parallelism slice, part B, of the PyTorch port")
     cfg = config or getattr(GPT2Config, preset)()
+    if ring_chunk_size is not None:
+        cfg = dataclasses.replace(cfg, ring_chunk_size=ring_chunk_size)
     if ce_chunk is not None:
         cfg = dataclasses.replace(cfg, ce_chunk=ce_chunk)
     if use_flash_attention is not None:
         cfg = dataclasses.replace(cfg, use_flash_attention=use_flash_attention)
     seq = seq_len or min(cfg.n_positions, 1024)
     _guard_dense_attention_memory(cfg, seq=seq, batch_size=batch_size,
-                                  grad_accum_steps=grad_accum_steps, device=device)
-    module = GPT2(cfg, device=device)
+                                  grad_accum_steps=grad_accum_steps, device=device, mesh=mesh)
+    module = GPT2(cfg, device=device, mesh=mesh)
     return Workload(
         name="gpt2",
         module=module,
@@ -303,4 +470,7 @@ def make_workload(*, preset: str = "medium", batch_size: int = 32,
         learning_rate=3e-4,
         warmup_steps=200,
         example_key="tokens",
+        rules=gpt2_rules(),
+        mesh=mesh,
+        plan=module.plan,
     )

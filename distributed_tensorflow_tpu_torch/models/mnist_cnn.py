@@ -23,6 +23,7 @@ from torch import nn
 
 from distributed_tensorflow_tpu_torch.data.pipeline import synthetic_image_classification
 from distributed_tensorflow_tpu_torch.models import Workload
+from distributed_tensorflow_tpu_torch.parallel.sharding import ShardingRules
 from distributed_tensorflow_tpu_torch.models.layers import dense, lecun_normal_
 
 
@@ -84,4 +85,5 @@ def make_workload(*, batch_size: int = 256, num_classes: int = 10, device="cuda"
         batch_size=batch_size,
         learning_rate=1e-3,
         example_key="image",
+        rules=ShardingRules(),  # every parameter replicated, as the reference's
     )

@@ -21,6 +21,13 @@ too), so cuDNN runs its NHWC kernels.  Numerics follow flax:
   ``updates`` dict rather than writing them, so the train step threads
   them through its microbatches.
 - The head: float32 mean-pool and float32 logits; label smoothing 0.1.
+- Synchronised BatchNorm on a mesh whose batch axes (data x fsdp) span
+  more than one rank (``make_workload(mesh=...)``): the training forward
+  normalises by the global batch's mean and biased variance (flax's
+  E[x^2] - E[x]^2, from one all-reduce of the per-channel sums), the
+  backward all-reduces the sums of dy and dy * x_hat, and the running
+  averages take the global statistics, as the reference's jit over the
+  global batch computes them.
 """
 
 from __future__ import annotations
@@ -37,6 +44,8 @@ from torch import nn
 from distributed_tensorflow_tpu_torch.data.pipeline import synthetic_image_classification
 from distributed_tensorflow_tpu_torch.models import Workload
 from distributed_tensorflow_tpu_torch.models.layers import lecun_normal_
+from distributed_tensorflow_tpu_torch.parallel import collectives
+from distributed_tensorflow_tpu_torch.parallel.sharding import ShardingRules
 from distributed_tensorflow_tpu_torch.rng import fold_in
 from distributed_tensorflow_tpu_torch.training.train_state import sgd_nesterov
 
@@ -121,6 +130,50 @@ def _conv(cin: int, cout: int, k: int, device) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, k, bias=False, device=device)
 
 
+_BATCH_AXES = ("data", "fsdp")
+
+
+class _SyncBatchNorm(torch.autograd.Function):
+    """Training BatchNorm over the global batch of the mesh's batch shards
+    (float32 statistics and arithmetic).  Returns (y in x's dtype, mean,
+    biased var); the statistics carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, mesh):
+        xf = x.float()
+        dims = (0, 2, 3)
+        local = torch.cat([xf.sum(dims), (xf * xf).sum(dims),
+                           torch.full((1,), xf.numel() / xf.shape[1], device=x.device)])
+        total = collectives.psum(local, mesh, _BATCH_AXES)
+        C = x.shape[1]
+        count = total[-1]
+        mean = total[:C] / count
+        var = torch.clamp(total[C:2 * C] / count - mean * mean, min=0.0)
+        invstd = torch.rsqrt(var + eps)
+        xhat = (xf - mean[:, None, None]) * invstd[:, None, None]
+        y = xhat * weight.float()[:, None, None] + bias.float()[:, None, None]
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.mesh, ctx.count = mesh, count
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        x, weight, mean, invstd = ctx.saved_tensors
+        C = x.shape[1]
+        dims = (0, 2, 3)
+        gy = gy.float()
+        xhat = (x.float() - mean[:, None, None]) * invstd[:, None, None]
+        sum_dy, sum_dy_xhat = gy.sum(dims), (gy * xhat).sum(dims)
+        total = collectives.psum(torch.cat([sum_dy, sum_dy_xhat]), ctx.mesh, _BATCH_AXES)
+        mean_dy = (total[:C] / ctx.count)[:, None, None]
+        mean_dy_xhat = (total[C:] / ctx.count)[:, None, None]
+        gx = (gy - mean_dy - xhat * mean_dy_xhat) * (weight.float() * invstd)[:, None, None]
+        # The parameters' gradients are this rank's; the train step sums them.
+        return (gx.to(x.dtype), sum_dy_xhat.to(weight.dtype), sum_dy.to(weight.dtype), None,
+                None)
+
+
 class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5, dtype=norm_dtype)``
     over the channels of an NCHW tensor (see the module docstring)."""
@@ -134,6 +187,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(channels, device=device))
         self.register_buffer("var", torch.ones(channels, device=device))
         self.state_name = ""  # its buffers' prefix in the model, set by the model
+        self.mesh = None  # synchronised over the mesh's batch axes, set by the model
 
     @torch.no_grad()
     def reset_parameters(self) -> None:
@@ -150,6 +204,13 @@ class BatchNorm(nn.Module):
             mul = torch.rsqrt(self.var + self.eps) * self.weight.float()
             y = (x.float() - self.mean[:, None, None]) * mul[:, None, None]
             return (y + self.bias.float()[:, None, None]).to(dtype)
+        if self.mesh is not None and self.mesh.axis_size(_BATCH_AXES) > 1:
+            y, mean, var = _SyncBatchNorm.apply(x, self.weight, self.bias, self.eps, self.mesh)
+            with torch.no_grad():
+                m = self.momentum
+                updates[f"{self.state_name}mean"] = m * self.mean + (1.0 - m) * mean
+                updates[f"{self.state_name}var"] = m * self.var + (1.0 - m) * var
+            return y.to(dtype)
         # Autograd differentiates through the batch statistics the kernel
         # computes, and the running averages take the same statistics (its
         # saved mean and 1/sqrt(var + eps), float32).  Float32 scale and
@@ -199,7 +260,8 @@ class ResNet(nn.Module):
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3), num_classes: int = 1000,
                  num_filters: int = 64, dtype: torch.dtype = torch.bfloat16,
-                 norm_dtype: torch.dtype = torch.bfloat16, *, device=None, seed: int = 0):
+                 norm_dtype: torch.dtype = torch.bfloat16, *, device=None, seed: int = 0,
+                 mesh=None):
         super().__init__()
         self.dtype, self.norm_dtype = dtype, norm_dtype
         self.conv_init = _conv(3, num_filters, 7, device)
@@ -218,6 +280,7 @@ class ResNet(nn.Module):
         for name, m in self.named_modules():
             if isinstance(m, BatchNorm):
                 m.state_name = f"{name}."
+                m.mesh = mesh
         self.to(memory_format=torch.channels_last)  # the conv weights
         self.reset_parameters(seed)
 
@@ -276,11 +339,12 @@ def _eval_loss_fn(module: ResNet, params, model_state, batch, seed):
 
 def make_workload(*, batch_size: int = 1024, num_classes: int = 1000, image_size: int = 224,
                   stage_sizes: Sequence[int] = (3, 4, 6, 3), learning_rate: float = 0.1,
-                  augment: bool = True, device="cuda",
+                  augment: bool = True, device="cuda", mesh=None,
                   **_unused) -> Workload:
     """``learning_rate`` is scaled by batch/256 (the classic recipe);
     ``augment`` turns the per-step crop and flip on (the recipe)."""
-    module = ResNet(stage_sizes=tuple(stage_sizes), num_classes=num_classes, device=device)
+    module = ResNet(stage_sizes=tuple(stage_sizes), num_classes=num_classes, device=device,
+                    mesh=mesh)
     shape = (image_size, image_size, 3)
     return Workload(
         name="resnet50",
@@ -303,4 +367,6 @@ def make_workload(*, batch_size: int = 1024, num_classes: int = 1000, image_size
         to_record=quantize_images,
         from_record=dequantize_images,
         augment_fn=augment_images if augment else None,
+        rules=ShardingRules(),  # every parameter replicated, as the reference's
+        mesh=mesh,
     )

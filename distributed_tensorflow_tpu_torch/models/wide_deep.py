@@ -32,6 +32,7 @@ from torch import nn
 
 from distributed_tensorflow_tpu_torch.data.pipeline import synthetic_recsys
 from distributed_tensorflow_tpu_torch.models import Workload
+from distributed_tensorflow_tpu_torch.parallel.sharding import ShardingRules
 from distributed_tensorflow_tpu_torch.models.layers import dense, lecun_normal_
 from distributed_tensorflow_tpu_torch.parallel.embedding import ShardedEmbed
 from distributed_tensorflow_tpu_torch.parallel.embedding_config import (
@@ -239,4 +240,9 @@ def make_workload(*, arch: str = "wide_deep", batch_size: int = 4096,
         warmup_steps=100,
         example_key="dense",
         make_optimizer=make_opt,
+        # The tables stay replicated over every mesh axis: their sharding
+        # (the reference's recsys_rules and multi_table_rules over
+        # ``expert``, the exchange of sharded_lookup) comes with the
+        # parallelism slice, part B.
+        rules=ShardingRules(),
     )

@@ -28,9 +28,10 @@ def pad_vocab(vocab_size: int, num_shards: int) -> int:
 
 def sharded_lookup(*args, **kwargs):
     """The reference's row-sharded lookup (a ``shard_map`` exchange over a
-    mesh axis) is not ported: it comes with the parallelism slice."""
+    mesh axis) is not ported: it comes with the parallelism slice, part B."""
     raise NotImplementedError("sharded_lookup (row-sharded tables over a mesh axis) is not "
-                              "ported to PyTorch yet; it comes with the parallelism slice")
+                              "ported to PyTorch yet; it comes with the parallelism slice, "
+                              "part B")
 
 
 def replicated_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

@@ -7,7 +7,7 @@ their table with ``% vocabulary_size``, one gather per table rather than
 per feature, sum/mean combiner for multi-valent ids), ``f32_master_of`` and
 ``multi_table_optimizer`` (per-table optimizers; a bf16 table's branch runs
 on float32 masters).  The tables' sharding rules and the residency check
-come with the parallelism slice.
+come with the parallelism slice, part B (the expert axis).
 """
 
 from __future__ import annotations

@@ -11,24 +11,26 @@ Port of ``distributed_tensorflow_tpu/train_lib.py``: ``TrainArgs``,
    evaluates each new checkpoint (``run_evaluator``); chief and worker
    tasks train data-parallel over ``torch.distributed``, one rank each
    (``cluster.server``; a cluster of one trains alone in a group of one);
-2. the workload and its state, built alike on every rank from the seed,
-   and the collective-mismatch guard (``assert_same_program``) before the
-   first collective;
-3. the input: each rank feeds its rows of the global batch, synthetic
-   stream shard or record stripe ``rank`` of ``world size``, or batches
-   pulled from the data service's one shared stream;
-4. the hooks: logging, NaN, prefetch, the peer health check (world size >
+2. the mesh over the ranks (``--data``, ``--fsdp``, ``--tensor``,
+   ``--context``; ``cluster.topology``), checked against the axes the
+   model implements (``validate_mesh_axes``) and logged;
+3. the workload on the mesh and its state, built alike on every rank from
+   the seed, and the collective-mismatch guard (``assert_same_program``)
+   before the first collective;
+4. the input: each rank feeds its batch shard's rows (data x fsdp; the
+   ranks of one shard along tensor and context feed the same rows),
+   synthetic stream shard or record stripe ``index`` of ``shards``, or
+   batches pulled from the data service's one shared stream;
+5. the hooks: logging, NaN, prefetch, the peer health check (world size >
    1), checkpoints with resume and the preemption hook
    (``--checkpoint_dir``), ``--profile_dir``, ``--tensorboard_dir``,
    ``--metrics_file``, ``--eval_every``; ``--metrics_port`` serves
    ``/metrics`` and ``--trace_out`` writes the flight recorder at the end;
-5. the loop, then the teardown in the reference's order, the process group
+6. the loop, then the teardown in the reference's order, the process group
    last.
 
-Flags whose layer is not ported yet (the fsdp, tensor, pipe, context and
-expert mesh axes, ring attention's chunks, 1F1B; ``--data`` other than the
-world size) raise a ``ValueError`` that names the missing slice; none is
-ignored.  ``--data_service=HOST:PORT`` (or ``dispatch://HOST:PORT``) feeds
+Flags whose layer is not ported yet (the pipe and expert mesh axes, 1F1B)
+raise a ``ValueError`` that names the missing slice; none is ignored.  ``--data_service=HOST:PORT`` (or ``dispatch://HOST:PORT``) feeds
 the ranks from the out-of-process input service (``data/service.py``); it
 excludes ``--data_dir``.
 
@@ -173,19 +175,54 @@ def parse_args(argv=None) -> TrainArgs:
 
 # (flag, is it set, the slice of the port that brings its layer)
 _UNPORTED = (
-    ("--fsdp/--tensor/--pipe/--context/--expert > 1",
-     lambda a: max(a.fsdp, a.tensor, a.pipe, a.context, a.expert) > 1,
-     "the parallelism slice (meshes)"),
-    ("--ring_chunk_size", lambda a: a.ring_chunk_size != 0, "the parallelism slice"),
-    ("--pipe_schedule=1f1b", lambda a: a.pipe_schedule != "gpipe", "the parallelism slice"),
+    ("--pipe > 1", lambda a: a.pipe > 1, "the parallelism slice, part B (pipelines)"),
+    ("--pipe_schedule=1f1b", lambda a: a.pipe_schedule != "gpipe",
+     "the parallelism slice, part B (pipelines)"),
+    ("--expert > 1", lambda a: a.expert > 1,
+     "the parallelism slice, part B (the expert axis)"),
 )
+
+# Mesh axes each workload can actually honor.  Axes a workload cannot honor
+# are hard errors, not silent replication (a --pipe the model ignores would
+# have N-1 of N devices doing duplicate work).
+_MODEL_AXES = {
+    "gpt2": {"pipe", "context"},
+    "bert": {"context"},
+    "wide_deep": {"expert"},  # multi-table embeddings shard over expert
+}
+
+
+def validate_mesh_axes(args: TrainArgs) -> None:
+    """Reject mesh axes the selected workload does not implement."""
+    supported = _MODEL_AXES.get(args.model, set())
+    for axis, why in (
+        ("pipe", "GPipe pipeline stages"),
+        ("context", "ring attention / sequence parallelism"),
+        ("expert", "embedding-table sharding"),
+    ):
+        if getattr(args, axis) > 1 and axis not in supported:
+            raise ValueError(
+                f"--{axis}={getattr(args, axis)} ({why}) is not wired into "
+                f"--model={args.model}; it would silently replicate over "
+                f"the {axis!r} axis. Models supporting it: "
+                f"{sorted(m for m, a in _MODEL_AXES.items() if axis in a)}"
+            )
 
 
 def validate_args(args: TrainArgs) -> None:
-    """Reject flags the port cannot honour yet, naming the missing slice."""
+    """Reject flags the port cannot honour yet, naming the missing slice,
+    and flags that do not apply."""
     for flag, is_set, where in _UNPORTED:
         if is_set(args):
             raise ValueError(f"{flag} is not ported to PyTorch yet; it comes with {where}")
+    validate_mesh_axes(args)
+    if args.ring_chunk_size:
+        if args.model not in ("gpt2", "bert"):
+            raise ValueError("--ring_chunk_size applies to gpt2/bert "
+                             "(the ring-attention workloads)")
+        if args.context <= 1:
+            raise ValueError("--ring_chunk_size requires --context>1 "
+                             "(ring attention is the context-axis path)")
     if args.arch and args.model != "wide_deep":
         raise ValueError(f"--arch only applies to --model=wide_deep, got "
                          f"--model={args.model} --arch={args.arch}")
@@ -243,22 +280,36 @@ def build_state_and_step(workload: Workload, *, precision=BF16, grad_accum_steps
                          seed: int = 0):
     """(TrainState, step fn): parameters initialized from ``seed``; the
     workload's optimizer (``make_optimizer``) or adamw(weight_decay=1e-4),
-    on a warmup-cosine schedule."""
+    on a warmup-cosine schedule.  On the workload's mesh the optimizer runs
+    on the fsdp shards and the step reduces as the mesh says."""
+    mesh = workload.mesh
+    if mesh is not None and mesh.shape["context"] > 1:
+        # Every context rank's rows are one batch shard's: each microbatch
+        # must divide over data x fsdp.
+        batch_par = mesh.shape["data"] * mesh.shape["fsdp"]
+        micro = workload.batch_size // max(1, grad_accum_steps)
+        if micro % max(1, batch_par):
+            raise ValueError(
+                f"microbatch {micro} (= batch {workload.batch_size} / "
+                f"grad_accum {grad_accum_steps}) does not divide the batch "
+                f"axes data*fsdp={batch_par}; raise --batch_size or lower "
+                "--grad_accum_steps")
     lr = learning_rate if learning_rate is not None else workload.learning_rate
     schedule = warmup_cosine_decay_schedule(
         lr, warmup_steps=min(workload.warmup_steps, max(1, total_steps // 10)),
         decay_steps=max(2, total_steps))
     workload.module.reset_parameters(seed)
     state = TrainState.create(module=workload.module, schedule=schedule, weight_decay=1e-4,
-                              make_optimizer=workload.make_optimizer)
+                              make_optimizer=workload.make_optimizer, plan=workload.plan)
     step = make_train_step(_wrap_from_record(workload, workload.loss_fn, train=True),
                            grad_accum_steps=grad_accum_steps, precision=precision,
-                           clip_grad_norm=workload.clip_grad_norm, stateful=workload.stateful)
+                           clip_grad_norm=workload.clip_grad_norm, stateful=workload.stateful,
+                           mesh=mesh, plan=workload.plan)
     return state, step
 
 
-def _make_workload(args: TrainArgs, device) -> Workload:
-    overrides: Dict[str, Any] = {"device": device}
+def _make_workload(args: TrainArgs, device, mesh=None) -> Workload:
+    overrides: Dict[str, Any] = {"device": device, "mesh": mesh}
     if args.batch_size:
         overrides["batch_size"] = args.batch_size
     if args.grad_accum_steps:
@@ -269,6 +320,8 @@ def _make_workload(args: TrainArgs, device) -> Workload:
         overrides["table_dtype"] = args.table_dtype
     if args.flash_attention:
         overrides["use_flash_attention"] = True
+    if args.ring_chunk_size:
+        overrides["ring_chunk_size"] = args.ring_chunk_size
     return get_workload(args.model, **overrides)
 
 
@@ -314,14 +367,17 @@ def _train(args: TrainArgs, hooks: Optional[List[Hook]],
            server: cluster_lib.Server) -> Dict[str, Any]:
     rt = server.runtime
     world = rt.world_size if rt is not None else 1
-    if args.data not in (-1, world):
-        raise ValueError(f"--data={args.data} with {world} process(es) is not ported to "
-                         "PyTorch yet: the port splits the batch over its data-parallel "
-                         "processes only; other layouts come with the parallelism slice")
     device = rt.device if rt is not None else resolve_device(args.device)
 
-    # 2. Workload and state.
-    workload = _make_workload(args, device)
+    # 2. The mesh over the ranks.
+    mesh = cluster_lib.build_mesh(cluster_lib.MeshConfig(
+        data=args.data, fsdp=args.fsdp, tensor=args.tensor, pipe=args.pipe,
+        context=args.context, expert=args.expert))
+    logger.info("mesh: %s over %d rank(s)", {a: s for a, s in mesh.shape.items() if s > 1}
+                or {"data": 1}, mesh.size)
+
+    # 3. Workload and state.
+    workload = _make_workload(args, device, mesh)
     grad_accum = args.grad_accum_steps or workload.grad_accum_steps
     precision = BF16 if args.precision == "bf16" else FP32
     state, train_step = build_state_and_step(
@@ -331,9 +387,12 @@ def _train(args: TrainArgs, hooks: Optional[List[Hook]],
     # Cross-host consistency guard before the first collective (SURVEY §6.2).
     cluster_lib.assert_same_program("train_state", state)
 
-    # 3. Input: this rank's rows of the global batch, as stream shard
-    # `index` of `stream_shards`.
-    host_bs, stream_shards, stream_index = host_batch_layout(workload.batch_size)
+    # 4. Input: this rank's batch shard's rows of the global batch, as
+    # stream shard `index` of `stream_shards`.
+    host_bs, stream_shards, stream_index = host_batch_layout(workload.batch_size, mesh)
+    if (stream_shards, stream_index) != (world, mesh.rank):
+        logger.info("batch layout: %d rows/rank as stream shard %d/%d (batch dim not "
+                    "split over the ranks 1:1)", host_bs, stream_index, stream_shards)
     set_stream_shard_override(stream_shards, stream_index)
     manager = metrics_server = None
     data_iter = host_iter = None
@@ -347,7 +406,7 @@ def _train(args: TrainArgs, hooks: Optional[List[Hook]],
             if stream_shards != world and world > 1:
                 raise ValueError(
                     "--data_service splits ONE stream across consumers, which cannot "
-                    "express a batch dim that is not split over the processes 1:1; use "
+                    "express a replicated batch dim (a tensor/context-parallel mesh); use "
                     "--data_dir or synthetic input")
             logger.info("out-of-process input service: %s", args.data_service)
             host_iter = data_service_data_fn(args.data_service, workload)(host_bs)
@@ -362,7 +421,7 @@ def _train(args: TrainArgs, hooks: Optional[List[Hook]],
             host_iter = workload.data_fn(host_bs)
         data_iter = DevicePrefetchIterator(host_iter, device, prefetch=2)
 
-        # 4. Hooks.
+        # 5. Hooks.
         all_hooks: List[Hook] = [
             LoggingHook(every_steps=args.log_every), NanHook(),
             PrefetchMonitorHook(data_iter, every_steps=max(args.log_every, 1))]
@@ -392,14 +451,14 @@ def _train(args: TrainArgs, hooks: Optional[List[Hook]],
         if args.eval_every > 0:
             eval_step = make_eval_step(
                 _wrap_from_record(workload, workload.eval_loss_fn or workload.loss_fn),
-                precision=precision, stateful=workload.stateful)
+                precision=precision, stateful=workload.stateful, mesh=mesh)
             writers = [h for h in all_hooks if isinstance(h, (TensorBoardHook,
                                                               MetricsFileWriter))]
             all_hooks.append(EvalHook(eval_step, make_eval_data(workload, device),
                                       every_steps=args.eval_every,
                                       num_batches=args.eval_batches, writers=writers))
 
-        # 5. Loop.
+        # 6. Loop.
         if args.metrics_port:
             # One endpoint a rank: ranks sharing a host take consecutive ports.
             metrics_server = MetricsServer(
@@ -437,7 +496,8 @@ def make_eval_data(workload: Workload, device):
         logger.warning("workload %r has no eval_data_fn; evaluating on the TRAINING stream",
                        workload.name)
         fn = workload.data_fn
-    return make_global_batches(fn(per_host_batch_size(workload.batch_size)), device)
+    return make_global_batches(fn(per_host_batch_size(workload.batch_size, workload.mesh)),
+                               device)
 
 
 def run_evaluator(args: TrainArgs) -> Dict[str, Any]:

@@ -167,9 +167,10 @@ def multi_transform(transforms: Dict[str, Transform], label_fn: Callable[[str], 
 
 
 def optimizer_branches(optimizer, module: nn.Module) -> Sequence[Branch]:
-    """The branches of a ``MultiTransform``, or a plain torch optimizer over
-    ``module``'s parameters as one branch (names in the optimizer's order)."""
-    if isinstance(optimizer, MultiTransform):
+    """The branches of a ``MultiTransform`` (or of a ``ShardedOptimizer``,
+    over its shards), or a plain torch optimizer over ``module``'s
+    parameters as one branch (names in the optimizer's order)."""
+    if hasattr(optimizer, "branches"):
         return optimizer.branches
     names = {id(p): n for n, p in module.named_parameters()}
     params = [p for g in optimizer.param_groups for p in g["params"]]

@@ -19,20 +19,30 @@ same contract:
   through the microbatches in order; the state after the step is the one
   the last microbatch returned.
 
-Data parallelism: where ``torch.distributed`` runs more than one process,
-each rank's step sees its own rows of the global batch.  After the
-accumulation the ranks take the mean of the gradients and of the loss and
-aux metrics, in one flat all-reduce (one collective, not one a leaf), so
-the clip sees the global norm and the metrics are the global batch's, as
-the reference's jit over the global batch computes them (the mean of equal
-shards' means).  The microbatch seed folds the rank in, so no two ranks
-draw the same dropout mask.  Over gloo a CUDA bucket goes through pinned
-host memory, and the host seconds of the exchange (copies included) land
-in the ``dtt_grad_allreduce_seconds`` histogram; NCCL's runs on the
-stream.  At world size 1 the step adds no collective.  A stateful model
-raises at world size > 1: its batch statistics would be per rank, where
-the reference's are the global batch's (synchronised BatchNorm comes with
-the parallelism slice).
+Parallelism: where ``torch.distributed`` runs more than one process,
+each rank's step sees its rows of the global batch, and the reductions
+follow the mesh (``mesh``, ``plan``; without a mesh every rank is a batch
+shard).  After the accumulation a gradient is reduced over each axis on
+which its leaf is replicated: summed over the batch shards (data x fsdp)
+and divided by their count, and summed over ``context`` (each context
+rank's loss is its part of the global loss).  A leaf split over ``fsdp``
+(``plan``) is reduce-scattered over ``fsdp`` instead, so the optimizer
+gets its shard's gradient; a leaf split over ``tensor`` keeps its own
+gradient, and one replicated over ``tensor`` has the same gradient on
+every tensor rank already (the model's conjugate operators).  The
+replicated leaves and the loss and aux metrics go in one flat all-reduce
+(one collective, not one a leaf), the fsdp leaves in one reduce-scatter.
+The metrics come out as the global batch's (the models report context
+parts as the whole).  The clip's global norm counts each element once: a
+leaf's squares count on the ranks that hold a distinct part of it, summed
+over fsdp x tensor.  The microbatch seed folds in the batch-shard index
+(data x fsdp; the rank without a mesh), so no two batch shards draw the
+same dropout mask, and tensor and context ranks of one shard share it.
+Over gloo a CUDA bucket goes through host memory, and the host seconds of
+the exchange (copies included) land in the ``dtt_grad_allreduce_seconds``
+histogram; NCCL's runs on the stream.  At world size 1 the step adds no
+collective.  A stateful model (BatchNorm) synchronises its statistics
+over the batch shards itself (``models/resnet.py``).
 """
 
 from __future__ import annotations
@@ -45,6 +55,8 @@ import torch.distributed as dist
 
 from distributed_tensorflow_tpu_torch.cluster.coordination import process_count, process_index
 from distributed_tensorflow_tpu_torch.obs import metrics as obs_metrics
+from distributed_tensorflow_tpu_torch.parallel import collectives
+from distributed_tensorflow_tpu_torch.parallel.sharding import split_dim
 from distributed_tensorflow_tpu_torch.rng import fold_in
 from distributed_tensorflow_tpu_torch.training.train_state import BF16, Precision, TrainState
 
@@ -56,11 +68,12 @@ StatefulLossFn = Callable[[Tensors, Tensors, Tensors, int], Tuple[torch.Tensor, 
 
 
 class _MeanAllReduce:
-    """The mean over ranks of a list of float32 tensors, as one flat
-    all-reduce on the default group, written back in place."""
+    """The sum over ``group``'s ranks (the default group for None) of a
+    list of float32 tensors divided by ``world``, as one flat all-reduce,
+    written back in place."""
 
-    def __init__(self, world: int):
-        self.world = world
+    def __init__(self, world: int, group=None):
+        self.world, self.group = world, group
         self._host: Optional[torch.Tensor] = None  # pinned bucket for gloo
         self._seconds = obs_metrics.default_registry().histogram(
             "dtt_grad_allreduce_seconds",
@@ -69,8 +82,8 @@ class _MeanAllReduce:
 
     def __call__(self, tensors: List[torch.Tensor]) -> None:
         flat = torch.cat([t.reshape(-1) for t in tensors])
-        if dist.get_backend() != "gloo":
-            dist.all_reduce(flat)  # NCCL: on the stream, in the step's device time
+        if dist.get_backend(self.group) != "gloo":
+            dist.all_reduce(flat, group=self.group)  # NCCL: on the stream
         else:
             t0 = time.perf_counter()
             if flat.is_cuda:
@@ -79,10 +92,10 @@ class _MeanAllReduce:
                 if self._host is None or self._host.numel() != flat.numel():
                     self._host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
                 self._host.copy_(flat)
-                dist.all_reduce(self._host)
+                dist.all_reduce(self._host, group=self.group)
                 flat.copy_(self._host, non_blocking=True)
             else:
-                dist.all_reduce(flat)
+                dist.all_reduce(flat, group=self.group)
             self._seconds.observe(time.perf_counter() - t0)
         flat.div_(self.world)
         offset = 0
@@ -92,24 +105,104 @@ class _MeanAllReduce:
             offset += n
 
 
+_BATCH = ("data", "fsdp")
+_REPLICAS = ("data", "fsdp", "context")
+
+
+class _Reductions:
+    """The step's collectives on one mesh (or, without one, over the
+    world's ranks as batch shards)."""
+
+    def __init__(self, mesh, plan):
+        self.mesh, self.plan = mesh, plan
+        if mesh is None:
+            world = process_count()
+            self.shards, self.index, self.context = world, process_index(), 1
+            self.mean = _MeanAllReduce(world) if world > 1 else None
+        else:
+            self.shards, self.index = mesh.axis_size(_BATCH), mesh.axis_index(_BATCH)
+            self.context = mesh.axis_size("context")
+            group = mesh.group(_REPLICAS)
+            self.mean = _MeanAllReduce(self.shards * self.context, group) if group else None
+
+    @property
+    def active(self) -> bool:
+        return self.mean is not None or (self.plan is not None and self.plan.fsdp > 1)
+
+    def sharded(self, name: str) -> bool:
+        return self.plan is not None and self.plan.fsdp_sharded(name)
+
+    def gradients(self, names: List[str], acc: List[torch.Tensor], metrics: Dict) -> List:
+        """The reduced gradients (fsdp leaves as this rank's shard) and, in
+        place, the global metrics."""
+        out = list(acc)
+        rest = [i for i, n in enumerate(names) if not self.sharded(n)]
+        fsdp = [i for i, n in enumerate(names) if self.sharded(n)]
+        if self.mean is not None:
+            # The metrics are the same on every context rank: their sum over
+            # the replicas is divided by shards * context like the gradients'
+            # sum, which then gets back its context factor.
+            self.mean([*(acc[i] for i in rest), *metrics.values()])
+            for i in rest:
+                acc[i].mul_(self.context)
+        if fsdp:
+            out_fsdp = self._reduce_scatter([names[i] for i in fsdp], [acc[i] for i in fsdp])
+            for i, g in zip(fsdp, out_fsdp):
+                out[i] = g
+        return out
+
+    def _reduce_scatter(self, names, grads) -> List[torch.Tensor]:
+        """Each fsdp leaf's gradient summed over the batch shards and the
+        context ranks, divided by the shards, as this rank's shard: one
+        flat reduce-scatter over fsdp, then an all-reduce over data x
+        context."""
+        plan, mesh = self.plan, self.mesh
+        f = plan.fsdp
+        blocks = []
+        for name, g in zip(names, grads):
+            dim = plan.layouts[name].fsdp_dim
+            blocks.append(torch.stack([split_dim(g, dim, f, j) for j in range(f)]))
+        flat = torch.cat([b.reshape(f, -1) for b in blocks], dim=1)
+        mine = collectives.reduce_scatter(flat, mesh, "fsdp", scatter_axis=0).reshape(-1)
+        mine = collectives.psum_(mine.contiguous(), mesh, ("data", "context"))
+        mine.div_(self.shards)
+        out, offset = [], 0
+        for b in blocks:
+            n = b[0].numel()
+            out.append(mine[offset:offset + n].view(b.shape[1:]))
+            offset += n
+        return out
+
+    def global_norm(self, names: List[str], grads: List[torch.Tensor]) -> torch.Tensor:
+        """The global norm, each element counted once: a leaf's squares
+        count where this rank holds a distinct part of it (its fsdp shard,
+        its tensor shard, or coordinate 0 of an axis it is replicated on),
+        summed over fsdp x tensor."""
+        sq = torch.stack([torch.linalg.vector_norm(g) for g in grads]) ** 2
+        if self.mesh is None or self.mesh.group(("fsdp", "tensor")) is None:
+            return torch.sqrt(sq.sum())
+        coords, plan = self.mesh.coords, self.plan
+        own = []
+        for n in names:
+            fs = self.sharded(n) or coords["fsdp"] == 0
+            ts = (plan is not None and plan.tensor_sharded(n)) or coords["tensor"] == 0
+            own.append(float(fs and ts))
+        total = (sq * torch.tensor(own, device=sq.device)).sum()
+        return torch.sqrt(collectives.psum(total, self.mesh, ("fsdp", "tensor")))
+
+
 def make_train_step(loss_fn: LossFn, *, grad_accum_steps: int = 1,
                     precision: Precision = BF16, clip_grad_norm: Optional[float] = None,
-                    stateful: bool = False):
+                    stateful: bool = False, mesh=None, plan=None):
     """Build ``step(state, batch, seed) -> (state, metrics)``.
 
     The batch's leading dim must be ``grad_accum_steps * microbatch``.
     ``stateful=True`` takes a ``StatefulLossFn`` and threads
-    ``state.model_state`` through the step.
+    ``state.model_state`` through the step.  ``mesh`` and ``plan`` (the
+    workload's) decide the reductions (see the module docstring).
     """
     n = max(1, grad_accum_steps)
-    rank, world = process_index(), process_count()
-    if stateful and world > 1:
-        raise ValueError(
-            "a model with batch statistics (BatchNorm) cannot train data-parallel over "
-            f"{world} processes yet: each rank would normalise by its own rows, where the "
-            "reference normalises by the global batch; synchronised statistics come with "
-            "the parallelism slice")
-    reduce = _MeanAllReduce(world) if world > 1 else None
+    red = _Reductions(mesh, plan)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor], seed: int):
         params = precision.cast_for_compute(state.params)
@@ -121,8 +214,8 @@ def make_train_step(loss_fn: LossFn, *, grad_accum_steps: int = 1,
         aux_sum: Dict[str, torch.Tensor] = {}
         for i in range(n):
             mb = {k: v.reshape((n, -1) + tuple(v.shape[1:]))[i] for k, v in batch.items()}
-            mb_seed = (fold_in(seed, state.step, i) if reduce is None
-                       else fold_in(seed, state.step, i, rank))
+            mb_seed = (fold_in(seed, state.step, i) if red.shards == 1
+                       else fold_in(seed, state.step, i, red.index))
             if stateful:
                 loss, aux, model_state = loss_fn(params, model_state, mb, mb_seed)
             else:
@@ -142,12 +235,11 @@ def make_train_step(loss_fn: LossFn, *, grad_accum_steps: int = 1,
             for a in acc:
                 a.div_(n)
         metrics = {"loss": loss_sum / n, **{k: v / n for k, v in aux_sum.items()}}
-        if reduce is not None:
-            reduce([*acc, *metrics.values()])
+        if red.active:
+            acc = red.gradients(names, acc, metrics)
         grads = dict(zip(names, acc))
         if clip_grad_norm is not None:
-            gnorm = torch.linalg.vector_norm(
-                torch.stack([torch.linalg.vector_norm(g) for g in acc]))
+            gnorm = red.global_norm(names, acc)
             scale = torch.clamp(clip_grad_norm / (gnorm + 1e-6), max=1.0)
             for g in acc:
                 g.mul_(scale)
@@ -157,12 +249,17 @@ def make_train_step(loss_fn: LossFn, *, grad_accum_steps: int = 1,
     return step
 
 
-def make_eval_step(loss_fn: LossFn, *, precision: Precision = BF16, stateful: bool = False):
+def make_eval_step(loss_fn: LossFn, *, precision: Precision = BF16, stateful: bool = False,
+                   mesh=None):
     """Build ``step(state, batch, seed) -> metrics``: the loss and aux
     metrics in the compute precision, no gradient, the state unchanged.
-    Data-parallel ranks return the mean over ranks, the global batch's."""
-    world = process_count()
-    reduce = _MeanAllReduce(world) if world > 1 else None
+    Batch shards return the mean over the shards, the global batch's."""
+    if mesh is None:
+        world = process_count()
+        reduce = _MeanAllReduce(world) if world > 1 else None
+    else:
+        group = mesh.group(_BATCH)
+        reduce = _MeanAllReduce(mesh.axis_size(_BATCH), group) if group else None
 
     @torch.no_grad()
     def step(state: TrainState, batch: Dict[str, torch.Tensor], seed: int):

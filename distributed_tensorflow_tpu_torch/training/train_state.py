@@ -13,7 +13,7 @@ either), then returns the same object.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Iterable, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 from torch import nn
@@ -27,6 +27,9 @@ class TrainState:
     # Learning rate as a function of the number of updates applied so far
     # (optax's count convention: the first update reads schedule(0)).
     schedule: Callable[[int], float]
+    # The parameters' layouts on a mesh (parallel.sharding.ParamPlan), which
+    # the checkpoint manager reads to write global tensors; None off a mesh.
+    plan: Any = None
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
@@ -65,19 +68,28 @@ class TrainState:
     def create(cls, *, module: nn.Module, schedule: Callable[[int], float],
                weight_decay: float = 1e-4,
                make_optimizer: Optional[Callable[[Iterable[Tuple[str, nn.Parameter]]],
-                                                 torch.optim.Optimizer]] = None
-               ) -> "TrainState":
+                                                 torch.optim.Optimizer]] = None,
+               plan: Any = None) -> "TrainState":
         """The workload's optimizer over every parameter where it has one
         (``make_optimizer``, given the named parameters; its learning rate
         is set from ``schedule`` every update, except in param groups
         marked ``fixed_lr``), else optax.adamw(schedule, weight_decay): b1
-        0.9, b2 0.999, eps 1e-8, decoupled decay on every leaf (mask=None)."""
-        if make_optimizer is not None:
-            opt = make_optimizer(module.named_parameters())
+        0.9, b2 0.999, eps 1e-8, decoupled decay on every leaf (mask=None).
+        With a ``plan`` that splits parameters over ``fsdp``, the optimizer
+        runs on their shards (``parallel.fsdp.ShardedOptimizer``)."""
+        def make(named):
+            if make_optimizer is not None:
+                return make_optimizer(named)
+            return torch.optim.AdamW([p for _, p in named], lr=schedule(0), betas=(0.9, 0.999),
+                                     eps=1e-8, weight_decay=weight_decay)
+
+        if plan is not None and any(plan.fsdp_sharded(n) for n, _ in module.named_parameters()):
+            from distributed_tensorflow_tpu_torch.parallel.fsdp import ShardedOptimizer
+
+            opt = ShardedOptimizer(module, plan, make)
         else:
-            opt = torch.optim.AdamW(module.parameters(), lr=schedule(0), betas=(0.9, 0.999),
-                                    eps=1e-8, weight_decay=weight_decay)
-        return cls(step=0, module=module, optimizer=opt, schedule=schedule)
+            opt = make(module.named_parameters())
+        return cls(step=0, module=module, optimizer=opt, schedule=schedule, plan=plan)
 
 
 def sgd_nesterov(params: Iterable, momentum: float = 0.9) -> torch.optim.Optimizer:

@@ -172,9 +172,11 @@ def test_dense_attention_memory_guard():
 
 
 def test_make_workload_rejects_unported_options():
-    """ce_chunk is ported (test_torch_wide_deep.py holds it to the
-    reference); ring attention and pipelining still raise."""
+    """ce_chunk and ring attention's chunks are ported
+    (test_torch_wide_deep.py and test_torch_ring_attention.py hold them to
+    the reference); pipelining still raises, naming its slice."""
     assert tgpt2.make_workload(preset="tiny", ce_chunk=16, device="cpu").module.cfg.ce_chunk == 16
-    for kw in (dict(ring_chunk_size=64), dict(pipe_schedule="1f1b")):
-        with pytest.raises(ValueError, match="parallelism slice"):
-            tgpt2.make_workload(preset="tiny", device="cpu", **kw)
+    wl = tgpt2.make_workload(preset="tiny", ring_chunk_size=64, device="cpu")
+    assert wl.module.cfg.ring_chunk_size == 64
+    with pytest.raises(ValueError, match="parallelism slice, part B"):
+        tgpt2.make_workload(preset="tiny", device="cpu", pipe_schedule="1f1b")

@@ -102,16 +102,17 @@ out = s.run(lambda b: torch.tanh(b["x"] @ torch.from_numpy(w)), (shard,))
 red = {f"{op}_{axis}": s.reduce(op, out, axis=axis).tolist()
        for op in ("mean", "sum") for axis in (0, None)}
 rep = s.replicate({"r": torch.full((3,), float(rank + 1))})["r"].tolist()
-refusals = []
-for place in (lambda: s.place({"w": w}, rules=object()),
-              lambda: distribute.ParameterServerStrategy(resolver, device="cpu").place({"w": w})):
-    try:
-        place()
-    except ValueError as e:
-        refusals.append(str(e))
+# Placement by rules and by the PS strategy's fsdp_sharding over the data
+# axis (test_torch_parallel.py holds the shards' contents).
+from distributed_tensorflow_tpu_torch.parallel.sharding import P, ShardingRules
+big = np.ones((256, 128), np.float32)
+placed = [tuple(s.place({"w": torch.from_numpy(big)}, rules=ShardingRules([("w", P("data"))]))
+                ["w"].shape),
+          tuple(distribute.ParameterServerStrategy(resolver, device="cpu").place(
+              {"w": torch.ones(64, 512)})["w"].shape)]
 print("RANK_RESULT " + json.dumps({"rank": rank, "world": s.num_replicas_in_sync,
                                    "reductions": red, "replicated": rep,
-                                   "refusals": refusals}), flush=True)
+                                   "placed": placed}), flush=True)
 server.shutdown()
 """
 
@@ -132,8 +133,7 @@ def test_two_gloo_ranks_reduce_to_the_reference_on_the_whole_batch():
             np.testing.assert_allclose(np.asarray(r["reductions"][k]), v, rtol=TOL, atol=TOL,
                                        err_msg=k)
         assert r["replicated"] == [1.0, 1.0, 1.0]  # rank 0's, broadcast
-        assert len(r["refusals"]) == 2 and all("parallelism slice" in m
-                                               for m in r["refusals"])
+        assert r["placed"] == [[128, 128], [64, 256]]  # rows; the largest dim
 
 
 class _FlakyOnce:
