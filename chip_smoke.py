@@ -6,6 +6,11 @@
                                            # alone; with two or more cards,
                                            # over NCCL; with four, the
                                            # parallel configurations below
+                                           # and the NCCL abort check
+    python3 chip_smoke.py --cluster_only LABEL ...  # those of the four-card
+                                           # configurations (or nccl_abort),
+                                           # or phase 8b (two_workers) or
+                                           # 11 (phase11) alone on any card
 
 Phases (any failure raises; there is no CPU path):
 
@@ -90,10 +95,12 @@ Phases (any failure raises; there is no CPU path):
    Prometheus text, the checkpoint spans and the profiler trace's CUDA
    kernels are checked; then the same with the five flags off, and the
    hooks' cost a step; (b) two workers sharing the card over gloo
-   (processes of this script, ``--worker``), 5 steps: the ranks' final
-   states bit-identical, and equal to this process's run of the same
-   global batch as two microbatches (loss 2e-5, tensors 1e-5 of a leaf),
-   with the step and the all-reduce's seconds (one card: not a scaling
+   (processes of this script, ``--worker``; at data=2 each holds half of
+   every table's rows), 5 steps in float32 and again in bf16: the ranks'
+   final states gathered to the global layout bit-identical, and equal to
+   this process's run of the same global batch as two microbatches
+   (float32: loss 2e-5, tensors 1e-5 of a leaf; bf16: loss 1e-2 relative,
+   tensors after step 1 2^-5 of a leaf), with the step and the all-reduce's seconds (one card: not a scaling
    figure); (c) SIGTERM to worker 1 after step 3: both save at step 10,
    the next sync point of the preemption OR-reduce, and exit 0, a relaunch
    resumes to step 13 equal to the one-process run of the same batches
@@ -153,6 +160,27 @@ Phases (any failure raises; there is no CPU path):
    global batches (loss within 1e-2), and prints the throughput a card,
    the collective share of a profiled step's device time, the peak MiB of
    each rank and the flash launches a step.
+11. Pipelines and the expert axis, two ranks of ``--parallel_worker``
+   sharing the card over gloo, 3 steps each at dropout 0 against one
+   process on the same global batches (loss within 1e-2, and step 1's
+   gradient norm of every leaf within GRAD_NORM_RTOL): GPT-2 medium
+   (flash, batch 32 in 4 accumulation microbatches of 8 pipeline
+   microbatches, remat) at ``pipe=2`` under GPipe and under 1F1B, where
+   each stage must launch 12 x 8 x 4 = 384 dQ and dK/dV a step, at least
+   as many forwards (twice that under remat) and no pre-pass, and hold at
+   most S - s microbatch graphs (1F1B) or M (GPipe); the multi-table DLRM
+   on ``criteo_tables()`` (1M/100k/10k rows x 64, batch 4,096) at
+   ``expert=2``, every table holding its rows only
+   (``assert_table_residency``); Wide&Deep (vocab 100,000, emb 64, batch
+   4,096) at ``data=2`` with both tables row-sharded; for both, a rank's
+   initialisation allocates less than the rows it does not hold; each
+   rank's peak MiB.  ``--cluster_only`` on four cards adds GPT-2 medium at ``pipe=2 x
+   tensor=2`` (GPipe) and at ``pipe=4`` (1F1B), the multi-table DLRM at
+   ``data=2 x expert=2`` and Wide&Deep at ``data=4``, reported as phase
+   10's four-card runs, and then SIGKILLs one rank of a Wide&Deep
+   ``data=4`` train_lib run (NCCL) after step 3: the other three must
+   raise within interval x 3 + timeout seconds (the health checker aborts
+   their process groups), and the times are printed.
 
 The line before the last is a JSON object of the kernels' numbers; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -1518,6 +1546,11 @@ DP_STEPS, PREEMPT_STEPS, PREEMPT_AFTER = 5, 13, 3
 PREEMPT_SYNC = 10  # train_lib's PreemptionCheckpointHook OR-reduces every 10 steps
 HEALTH_INTERVAL_S = 2.0  # DTT_HEALTH_INTERVAL_S of the health phase
 DP_TOL = {"loss": 2e-5, "tensor": 1e-5}  # the single-process float32 ones
+# Phase 8b in bf16: a leaf of the two workers' state after step 1 against
+# one process's, of its largest entry.  A table's gradient differs by about
+# a bf16 ulp where its two microbatches' sums cancel, doubled in exp_avg_sq
+# (1.3e-2 on an H100); a wrong scale or sum moves it by O(1).
+DP_BF16_TOL = 2**-5
 WORKER_DEADLINE_S = 240.0
 
 
@@ -1542,7 +1575,7 @@ def worker_main(argv) -> int:
     import os
 
     from distributed_tensorflow_tpu_torch import train_lib
-    from distributed_tensorflow_tpu_torch.checkpoint.manager import state_tensors
+    from distributed_tensorflow_tpu_torch.checkpoint.manager import global_tensors, state_tensors
     from distributed_tensorflow_tpu_torch.obs.metrics import default_registry
     from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
     from distributed_tensorflow_tpu_torch.training import Hook
@@ -1561,17 +1594,23 @@ def worker_main(argv) -> int:
         children = [c for _, c in fam.samples()] if fam is not None else []
         return sum(c.count for c in children), sum(c.sum for c in children)
 
+    def dump_state(loop, path):
+        # the global state: a rank holds its rows of a sharded table
+        flat = global_tensors(loop.state, state_tensors(loop.state))
+        torch.save({k: v.detach().cpu() for k, v in flat.items()}, path)
+
     class Mark(Hook):
         def after_step(self, loop, step, metrics):
             (out / f"{tag}_rank{rank}_step{step}").touch()
             if not after_first:  # the run's first step
                 after_first["totals"] = allreduce_totals()
                 after_first["backend"] = torch.distributed.get_backend()
+            if dump and step == 1:
+                dump_state(loop, out / f"{tag}_rank{rank}_step1.pt")
 
         def end(self, loop, step):
             if dump:
-                torch.save({k: v.detach().cpu() for k, v in state_tensors(loop.state).items()},
-                           out / f"{tag}_rank{rank}.pt")
+                dump_state(loop, out / f"{tag}_rank{rank}.pt")
 
     try:
         result = train_lib.run(train_lib.parse_args(flags), hooks=[rec, Mark()])
@@ -1644,10 +1683,10 @@ def join_cluster(procs, deadline_s=WORKER_DEADLINE_S):
     return results
 
 
-def wait_for_step(out: Path, tag: str, step: int, procs, seconds=WORKER_DEADLINE_S):
+def wait_for_step(out: Path, tag: str, step: int, procs, seconds=WORKER_DEADLINE_S, ranks=2):
     end = time.monotonic() + seconds
     while time.monotonic() < end:
-        if all((out / f"{tag}_rank{r}_step{step}").exists() for r in (0, 1)):
+        if all((out / f"{tag}_rank{r}_step{step}").exists() for r in range(ranks)):
             return
         if any(p.poll() is not None for p, _, job, _ in procs if job == "worker"):
             break
@@ -1692,10 +1731,11 @@ def shard_stream(workload, shards: int, index: int):
     return itertools.chain([first], it)
 
 
-def one_process_reference(segments, total_steps):
-    """Full-width Wide&Deep in this process, on the global batch the two
-    ranks feed: rows of stream shard (2, 0) then of (2, 1), as two
-    microbatches (grad_accum_steps=2: microbatch i is rank i's rows).
+def one_process_reference(segments, total_steps, precision="fp32"):
+    """Full-width Wide&Deep in this process (at ``precision``, as the
+    workers of phases 8b and 8c), on the global batch the two ranks feed:
+    rows of stream shard (2, 0) then of (2, 1), as two microbatches
+    (grad_accum_steps=2: microbatch i is rank i's rows).
     ``segments`` are step counts; the streams start over at each one, as a
     relaunch's do.  Returns (losses, the state's tensors on the CPU)."""
     import numpy as np
@@ -1703,10 +1743,12 @@ def one_process_reference(segments, total_steps):
     from distributed_tensorflow_tpu_torch import train_lib
     from distributed_tensorflow_tpu_torch.checkpoint.manager import state_tensors
     from distributed_tensorflow_tpu_torch.models import get_workload
+    from distributed_tensorflow_tpu_torch.training import BF16, FP32
 
     device = torch.device("cuda")
     wl = get_workload("wide_deep", batch_size=RECSYS_BATCH, device=device)
-    state, step = train_lib.build_state_and_step(wl, grad_accum_steps=2,
+    precision = {"fp32": FP32, "bf16": BF16}[precision]
+    state, step = train_lib.build_state_and_step(wl, grad_accum_steps=2, precision=precision,
                                                  total_steps=total_steps, seed=0)
     losses = []
     for n in segments:
@@ -1849,39 +1891,65 @@ def check_observability(fa, data_dir: Path):
 
 def check_two_workers(data_dir: Path):
     """Phase 8b: two workers sharing the card (gloo; with a card each,
-    NCCL), global batch 4,096, DP_STEPS steps: the ranks' final states
+    NCCL), global batch 4,096, DP_STEPS steps, each holding half of the
+    tables' rows: the ranks' final states gathered to the global layout
     bit-identical, and equal to a one-process run of the same global batch
-    as two microbatches."""
+    as two microbatches.  In float32 within DP_TOL.  In bf16 (the default
+    precision) the losses within PAR_LOSS_RTOL and the state after step 1
+    within DP_BF16_TOL: a sharded table's gradient is summed over the
+    ranks inside the lookup's backward and rounded to bf16 once, where one
+    process rounds each microbatch's, and from step 2 on a master that
+    differs in its last bits can round to another bf16 weight, which the
+    steps after amplify; the final state's difference is printed."""
     t_phase = time.perf_counter()
     out = data_dir / "cluster"
     out.mkdir(parents=True, exist_ok=True)
-    flags = ["--model=wide_deep", f"--batch_size={RECSYS_BATCH}", f"--steps={DP_STEPS}",
-             "--log_every=1", "--device=cuda", "--seed=0", "--dump"]
-    procs = spawn_cluster(out, "dp", [("worker", 0), ("worker", 1)], {"worker": flags})
-    r0, r1 = expect_ok("two workers", join_cluster(procs))
-    s0, s1 = (torch.load(out / f"dp_rank{r}.pt") for r in (0, 1))
-    where = {"gloo": "sharing ONE card over gloo: not a scaling figure",
-             "nccl": "a card each, NCCL over NVLink"}[r0["backend"]]
-    same = all(torch.equal(s0[k], s1[k]) for k in s0) and r0["losses"] == r1["losses"]
-    if not same:
-        raise AssertionError("the two ranks' final states or losses differ")
-    losses, want, _, _ = one_process_reference([DP_STEPS], DP_STEPS)
-    dloss = max(abs(a - b) for a, b in zip(r0["losses"], losses))
-    print(f"[cluster] two workers ({where}): losses {r0['losses']}; one process "
-          f"(two microbatches) {losses}; max |diff| {dloss:.3e} (tolerance {DP_TOL['loss']})")
-    exact = check_state("two workers vs one process", s0, want, DP_TOL["tensor"])
-    if dloss > DP_TOL["loss"]:
-        raise AssertionError("two workers' losses differ from the one-process run")
-    for r in (r0, r1):
-        steps = r["step_s"][1:]
-        print(f"[cluster] rank {r['rank']} ({where}): step seconds "
-              f"{[round(s, 4) for s in r['step_s']]}, median after the first "
-              f"{1e3 * statistics.median(steps):.2f} ms; gradient all-reduce (pinned host "
-              f"copies + gloo; NCCL's is device time, untimed) after the first step: "
-              f"{r['allreduce_calls']} calls, "
-              f"{1e3 * r['allreduce_s'] / max(1, r['allreduce_calls']):.2f} ms each")
+    launches = []
+    # (precision, state tolerance, loss tolerance: absolute in float32,
+    # relative in bf16)
+    for precision, tol, loss_tol in (("fp32", DP_TOL["tensor"], DP_TOL["loss"]),
+                                     ("bf16", DP_BF16_TOL, PAR_LOSS_RTOL)):
+        tag = f"dp_{precision}"
+        flags = ["--model=wide_deep", f"--batch_size={RECSYS_BATCH}", f"--steps={DP_STEPS}",
+                 "--log_every=1", "--device=cuda", "--seed=0", f"--precision={precision}",
+                 "--dump"]
+        procs = spawn_cluster(out, tag, [("worker", 0), ("worker", 1)], {"worker": flags})
+        r0, r1 = expect_ok(f"two workers ({precision})", join_cluster(procs))
+        launches += [r0, r1]
+        s0, s1 = (torch.load(out / f"{tag}_rank{r}.pt") for r in (0, 1))
+        where = {"gloo": "sharing ONE card over gloo: not a scaling figure",
+                 "nccl": "a card each, NCCL over NVLink"}[r0["backend"]]
+        same = all(torch.equal(s0[k], s1[k]) for k in s0) and r0["losses"] == r1["losses"]
+        if not same:
+            raise AssertionError(f"the two ranks' final states or losses differ ({precision})")
+        losses, want, _, _ = one_process_reference([DP_STEPS], DP_STEPS, precision)
+        dloss = max(abs(a - b) / (abs(b) if precision == "bf16" else 1.0)
+                    for a, b in zip(r0["losses"], losses))
+        print(f"[cluster] two workers ({where}, {precision}): losses {r0['losses']}; one "
+              f"process (two microbatches) {losses}; max |diff| "
+              f"{'relative ' if precision == 'bf16' else ''}{dloss:.3e} (tolerance {loss_tol})")
+        if precision == "fp32":
+            check_state(f"two workers vs one process ({precision})", s0, want, tol)
+        else:
+            _, want1, _, _ = one_process_reference([1], DP_STEPS, precision)
+            check_state(f"two workers vs one process ({precision}), after step 1",
+                        torch.load(out / f"{tag}_rank0_step1.pt"), want1, tol)
+            worst, name, _ = _state_errors(s0, want)
+            print(f"[cluster] two workers vs one process ({precision}), after step "
+                  f"{DP_STEPS}: worst tensor {name} {worst:.3e} of its largest entry (not held)")
+        if not dloss <= loss_tol:
+            raise AssertionError(f"two workers' losses differ from the one-process run "
+                                 f"({precision})")
+        for r in (r0, r1):
+            steps = r["step_s"][1:]
+            print(f"[cluster] rank {r['rank']} ({where}, {precision}): step seconds "
+                  f"{[round(t, 4) for t in r['step_s']]}, median after the first "
+                  f"{1e3 * statistics.median(steps):.2f} ms; gradient all-reduce (pinned host "
+                  f"copies + gloo; NCCL's is device time, untimed) after the first step: "
+                  f"{r['allreduce_calls']} calls, "
+                  f"{1e3 * r['allreduce_s'] / max(1, r['allreduce_calls']):.2f} ms each")
     print(f"[phase] two workers ({r0['backend']}): {time.perf_counter() - t_phase:.1f} s")
-    return {"wide_deep_2_workers": summed_launches(r0, r1)}
+    return {"wide_deep_2_workers": summed_launches(*launches)}
 
 
 def check_preemption(data_dir: Path):
@@ -1897,13 +1965,14 @@ def check_preemption(data_dir: Path):
 
     from distributed_tensorflow_tpu_torch import train_lib
     from distributed_tensorflow_tpu_torch.checkpoint.manager import CheckpointManager, _read_all
-    from distributed_tensorflow_tpu_torch.training import EvalHook, make_eval_step
+    from distributed_tensorflow_tpu_torch.training import FP32, EvalHook, make_eval_step
 
     t_phase = time.perf_counter()
     out, ckpt = data_dir / "cluster", data_dir / "cluster" / "ckpt"
     out.mkdir(parents=True, exist_ok=True)
     flags = ["--model=wide_deep", f"--batch_size={RECSYS_BATCH}", f"--steps={PREEMPT_STEPS}",
-             "--log_every=1", "--device=cuda", "--seed=0", f"--checkpoint_dir={ckpt}",
+             "--log_every=1", "--device=cuda", "--seed=0", "--precision=fp32",
+             f"--checkpoint_dir={ckpt}",
              "--checkpoint_every=1000", "--eval_batches=2"]
     roles = [("worker", 0), ("worker", 1), ("evaluator", 0)]
     first = spawn_cluster(out, "preempt", roles, {"worker": flags, "evaluator": flags})
@@ -1944,7 +2013,8 @@ def check_preemption(data_dir: Path):
     state, _ = train_lib.build_state_and_step(wl, total_steps=PREEMPT_STEPS, seed=1)
     with CheckpointManager(str(ckpt)) as mgr:
         state = mgr.restore(PREEMPT_STEPS, template=state)
-    hook = EvalHook(make_eval_step(wl.loss_fn), train_lib.make_eval_data(wl, "cuda"),
+    hook = EvalHook(make_eval_step(wl.loss_fn, precision=FP32),
+                    train_lib.make_eval_data(wl, "cuda"),
                     every_steps=PREEMPT_STEPS, num_batches=2)
 
     class Loop:
@@ -1989,6 +2059,44 @@ def check_health(data_dir: Path):
     if detect > bound:
         raise AssertionError(f"worker 0 raised after {detect:.3f} s, beyond {bound} s")
     print(f"[phase] health: {time.perf_counter() - t_phase:.1f} s")
+
+
+def check_nccl_abort(data_dir: Path):
+    """``--cluster_only`` on four cards: Wide&Deep at data=4 (NCCL, a card
+    a rank) through train_lib; SIGKILL rank 3 after step 3, while the
+    others run on into the next step's collectives, where NCCL waits for
+    it.  Each survivor's health checker aborts its process groups, and it
+    must raise within interval x 3 + timeout seconds of the kill."""
+    import signal
+
+    t_phase = time.perf_counter()
+    out = data_dir / "cluster"
+    out.mkdir(parents=True, exist_ok=True)
+    flags = ["--model=wide_deep", f"--batch_size={RECSYS_BATCH}", "--data=4", "--steps=100000",
+             "--log_every=1", "--device=cuda", "--seed=0"]
+    procs = spawn_cluster(out, "abort", [("worker", i) for i in range(4)], {"worker": flags},
+                          env={"DTT_HEALTH_INTERVAL_S": str(HEALTH_INTERVAL_S)})
+    wait_for_step(out, "abort", 3, procs, ranks=4)
+    killed = time.time()
+    procs[3][0].send_signal(signal.SIGKILL)
+    results = join_cluster(procs)
+    timeout = min(20.0, max(1.0, HEALTH_INTERVAL_S * 0.75))
+    bound = HEALTH_INTERVAL_S * (2 + 1) + timeout
+    times = []
+    for r, (code, _, raised, text) in enumerate(results[:3]):
+        backend = re.search(r"backend (\w+)", text)
+        if code != 3 or raised is None:
+            raise AssertionError(f"rank {r} did not raise (exit {code}): {text[-3000:]}")
+        times.append(raised["time"] - killed)
+        print(f"[abort] SIGKILL to rank 3 of 4 ({backend.group(1) if backend else '?'}): rank {r} "
+              f"raised {raised['type']} after {times[-1]:.3f} s (bound {HEALTH_INTERVAL_S} x 3 + "
+              f"{timeout} = {bound} s): {raised['message'][:160]}")
+    if results[3][0] != -signal.SIGKILL:
+        raise AssertionError(f"rank 3 exited {results[3][0]}, not by SIGKILL")
+    if max(times) > bound:
+        raise AssertionError(f"a survivor raised after {max(times):.3f} s, beyond {bound} s")
+    print(f"[phase] NCCL abort: {time.perf_counter() - t_phase:.1f} s")
+    return times
 
 
 # -- Phase 9: the TF-compat surface and the data service -------------------------
@@ -2468,10 +2576,16 @@ def check_data_service(fa, data_dir: Path, records):
 
 PAR_STEPS = 3
 PAR_LOSS_RTOL = 1e-2  # bf16 runs of one global batch, the mesh's against one process's
+# Step 1's gradient norm of each leaf, a pipeline's or a sharded table's
+# against one process's (bf16): the sound ones differ by at most 2.4e-3 on
+# an H100 (Wide&Deep's half batches), a zeroed, doubled or unsummed
+# gradient by O(1).
+GRAD_NORM_RTOL = 1e-2
 RING_CASES = {  # name: (B, T, H, D, causal, key lengths or None)
     "gpt2_medium": (8, 1024, 16, 64, True, None),
     "bert_base": (32, 512, 12, 64, False, "mlm"),
 }
+RECSYS_VOCAB = {"dlrm_multi": 1_000_000, "wide_deep": 100_000}  # the streams' id range
 PAR_TRAIN = {  # name: (model, global batch)
     "gpt2_medium": ("gpt2", 32), "bert_base_seq512": ("bert", 256), "resnet50": ("resnet", 256),
 }
@@ -2485,16 +2599,25 @@ def ring_inputs(name, rate_seed=SEED):
     return q, k, v, g, mask, causal
 
 
-def par_workload(model, mesh):
-    """Phase 10's workloads at full width, dropout 0: GPT-2 medium (flash,
-    batch 32 in 4 microbatches), BERT-base at seq 512 (flash, batch 256),
-    ResNet-50 (batch 256, no augmentation)."""
-    from distributed_tensorflow_tpu_torch.models import bert, gpt2, resnet
+def par_workload(model, mesh, schedule=None):
+    """Phases 10's and 11's workloads at full width, dropout 0: GPT-2 medium
+    (flash, batch 32 in 4 microbatches, remat; ``schedule`` at pipe > 1),
+    BERT-base at seq 512 (flash, batch 256), ResNet-50 (batch 256, no
+    augmentation), the multi-table DLRM on ``criteo_tables()`` and
+    Wide&Deep (batch 4,096, vocab 100,000, emb 64)."""
+    from distributed_tensorflow_tpu_torch.models import bert, gpt2, resnet, wide_deep
 
     if model == "gpt2":
         return gpt2.make_workload(config=gpt2.GPT2Config.medium(dropout=0.0),
                                   use_flash_attention=True, batch_size=32, seq_len=1024,
-                                  grad_accum_steps=4, device="cuda", mesh=mesh)
+                                  grad_accum_steps=4, device="cuda", mesh=mesh,
+                                  pipe_schedule=schedule)
+    if model == "dlrm_multi":
+        return wide_deep.make_workload(arch="dlrm", batch_size=RECSYS_BATCH,
+                                       feature_configs=wide_deep.criteo_tables(),
+                                       device="cuda", mesh=mesh)
+    if model == "wide_deep":
+        return wide_deep.make_workload(batch_size=RECSYS_BATCH, device="cuda", mesh=mesh)
     if model == "bert":
         return bert.make_workload(config=bert.BertConfig.base(dropout=0.0),
                                   use_flash_attention=True, batch_size=256, seq_len=512,
@@ -2510,6 +2633,9 @@ def par_batch(model, step, batch):
     elif model == "bert":
         b = global_stream("synthetic_mlm", batch_size=batch, seq_len=512, vocab_size=30522,
                           seed=step)
+    elif model in RECSYS_VOCAB:
+        b = global_stream("synthetic_recsys", batch_size=batch, vocab_size=RECSYS_VOCAB[model],
+                          seed=step)
     else:
         gen = torch.Generator(device="cuda").manual_seed(100 + step)
         return {"image": torch.randn(batch, 224, 224, 3, device="cuda", generator=gen),
@@ -2517,25 +2643,55 @@ def par_batch(model, step, batch):
     return {k: torch.from_numpy(v).cuda() for k, v in b.items()}
 
 
-def par_train(model, mesh, profile_step=None):
+def par_train(model, mesh, profile_step=None, schedule=None):
     """PAR_STEPS steps of ``model`` on ``mesh`` (None: one process), each
     rank on its batch shard's rows; returns the losses, step seconds,
-    launches, peak MiB, the profiled step's device and collective ms, and
-    ResNet's running statistics."""
+    launches, peak MiB, the profiled step's device and collective ms,
+    ResNet's running statistics, a pipeline stage's most microbatch graphs
+    in flight, and for a mesh's tables that each holds its rows only."""
     from distributed_tensorflow_tpu_torch import train_lib
     from distributed_tensorflow_tpu_torch.data.pipeline import host_batch_layout
     from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+    from distributed_tensorflow_tpu_torch.parallel.embedding import ShardedEmbed
+    from distributed_tensorflow_tpu_torch.parallel.embedding_config import (
+        assert_table_residency,
+    )
+    from distributed_tensorflow_tpu_torch.training.step import counted_leaves
 
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    wl = par_workload(model, mesh)
+    wl = par_workload(model, mesh, schedule)
+    # Initialisation's transient bytes: its peak above what the rank keeps.
+    init_transient = torch.cuda.max_memory_allocated() - torch.cuda.memory_allocated()
+    unheld = max([(m.global_shape[0] - m.embedding.shape[0]) * m.features
+                  * m.embedding.element_size()
+                  for m in wl.module.modules() if isinstance(m, ShardedEmbed)], default=0)
+    if model == "dlrm_multi" and mesh is not None:
+        assert_table_residency(wl.module, wl.module.feature_configs, axis="expert")
     state, step = train_lib.build_state_and_step(wl, grad_accum_steps=wl.grad_accum_steps,
                                                  total_steps=PAR_STEPS, seed=0)
     rows, _, index = host_batch_layout(wl.batch_size, mesh)
     batches = [{k: v[index * rows:(index + 1) * rows]
                 for k, v in par_batch(model, s, wl.batch_size).items()}
                for s in range(PAR_STEPS)]
+    # Step 1's gradients, as the step hands them to the optimizer: each
+    # leaf's squared norm where this rank counts it (a stage's blocks, a
+    # table's rows, a replicated leaf at coordinate 0), summed over the
+    # ranks by the caller into the global leaf's norm.
+    grad_sq = {}
+    apply = state.apply_gradients
+
+    def capture(grads, **kw):
+        if not grad_sq:
+            names = list(grads)
+            sq = torch.stack([torch.linalg.vector_norm(grads[n].float()) ** 2 for n in names])
+            own = counted_leaves(mesh, wl.plan, names)
+            grad_sq.update((n, float(v) if o else 0.0)
+                           for n, v, o in zip(names, sq.cpu(), own))
+        return apply(grads, **kw)
+
+    state.apply_gradients = capture
     for name in fa.LAUNCHES:
         fa.LAUNCHES[name] = 0
     losses, step_s, prof = [], [], None
@@ -2554,7 +2710,12 @@ def par_train(model, mesh, profile_step=None):
         if prof is not None and s == profile_step:
             prof.stop()
     out = {"losses": losses, "step_s": step_s, "launches": dict(fa.LAUNCHES),
-           "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+           "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+           "peak_in_flight": getattr(wl.module, "pipe_in_flight", 0),
+           "grad_sq": grad_sq, "init_transient_mib": init_transient / 2**20,
+           "init_unheld_mib": unheld / 2**20,
+           "table_rows": {n: p.shape[0] for n, p in wl.module.named_parameters()
+                          if n.endswith("embedding")}}
     if prof is not None:
         busy = coll = 0.0
         for e in prof.key_averages():
@@ -2600,9 +2761,10 @@ def par_ring(mesh, out: Path, rank: int):
 
 
 def parallel_worker_main(argv) -> int:
-    """One rank of phase 10 (``--parallel_worker OUT JOB``): a mesh over the
-    TF_CONFIG cluster's ranks, then the job: ``ring`` (10a) or a training
-    run of ``model`` for PAR_STEPS steps."""
+    """One rank of phases 10 and 11 (``--parallel_worker OUT JOB``): for
+    the job, or each of its ``runs`` in turn, a mesh over the TF_CONFIG
+    cluster's ranks, then ``ring`` (10a) or a training run of ``model``
+    for PAR_STEPS steps."""
     import os
 
     from distributed_tensorflow_tpu_torch import cluster
@@ -2612,16 +2774,16 @@ def parallel_worker_main(argv) -> int:
     torch.backends.cudnn.allow_tf32 = False
     server = cluster.Server.from_resolver(cluster.resolve(), device="cuda")
     rank = json.loads(os.environ["TF_CONFIG"])["task"]["index"]
-    mesh = cluster.build_mesh(cluster.MeshConfig(**job["axes"]))
     backend = torch.distributed.get_backend()
-    if job["kind"] == "ring":
-        par_ring(mesh, out, rank)
-        result = {}
-    else:
-        result = par_train(job["model"], mesh, job.get("profile_step"))
+    for run in job.get("runs", [job]):
+        mesh = cluster.build_mesh(cluster.MeshConfig(**run["axes"]))
+        if job["kind"] == "ring":
+            par_ring(mesh, out, rank)
+            continue
+        result = par_train(run["model"], mesh, run.get("profile_step"), run.get("schedule"))
         if rank != 0:
             result.pop("stats", None)
-        torch.save(result, out / f"{job['tag']}_rank{rank}.pt")
+        torch.save(result, out / f"{run['tag']}_rank{rank}.pt")
     server.shutdown()
     print("PARALLEL_RESULT " + json.dumps({"rank": rank, "backend": backend,
                                            "device": str(torch.cuda.current_device())}),
@@ -2769,10 +2931,39 @@ def check_ring(fa, out: Path):
     return launches
 
 
-def compare_training(label, got, want, reports):
+def grad_norm_error(gots, want):
+    """(worst |norm - one process's| / one process's over step 1's gradient
+    leaves, the leaf, its two norms, the two global norms): each leaf's
+    global norm from the ranks' counted squares (``par_train``)."""
+    names = set().union(*(g["grad_sq"] for g in gots))
+    if names != set(want["grad_sq"]):
+        raise AssertionError(f"gradient leaves differ from one process's: "
+                             f"{sorted(names ^ set(want['grad_sq']))[:8]}")
+    worst = (-1.0, "", 0.0, 0.0)
+    for n, w in want["grad_sq"].items():
+        a, b = math.sqrt(sum(g["grad_sq"].get(n, 0.0) for g in gots)), math.sqrt(w)
+        e = abs(a - b) / max(b, 1e-30)
+        if not e <= worst[0]:  # a NaN is the worst
+            worst = (e, n, a, b)
+    total = [math.sqrt(sum(sum(g["grad_sq"].values()) for g in gots)),
+             math.sqrt(sum(want["grad_sq"].values()))]
+    return worst + tuple(total)
+
+
+def compare_training(label, gots, want, reports, grad_rtol=None):
     """A mesh run's losses (rank 0's) against one process's, relative
-    PAR_LOSS_RTOL; prints both and the step seconds."""
+    PAR_LOSS_RTOL, and step 1's gradient norm of every leaf, gathered over
+    the ranks ``gots`` (enforced within ``grad_rtol`` where given); prints
+    both and the step seconds."""
+    got = gots[0]
     how = transport(reports)
+    e, leaf, a, b, mesh_norm, one_norm = grad_norm_error(gots, want)
+    print(f"[parallel] {label}: step 1's gradient norm {mesh_norm:.6g} (one process "
+          f"{one_norm:.6g}); worst leaf {leaf} {a:.6g} against {b:.6g}, relative {e:.3e}"
+          + ("" if grad_rtol is None else f" (tolerance {grad_rtol})"))
+    if grad_rtol is not None and not e <= grad_rtol:
+        raise AssertionError(f"{label}: step 1's gradient of {leaf} has norm {a} against one "
+                             f"process's {b}")
     print(f"[parallel] {label} ({how}): losses {got['losses']} one process "
           f"{want['losses']}; step seconds {[round(s, 3) for s in got['step_s']]} (one process "
           f"{[round(s, 3) for s in want['step_s']]}); peak {got['peak_mib']:.0f} MiB a rank")
@@ -2780,6 +2971,17 @@ def compare_training(label, got, want, reports):
         if not (math.isfinite(g) and abs(g - w) <= PAR_LOSS_RTOL * abs(w)):
             raise AssertionError(f"{label}: loss {got['losses']} vs one process "
                                  f"{want['losses']}")
+
+
+_ONE_PROCESS = {}  # model: one process's run of phases 10 and 11's global batches
+
+
+def one_process(model):
+    """One process's PAR_STEPS steps of ``model`` (run once a call: phases
+    10 and 11 compare every mesh of a model with the same run)."""
+    if model not in _ONE_PROCESS:
+        _ONE_PROCESS[model] = par_train(model, None)
+    return _ONE_PROCESS[model]
 
 
 def check_parallel_training(out: Path):
@@ -2792,11 +2994,12 @@ def check_parallel_training(out: Path):
                                ("gpt2_medium_fsdp2", "gpt2", {"fsdp": 2}),
                                ("resnet50_data2", "resnet", {"data": 2})):
         t0 = time.perf_counter()
-        want = par_train(model, None)
+        want = one_process(model)
         reports = run_parallel(out, {"kind": "train", "tag": label, "model": model,
                                      "axes": axes}, 2)
-        got = torch.load(out / f"{label}_rank0.pt")
-        compare_training(label, got, want, reports)
+        gots = [torch.load(out / f"{label}_rank{r}.pt") for r in (0, 1)]
+        compare_training(label, gots, want, reports)
+        got = gots[0]
         if model == "resnet":
             worst = max(float((got["stats"][n] - w).abs().max() / (w.abs().max() + 1e-6))
                         for n, w in want["stats"].items())
@@ -2811,42 +3014,136 @@ def check_parallel_training(out: Path):
     return launches
 
 
-CLUSTER_CONFIGS = (  # label, model, mesh, units, units a step
-    ("gpt2_medium_fsdp2_tensor2", "gpt2", {"fsdp": 2, "tensor": 2}, "tokens", 32 * 1024),
-    ("gpt2_medium_context4", "gpt2", {"context": 4}, "tokens", 32 * 1024),
-    ("bert_base_seq512_data2_context2", "bert", {"data": 2, "context": 2}, "tokens", 256 * 512),
-    ("resnet50_data4", "resnet", {"data": 4}, "images", 256),
+def pipe_microbatches(axes) -> int:
+    """GPT-2 medium's M at ``axes``: the largest of {4S, 2S, S} dividing the
+    accumulation microbatch of 8 rows."""
+    from distributed_tensorflow_tpu_torch.parallel.pipeline import auto_microbatches
+
+    return auto_microbatches(8, axes["pipe"])
+
+
+def pipe_launches_per_step(axes):
+    """Flash dQ (and dK/dV) launches a step on each stage of GPT-2 medium
+    at ``axes``: its L/S layers for each of the M pipeline microbatches of
+    each of the 4 accumulation microbatches."""
+    return 24 // axes["pipe"] * pipe_microbatches(axes) * 4
+
+
+def check_pipe_and_expert(out: Path):
+    """Phase 11 on two ranks sharing the card (gloo), 3 steps each against
+    one process on the same global batches (loss within PAR_LOSS_RTOL):
+    GPT-2 medium at pipe=2 under GPipe and under 1F1B (each stage must
+    launch pipe_launches_per_step dQ and dK/dV a step, at least as many
+    forwards, and no pre-pass; 1F1B holds at most S - s microbatch graphs
+    on stage s, GPipe M), the multi-table DLRM at expert=2 (every table
+    holds its rows only) and Wide&Deep at data=2 (its tables row-sharded).
+    One spawn of two ranks runs the four in turn.  Returns each rank's
+    launch counts."""
+    t0 = time.perf_counter()
+    wants = {model: one_process(model) for _, model, _, _ in PHASE11}
+    gc.collect()
+    torch.cuda.empty_cache()
+    reports = run_parallel(out, {"kind": "train", "tag": "phase11", "runs": [
+        {"tag": label, "model": model, "axes": axes, "schedule": schedule}
+        for label, model, axes, schedule in PHASE11]}, 2)
+    print(f"[pipe/expert] the two ranks' four runs: {time.perf_counter() - t0:.1f} s")
+    launches = {}
+    for label, model, axes, schedule in PHASE11:
+        want = wants[model]
+        got = [torch.load(out / f"{label}_rank{r}.pt") for r in (0, 1)]
+        compare_training(label, got, want, reports, GRAD_NORM_RTOL)
+        print(f"[pipe/expert] {label}: peak MiB by rank {[round(g['peak_mib']) for g in got]} "
+              f"(one process {want['peak_mib']:.0f}); table rows by rank "
+              f"{[g['table_rows'] for g in got]}")
+        for r, g in enumerate(got):
+            launches[f"{label}_rank{r}"] = g["launches"]
+            if model == "gpt2":
+                assert_flash_launches(f"{label} rank {r}", g["launches"],
+                                      pipe_launches_per_step(axes), PAR_STEPS)
+                bound = 2 - r if schedule == "1f1b" else pipe_microbatches(axes)
+                print(f"[pipe/expert] {label} rank {r}: {g['launches']} flash launches in "
+                      f"{PAR_STEPS} steps; most microbatch graphs in flight "
+                      f"{g['peak_in_flight']} (bound {bound})")
+                if g["peak_in_flight"] != bound:
+                    raise AssertionError(f"{label} rank {r}: {g['peak_in_flight']} microbatch "
+                                         f"graphs in flight, expected {bound}")
+            else:
+                assert_no_flash(f"{label} rank {r}", g["launches"])
+                print(f"[pipe/expert] {label} rank {r}: initialisation's transient peak "
+                      f"{g['init_transient_mib']:.1f} MiB above what the rank keeps; the rows "
+                      f"of its largest table it does not hold {g['init_unheld_mib']:.1f} MiB")
+                if not g["init_transient_mib"] < g["init_unheld_mib"]:
+                    raise AssertionError(f"{label} rank {r}: initialisation allocated as much "
+                                         f"as a whole table")
+                full = want["table_rows"]
+                if any(n * 2 != full[k] for k, n in g["table_rows"].items()):
+                    raise AssertionError(f"{label} rank {r}: a table is not split in two: "
+                                         f"{g['table_rows']} of {full}")
+    return launches
+
+
+PHASE11 = (  # label, model, mesh, pipeline schedule
+    ("gpt2_medium_pipe2_gpipe", "gpt2", {"pipe": 2}, "gpipe"),
+    ("gpt2_medium_pipe2_1f1b", "gpt2", {"pipe": 2}, "1f1b"),
+    ("dlrm_multi_expert2", "dlrm_multi", {"expert": 2}, None),
+    ("wide_deep_data2", "wide_deep", {"data": 2}, None),
+)
+CLUSTER_CONFIGS = (  # label, model, mesh, units, units a step, pipeline schedule
+    ("gpt2_medium_fsdp2_tensor2", "gpt2", {"fsdp": 2, "tensor": 2}, "tokens", 32 * 1024, None),
+    ("gpt2_medium_context4", "gpt2", {"context": 4}, "tokens", 32 * 1024, None),
+    ("bert_base_seq512_data2_context2", "bert", {"data": 2, "context": 2}, "tokens", 256 * 512,
+     None),
+    ("resnet50_data4", "resnet", {"data": 4}, "images", 256, None),
+    ("gpt2_medium_pipe2_tensor2", "gpt2", {"tensor": 2, "pipe": 2}, "tokens", 32 * 1024,
+     "gpipe"),
+    ("gpt2_medium_pipe4_1f1b", "gpt2", {"pipe": 4}, "tokens", 32 * 1024, "1f1b"),
+    ("dlrm_multi_data2_expert2", "dlrm_multi", {"data": 2, "expert": 2}, "examples",
+     RECSYS_BATCH, None),
+    ("wide_deep_data4", "wide_deep", {"data": 4}, "examples", RECSYS_BATCH, None),
 )
 
 
-def check_cluster_parallel(out: Path):
-    """``--cluster_only`` on four cards (NCCL, a card a rank): the four
-    configurations of CLUSTER_CONFIGS, 3 steps each (dropout 0, bf16)
-    against one card's run of the same global batches; the throughput a
-    card (the last step; step 2 of 3 is profiled), the profiled step's
-    collective share of device time (rank 0), the peak MiB of every rank
-    and the flash launches a step (rank 0)."""
+def check_cluster_parallel(out: Path, labels=None):
+    """``--cluster_only`` on four cards (NCCL, a card a rank): the
+    configurations of CLUSTER_CONFIGS (those named in ``labels``, if
+    given), 3 steps each (dropout 0, bf16) against one card's run of the
+    same global batches; the throughput a card (the last step; step 2 of 3
+    is profiled), the profiled step's collective share of device time
+    (rank 0; NCCL's point-to-point kernels included), the peak MiB of every
+    rank and the flash launches a step (rank 0; on a pipeline every
+    stage's, each held to pipe_launches_per_step)."""
     summary = {}
-    for label, model, axes, units, per_step in CLUSTER_CONFIGS:
+    for label, model, axes, units, per_step, schedule in CLUSTER_CONFIGS:
+        if labels and label not in labels:
+            continue
         t0 = time.perf_counter()
-        want = par_train(model, None)
+        want = one_process(model)
         ranks = math.prod(axes.values())
         reports = run_parallel(out, {"kind": "train", "tag": label, "model": model,
-                                     "axes": axes, "profile_step": 1}, ranks)
+                                     "axes": axes, "profile_step": 1, "schedule": schedule},
+                               ranks)
         got = [torch.load(out / f"{label}_rank{r}.pt") for r in range(ranks)]
-        compare_training(label, got[0], want, reports)
+        part_b = schedule is not None or model in RECSYS_VOCAB
+        compare_training(label, got, want, reports, GRAD_NORM_RTOL if part_b else None)
+        if schedule is not None:
+            for r, g in enumerate(got):
+                assert_flash_launches(f"{label} rank {r}", g["launches"],
+                                      pipe_launches_per_step(axes), PAR_STEPS)
         rate = per_step / got[0]["step_s"][-1] / ranks
         share = got[0]["collective_ms"] / got[0]["device_ms"] if got[0]["device_ms"] else math.nan
         row = {"per_card": rate, "one_card": per_step / want["step_s"][-1],
                "collective_share": share, "collective_ms": got[0]["collective_ms"],
                "device_ms": got[0]["device_ms"], "step_s": got[0]["step_s"][-1],
-               "peak_mib": [g["peak_mib"] for g in got],
-               "launches_per_step": {k: v / PAR_STEPS for k, v in got[0]["launches"].items()}}
+               "peak_mib": [g["peak_mib"] for g in got], "one_card_peak_mib": want["peak_mib"],
+               "launches_per_step": {k: v / PAR_STEPS for k, v in got[0]["launches"].items()},
+               "peak_in_flight": [g["peak_in_flight"] for g in got]}
         print(f"[cluster] {label} ({transport(reports)}, {ranks} ranks): {rate:.1f} {units}/s a "
               f"card (one card {row['one_card']:.1f}); collective share of the profiled step's "
               f"device time {share:.1%} ({row['collective_ms']:.1f} of {row['device_ms']:.1f} "
-              f"ms); peak MiB by rank {[round(m) for m in row['peak_mib']]}; flash launches a "
-              f"step (rank 0) {row['launches_per_step']}")
+              f"ms); peak MiB by rank {[round(m) for m in row['peak_mib']]} (one card "
+              f"{want['peak_mib']:.0f}); flash launches a step (rank 0) "
+              f"{row['launches_per_step']}; most microbatch graphs in flight by rank "
+              f"{row['peak_in_flight']}")
         summary[label] = row
         print(f"[phase] cluster {label}: {time.perf_counter() - t0:.1f} s")
     return summary
@@ -2968,6 +3265,11 @@ def main() -> int:
         par_paths = {**check_ring(fa, par_dir), **check_parallel_training(par_dir)}
         other_runs.update({label: {"launches": n} for label, n in par_paths.items()})
         print(f"[phase] 10 parallelism: {time.perf_counter() - t_par:.1f} s")
+        # Phase 11: pipelines and the expert axis on two ranks sharing the card.
+        t_pipe = time.perf_counter()
+        other_runs.update({label: {"launches": n}
+                           for label, n in check_pipe_and_expert(par_dir).items()})
+        print(f"[phase] 11 pipelines and the expert axis: {time.perf_counter() - t_pipe:.1f} s")
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
 
@@ -3006,27 +3308,49 @@ def main() -> int:
     return 0
 
 
-def cluster_main() -> int:
-    """``--cluster_only``: phases 8b, 8c and 9c's two ranks alone.  On a
-    host with two or more cards each worker owns one, so the ranks run
-    NCCL."""
+ONE_CARD_LABELS = ("two_workers", "phase11")  # --cluster_only labels any card runs
+
+
+def cluster_main(labels) -> int:
+    """``--cluster_only [LABEL ...]``: phases 8b, 8c and 9c's two ranks
+    alone; on four cards, also the configurations of CLUSTER_CONFIGS and
+    the NCCL abort check (``nccl_abort``).  On a host with two or more
+    cards each worker owns one, so the ranks run NCCL.  Labels (of
+    CLUSTER_CONFIGS, ``nccl_abort``, or ``two_workers`` and ``phase11``:
+    phases 8b and 11 on any card) run those alone."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only", file=sys.stderr)
         return 2
+    unknown = (set(labels) - {c[0] for c in CLUSTER_CONFIGS} - {"nccl_abort"}
+               - set(ONE_CARD_LABELS))
+    if unknown:
+        raise SystemExit(f"chip_smoke: unknown --cluster_only labels {sorted(unknown)}")
+    four = [label for label in labels if label not in ONE_CARD_LABELS]
     card = card_line()
     print(f"[card] {card} ({torch.cuda.device_count()} cards)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     data_dir = Path(__file__).resolve().parent / ".chip_smoke_data"  # git-ignored
+    par_dir = data_dir / "parallel"
     try:
-        check_two_workers(data_dir)
-        check_preemption(data_dir)
-        check_strategy_workers(data_dir)
-        if torch.cuda.device_count() >= 4:
-            par_dir = data_dir / "parallel"
+        if not labels:
+            check_two_workers(data_dir)
+            check_preemption(data_dir)
+            check_strategy_workers(data_dir)
+        if "two_workers" in labels:
+            check_two_workers(data_dir)
+        if "phase11" in labels:
             par_dir.mkdir(parents=True, exist_ok=True)
-            summary = check_cluster_parallel(par_dir)
-            print(f"[cluster] summary {json.dumps(summary)}")
+            check_pipe_and_expert(par_dir)
+        if torch.cuda.device_count() >= 4 and (four or not labels):
+            par_dir.mkdir(parents=True, exist_ok=True)
+            if not four or set(four) - {"nccl_abort"}:
+                summary = check_cluster_parallel(par_dir, four)
+                print(f"[cluster] summary {json.dumps(summary)}")
+            if not four or "nccl_abort" in four:
+                check_nccl_abort(data_dir)
+        elif four:
+            raise AssertionError(f"{four} need four cards, found {torch.cuda.device_count()}")
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
     print(card)
@@ -3046,5 +3370,5 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--parallel_worker"]:
         sys.exit(parallel_worker_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--cluster_only"]:
-        sys.exit(cluster_main())
+        sys.exit(cluster_main(sys.argv[2:]))
     sys.exit(main())

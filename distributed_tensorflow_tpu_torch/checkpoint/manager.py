@@ -33,8 +33,9 @@ state in place.
 
 On a mesh (a state with a ``plan``) every tensor is written global: the
 ranks' compute copies (``params/``) and stored shards (``opt/``) are
-all-gathered over ``tensor`` and ``fsdp`` on every rank, padding dropped,
-and a restore takes this rank's part of each, so a checkpoint saved under
+all-gathered over ``tensor``, ``fsdp`` and a table's row axis on every
+rank, padding dropped, with every pipeline stage's leaves gathered over
+``pipe``, and a restore takes this rank's part of each (its stage's), so a checkpoint saved under
 one mesh restores under another (tensor=2 in one process, fsdp=2 as
 tensor=2); the optimizer's masters are then cut from the restored
 parameters.  The global tensors are the same on every rank, so only the
@@ -122,7 +123,7 @@ def global_tensors(state: TrainState, flat: Dict[str, torch.Tensor]) -> Dict[str
         if name in plan.layouts and t.dim() > 0:
             t = plan.globalize(name, t, stored=key.startswith("opt/"))
         out[key] = t
-    return out
+    return plan.gather_stages(out, _name_of)
 
 
 def local_tensors(state: TrainState, flat: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -133,6 +134,8 @@ def local_tensors(state: TrainState, flat: Dict[str, torch.Tensor]) -> Dict[str,
     out = {}
     for key, t in flat.items():
         name = _name_of(key)
+        if name in plan.layouts and not plan.resident(name):
+            continue  # another pipeline stage's
         if name in plan.layouts and t.dim() > 0:
             t = plan.localize(name, t, stored=key.startswith("opt/"))
         out[key] = t

@@ -69,20 +69,29 @@ def broadcast_from_coordinator(value: Any) -> Any:
 def _canon(x: Any) -> Any:
     """A jsonable canonical form: tensors by dtype and shape, a TrainState
     by its parameters, buffers and optimizer state, containers recursively,
-    anything else by its repr."""
+    anything else by its repr.  A pipeline stage's own leaves differ from
+    stage to stage: a TrainState whose plan gives leaves to stages shows
+    the plan's global layouts in their place."""
     if torch.is_tensor(x):
         return ["tensor", str(x.dtype), list(x.shape)]
     if hasattr(x, "module") and hasattr(x, "optimizer"):  # a TrainState
         from distributed_tensorflow_tpu_torch.training.optim import optimizer_branches
+
+        plan = getattr(x, "plan", None)
+
+        def shared(name):
+            return plan is None or name not in plan.layouts or not plan.staged(name)
 
         branches = []
         for b in optimizer_branches(x.optimizer, x.module):
             per_param = b.optimizer.state_dict()["state"]
             branches.append([type(b.optimizer).__name__, [
                 [name, sorted((k, _canon(v)) for k, v in per_param.get(i, {}).items())]
-                for i, name in enumerate(b.names)], b.masters is not None])
-        return {"kind": type(x.optimizer).__name__,
-                "params": [[n, _canon(p)] for n, p in x.module.named_parameters()],
+                for i, name in enumerate(b.names) if shared(name)], b.masters is not None])
+        layouts = ([] if plan is None or plan.pp == 1 else
+                   [[n, repr(lay)] for n, lay in sorted(plan.layouts.items())])
+        return {"kind": type(x.optimizer).__name__, "layouts": layouts,
+                "params": [[n, _canon(p)] for n, p in x.module.named_parameters() if shared(n)],
                 "buffers": [[n, _canon(t)] for n, t in x.module.named_buffers()],
                 "optimizer": branches}
     if isinstance(x, dict):

@@ -23,6 +23,12 @@ preemption OR-reduce), so it never queues behind the step's all-reduce.  A
 rank's device is ``cuda:(local_rank % torch.cuda.device_count())``, where
 ``local_rank`` counts the compute tasks before it on the same host.
 
+``abort_process_groups`` aborts every process group of the process: the
+health checker calls it from its thread when the probe fails, so a rank
+blocked inside an NCCL collective whose peer died raises instead of
+waiting out the group's timeout.  On gloo the abort does not unblock a
+waiting collective (gloo raises once the peer's connection closes).
+
 A *ps* task has no tensors to serve (the port replicates parameters over
 the data-parallel ranks), so ``join()`` parks the process until
 ``shutdown()``, keeping launcher scripts that expect blocking ps processes
@@ -172,7 +178,24 @@ def shutdown_runtime(*, barrier: bool = True) -> None:
                     timeout=datetime.timedelta(seconds=EXIT_BARRIER_TIMEOUT_S))
             except RuntimeError as e:
                 logger.warning("exit barrier failed (a peer is gone): %s", e)
-        dist.destroy_process_group()
+        if dist.is_initialized():  # not after abort_process_groups
+            dist.destroy_process_group()
+
+
+def abort_process_groups() -> None:
+    """Abort every process group of this process, the default one
+    included (``_abort_process_group`` of the world: the NCCL
+    communicators are aborted together, so their aborts cannot wait on
+    each other).  A collective blocked on an aborted NCCL group returns
+    and the group raises from then on; a gloo collective stays blocked
+    until its peer's connection closes.  Safe to call from another thread
+    and when no group exists."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return
+    from torch.distributed.distributed_c10d import _abort_process_group
+
+    logger.error("aborting this rank's process groups")
+    _abort_process_group()
 
 
 def local_rank_of(spec: ClusterSpec, rank: int) -> Tuple[int, int]:

@@ -32,9 +32,12 @@ MESH_AXES: Tuple[str, ...] = ("data", "fsdp", "tensor", "pipe", "context", "expe
 AxisName = Union[str, Sequence[str]]
 
 # Tuples of axes the port reduces over, besides each axis alone: the batch
-# shards, the gradients' replicas, the global norm's shards.
+# shards, the gradients' replicas (with ``pipe`` for a leaf every stage
+# holds; without ``data`` for a table split over it), and every axis (the
+# global norm's owners).
 _AXIS_TUPLES = (("data", "fsdp"), ("data", "context"), ("data", "fsdp", "context"),
-                ("fsdp", "tensor"))
+                ("fsdp", "context"), ("fsdp", "tensor"), ("data", "fsdp", "pipe", "context"),
+                ("data", "pipe", "context"), MESH_AXES)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -201,7 +201,9 @@ def variables_to_flax(module: nn.Module, tensors: Mapping[str, torch.Tensor], *,
 # -- flax paths (for the sharding rules) and the mesh's parts ------------------
 
 def gpt2_flax_paths(names: Iterable[str]) -> Dict[str, Tuple[str, str, bool]]:
-    """{GPT-2 name: (flax path in the per-layer layout, kind, False)}."""
+    """{GPT-2 name: (flax path, kind, scanned)}: a block's leaves by their
+    path in the scanned stack (``blocks/<module>/<leaf>``, whose leading
+    layer dim the rules put on ``pipe``), the others as they are."""
     out = {}
     for name in names:
         parts = name.split(".")
@@ -209,7 +211,7 @@ def gpt2_flax_paths(names: Iterable[str]) -> Dict[str, Tuple[str, str, bool]]:
             m, leaf = parts[2], parts[3]
             flax_leaf = ("kernel" if m in _DENSE else "scale") if leaf == "weight" else leaf
             kind = "dense" if m in _DENSE and leaf == "weight" else "copy"
-            out[name] = (f"h_{parts[1]}/{m}/{flax_leaf}", kind, False)
+            out[name] = (f"blocks/{m}/{flax_leaf}", kind, True)
         elif parts[0] == "ln_f":
             out[name] = ("ln_f/" + ("scale" if parts[1] == "weight" else "bias"), "copy", False)
         else:
@@ -230,12 +232,15 @@ def flax_paths(module: nn.Module, *, scanned: Iterable[str] = ("layers",)
 
 def shard_params(state_dict: Mapping[str, torch.Tensor], plan) -> Dict[str, torch.Tensor]:
     """This rank's compute copies of a global state dict (tensors without
-    a layout, buffers, are kept whole)."""
-    return {k: plan.local(k, v) if k in plan.layouts else v for k, v in state_dict.items()}
+    a layout, buffers, are kept whole; another pipeline stage's are left
+    out)."""
+    return {k: plan.local(k, v) if k in plan.layouts else v for k, v in state_dict.items()
+            if k not in plan.layouts or plan.resident(k)}
 
 
 def gather_params(state_dict: Mapping[str, torch.Tensor], plan) -> Dict[str, torch.Tensor]:
     """The global state dict from this rank's compute copies; every rank
-    of the mesh calls it (all-gathers over ``tensor``)."""
-    return {k: plan.globalize(k, v, stored=False) if k in plan.layouts else v
-            for k, v in state_dict.items()}
+    of the mesh calls it (all-gathers over ``tensor`` and a table's row
+    axis, and every stage's leaves over ``pipe``)."""
+    return plan.gather_stages({k: plan.globalize(k, v, stored=False) if k in plan.layouts else v
+                               for k, v in state_dict.items()})

@@ -11,8 +11,10 @@ copied so that they yield the same bytes for the same seed and shard),
 ``DevicePrefetchIterator``, a device-prefetch iterator with the
 reference's ``stats()`` counters and context manager.  Each rank feeds
 its own device with its batch shard's slice of the global batch: on a
-mesh the batch is split over data x fsdp only, so tensor and context
-ranks of one shard feed the same rows (``host_batch_layout``).
+mesh the batch is split over data x fsdp only, so tensor, pipe, context
+and expert ranks of one shard feed the same rows (``host_batch_layout``;
+a pipeline's stage 0 needs the tokens for the embedding, its last stage
+as targets).
 """
 
 from __future__ import annotations
@@ -55,9 +57,9 @@ def host_batch_layout(global_batch_size: int, mesh=None) -> Tuple[int, int, int]
     over the processes' batch shards.  Without a mesh every process is a
     shard: (B/P, P, rank).  On a mesh the batch is split over data x fsdp
     (the reference's ``batch_sharding``), and the stream shard is the
-    rank's coordinate there, so the ranks of one shard along tensor and
-    context feed identical rows: (B/S, S, index), S = data * fsdp (the
-    reference's ``host_batch_layout`` of that sharding)."""
+    rank's coordinate there, so the ranks of one shard along tensor, pipe,
+    context and expert feed identical rows: (B/S, S, index), S = data *
+    fsdp (the reference's ``host_batch_layout`` of that sharding)."""
     if mesh is None:
         return per_host_batch_size(global_batch_size), process_count(), process_index()
     return (per_host_batch_size(global_batch_size, mesh), mesh.axis_size(_BATCH_AXES),

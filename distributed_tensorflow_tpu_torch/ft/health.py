@@ -13,6 +13,14 @@ The default probe is a timed barrier on the cluster runtime's TCP store
 its key of the probe and waits, with a timeout, for every rank's.  It runs
 on the probe thread's own connection to the store and never on a process
 group, so it cannot interleave with the step's collectives.
+
+``HealthCheckHook`` aborts the rank's process groups when the probe fails
+(``cluster.server.abort_process_groups``, from the checker's thread): a
+survivor blocked inside an NCCL collective whose peer died raises then,
+not at the group's timeout; one that is not blocked raises at the next
+step boundary, as in the reference.  On gloo the abort does not unblock a
+waiting collective; gloo raises by itself once the dead peer's
+connection closes.
 """
 
 from __future__ import annotations
@@ -23,7 +31,7 @@ import threading
 import time
 from typing import Callable, Optional
 
-from distributed_tensorflow_tpu_torch.cluster.server import runtime
+from distributed_tensorflow_tpu_torch.cluster.server import abort_process_groups, runtime
 from distributed_tensorflow_tpu_torch.training.loop import Hook
 
 logger = logging.getLogger(__name__)
@@ -219,9 +227,14 @@ class HealthCheckHook(Hook):
     leaving survivors in the first collective forever — so the grace is a
     window, not an off switch.  The first completed step (or first
     successful probe barrier) proves every peer is up and ends the grace.
+
+    Unless ``on_failure`` is given, a failed check also aborts the rank's
+    process groups from the checker's thread (``abort_process_groups``),
+    which unblocks a rank stuck in an NCCL collective.
     """
 
     def __init__(self, checker: Optional[HealthChecker] = None, **kw):
+        kw.setdefault("on_failure", abort_process_groups)
         self.checker = checker or HealthChecker(**kw)
 
     def begin(self, loop) -> None:

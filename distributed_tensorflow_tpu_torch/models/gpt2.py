@@ -4,9 +4,10 @@ Port of ``distributed_tensorflow_tpu/models/gpt2.py`` (training only):
 ``GPT2Config`` and its presets, ``Block``'s flash and dense attention
 branches, ``GPT2.__call__``'s non-decode path, ``_tied_head_ce``,
 ``_chunked_ce`` (``ce_chunk``), ``_loss_fn``,
-``_guard_dense_attention_memory``, ``make_workload`` and ``gpt2_rules``
-(its per-layer patterns: the port has no scanned stack).  Decode and
-pipelining come with later slices.
+``_guard_dense_attention_memory``, ``make_workload``, ``gpt2_rules`` and
+the pipelined path (``_pipelined_blocks``, ``_pipe_stage_fn``,
+``_pipe_staging``, ``_auto_microbatches``, ``_pipe_1f1b_loss``).  Decode
+comes with a later slice.
 
 On a mesh (``mesh=``, ``cluster.topology``) the model runs the
 reference's parallel layouts, placed by ``gpt2_rules``:
@@ -23,6 +24,20 @@ reference's parallel layouts, placed by ``gpt2_rules``:
   rows, so a shard's last position takes the next shard's first token as
   its target; the loss is the rank's part of the global mean (normalised
   by B * (T - 1)), reported as the whole.
+- ``pipe``: stage s of S holds layers [s L/S, (s+1) L/S) (its
+  ``blocks`` are a ``ModuleDict`` of those, named as in the whole model)
+  and no others; ``wte``, ``wpe`` and ``ln_f`` are on every stage (stage
+  0 uses ``wte`` and ``wpe`` for the embedding, the last stage ``ln_f``
+  and ``wte`` for the tied head; the step sums their gradients over
+  ``pipe``).  Each rank runs its stage's schedule
+  (``parallel.pipeline.run_schedule``, GPipe or 1F1B by
+  ``pipe_schedule``, M microbatches of the batch); one stage function
+  serves both schedules (the embedding on stage 0, the stage's blocks with
+  per-layer remat) and the tail (final LayerNorm, tied head, CE) runs on
+  the last stage only.  The gradients are computed inside the loss and
+  handed to the step through an autograd function whose backward returns
+  them (the reference's ``custom_vjp``).  Dropout is 0 at ``pipe`` > 1, as
+  in the reference.
 - Dropout: activations replicated over ``tensor`` draw the same mask on
   every tensor rank; attention-probability dropout on sharded heads folds
   in the tensor index (the kernels key their mask by the local head), and
@@ -43,8 +58,9 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import logging
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -67,6 +83,7 @@ from distributed_tensorflow_tpu_torch.models.layers import (
     vocab_parallel_ce,
 )
 from distributed_tensorflow_tpu_torch.ops.flash_attention import flash_attention
+from distributed_tensorflow_tpu_torch.parallel.pipeline import auto_microbatches, run_schedule
 from distributed_tensorflow_tpu_torch.parallel.ring_attention import ring_attention
 from distributed_tensorflow_tpu_torch.parallel.sharding import (
     P,
@@ -76,6 +93,8 @@ from distributed_tensorflow_tpu_torch.parallel.sharding import (
     transformer_rules,
 )
 from distributed_tensorflow_tpu_torch.rng import fold_in
+
+logger = logging.getLogger(__name__)
 
 # Dropout sites inside a block, and the embedding's layer index.
 _ATTN_PROBS, _ATTN_OUT, _MLP = 0, 1, 2
@@ -101,6 +120,10 @@ class GPT2Config:
     ce_chunk: int = 0
     # Ring attention's kv chunk on the CPU's einsum blocks (context > 1).
     ring_chunk_size: int = 0
+    # Pipeline microbatches at pipe > 1 (0 = auto: the largest of {4S, 2S,
+    # S} dividing the batch) and the schedule: "gpipe" or "1f1b".
+    pipe_microbatches: int = 0
+    pipe_schedule: str = "gpipe"
 
     @classmethod
     def small(cls, **kw):
@@ -234,6 +257,16 @@ def _chunked_ce(hidden: torch.Tensor, wte: torch.Tensor, tokens: torch.Tensor, c
     return total / (B * (T - 1))
 
 
+def stage_layers(cfg: GPT2Config, mesh) -> range:
+    """The layers of this rank's pipeline stage (every layer at pipe 1)."""
+    S = _axis(mesh, "pipe")
+    if cfg.n_layer % S:
+        raise ValueError(f"n_layer={cfg.n_layer} not divisible by pipe={S}")
+    per = cfg.n_layer // S
+    s = mesh.coords["pipe"] if S > 1 else 0
+    return range(s * per, (s + 1) * per)
+
+
 class GPT2(nn.Module):
     def __init__(self, cfg: GPT2Config, *, device=None, seed: int = 0, mesh=None):
         super().__init__()
@@ -243,7 +276,11 @@ class GPT2(nn.Module):
         rows = -(-cfg.vocab_size // _axis(mesh, "tensor"))  # vocab-parallel, padded
         self.wte = nn.Parameter(torch.empty(rows, cfg.d_model, device=device))
         self.wpe = nn.Parameter(torch.empty(cfg.n_positions, cfg.d_model, device=device))
-        self.blocks = nn.ModuleList(Block(cfg, i, device, mesh) for i in range(cfg.n_layer))
+        # This stage's layers (every layer at pipe 1), named as in the whole model.
+        self.blocks = nn.ModuleDict({str(i): Block(cfg, i, device, mesh)
+                                     for i in stage_layers(cfg, mesh)})
+        # The most microbatch graphs this stage held in its last pipelined step.
+        self.pipe_in_flight = 0
         self.ln_f = nn.LayerNorm(cfg.d_model, eps=1e-6, device=device)
         if self.plan is not None:
             _check_local_shapes(self, self.plan)
@@ -254,32 +291,46 @@ class GPT2(nn.Module):
         """flax's initializers: wte ~ N(0, 0.02), wpe ~ N(0, 0.01), Dense
         kernels lecun_normal (truncated normal, fan_in), zero biases,
         LayerNorm scale 1 and bias 0, drawn from a generator seeded with
-        ``seed``.  On a mesh each rank draws the global weights and keeps
-        its part, so every layout starts from the same model."""
+        ``seed``.  Each parameter of the whole model is drawn in turn at its
+        global shape and this rank keeps its part (nothing of another
+        stage's), so every layout starts from the same model and no rank
+        holds more than one whole parameter at a time."""
         if self.wte.is_meta:
             return
-        if self.plan is not None and self.plan.tp > 1:
-            whole = GPT2(self.cfg, device=self.wte.device, seed=seed)
-            for name, p in self.named_parameters():
-                p.copy_(self.plan.local(name, dict(whole.named_parameters())[name]))
-            return
-        gen = torch.Generator(device=self.wte.device)
+        device = self.wte.device
+        mine = dict(self.named_parameters())
+        gen = torch.Generator(device=device)
         gen.manual_seed(seed)
-        self.wte.normal_(0.0, 0.02, generator=gen)
-        self.wpe.normal_(0.0, 0.01, generator=gen)
-        for m in self.modules():
+
+        def drawn(name, shape, draw):
+            full = torch.empty(shape, device=device)
+            draw(full)  # advances the generator whether or not this rank keeps it
+            if name in mine:
+                mine[name].copy_(self.plan.local(name, full) if self.plan is not None else full)
+
+        whole = GPT2(self.cfg, device="meta")
+        drawn("wte", whole.wte.shape, lambda t: t.normal_(0.0, 0.02, generator=gen))
+        drawn("wpe", whole.wpe.shape, lambda t: t.normal_(0.0, 0.01, generator=gen))
+        for prefix, m in whole.named_modules():
             if isinstance(m, nn.Linear):
-                lecun_normal_(m.weight, m.in_features, gen)
-                m.bias.zero_()
-            elif isinstance(m, nn.LayerNorm):
-                m.weight.fill_(1.0)
-                m.bias.zero_()
+                drawn(f"{prefix}.weight", m.weight.shape,
+                      lambda t, fan_in=m.in_features: lecun_normal_(t, fan_in, gen))
+                if f"{prefix}.bias" in mine:
+                    mine[f"{prefix}.bias"].zero_()
+            elif isinstance(m, nn.LayerNorm) and f"{prefix}.weight" in mine:
+                mine[f"{prefix}.weight"].fill_(1.0)
+                mine[f"{prefix}.bias"].zero_()
 
     def forward(self, tokens: torch.Tensor, *, seed: Optional[int] = None,
-                return_hidden: bool = False) -> torch.Tensor:
+                return_hidden: bool = False,
+                pipeline: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
         """Logits (B, T, V) float32, or with ``return_hidden`` the final
         LayerNorm's output (B, T, d) float32.  ``seed=None`` runs without
-        dropout (flax ``deterministic=True``)."""
+        dropout (flax ``deterministic=True``).  ``pipeline`` (pipe > 1):
+        this stage's pipelined loss and the gradients of the given leaves
+        (``_pipelined_loss``)."""
+        if pipeline is not None:
+            return self._pipelined_loss(tokens, pipeline)
         cfg, mesh = self.cfg, self.mesh
         B, T = tokens.shape
         tokens = tokens.long()
@@ -288,20 +339,70 @@ class GPT2(nn.Module):
         x = (vocab_embedding(tokens, self.wte, mesh).to(cfg.dtype)
              + self.wpe[start:start + T].to(cfg.dtype))
         x = _dropout(x, cfg.dropout, site_seed(seed, mesh, _EMBED_LAYER))
-        for i, block in enumerate(self.blocks):
-            bseed = None if seed is None else fold_in(seed, i)
-            if cfg.remat and torch.is_grad_enabled():
-                # Every random draw in a block comes from bseed, so the
-                # recompute needs no restored generator state.
-                x = checkpoint(block, x, bseed, use_reentrant=False, preserve_rng_state=False)
-            else:
-                x = block(x, bseed)
+        for i, block in self.blocks.items():
+            x = _run_block(block, x, None if seed is None else fold_in(seed, int(i)), cfg.remat)
         x = _layer_norm(self.ln_f, x)
         if return_hidden:
             return x
         # On a mesh: this context rank's positions and this tensor rank's
         # vocab columns.
         return _head_logits(copy_to(x, mesh), self.wte, cfg.dtype)
+
+    def _pipelined_loss(self, tokens: torch.Tensor, leaves: List[torch.Tensor]):
+        """This stage's schedule over the batch's M microbatches
+        (``_pipe_staging``; GPipe or 1F1B): with grad enabled, the mean
+        loss (the same on every stage) and the float32 gradients of
+        ``leaves``; without it the forwards alone run (evaluation)."""
+        cfg, mesh = self.cfg, self.mesh
+        B, T = tokens.shape
+        mbs, M = _pipe_staging(cfg, mesh, tokens.long())
+        stage = _pipe_stage_fn(self, mbs)
+
+        def tail(m, y):
+            return _tail_loss(self, _layer_norm(self.ln_f, y), self.wte, mbs[m])
+
+        r = run_schedule(stage, tail, M, mesh=mesh, act_shape=(B // M, T, cfg.d_model),
+                         act_dtype=cfg.dtype, device=tokens.device, params=leaves,
+                         schedule=cfg.pipe_schedule, train=torch.is_grad_enabled())
+        self.pipe_in_flight = r.peak_in_flight
+        return r.loss, r.grads
+
+
+def _run_block(block: Block, x: torch.Tensor, seed: Optional[int], remat: bool) -> torch.Tensor:
+    if remat and torch.is_grad_enabled():
+        # Every random draw in a block comes from its seed, so the
+        # recompute needs no restored generator state.
+        return checkpoint(block, x, seed, use_reentrant=False, preserve_rng_state=False)
+    return block(x, seed)
+
+
+def _pipe_stage_fn(module: GPT2, mbs: torch.Tensor):
+    """One pipeline stage: stage 0's embedding of microbatch m, then the
+    stage's blocks (remat per layer), shared by the GPipe and 1F1B
+    schedules (one definition, no drift between them)."""
+    cfg, mesh = module.cfg, module.mesh
+    blocks = list(module.blocks.values())
+    T = mbs.shape[-1]
+
+    def stage_fn(m: int, x: Optional[torch.Tensor]) -> torch.Tensor:
+        if x is None:  # stage 0
+            x = (vocab_embedding(mbs[m], module.wte, mesh).to(cfg.dtype)
+                 + module.wpe[:T].to(cfg.dtype))
+        for block in blocks:
+            x = _run_block(block, x, None, cfg.remat)
+        return x
+
+    return stage_fn
+
+
+def _pipe_staging(cfg: GPT2Config, mesh, tokens: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """(this rank's rows as (M, rows/M, T) microbatches, M): M as the
+    workload resolved it (``pipe_microbatches``)."""
+    B = tokens.shape[0]
+    M = cfg.pipe_microbatches or auto_microbatches(B, _axis(mesh, "pipe"))
+    if B % M:
+        raise ValueError(f"batch {B} not divisible by microbatches {M}")
+    return tokens.view(M, B // M, *tokens.shape[1:]), M
 
 
 def _seq_shard(T: int, mesh) -> Tuple[int, int]:
@@ -343,20 +444,58 @@ def _mesh_loss(module: GPT2, hidden: torch.Tensor, wte: torch.Tensor,
     return global_value(total / (B * (T - 1)), mesh, "context")
 
 
+def _tail_loss(module: GPT2, hidden: torch.Tensor, wte: torch.Tensor,
+               tokens: torch.Tensor) -> torch.Tensor:
+    """The mean next-token CE of the tied head over ``hidden`` (the final
+    LayerNorm's output): on a tensor or context mesh the vocab-parallel
+    ``_mesh_loss``, else ``_chunked_ce`` (``ce_chunk``) or ``_tied_head_ce``."""
+    mesh = module.mesh
+    if _axis(mesh, "tensor") > 1 or _axis(mesh, "context") > 1:
+        return _mesh_loss(module, hidden, wte, tokens.long())
+    if module.cfg.ce_chunk:
+        return _chunked_ce(hidden, wte, tokens, module.cfg.ce_chunk, module.cfg.dtype)
+    return _tied_head_ce(hidden, wte, tokens, module.cfg.dtype)
+
+
+class _PrecomputedGrads(torch.autograd.Function):
+    """The loss of a schedule that computed its own gradients: forward
+    returns the loss, backward the gradients times the loss's cotangent
+    (the reference's ``custom_vjp`` around ``_pipe_1f1b_loss``)."""
+
+    @staticmethod
+    def forward(ctx, loss, grads, *leaves):
+        ctx.grads = grads
+        return loss.clone()
+
+    @staticmethod
+    def backward(ctx, ct):
+        grads, ctx.grads = ctx.grads, None
+        return (None, None, *(g * ct.to(g.dtype) for g in grads))
+
+
+def _pipelined_loss_fn(module: GPT2, params: Dict[str, torch.Tensor],
+                       tokens: torch.Tensor) -> torch.Tensor:
+    """The pipe > 1 loss: this stage's schedule with ``params``; under grad
+    the gradients it computed come back through ``_PrecomputedGrads`` (a
+    leaf the stage does not read gets zeros)."""
+    leaves = list(params.values())
+    loss, grads = torch.func.functional_call(module, params, (tokens,), {"pipeline": leaves})
+    if not torch.is_grad_enabled():
+        return loss
+    return _PrecomputedGrads.apply(loss, grads, *leaves)
+
+
 def _loss_fn(module: GPT2, deterministic: bool, params: Dict[str, torch.Tensor],
              batch: Dict[str, torch.Tensor], seed: Optional[int]):
     """(loss, {"perplexity"}) of ``module`` run with ``params``."""
     tokens = batch["tokens"]
-    hidden = torch.func.functional_call(
-        module, params, (tokens,),
-        {"seed": None if deterministic else seed, "return_hidden": True})
-    mesh = module.mesh
-    if _axis(mesh, "tensor") > 1 or _axis(mesh, "context") > 1:
-        loss = _mesh_loss(module, hidden, params["wte"], tokens.long())
-    elif module.cfg.ce_chunk:
-        loss = _chunked_ce(hidden, params["wte"], tokens, module.cfg.ce_chunk, module.cfg.dtype)
+    if _axis(module.mesh, "pipe") > 1:
+        loss = _pipelined_loss_fn(module, params, tokens)
     else:
-        loss = _tied_head_ce(hidden, params["wte"], tokens, module.cfg.dtype)
+        hidden = torch.func.functional_call(
+            module, params, (tokens,),
+            {"seed": None if deterministic else seed, "return_hidden": True})
+        loss = _tail_loss(module, hidden, params["wte"], tokens)
     return loss, {"perplexity": torch.exp(torch.clamp(loss.detach(), max=20.0))}
 
 
@@ -394,10 +533,18 @@ def _guard_dense_attention_memory(cfg: GPT2Config, *, seq: int, batch_size: int,
 
 
 def gpt2_rules() -> ShardingRules:
-    """TP/fsdp rules for this module's parameter names, as the reference's
-    ``gpt2_rules`` (its per-layer patterns: the port has no scanned stack)."""
+    """TP/fsdp/pipe rules for this module's parameter names, the
+    reference's ``gpt2_rules``: a block's leaves go by their path in the
+    scanned stack (``convert.gpt2_flax_paths``), whose leading layer dim
+    rides ``pipe`` (stage ownership at pipe > 1)."""
     return transformer_rules().extended(
         [
+            # scanned-stack layout: leading layer dim rides the pipe axis
+            (r"blocks/.*c_attn/kernel", P("pipe", "fsdp", "tensor")),
+            (r"blocks/.*c_proj/kernel", P("pipe", "tensor", "fsdp")),
+            (r"blocks/.*mlp_c_fc/kernel", P("pipe", "fsdp", "tensor")),
+            (r"blocks/.*(bias|scale)", P("pipe")),
+            # shared / per-layer layout
             (r"wte$", P("tensor", "fsdp")),
             (r"wpe$", P()),
             (r"mlp_c_fc/kernel", P("fsdp", "tensor")),
@@ -408,16 +555,19 @@ def gpt2_rules() -> ShardingRules:
 
 def gpt2_plan(cfg: GPT2Config, mesh) -> ParamPlan:
     """The layouts of GPT-2's parameters under ``gpt2_rules`` on ``mesh``:
-    ``c_attn`` split by heads within each of q, k and v, and the
-    column-parallel layers' biases split with their kernels' outputs."""
+    ``c_attn`` split by heads within each of q, k and v, the
+    column-parallel layers' biases split with their kernels' outputs, and
+    each block's leaves on its layer's pipeline stage."""
     from distributed_tensorflow_tpu_torch.convert import gpt2_flax_paths
 
     shapes = [(n, tuple(p.shape)) for n, p in GPT2(cfg, device="meta").named_parameters()]
     names = [n for n, _ in shapes]
     fused = [n for n in names if ".c_attn." in n]
     column_bias = [n for n in names if n.endswith((".c_attn.bias", ".mlp_c_fc.bias"))]
+    layers = {n: (int(n.split(".")[1]), cfg.n_layer) for n in names if n.startswith("blocks.")}
     return plan_for(shapes, gpt2_flax_paths(names), gpt2_rules(), mesh,
-                    groups={n: 3 for n in fused}, tensor_dims={n: 0 for n in column_bias})
+                    groups={n: 3 for n in fused}, tensor_dims={n: 0 for n in column_bias},
+                    layers=layers)
 
 
 def _check_local_shapes(module: nn.Module, plan: ParamPlan) -> None:
@@ -425,6 +575,8 @@ def _check_local_shapes(module: nn.Module, plan: ParamPlan) -> None:
     (the rules split what the model computes split)."""
     for name, p in module.named_parameters():
         lay = plan.layouts[name]
+        if not plan.resident(name):
+            raise ValueError(f"{name} belongs to pipeline stage {lay.stage}, not this rank's")
         want = list(lay.shape)
         if plan.tensor_sharded(name):
             size = want[lay.tensor_dim] // lay.groups
@@ -440,9 +592,6 @@ def make_workload(*, preset: str = "medium", batch_size: int = 32,
                   use_flash_attention: Optional[bool] = None, device="cuda",
                   ce_chunk: Optional[int] = None, ring_chunk_size: Optional[int] = None,
                   pipe_schedule: Optional[str] = None, mesh=None) -> Workload:
-    if pipe_schedule and pipe_schedule != "gpipe":
-        raise ValueError("pipe_schedule (pipelining) is not ported yet; it comes with the "
-                         "parallelism slice, part B, of the PyTorch port")
     cfg = config or getattr(GPT2Config, preset)()
     if ring_chunk_size is not None:
         cfg = dataclasses.replace(cfg, ring_chunk_size=ring_chunk_size)
@@ -450,6 +599,9 @@ def make_workload(*, preset: str = "medium", batch_size: int = 32,
         cfg = dataclasses.replace(cfg, ce_chunk=ce_chunk)
     if use_flash_attention is not None:
         cfg = dataclasses.replace(cfg, use_flash_attention=use_flash_attention)
+    if pipe_schedule is not None:
+        cfg = dataclasses.replace(cfg, pipe_schedule=pipe_schedule)
+    cfg = _pipe_config(cfg, mesh, batch_size, grad_accum_steps)
     seq = seq_len or min(cfg.n_positions, 1024)
     _guard_dense_attention_memory(cfg, seq=seq, batch_size=batch_size,
                                   grad_accum_steps=grad_accum_steps, device=device, mesh=mesh)
@@ -474,3 +626,42 @@ def make_workload(*, preset: str = "medium", batch_size: int = 32,
         mesh=mesh,
         plan=module.plan,
     )
+
+
+def _pipe_config(cfg: GPT2Config, mesh, batch_size: int, grad_accum_steps: int) -> GPT2Config:
+    """The reference's pipeline refusals and defaults (``make_workload``):
+    the schedule must be gpipe or 1f1b, and 1f1b needs pipe > 1; at pipe >
+    1 the context axis and 1F1B's ``ce_chunk`` are refused, dropout
+    becomes 0 (with the reference's warning), ``n_layer`` must divide over
+    the stages, and M (``pipe_microbatches``, 0 = auto from the
+    accumulation microbatch) must divide each batch shard's rows of it."""
+    if cfg.pipe_schedule not in ("gpipe", "1f1b"):
+        raise ValueError(f"pipe_schedule must be gpipe|1f1b, got {cfg.pipe_schedule!r}")
+    S = _axis(mesh, "pipe")
+    if cfg.pipe_schedule == "1f1b" and S <= 1:
+        raise ValueError(
+            "pipe_schedule='1f1b' requires a mesh with pipe>1; without one it would silently "
+            "train the non-pipelined path instead of the schedule you asked for")
+    if S <= 1:
+        return cfg
+    if _axis(mesh, "context") > 1:
+        raise ValueError(
+            "pipe>1 with context>1 is unsupported: pipeline stages run blocks locally "
+            "(dense/flash attention), so the context axis would be inert; pick one")
+    if cfg.pipe_schedule == "1f1b" and cfg.ce_chunk:
+        raise ValueError(
+            "ce_chunk with pipe_schedule='1f1b' is unsupported: the 1F1B tail computes each "
+            "microbatch's logits in full (microbatches already bound the live logits to "
+            "(B/M, T, V))")
+    stage_layers(cfg, mesh)  # n_layer must divide over the stages
+    if cfg.dropout > 0:
+        logger.warning("pipe>1: disabling dropout (GPipe stage fn is deterministic)")
+        cfg = dataclasses.replace(cfg, dropout=0.0)
+    micro = batch_size // max(1, grad_accum_steps)
+    M = cfg.pipe_microbatches or auto_microbatches(micro, S)
+    rows = micro // max(1, _axis(mesh, "data") * _axis(mesh, "fsdp"))
+    if micro % M or rows % M:
+        raise ValueError(f"the microbatch's {rows} rows a batch shard (batch {batch_size} / "
+                         f"grad_accum {grad_accum_steps}) do not divide into "
+                         f"{M} pipeline microbatches")
+    return dataclasses.replace(cfg, pipe_microbatches=M)

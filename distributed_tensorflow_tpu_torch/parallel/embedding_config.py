@@ -1,13 +1,17 @@
 """Multi-table embedding configuration: the TPUEmbedding config surface.
 
-Port of ``distributed_tensorflow_tpu/parallel/embedding_config.py`` on one
-device: ``TableConfig``, ``FeatureConfig``, ``unique_tables``,
+Port of ``distributed_tensorflow_tpu/parallel/embedding_config.py``:
+``TableConfig``, ``FeatureConfig``, ``unique_tables``,
 ``MultiTableEmbedding`` (N features on M shared tables, ids hashed into
-their table with ``% vocabulary_size``, one gather per table rather than
-per feature, sum/mean combiner for multi-valent ids), ``f32_master_of`` and
-``multi_table_optimizer`` (per-table optimizers; a bf16 table's branch runs
-on float32 masters).  The tables' sharding rules and the residency check
-come with the parallelism slice, part B (the expert axis).
+their table with ``% vocabulary_size``, one lookup, and on a mesh one
+exchange, per table rather than per feature, sum/mean combiner for
+multi-valent ids), ``multi_table_rules`` (every table row-sharded over
+``expert``), ``f32_master_of``, ``multi_table_optimizer`` (per-table
+optimizers; a bf16 table's branch runs on float32 masters) and
+``assert_table_residency``.  On a mesh each table is a ``ShardedEmbed``
+row-sharded over ``axis`` with the ids' batch on ``batch_axes``; its
+optimizer state (a per-table Adagrad's sums too) is held for its rows
+only, since the optimizer runs on the rank's shard.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import torch
 from torch import nn
 
 from distributed_tensorflow_tpu_torch.parallel.embedding import ShardedEmbed
+from distributed_tensorflow_tpu_torch.parallel.sharding import P, ShardingRules
 from distributed_tensorflow_tpu_torch.training.optim import (
     Transform,
     f32_master_of,
@@ -80,9 +85,12 @@ class MultiTableEmbedding(nn.Module):
     """N features -> M shared tables.  ``forward`` takes ``{feature: ids}``,
     ids (B,) single-valent or (B, K) multi-valent (combined per the table's
     combiner), and returns ``{feature: (B, dim)}``.  Each table is a
-    submodule named after it, so its parameter is ``<table>.embedding``."""
+    submodule named after it, so its parameter is ``<table>.embedding``;
+    on ``mesh`` it is row-sharded over ``axis``, the ids' batch being on
+    ``batch_axes``."""
 
-    def __init__(self, feature_configs: Sequence[FeatureConfig], *,
+    def __init__(self, feature_configs: Sequence[FeatureConfig], *, mesh=None,
+                 axis: str = "expert", batch_axes: Sequence[str] = ("data", "fsdp"),
                  param_dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         self.feature_configs = tuple(feature_configs)
@@ -90,15 +98,16 @@ class MultiTableEmbedding(nn.Module):
             if hasattr(self, t.name):
                 raise ValueError(f"duplicate table name {t.name!r}")
             self.add_module(t.name, ShardedEmbed(
-                t.vocabulary_size, t.dim,
+                t.vocabulary_size, t.dim, mesh=mesh, axis=axis, batch_axes=tuple(batch_axes),
                 param_dtype=t.dtype if t.dtype is not None else param_dtype, device=device))
         names = [fc.name for fc in self.feature_configs]
         if len(set(names)) != len(names):
             raise ValueError(f"duplicate feature names in {names}")
 
     def forward(self, features: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        # One gather per TABLE: features sharing a table have their ids
-        # concatenated, looked up together and split back.
+        # One lookup (one exchange on a mesh) per TABLE: features sharing a
+        # table have their ids concatenated, looked up together and split
+        # back; 26 Criteo slots on 3 tables make 3 exchanges a step, not 26.
         by_table: Dict[str, list] = {}
         for fc in self.feature_configs:
             ids = features[fc.name] % fc.table.vocabulary_size
@@ -116,6 +125,15 @@ class MultiTableEmbedding(nn.Module):
                     act = act.sum(dim=1) if fc.table.combiner == "sum" else act.mean(dim=1)
                 out[fc.name] = act
         return out
+
+
+def multi_table_rules(feature_configs: Sequence[FeatureConfig],
+                      axis: str = "expert") -> ShardingRules:
+    """Sharding rules placing every table (and so its optimizer state)
+    row-sharded on ``axis``; the same ``(^|/)<table>/embedding$`` boundary
+    as the optimizer's labels."""
+    return ShardingRules([(rf"(^|/){t.name}/embedding$", P(axis))
+                          for t in unique_tables(feature_configs)])
 
 
 def multi_table_optimizer(feature_configs: Sequence[FeatureConfig], default_tx: Transform):
@@ -136,3 +154,22 @@ def multi_table_optimizer(feature_configs: Sequence[FeatureConfig], default_tx: 
         return next((tname for tname, pat in patterns if pat.search(name)), "__default__")
 
     return multi_transform(transforms, label_fn)
+
+
+def assert_table_residency(module: nn.Module, feature_configs: Sequence[FeatureConfig], *,
+                           axis: str = "expert") -> None:
+    """Verify that every table's parameter holds only its rows of the table
+    row-sharded over ``axis``: a rule regression that kept a huge table
+    whole on every rank fails here."""
+    found = {name.rsplit(".", 1)[-1]: m for name, m in module.named_modules()
+             if isinstance(m, ShardedEmbed)}
+    for t in unique_tables(feature_configs):
+        emb = found.get(t.name)
+        if emb is None:
+            raise AssertionError(f"table {t.name!r} not found in the module")
+        n = emb.mesh.shape[axis] if emb.mesh is not None else 1
+        rows = emb.embedding.shape[0]
+        if emb.replicated or emb.axis != axis or rows * n != emb.padded_vocab:
+            raise AssertionError(
+                f"table {t.name!r} is not row-sharded over {axis!r}: it holds {rows} of "
+                f"{emb.padded_vocab} rows on a rank of {axis}={n}")

@@ -20,7 +20,14 @@ becomes OIHW.
 ``Layout`` and ``ParamPlan`` apply the specs to the port's tensors: a
 parameter's compute copy is split over ``tensor`` (Megatron's column- and
 row-parallel layers, the vocab-parallel embedding); its stored master and
-optimizer state are split over ``fsdp`` as well.  A dim that does not
+optimizer state are split over ``fsdp`` as well.  A table whose rows the
+rules put on ``data`` or ``expert`` (``recsys_rules``,
+``multi_table_rules``) holds only its rows on a rank (``row_axis``), its
+optimizer state with it.  A scanned leaf whose leading (layer) entry is
+``pipe`` (``gpt2_rules``' ``blocks/...`` patterns) belongs to one pipeline
+stage: layer i of L to stage ``i // (L / S)`` (``stage``); no other stage
+holds it, and ``gather_stages`` brings every stage's leaves together for
+the global form.  A dim that does not
 divide is padded with zeros to the next multiple (GPT-2's vocab of 50257
 over 2 ranks: 25129 rows each, the last one zero), which the global form
 (``gather``) trims again; the reference's GSPMD shards such dims unevenly.
@@ -34,6 +41,7 @@ from typing import Any, Dict, Iterable, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from distributed_tensorflow_tpu_torch.cluster.topology import MESH_AXES, Mesh
@@ -242,6 +250,15 @@ class Layout:
     tensor_dim: Optional[int] = None
     groups: int = 1
     fsdp_dim: Optional[int] = None
+    # Dim 0 split over this axis (a table's rows, "data" or "expert"); the
+    # global shape is the padded vocab (``pad_vocab``).
+    row_axis: Optional[str] = None
+    # The pipeline stage that holds the leaf (None: every stage).
+    stage: Optional[int] = None
+    # Axes over whose ranks the model's own backward already sums the
+    # gradient (a row-sharded table's exchange over its batch axis, a
+    # replicated table's psum_sparse).
+    reduced: Tuple[str, ...] = ()
 
 
 def split_dim(x: torch.Tensor, dim: int, n: int, i: int, groups: int = 1) -> torch.Tensor:
@@ -278,6 +295,7 @@ class ParamPlan:
         self.layouts = dict(layouts)
         self.mesh = mesh
         self.tp, self.fsdp = mesh.shape["tensor"], mesh.shape["fsdp"]
+        self.pp = mesh.shape["pipe"]
 
     def tensor_sharded(self, name: str) -> bool:
         return self.tp > 1 and self.layouts[name].tensor_dim is not None
@@ -285,12 +303,45 @@ class ParamPlan:
     def fsdp_sharded(self, name: str) -> bool:
         return self.fsdp > 1 and self.layouts[name].fsdp_dim is not None
 
+    def row_sharded(self, name: str) -> bool:
+        axis = self.layouts[name].row_axis
+        return axis is not None and self.mesh.shape[axis] > 1
+
+    def staged(self, name: str) -> bool:
+        """True where one pipeline stage alone holds the leaf."""
+        return self.pp > 1 and self.layouts[name].stage is not None
+
+    def resident(self, name: str) -> bool:
+        """True where this rank holds (its part of) the leaf."""
+        return not self.staged(name) or self.layouts[name].stage == self.mesh.coords["pipe"]
+
+    def split_axes(self, name: str) -> Tuple[str, ...]:
+        """The axes over which the ranks hold distinct parts of the leaf's
+        stored form (its optimizer's view)."""
+        lay = self.layouts[name]
+        out = []
+        if self.fsdp_sharded(name):
+            out.append("fsdp")
+        if self.tensor_sharded(name):
+            out.append("tensor")
+        if self.row_sharded(name):
+            out.append(lay.row_axis)
+        if self.staged(name):
+            out.append("pipe")
+        return tuple(out)
+
     def local(self, name: str, x: torch.Tensor) -> torch.Tensor:
         """This rank's compute copy of the global ``x``."""
         lay = self.layouts[name]
-        if not self.tensor_sharded(name):
-            return x
-        return split_dim(x, lay.tensor_dim, self.tp, self.mesh.coords["tensor"], lay.groups)
+        if self.tensor_sharded(name):
+            x = split_dim(x, lay.tensor_dim, self.tp, self.mesh.coords["tensor"], lay.groups)
+        if self.row_sharded(name):
+            n = self.mesh.shape[lay.row_axis]
+            if x.shape[0] % n:
+                raise ValueError(f"{name}: {x.shape[0]} rows do not divide over "
+                                 f"{lay.row_axis}={n}; pad the vocab (pad_vocab)")
+            x = split_dim(x, 0, n, self.mesh.coords[lay.row_axis])
+        return x
 
     def master(self, name: str, x: torch.Tensor) -> torch.Tensor:
         """This rank's stored shard of the compute copy ``x``."""
@@ -321,6 +372,8 @@ class ParamPlan:
         if stored:
             x = self.unmaster(name, x)
         lay = self.layouts[name]
+        if self.row_sharded(name):
+            x = torch.cat(collectives.all_gather_list(x, self.mesh, lay.row_axis))
         if not self.tensor_sharded(name):
             return x
         parts = collectives.all_gather_list(x, self.mesh, "tensor")
@@ -331,25 +384,69 @@ class ParamPlan:
         x = self.local(name, x)
         return self.master(name, x) if stored else x
 
+    def gather_stages(self, tensors: Mapping[str, torch.Tensor], name_of=lambda key: key
+                      ) -> Dict[str, torch.Tensor]:
+        """``tensors`` (keyed by parameter, or by ``name_of(key)``'s) with
+        every stage's staged entries: each stage's are all-gathered over
+        ``pipe`` (as CPU tensors).  A collective every rank calls."""
+        if self.pp == 1:
+            return dict(tensors)
+
+        def staged(key):
+            name = name_of(key)
+            return name in self.layouts and self.staged(name)
+
+        mine = {k: v.detach().cpu() for k, v in tensors.items() if staged(k)}
+        parts: list = [None] * self.pp
+        dist.all_gather_object(parts, mine, group=self.mesh.group("pipe"))
+        out = {k: v for k, v in tensors.items() if not staged(k)}
+        for part in parts:
+            out.update(part)
+        return out
+
+
+_ROW_AXES = ("data", "expert")  # a table's rows
+_BATCH_AXES = ("data", "fsdp")
+
 
 def plan_for(named_shapes: Iterable[Tuple[str, Tuple[int, ...]]], flax: Mapping[str, tuple],
              rules: ShardingRules, mesh: Mesh,
              groups: Optional[Mapping[str, int]] = None,
-             tensor_dims: Optional[Mapping[str, Optional[int]]] = None) -> ParamPlan:
+             tensor_dims: Optional[Mapping[str, Optional[int]]] = None,
+             layers: Optional[Mapping[str, Tuple[int, int]]] = None,
+             reduced: Optional[Mapping[str, Tuple[str, ...]]] = None) -> ParamPlan:
     """The plan of a module's parameters (``named_shapes``: global torch
     shapes) under ``rules``: each parameter's flax (path, kind, scanned)
     from ``flax`` (``convert.flax_paths``) gives its spec, ``torch_spec``
     its dims.  ``tensor_dims`` overrides a spec's tensor dim (a
     column-parallel layer's bias follows its kernel's output split, where
-    the rules replicate every bias); ``groups`` marks fused projections."""
+    the rules replicate every bias); ``groups`` marks fused projections.
+    ``layers`` gives a scanned leaf's (layer, count): where its spec's
+    leading entry is ``pipe``, the leaf belongs to its layer's stage.  A
+    table split over a batch axis has its gradient summed over that axis
+    by the exchange's backward; ``reduced`` names other such axes (a
+    replicated table's ``psum_sparse``)."""
     groups, tensor_dims = dict(groups or {}), dict(tensor_dims or {})
+    layers, reduced = dict(layers or {}), dict(reduced or {})
     layouts = {}
     for name, shape in named_shapes:
         path, kind, scanned = flax[name]
         flax_shape = _flax_shape(shape, kind, scanned)
-        spec = torch_spec(rules.spec_for(path, flax_shape), kind, len(shape), scanned)
+        full = rules.spec_for(path, flax_shape)
+        stage = None
+        if scanned and name in layers and len(full) and _dim_of(P(full[0]), "pipe") == 0 \
+                and mesh.shape["pipe"] > 1:
+            i, count = layers[name]
+            S = mesh.shape["pipe"]
+            if count % S:
+                raise ValueError(f"{count} layers do not divide over pipe={S}")
+            stage = i // (count // S)
+        spec = torch_spec(full, kind, len(shape), scanned)
         tdim = tensor_dims.get(name, _dim_of(spec, "tensor"))
-        layouts[name] = Layout(tuple(shape), tdim, groups.get(name, 1), _dim_of(spec, "fsdp"))
+        row = next((a for a in _ROW_AXES if _dim_of(spec, a) == 0), None)
+        summed = ((row,) if row in _BATCH_AXES else ()) + tuple(reduced.get(name, ()))
+        layouts[name] = Layout(tuple(shape), tdim, groups.get(name, 1), _dim_of(spec, "fsdp"),
+                               row, stage, summed)
     return ParamPlan(layouts, mesh)
 
 

@@ -12,13 +12,15 @@ Port of ``distributed_tensorflow_tpu/train_lib.py``: ``TrainArgs``,
    tasks train data-parallel over ``torch.distributed``, one rank each
    (``cluster.server``; a cluster of one trains alone in a group of one);
 2. the mesh over the ranks (``--data``, ``--fsdp``, ``--tensor``,
-   ``--context``; ``cluster.topology``), checked against the axes the
-   model implements (``validate_mesh_axes``) and logged;
+   ``--pipe``, ``--context``, ``--expert``; ``cluster.topology``), checked
+   against the axes the model implements (``validate_mesh_axes``) and
+   logged; ``--pipe_schedule`` picks GPipe or 1F1B for GPT-2's stages;
 3. the workload on the mesh and its state, built alike on every rank from
    the seed, and the collective-mismatch guard (``assert_same_program``)
    before the first collective;
 4. the input: each rank feeds its batch shard's rows (data x fsdp; the
-   ranks of one shard along tensor and context feed the same rows),
+   ranks of one shard along tensor, pipe, context and expert feed the
+   same rows),
    synthetic stream shard or record stripe ``index`` of ``shards``, or
    batches pulled from the data service's one shared stream;
 5. the hooks: logging, NaN, prefetch, the peer health check (world size >
@@ -29,8 +31,8 @@ Port of ``distributed_tensorflow_tpu/train_lib.py``: ``TrainArgs``,
 6. the loop, then the teardown in the reference's order, the process group
    last.
 
-Flags whose layer is not ported yet (the pipe and expert mesh axes, 1F1B)
-raise a ``ValueError`` that names the missing slice; none is ignored.  ``--data_service=HOST:PORT`` (or ``dispatch://HOST:PORT``) feeds
+Every flag of the reference is honoured; none is ignored.
+``--data_service=HOST:PORT`` (or ``dispatch://HOST:PORT``) feeds
 the ranks from the out-of-process input service (``data/service.py``); it
 excludes ``--data_dir``.
 
@@ -42,6 +44,10 @@ excludes ``--data_dir``.
                 "task": {"type": "worker", "index": 0}}' \
         python -m distributed_tensorflow_tpu_torch.train_lib --model=wide_deep \
         --checkpoint_dir=/shared/ckpt --tensorboard_dir=/shared/tb
+    python -m distributed_tensorflow_tpu_torch.train_lib --model=gpt2 --flash_attention \
+        --pipe=2 --pipe_schedule=1f1b           # two ranks under TF_CONFIG
+    python -m distributed_tensorflow_tpu_torch.train_lib --model=wide_deep --arch=dlrm \
+        --expert=4                              # four ranks: the tables over expert
     python -m distributed_tensorflow_tpu_torch.train_lib                # mnist
 """
 
@@ -173,15 +179,6 @@ def parse_args(argv=None) -> TrainArgs:
     return TrainArgs(**vars(p.parse_args(argv)))
 
 
-# (flag, is it set, the slice of the port that brings its layer)
-_UNPORTED = (
-    ("--pipe > 1", lambda a: a.pipe > 1, "the parallelism slice, part B (pipelines)"),
-    ("--pipe_schedule=1f1b", lambda a: a.pipe_schedule != "gpipe",
-     "the parallelism slice, part B (pipelines)"),
-    ("--expert > 1", lambda a: a.expert > 1,
-     "the parallelism slice, part B (the expert axis)"),
-)
-
 # Mesh axes each workload can actually honor.  Axes a workload cannot honor
 # are hard errors, not silent replication (a --pipe the model ignores would
 # have N-1 of N devices doing duplicate work).
@@ -210,11 +207,7 @@ def validate_mesh_axes(args: TrainArgs) -> None:
 
 
 def validate_args(args: TrainArgs) -> None:
-    """Reject flags the port cannot honour yet, naming the missing slice,
-    and flags that do not apply."""
-    for flag, is_set, where in _UNPORTED:
-        if is_set(args):
-            raise ValueError(f"{flag} is not ported to PyTorch yet; it comes with {where}")
+    """Reject flags that do not apply."""
     validate_mesh_axes(args)
     if args.ring_chunk_size:
         if args.model not in ("gpt2", "bert"):
@@ -231,6 +224,12 @@ def validate_args(args: TrainArgs) -> None:
                          "(the embedding-table workloads)")
     if args.flash_attention and args.model not in ("gpt2", "bert"):
         raise ValueError("--flash_attention applies to gpt2/bert (the attention workloads)")
+    if args.pipe_schedule != "gpipe":
+        if args.model != "gpt2":
+            raise ValueError("--pipe_schedule applies to --model=gpt2 "
+                             "(the pipelined workload)")
+        if args.pipe <= 1:
+            raise ValueError("--pipe_schedule=1f1b requires --pipe>1")
 
 
 def resolve_device(name: str) -> torch.device:
@@ -283,9 +282,9 @@ def build_state_and_step(workload: Workload, *, precision=BF16, grad_accum_steps
     on a warmup-cosine schedule.  On the workload's mesh the optimizer runs
     on the fsdp shards and the step reduces as the mesh says."""
     mesh = workload.mesh
-    if mesh is not None and mesh.shape["context"] > 1:
-        # Every context rank's rows are one batch shard's: each microbatch
-        # must divide over data x fsdp.
+    if mesh is not None and (mesh.shape["context"] > 1 or mesh.shape["pipe"] > 1):
+        # Every context or pipe rank's rows are one batch shard's: each
+        # microbatch must divide over data x fsdp.
         batch_par = mesh.shape["data"] * mesh.shape["fsdp"]
         micro = workload.batch_size // max(1, grad_accum_steps)
         if micro % max(1, batch_par):
@@ -322,6 +321,8 @@ def _make_workload(args: TrainArgs, device, mesh=None) -> Workload:
         overrides["use_flash_attention"] = True
     if args.ring_chunk_size:
         overrides["ring_chunk_size"] = args.ring_chunk_size
+    if args.pipe_schedule != "gpipe":
+        overrides["pipe_schedule"] = args.pipe_schedule
     return get_workload(args.model, **overrides)
 
 

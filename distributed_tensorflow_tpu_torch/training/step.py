@@ -22,27 +22,38 @@ same contract:
 Parallelism: where ``torch.distributed`` runs more than one process,
 each rank's step sees its rows of the global batch, and the reductions
 follow the mesh (``mesh``, ``plan``; without a mesh every rank is a batch
-shard).  After the accumulation a gradient is reduced over each axis on
-which its leaf is replicated: summed over the batch shards (data x fsdp)
-and divided by their count, and summed over ``context`` (each context
-rank's loss is its part of the global loss).  A leaf split over ``fsdp``
-(``plan``) is reduce-scattered over ``fsdp`` instead, so the optimizer
-gets its shard's gradient; a leaf split over ``tensor`` keeps its own
-gradient, and one replicated over ``tensor`` has the same gradient on
-every tensor rank already (the model's conjugate operators).  The
-replicated leaves and the loss and aux metrics go in one flat all-reduce
-(one collective, not one a leaf), the fsdp leaves in one reduce-scatter.
-The metrics come out as the global batch's (the models report context
-parts as the whole).  The clip's global norm counts each element once: a
-leaf's squares count on the ranks that hold a distinct part of it, summed
-over fsdp x tensor.  The microbatch seed folds in the batch-shard index
-(data x fsdp; the rank without a mesh), so no two batch shards draw the
-same dropout mask, and tensor and context ranks of one shard share it.
-Over gloo a CUDA bucket goes through host memory, and the host seconds of
-the exchange (copies included) land in the ``dtt_grad_allreduce_seconds``
-histogram; NCCL's runs on the stream.  At world size 1 the step adds no
-collective.  A stateful model (BatchNorm) synchronises its statistics
-over the batch shards itself (``models/resnet.py``).
+shard).  After the accumulation a gradient is summed over each axis on
+which its leaf is replicated and whose ranks hold different parts of the
+loss: the batch shards (data x fsdp), ``context`` (each context rank's
+loss is its part of the global loss) and, for a leaf every pipeline
+stage holds (GPT-2's ``wte``, ``wpe`` and ``ln_f`` at ``pipe`` > 1),
+``pipe`` (stage 0's ``wte`` gradient is the embedding's part, the last
+stage's the tied head's); then divided by the number of batch shards.  A
+block's leaves belong to one stage and take no pipe reduction.  A table
+whose rows are split over a batch axis, or whose lookup's backward sums
+over the batch axes itself (``plan``: ``Layout.reduced``), is not summed
+over those axes again: it only takes the 1/shards mean, so it trains at
+the learning rate of the replicated leaves.  A leaf split over ``fsdp``
+is reduce-scattered over ``fsdp`` instead, so the optimizer gets its
+shard's gradient; a leaf split over ``tensor`` keeps its own gradient,
+and one replicated over ``tensor`` (or over ``expert``, whose ranks see
+the same rows) has the same gradient there already.  The leaves that
+reduce over the same axes go in one flat all-reduce (one collective a
+set of axes, not one a leaf), the fsdp leaves in one reduce-scatter; the
+loss and aux metrics go with the replicated leaves and come out as the
+global batch's (the models report context and pipeline parts as the
+whole).  The clip's global norm counts each element once: a leaf's
+squares count on the ranks that hold a distinct part of it (its fsdp,
+tensor or row shard, its stage, or coordinate 0 of every axis it is
+replicated on), summed over the mesh.  The microbatch seed folds in the
+batch-shard index (data x fsdp; the rank without a mesh), so no two batch
+shards draw the same dropout mask, and tensor and context ranks of one
+shard share it.  Over gloo a CUDA bucket goes through host memory, and
+the host seconds of the exchange (copies included) land in the
+``dtt_grad_allreduce_seconds`` histogram; NCCL's runs on the stream.  At
+world size 1 the step adds no collective.  A stateful model (BatchNorm)
+synchronises its statistics over the batch shards itself
+(``models/resnet.py``).
 """
 
 from __future__ import annotations
@@ -54,6 +65,7 @@ import torch
 import torch.distributed as dist
 
 from distributed_tensorflow_tpu_torch.cluster.coordination import process_count, process_index
+from distributed_tensorflow_tpu_torch.cluster.topology import MESH_AXES
 from distributed_tensorflow_tpu_torch.obs import metrics as obs_metrics
 from distributed_tensorflow_tpu_torch.parallel import collectives
 from distributed_tensorflow_tpu_torch.parallel.sharding import split_dim
@@ -70,7 +82,8 @@ StatefulLossFn = Callable[[Tensors, Tensors, Tensors, int], Tuple[torch.Tensor, 
 class _MeanAllReduce:
     """The sum over ``group``'s ranks (the default group for None) of a
     list of float32 tensors divided by ``world``, as one flat all-reduce,
-    written back in place."""
+    written back in place; ``divisors`` (one a tensor) replace ``world``
+    where given."""
 
     def __init__(self, world: int, group=None):
         self.world, self.group = world, group
@@ -80,7 +93,8 @@ class _MeanAllReduce:
             "host seconds of the gradient all-reduce on gloo (a CUDA bucket's host copies "
             "included)")
 
-    def __call__(self, tensors: List[torch.Tensor]) -> None:
+    def __call__(self, tensors: List[torch.Tensor],
+                 divisors: Optional[List[float]] = None) -> None:
         flat = torch.cat([t.reshape(-1) for t in tensors])
         if dist.get_backend(self.group) != "gloo":
             dist.all_reduce(flat, group=self.group)  # NCCL: on the stream
@@ -97,16 +111,17 @@ class _MeanAllReduce:
             else:
                 dist.all_reduce(flat, group=self.group)
             self._seconds.observe(time.perf_counter() - t0)
-        flat.div_(self.world)
         offset = 0
-        for t in tensors:
+        for i, t in enumerate(tensors):
             n = t.numel()
-            t.copy_(flat[offset:offset + n].view_as(t))
+            part = flat[offset:offset + n].view_as(t)
+            t.copy_(part / (self.world if divisors is None else divisors[i]))
             offset += n
 
 
 _BATCH = ("data", "fsdp")
-_REPLICAS = ("data", "fsdp", "context")
+# The axes whose ranks hold different parts of the loss, in mesh order.
+_PARTS = ("data", "fsdp", "pipe", "context")
 
 
 class _Reductions:
@@ -115,19 +130,36 @@ class _Reductions:
 
     def __init__(self, mesh, plan):
         self.mesh, self.plan = mesh, plan
+        self._buckets: Dict[Tuple[str, ...], _MeanAllReduce] = {}
         if mesh is None:
             world = process_count()
-            self.shards, self.index, self.context = world, process_index(), 1
+            self.shards, self.index = world, process_index()
+            self.metric_axes = None
             self.mean = _MeanAllReduce(world) if world > 1 else None
         else:
             self.shards, self.index = mesh.axis_size(_BATCH), mesh.axis_index(_BATCH)
-            self.context = mesh.axis_size("context")
-            group = mesh.group(_REPLICAS)
-            self.mean = _MeanAllReduce(self.shards * self.context, group) if group else None
+            self.metric_axes = self.axes(None)
+            self.mean = None
+
+    def axes(self, name: Optional[str]) -> Tuple[str, ...]:
+        """The live axes the leaf ``name``'s gradient is summed over (the
+        metrics' for None): the parts of the loss, less the axes its
+        backward summed over already, ``fsdp`` where it is split there, and
+        ``pipe`` where one stage holds it."""
+        plan, lay = self.plan, None
+        if name is not None and plan is not None and name in plan.layouts:
+            lay = plan.layouts[name]
+        skip = set(lay.reduced) if lay is not None else set()
+        if name is not None and plan is not None and lay is not None:
+            if plan.fsdp_sharded(name):
+                skip.add("fsdp")
+            if plan.staged(name):
+                skip.add("pipe")
+        return tuple(a for a in _PARTS if a not in skip and self.mesh.shape[a] > 1)
 
     @property
     def active(self) -> bool:
-        return self.mean is not None or (self.plan is not None and self.plan.fsdp > 1)
+        return self.mean is not None or (self.mesh is not None and self.mesh.size > 1)
 
     def sharded(self, name: str) -> bool:
         return self.plan is not None and self.plan.fsdp_sharded(name)
@@ -135,27 +167,42 @@ class _Reductions:
     def gradients(self, names: List[str], acc: List[torch.Tensor], metrics: Dict) -> List:
         """The reduced gradients (fsdp leaves as this rank's shard) and, in
         place, the global metrics."""
+        if self.mesh is None:
+            self.mean([*acc, *metrics.values()])
+            return acc
         out = list(acc)
-        rest = [i for i, n in enumerate(names) if not self.sharded(n)]
-        fsdp = [i for i, n in enumerate(names) if self.sharded(n)]
-        if self.mean is not None:
-            # The metrics are the same on every context rank: their sum over
-            # the replicas is divided by shards * context like the gradients'
-            # sum, which then gets back its context factor.
-            self.mean([*(acc[i] for i in rest), *metrics.values()])
-            for i in rest:
-                acc[i].mul_(self.context)
-        if fsdp:
-            out_fsdp = self._reduce_scatter([names[i] for i in fsdp], [acc[i] for i in fsdp])
-            for i, g in zip(fsdp, out_fsdp):
+        by_axes: Dict[Tuple[str, ...], List[int]] = {}
+        fsdp: Dict[Tuple[str, ...], List[int]] = {}
+        for i, n in enumerate(names):
+            (fsdp if self.sharded(n) else by_axes).setdefault(self.axes(n), []).append(i)
+        by_axes.setdefault(self.metric_axes, [])
+        for axes, idx in by_axes.items():
+            tensors = [acc[i] for i in idx]
+            divisors = [self.shards] * len(idx)
+            if axes == self.metric_axes:
+                # The metrics are the same on every rank of one batch shard
+                # (the models report context and pipeline parts as the
+                # whole): their sum over the axes over their count is the
+                # mean over the batch shards.
+                tensors += list(metrics.values())
+                divisors += [self.mesh.axis_size(axes)] * len(metrics)
+            if axes:
+                if axes not in self._buckets:
+                    self._buckets[axes] = _MeanAllReduce(self.shards, self.mesh.group(axes))
+                self._buckets[axes](tensors, divisors)
+            elif self.shards > 1:  # summed over the batch shards already: the mean's division
+                for t, d in zip(tensors, divisors):
+                    t.div_(d)
+        for axes, idx in fsdp.items():
+            for i, g in zip(idx, self._reduce_scatter([names[i] for i in idx],
+                                                      [acc[i] for i in idx], axes)):
                 out[i] = g
         return out
 
-    def _reduce_scatter(self, names, grads) -> List[torch.Tensor]:
-        """Each fsdp leaf's gradient summed over the batch shards and the
-        context ranks, divided by the shards, as this rank's shard: one
-        flat reduce-scatter over fsdp, then an all-reduce over data x
-        context."""
+    def _reduce_scatter(self, names, grads, axes) -> List[torch.Tensor]:
+        """Each fsdp leaf's gradient summed over fsdp and ``axes``, divided
+        by the shards, as this rank's shard: one flat reduce-scatter over
+        fsdp, then an all-reduce over ``axes``."""
         plan, mesh = self.plan, self.mesh
         f = plan.fsdp
         blocks = []
@@ -164,7 +211,7 @@ class _Reductions:
             blocks.append(torch.stack([split_dim(g, dim, f, j) for j in range(f)]))
         flat = torch.cat([b.reshape(f, -1) for b in blocks], dim=1)
         mine = collectives.reduce_scatter(flat, mesh, "fsdp", scatter_axis=0).reshape(-1)
-        mine = collectives.psum_(mine.contiguous(), mesh, ("data", "context"))
+        mine = collectives.psum_(mine.contiguous(), mesh, axes)
         mine.div_(self.shards)
         out, offset = [], 0
         for b in blocks:
@@ -175,20 +222,28 @@ class _Reductions:
 
     def global_norm(self, names: List[str], grads: List[torch.Tensor]) -> torch.Tensor:
         """The global norm, each element counted once: a leaf's squares
-        count where this rank holds a distinct part of it (its fsdp shard,
-        its tensor shard, or coordinate 0 of an axis it is replicated on),
-        summed over fsdp x tensor."""
+        count where this rank holds a distinct part of it (its fsdp,
+        tensor or row shard, its stage, or coordinate 0 of every axis it
+        is replicated on), summed over the mesh."""
         sq = torch.stack([torch.linalg.vector_norm(g) for g in grads]) ** 2
-        if self.mesh is None or self.mesh.group(("fsdp", "tensor")) is None:
+        plan, mesh = self.plan, self.mesh
+        if mesh is None or plan is None or not any(plan.split_axes(n) for n in names):
             return torch.sqrt(sq.sum())
-        coords, plan = self.mesh.coords, self.plan
-        own = []
-        for n in names:
-            fs = self.sharded(n) or coords["fsdp"] == 0
-            ts = (plan is not None and plan.tensor_sharded(n)) or coords["tensor"] == 0
-            own.append(float(fs and ts))
+        own = [float(o) for o in counted_leaves(mesh, plan, names)]
         total = (sq * torch.tensor(own, device=sq.device)).sum()
-        return torch.sqrt(collectives.psum(total, self.mesh, ("fsdp", "tensor")))
+        return torch.sqrt(collectives.psum(total, mesh, MESH_AXES))
+
+
+def counted_leaves(mesh, plan, names: List[str]) -> List[bool]:
+    """Whether this rank counts each leaf in a sum over the mesh that must
+    see every element once: where it holds a distinct part of the leaf
+    (its fsdp, tensor or row shard, its stage) or sits at coordinate 0 of
+    every axis the leaf is replicated on (every leaf, without a plan)."""
+    if mesh is None:
+        return [True] * len(names)
+    live = [a for a in MESH_AXES if mesh.shape[a] > 1]
+    split = {n: plan.split_axes(n) if plan is not None else () for n in names}
+    return [all(a in split[n] or mesh.coords[a] == 0 for a in live) for n in names]
 
 
 def make_train_step(loss_fn: LossFn, *, grad_accum_steps: int = 1,

@@ -187,6 +187,50 @@ os._exit(0)
 """
 
 
+ABORT = r"""
+import time
+import torch.distributed as dist
+from torch.distributed import distributed_c10d as c10d
+from distributed_tensorflow_tpu_torch import cluster
+from distributed_tensorflow_tpu_torch.ft import HealthCheckHook
+server = cluster.Server.from_resolver(cluster.resolve(), device="cpu")
+groups = [dist.group.WORLD, dist.new_group([0]), dist.new_group([0])]
+before = list(c10d._world.pg_map)
+assert all(g in before for g in groups) and len(before) >= 4, before  # with the control group
+hook = HealthCheckHook(interval_s=0.05, timeout_s=0.01, failures_before_action=1,
+                       startup_grace_s=0.0, probe=lambda timeout_s: False)
+hook.begin(None)
+deadline = time.time() + 10
+while dist.is_initialized() and time.time() < deadline:
+    time.sleep(0.01)
+left = [g for g in before if g in c10d._world.pg_map]
+print("ABORTED", dist.is_initialized(), len(before), len(left), flush=True)
+try:
+    hook.after_step(None, 1, {})
+except RuntimeError as e:
+    print("RAISED", e, flush=True)
+hook.end(None, 1)
+server.shutdown(barrier=False)
+print("SHUT_DOWN", flush=True)
+"""
+
+
+def test_a_failed_probe_aborts_the_ranks_process_groups():
+    """HealthCheckHook's default on a failed probe: the checker's thread
+    aborts every process group of the rank (the training group, the
+    mesh's, the control group), so a rank blocked in an NCCL collective
+    whose peer died raises there; the step boundary then raises too, and
+    the teardown copes with the aborted groups.  On gloo, as here, the
+    abort unblocks no collective; this shows that it is called on each
+    group."""
+    ((code, out),) = join(spawn(ABORT, [("worker", 0)]), 60)
+    assert code == 0, out[-3000:]
+    assert "ABORTED False" in out and "RAISED cluster unhealthy" in out, out[-3000:]
+    n, left = out.split("ABORTED False")[1].split()[:2]
+    assert int(n) >= 4 and left == "0", out[-3000:]
+    assert "SHUT_DOWN" in out, out[-3000:]
+
+
 def test_store_probe_passes_then_sees_a_dead_peer():
     """Timed barrier on the store: healthy while both live; after rank 1
     exits, rank 0's checker raises within interval x (failures + 1) +

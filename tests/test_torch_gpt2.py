@@ -149,7 +149,7 @@ def test_remat_gives_the_same_gradients_with_dropout(flash):
 
 def test_init_follows_flax_initializers():
     tm = tgpt2.GPT2(tgpt2.GPT2Config.mini(), seed=0).requires_grad_(False)
-    blk = tm.blocks[0]
+    blk = tm.blocks["0"]
     assert abs(float(tm.wte.std()) - 0.02) < 1e-3
     assert abs(float(tm.wpe.std()) - 0.01) < 1e-3
     w = blk.c_attn.weight
@@ -174,9 +174,10 @@ def test_dense_attention_memory_guard():
 def test_make_workload_rejects_unported_options():
     """ce_chunk and ring attention's chunks are ported
     (test_torch_wide_deep.py and test_torch_ring_attention.py hold them to
-    the reference); pipelining still raises, naming its slice."""
+    the reference); so is pipelining (test_torch_pipeline.py), and 1F1B
+    without a pipe axis raises, as in the reference."""
     assert tgpt2.make_workload(preset="tiny", ce_chunk=16, device="cpu").module.cfg.ce_chunk == 16
     wl = tgpt2.make_workload(preset="tiny", ring_chunk_size=64, device="cpu")
     assert wl.module.cfg.ring_chunk_size == 64
-    with pytest.raises(ValueError, match="parallelism slice, part B"):
+    with pytest.raises(ValueError, match="requires a mesh with pipe>1"):
         tgpt2.make_workload(preset="tiny", device="cpu", pipe_schedule="1f1b")

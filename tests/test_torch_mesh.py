@@ -12,7 +12,6 @@
 - every collective over two gloo ranks against numpy (one spawn).
 """
 
-import dataclasses
 import json
 
 import numpy as np
@@ -72,9 +71,9 @@ def _reference_shapes(module, init):
 
 MODELS = {
     "gpt2": lambda: (
-        _reference_shapes(jgpt2.GPT2(dataclasses.replace(jgpt2.GPT2Config.tiny(),
-                                                         scan_layers=False)),
-                          jnp.zeros((2, 8), jnp.int32)),
+        # The scanned stack: the port's plan names a block's leaves by their
+        # path there, whose leading layer dim the rules put on pipe.
+        _reference_shapes(jgpt2.GPT2(jgpt2.GPT2Config.tiny()), jnp.zeros((2, 8), jnp.int32)),
         jgpt2.gpt2_rules(), tgpt2.gpt2_rules(),
         gpt2_flax_paths([n for n, _ in tgpt2.GPT2(tgpt2.GPT2Config.tiny(),
                                                   device="meta").named_parameters()]),

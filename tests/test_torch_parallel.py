@@ -383,8 +383,3 @@ def test_train_lib_trains_tensor_parallel_under_tf_config():
         finals.append(out.split("FINAL")[1].split()[:2])
     assert finals[0][0] == "2" and finals[0] == finals[1]
 
-
-@pytest.mark.parametrize("flag", ["--pipe=2", "--expert=2"])
-def test_pipe_and_expert_still_raise_naming_part_b(flag):
-    with pytest.raises(ValueError, match="not ported.*part B"):
-        train_lib.run(train_lib.parse_args(["--model=gpt2", "--device=cpu", flag]))

@@ -155,11 +155,10 @@ def test_entry_point_runs_on_cpu(monkeypatch):
     assert math.isfinite(result["loss"]) and math.isfinite(result["grad_norm"])
 
 
-# The pipe axis and 1F1B are not ported (part B of the parallelism slice);
-# the mesh axes that are need as many ranks as they name, and ring
-# attention's chunks need the context axis.
+# Every mesh axis is ported: each needs as many ranks as it names, 1F1B
+# needs the pipe axis, and ring attention's chunks the context axis.
 _FLAG_ERRORS = {
-    "--pipe_schedule=1f1b": "not ported.*part B", "--pipe=2": "not ported.*part B",
+    "--pipe_schedule=1f1b": "requires --pipe>1", "--pipe=2": "Cannot factor 1 device",
     "--tensor=2": "Cannot factor 1 device", "--fsdp=2": "Cannot factor 1 device",
     "--context=2": "Cannot factor 1 device", "--data=2": "needs 2 devices but 1",
     "--ring_chunk_size=64": "requires --context>1",
@@ -176,10 +175,14 @@ def test_unported_flags_raise(flag):
 
 
 def test_unported_models_raise():
-    """Every model family is ported; what Wide&Deep still lacks is the
-    multi-table sharding over --expert, which names its slice."""
-    with pytest.raises(ValueError, match="not ported.*parallelism"):
+    """Every model family is ported, Wide&Deep's multi-table sharding over
+    --expert too (test_torch_expert.py): at one process the flag fails only
+    for want of ranks, and on another model it names the models that take
+    it."""
+    with pytest.raises(ValueError, match="Cannot factor 1 device"):
         train_lib.run(train_lib.parse_args(["--model=wide_deep", "--device=cpu", "--expert=2"]))
+    with pytest.raises(ValueError, match="not wired into --model=bert"):
+        train_lib.run(train_lib.parse_args(["--model=bert", "--device=cpu", "--expert=2"]))
 
 
 def test_synthetic_image_classification_is_byte_identical():
@@ -346,4 +349,4 @@ def test_port_imports_no_jax_and_no_reference():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 64  # every module was imported
+    assert int(proc.stdout.split()[-1]) >= 65  # every module was imported (pipeline too)
