@@ -9,8 +9,10 @@
                                            # and the NCCL abort check
     python3 chip_smoke.py --cluster_only LABEL ...  # those of the four-card
                                            # configurations (or nccl_abort),
-                                           # or phase 8b (two_workers) or
-                                           # 11 (phase11) alone on any card
+                                           # or phase 8b (two_workers), 11
+                                           # (phase11) or 12 (serving, with
+                                           # the kernels' build) alone on
+                                           # any card
 
 Phases (any failure raises; there is no CPU path):
 
@@ -100,8 +102,9 @@ Phases (any failure raises; there is no CPU path):
    final states gathered to the global layout bit-identical, and equal to
    this process's run of the same global batch as two microbatches
    (float32: loss 2e-5, tensors 1e-5 of a leaf; bf16: loss 1e-2 relative,
-   tensors after step 1 2^-5 of a leaf), with the step and the all-reduce's seconds (one card: not a scaling
-   figure); (c) SIGTERM to worker 1 after step 3: both save at step 10,
+   and the state after each step within 2^-5 of a leaf of one process
+   restarted from the workers' state before that step), with the step
+   and the all-reduce's seconds (one card: not a scaling figure); (c) SIGTERM to worker 1 after step 3: both save at step 10,
    the next sync point of the preemption OR-reduce, and exit 0, a relaunch
    resumes to step 13 equal to the one-process run of the same batches
    (phase 7's resume tolerances), and an evaluator task reports eval_loss
@@ -150,14 +153,17 @@ Phases (any failure raises; there is no CPU path):
    different; the forward, dQ and dK/dV must run and no pre-pass;
    (b) GPT-2 medium (flash, batch 32 in 4 microbatches) 3 steps at
    ``tensor=2`` and at ``fsdp=2``, the loss within 1e-2 of one process's
-   on the same global batches, 96 dQ and dK/dV launches a step a rank;
+   on the same global batches and step 1's gradient norm of every leaf
+   within GRAD_NORM_RTOL, 96 dQ and dK/dV launches a step a rank;
    (c) ResNet-50 at ``data=2`` with synchronised BatchNorm (global batch
-   256), its loss and running statistics within 1e-2 of one process's.
+   256), its loss and running statistics within 1e-2 of one process's and
+   its gradient norms as in (b).
    ``--cluster_only`` on four cards (NCCL, a card a rank) runs GPT-2
    medium at ``fsdp=2 x tensor=2`` and at ``context=4``, BERT-base seq 512
    at ``data=2 x context=2`` (batch 256, ragged keys) and ResNet-50 at
    ``data=4`` (batch 256), 3 steps each against one card's run of the same
-   global batches (loss within 1e-2), and prints the throughput a card,
+   global batches (loss within 1e-2, step 1's gradient norms within
+   GRAD_NORM_RTOL), and prints the throughput a card,
    the collective share of a profiled step's device time, the peak MiB of
    each rank and the flash launches a step.
 11. Pipelines and the expert axis, two ranks of ``--parallel_worker``
@@ -176,11 +182,42 @@ Phases (any failure raises; there is no CPU path):
    initialisation allocates less than the rows it does not hold; each
    rank's peak MiB.  ``--cluster_only`` on four cards adds GPT-2 medium at ``pipe=2 x
    tensor=2`` (GPipe) and at ``pipe=4`` (1F1B), the multi-table DLRM at
-   ``data=2 x expert=2`` and Wide&Deep at ``data=4``, reported as phase
-   10's four-card runs, and then SIGKILLs one rank of a Wide&Deep
+   ``data=2 x expert=2`` and Wide&Deep at ``data=4``, reported and held
+   as phase 10's four-card runs (each recsys rank's initialisation
+   transient too), and then SIGKILLs one rank of a Wide&Deep
    ``data=4`` train_lib run (NCCL) after step 3: the other three must
    raise within interval x 3 + timeout seconds (the health checker aborts
    their process groups), and the times are printed.
+12. Serving, part A (``serve/``), on one card: (a) tiny GPT-2 served on
+   the card (its decode graphs) against the CPU from the same weights: in
+   float32 the decode logits (prefill 8, then single steps) within 1e-4 of
+   the full forward and of the CPU's and the greedy tokens identical; in
+   bf16 the logits within 1e-2 of the CPU's, the tokens' agreement printed;
+   (b) GPT-2 medium (bf16, seed 0) through ``run_serve`` on the bench's
+   traffic (64 requests, prompts 16/32/48 five times then 256, 64 new
+   tokens cycling down to 8, batches of 8 from 4 clients), once with the
+   CUDA graph per decode family and once eagerly, each engine fresh and
+   the launch counts set to 0 just before: tokens/s, p50 and p99 latency,
+   ``compile_post_warmup`` (must be 0), ``programs_cached``, peak MiB and
+   the two token checksums, which must be equal; then two rows' decode
+   logits against the full forward (MEDIUM_DECODE_RTOL); (c) one decode
+   step of the (8 rows, 320) family: the graph replay's device time, the
+   eager step's wall and host enqueue a token, its device time by part
+   under torch.profiler (GEMMs, the float32 head, attention ops, casts,
+   other), the idle shares, the weights' traffic floor, the KV cache's
+   MiB; (d) BERT-base seq 512 (flash, ragged keys), ResNet-50 at 224x224
+   and MNIST through ``classify_batch`` (examples/s over 5 batches, the
+   launch counts set to 0 just before: BERT 12 forwards a batch and no
+   backward kernel, the others no flash kernel), BERT's NSP logits against
+   its plain-attention branch (NSP_RTOL; and the same logits with the key
+   mask dropped must fall outside it), and the forward at the classify
+   shape held against its plain version (out and lse, as in phase 2), then
+   as device time alone beside its plain version, SDPA's and its bound;
+   (e) tiny GPT-2 trained 3 steps, saved by the port's
+   ``CheckpointManager`` and served from it: ``restored_step`` and the
+   greedy tokens equal to the in-memory weights'; (f) ``python -m
+   distributed_tensorflow_tpu_torch.serve`` and the bench's
+   ``--mode=serve`` each print one JSON line.
 
 The line before the last is a JSON object of the kernels' numbers; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -1546,10 +1583,11 @@ DP_STEPS, PREEMPT_STEPS, PREEMPT_AFTER = 5, 13, 3
 PREEMPT_SYNC = 10  # train_lib's PreemptionCheckpointHook OR-reduces every 10 steps
 HEALTH_INTERVAL_S = 2.0  # DTT_HEALTH_INTERVAL_S of the health phase
 DP_TOL = {"loss": 2e-5, "tensor": 1e-5}  # the single-process float32 ones
-# Phase 8b in bf16: a leaf of the two workers' state after step 1 against
-# one process's, of its largest entry.  A table's gradient differs by about
-# a bf16 ulp where its two microbatches' sums cancel, doubled in exp_avg_sq
-# (1.3e-2 on an H100); a wrong scale or sum moves it by O(1).
+# Phase 8b in bf16: a leaf of the two workers' state after a step against
+# one process's step from the workers' state before it, of its largest
+# entry.  A table's gradient differs by about a bf16 ulp where its two
+# microbatches' sums cancel, doubled in exp_avg_sq (1.3e-2 at step 1 on an
+# H100); a wrong scale or sum moves it by O(1).
 DP_BF16_TOL = 2**-5
 WORKER_DEADLINE_S = 240.0
 
@@ -1581,8 +1619,8 @@ def worker_main(argv) -> int:
     from distributed_tensorflow_tpu_torch.training import Hook
 
     out, tag, flags = Path(argv[0]), argv[1], argv[2:]
-    dump = "--dump" in flags
-    flags = [f for f in flags if f != "--dump"]
+    dump, dump_steps = "--dump" in flags, "--dump_steps" in flags
+    flags = [f for f in flags if f not in ("--dump", "--dump_steps")]
     task = json.loads(os.environ["TF_CONFIG"])["task"]
     rank = task["index"]
     rec = StepRecorder(0)  # wall time a step after a sync; no profiler
@@ -1605,8 +1643,8 @@ def worker_main(argv) -> int:
             if not after_first:  # the run's first step
                 after_first["totals"] = allreduce_totals()
                 after_first["backend"] = torch.distributed.get_backend()
-            if dump and step == 1:
-                dump_state(loop, out / f"{tag}_rank{rank}_step1.pt")
+            if dump_steps:  # phase 8b in bf16 holds each step; the gather is a collective
+                dump_state(loop, out / f"{tag}_rank{rank}_step{step}.pt")
 
         def end(self, loop, step):
             if dump:
@@ -1762,6 +1800,40 @@ def one_process_reference(segments, total_steps, precision="fp32"):
     return losses, {k: v.detach().cpu() for k, v in state_tensors(state).items()}, wl, state
 
 
+def hold_each_step(out: Path, tag: str, precision: str, tol: float) -> None:
+    """Phase 8b in bf16: step k of the two workers against one process
+    restarted from the workers' state after step k - 1 (step 1 from the
+    same init), on the same global batch as two microbatches: the workers'
+    state after every step within ``tol`` of its largest entry.  One
+    rounding apart a step, as at step 1, however far the straight runs'
+    bf16 masters have drifted apart."""
+    import numpy as np
+
+    from distributed_tensorflow_tpu_torch import train_lib
+    from distributed_tensorflow_tpu_torch.checkpoint.manager import (load_state_tensors,
+                                                                     state_tensors)
+    from distributed_tensorflow_tpu_torch.models import get_workload
+    from distributed_tensorflow_tpu_torch.training import BF16, FP32
+
+    device = torch.device("cuda")
+    wl = get_workload("wide_deep", batch_size=RECSYS_BATCH, device=device)
+    state, step = train_lib.build_state_and_step(
+        wl, grad_accum_steps=2, precision={"fp32": FP32, "bf16": BF16}[precision],
+        total_steps=DP_STEPS, seed=0)
+    streams = [shard_stream(wl, 2, i) for i in (0, 1)]
+    for k in range(1, DP_STEPS + 1):
+        parts = [next(s) for s in streams]
+        batch = {key: torch.from_numpy(np.concatenate([p[key] for p in parts])).to(device)
+                 for key in parts[0]}
+        if k > 1:
+            state = load_state_tensors(state, torch.load(out / f"{tag}_rank0_step{k - 1}.pt"))
+        state, _ = step(state, batch, 1)
+        got = {n: v.detach().cpu() for n, v in state_tensors(state).items()}
+        start = "the same init" if k == 1 else f"the workers' state after step {k - 1}"
+        check_state(f"two workers vs one process ({precision}), step {k} from {start}",
+                    torch.load(out / f"{tag}_rank0_step{k}.pt"), got, tol)
+
+
 def check_state(label, got, want, tol):
     worst, name, exact = _state_errors(got, want)
     print(f"[cluster] {label}: worst tensor {name} {worst:.3e} of its largest entry "
@@ -1909,10 +1981,10 @@ def check_two_workers(data_dir: Path):
     # relative in bf16)
     for precision, tol, loss_tol in (("fp32", DP_TOL["tensor"], DP_TOL["loss"]),
                                      ("bf16", DP_BF16_TOL, PAR_LOSS_RTOL)):
-        tag = f"dp_{precision}"
+        tag, dumps_steps = f"dp_{precision}", precision == "bf16"
         flags = ["--model=wide_deep", f"--batch_size={RECSYS_BATCH}", f"--steps={DP_STEPS}",
                  "--log_every=1", "--device=cuda", "--seed=0", f"--precision={precision}",
-                 "--dump"]
+                 "--dump"] + (["--dump_steps"] if dumps_steps else [])
         procs = spawn_cluster(out, tag, [("worker", 0), ("worker", 1)], {"worker": flags})
         r0, r1 = expect_ok(f"two workers ({precision})", join_cluster(procs))
         launches += [r0, r1]
@@ -1931,19 +2003,19 @@ def check_two_workers(data_dir: Path):
         if precision == "fp32":
             check_state(f"two workers vs one process ({precision})", s0, want, tol)
         else:
-            _, want1, _, _ = one_process_reference([1], DP_STEPS, precision)
-            check_state(f"two workers vs one process ({precision}), after step 1",
-                        torch.load(out / f"{tag}_rank0_step1.pt"), want1, tol)
+            hold_each_step(out, tag, precision, tol)
             worst, name, _ = _state_errors(s0, want)
-            print(f"[cluster] two workers vs one process ({precision}), after step "
-                  f"{DP_STEPS}: worst tensor {name} {worst:.3e} of its largest entry (not held)")
+            print(f"[cluster] two workers vs one process ({precision}), {DP_STEPS} steps "
+                  f"straight: worst tensor {name} {worst:.3e} of its largest entry (each step "
+                  f"is held above, from the workers' state before it)")
         if not dloss <= loss_tol:
             raise AssertionError(f"two workers' losses differ from the one-process run "
                                  f"({precision})")
         for r in (r0, r1):
             steps = r["step_s"][1:]
+            dumps = " (each with the state dump of the step before)" if dumps_steps else ""
             print(f"[cluster] rank {r['rank']} ({where}, {precision}): step seconds "
-                  f"{[round(t, 4) for t in r['step_s']]}, median after the first "
+                  f"{[round(t, 4) for t in r['step_s']]}{dumps}, median after the first "
                   f"{1e3 * statistics.median(steps):.2f} ms; gradient all-reduce (pinned host "
                   f"copies + gloo; NCCL's is device time, untimed) after the first step: "
                   f"{r['allreduce_calls']} calls, "
@@ -2576,10 +2648,10 @@ def check_data_service(fa, data_dir: Path, records):
 
 PAR_STEPS = 3
 PAR_LOSS_RTOL = 1e-2  # bf16 runs of one global batch, the mesh's against one process's
-# Step 1's gradient norm of each leaf, a pipeline's or a sharded table's
-# against one process's (bf16): the sound ones differ by at most 2.4e-3 on
-# an H100 (Wide&Deep's half batches), a zeroed, doubled or unsummed
-# gradient by O(1).
+# Step 1's gradient norm of each leaf, every mesh's against one process's
+# (bf16): the sound ones differ by at most 2.4e-3 on an H100 (Wide&Deep's
+# half batches; phase 10's tensor, fsdp and data runs 2.4e-3 at most), a
+# zeroed, doubled or unsummed gradient by O(1).
 GRAD_NORM_RTOL = 1e-2
 RING_CASES = {  # name: (B, T, H, D, causal, key lengths or None)
     "gpt2_medium": (8, 1024, 16, 64, True, None),
@@ -2950,18 +3022,18 @@ def grad_norm_error(gots, want):
     return worst + tuple(total)
 
 
-def compare_training(label, gots, want, reports, grad_rtol=None):
+def compare_training(label, gots, want, reports):
     """A mesh run's losses (rank 0's) against one process's, relative
     PAR_LOSS_RTOL, and step 1's gradient norm of every leaf, gathered over
-    the ranks ``gots`` (enforced within ``grad_rtol`` where given); prints
-    both and the step seconds."""
+    the ranks ``gots``, within GRAD_NORM_RTOL; prints both and the step
+    seconds."""
     got = gots[0]
     how = transport(reports)
     e, leaf, a, b, mesh_norm, one_norm = grad_norm_error(gots, want)
     print(f"[parallel] {label}: step 1's gradient norm {mesh_norm:.6g} (one process "
-          f"{one_norm:.6g}); worst leaf {leaf} {a:.6g} against {b:.6g}, relative {e:.3e}"
-          + ("" if grad_rtol is None else f" (tolerance {grad_rtol})"))
-    if grad_rtol is not None and not e <= grad_rtol:
+          f"{one_norm:.6g}); worst leaf {leaf} {a:.6g} against {b:.6g}, relative {e:.3e} "
+          f"(tolerance {GRAD_NORM_RTOL})")
+    if not e <= GRAD_NORM_RTOL:
         raise AssertionError(f"{label}: step 1's gradient of {leaf} has norm {a} against one "
                              f"process's {b}")
     print(f"[parallel] {label} ({how}): losses {got['losses']} one process "
@@ -3051,7 +3123,7 @@ def check_pipe_and_expert(out: Path):
     for label, model, axes, schedule in PHASE11:
         want = wants[model]
         got = [torch.load(out / f"{label}_rank{r}.pt") for r in (0, 1)]
-        compare_training(label, got, want, reports, GRAD_NORM_RTOL)
+        compare_training(label, got, want, reports)
         print(f"[pipe/expert] {label}: peak MiB by rank {[round(g['peak_mib']) for g in got]} "
               f"(one process {want['peak_mib']:.0f}); table rows by rank "
               f"{[g['table_rows'] for g in got]}")
@@ -3069,17 +3141,23 @@ def check_pipe_and_expert(out: Path):
                                          f"graphs in flight, expected {bound}")
             else:
                 assert_no_flash(f"{label} rank {r}", g["launches"])
-                print(f"[pipe/expert] {label} rank {r}: initialisation's transient peak "
-                      f"{g['init_transient_mib']:.1f} MiB above what the rank keeps; the rows "
-                      f"of its largest table it does not hold {g['init_unheld_mib']:.1f} MiB")
-                if not g["init_transient_mib"] < g["init_unheld_mib"]:
-                    raise AssertionError(f"{label} rank {r}: initialisation allocated as much "
-                                         f"as a whole table")
+                assert_init_transient(f"{label} rank {r}", g)
                 full = want["table_rows"]
                 if any(n * 2 != full[k] for k, n in g["table_rows"].items()):
                     raise AssertionError(f"{label} rank {r}: a table is not split in two: "
                                          f"{g['table_rows']} of {full}")
     return launches
+
+
+def assert_init_transient(label, g):
+    """A recsys rank's initialisation must allocate less above what it
+    keeps than the rows of its largest table it does not hold (it draws
+    only its own rows)."""
+    print(f"[pipe/expert] {label}: initialisation's transient peak "
+          f"{g['init_transient_mib']:.1f} MiB above what the rank keeps; the rows of its "
+          f"largest table it does not hold {g['init_unheld_mib']:.1f} MiB")
+    if not g["init_transient_mib"] < g["init_unheld_mib"]:
+        raise AssertionError(f"{label}: initialisation allocated as much as a whole table")
 
 
 PHASE11 = (  # label, model, mesh, pipeline schedule
@@ -3123,12 +3201,14 @@ def check_cluster_parallel(out: Path, labels=None):
                                      "axes": axes, "profile_step": 1, "schedule": schedule},
                                ranks)
         got = [torch.load(out / f"{label}_rank{r}.pt") for r in range(ranks)]
-        part_b = schedule is not None or model in RECSYS_VOCAB
-        compare_training(label, got, want, reports, GRAD_NORM_RTOL if part_b else None)
+        compare_training(label, got, want, reports)
         if schedule is not None:
             for r, g in enumerate(got):
                 assert_flash_launches(f"{label} rank {r}", g["launches"],
                                       pipe_launches_per_step(axes), PAR_STEPS)
+        if model in RECSYS_VOCAB:
+            for r, g in enumerate(got):
+                assert_init_transient(f"{label} rank {r}", g)
         rate = per_step / got[0]["step_s"][-1] / ranks
         share = got[0]["collective_ms"] / got[0]["device_ms"] if got[0]["device_ms"] else math.nan
         row = {"per_card": rate, "one_card": per_step / want["step_s"][-1],
@@ -3147,6 +3227,486 @@ def check_cluster_parallel(out: Path, labels=None):
         summary[label] = row
         print(f"[phase] cluster {label}: {time.perf_counter() - t0:.1f} s")
     return summary
+
+
+# -- Phase 12: serving, part A (GPT-2 decode, the engine, the fixed-batch loop) --
+
+# The bench's serving traffic (python -m distributed_tensorflow_tpu_torch.bench
+# --mode=serve on the card), 8 rows a batch from 4 clients.
+SERVE_TRAFFIC = dict(model="gpt2", preset="medium", steps=64, prompt_len=64,
+                     prompt_lens=",".join(["16,32,48"] * 5 + ["256"]), max_new_tokens=64,
+                     min_new_tokens=8, max_batch_size=8, clients=4)
+DECODE_F32_TOL = 1e-4  # decode against the full forward in float32, the reference's own
+DECODE_BF16_TOL = 1e-2  # bf16 decode logits, the card against the CPU
+# GPT-2 medium in bf16: decode (prefill, then one token a call) against the
+# full forward, of the rows' largest |logit|.  The two run their GEMMs at
+# other shapes (M = 2 rows a step against 96), so cuBLAS rounds each of the
+# 24 layers' bf16 outputs at other places; a wrong position, cache write or
+# mask moves a logit by O(1) of that scale.
+MEDIUM_DECODE_RTOL = 2.0 ** -4
+# BERT-base's NSP logits (bf16), flash forward against the plain attention
+# branch on the card, of the batch's largest |logit|: the kernel rounds P to
+# bf16 for P.V where the plain branch rounds the float32 softmax's output.
+NSP_RTOL = 2.0 ** -4
+DECODE_PROFILE = dict(rows=8, prompt=256, new=64)  # the (B, total) = (8, 320) family
+CLASSIFY = (("bert", dict(seq_len=512, batch_size=32), 32),  # name, factory, rows a batch
+            ("resnet50", dict(batch_size=64), 64),
+            ("mnist", dict(batch_size=256), 256))
+
+
+def _decode_logits(model, tokens, prefill):
+    """(B, T, V) float32 logits of a prefill of ``prefill`` tokens, then one
+    token a call, over a cache of the sequence's length."""
+    from distributed_tensorflow_tpu_torch.models import gpt2
+
+    B, T = tokens.shape
+    with torch.inference_mode():
+        cache = gpt2.init_decode_cache(model.cfg, None, B, T, device=tokens.device)
+        outs = [model(tokens[:, :prefill], decode=True, cache=cache)]
+        for i in range(prefill, T):
+            outs.append(model(tokens[:, i:i + 1], decode=True, cache=cache))
+        return torch.cat(outs, 1).float()
+
+
+def check_tiny_decode():
+    """12a: tiny GPT-2 served on the card (its decode graphs) against the
+    CPU (eager), from the same weights: in float32 the decode logits within
+    DECODE_F32_TOL of the full forward and of the CPU's, the greedy tokens
+    identical; in bf16 the decode logits within DECODE_BF16_TOL of the
+    CPU's, the greedy tokens' agreement printed."""
+    from distributed_tensorflow_tpu_torch.models import gpt2
+    from distributed_tensorflow_tpu_torch.serve import ServeEngine
+
+    gen = torch.Generator().manual_seed(0)
+    tokens = torch.randint(0, 256, (4, 24), generator=gen)
+    prompts = torch.randint(0, 256, (8, 6), generator=gen).to(torch.int32).numpy()
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = gpt2.GPT2Config.tiny(dtype=dtype)
+        engines = {dev: ServeEngine("gpt2", device=dev, config=cfg) for dev in ("cuda", "cpu")}
+        engines["cuda"].install_params(dict(engines["cpu"].module.named_parameters()))
+        logits = {dev: _decode_logits(e.module, tokens.to(e.device), 8).cpu()
+                  for dev, e in engines.items()}
+        tokens_out = {dev: e.generate(prompts, 16) for dev, e in engines.items()}
+        with torch.inference_mode():
+            full = engines["cuda"].module(tokens.cuda()).float().cpu()
+        card_cpu = max_err(logits["cuda"], logits["cpu"])
+        agree = float((tokens_out["cuda"] == tokens_out["cpu"]).mean())
+        name = "float32" if dtype == torch.float32 else "bf16"
+        print(f"[serve] tiny GPT-2 {name} decode: card vs CPU logits max_abs_err {card_cpu:.3e}, "
+              f"decode vs full forward on the card {max_err(logits['cuda'], full):.3e}; greedy "
+              f"tokens (8 rows x 16, the card's decode graphs) agree with the CPU's on "
+              f"{agree:.1%}")
+        if dtype == torch.float32:
+            if not (max_err(logits["cuda"], full) <= DECODE_F32_TOL
+                    and card_cpu <= DECODE_F32_TOL and agree == 1.0):
+                raise AssertionError("tiny GPT-2 float32 decode on the card differs")
+        elif not card_cpu <= DECODE_BF16_TOL:
+            raise AssertionError("tiny GPT-2 bf16 decode on the card differs from the CPU")
+
+
+def serve_medium(fa):
+    """12b: GPT-2 medium (bf16, seed 0) serving the bench's traffic through
+    ``run_serve``, with its decode graphs and then eagerly, each engine
+    fresh and the launch counts set to 0 just before: the two token
+    checksums equal, ``compile_post_warmup`` 0, no flash launch.  Then the
+    graphed engine's decode logits of two rows against its full forward.
+    Returns ({"graphs"|"eager": (result, engine)}, the serving launches)."""
+    from distributed_tensorflow_tpu_torch.serve import ServeArgs, ServeEngine, run_serve
+
+    runs = {}
+    for graphs in (True, False):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = ServeEngine("gpt2", device="cuda", preset="medium", cuda_graphs=graphs)
+        for name in fa.LAUNCHES:
+            fa.LAUNCHES[name] = 0
+        res = run_serve(ServeArgs(device="cuda", **SERVE_TRAFFIC), engine=eng)
+        torch.cuda.synchronize()
+        res.update(launches=dict(fa.LAUNCHES), peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+                   phase_s=time.perf_counter() - t0)
+        label = "graphs" if graphs else "eager"
+        runs[label] = (res, eng)
+        print(f"[serve] GPT-2 medium fixed batch ({label}): {res['tokens_per_sec']:.1f} tokens/s "
+              f"({res['tokens_generated']} tokens, {res['requests']} requests in "
+              f"{res['elapsed_s']:.3f} s), p50 {res['p50_latency_ms']:.1f} ms, p99 "
+              f"{res['p99_latency_ms']:.1f} ms, queue wait p50 {res['queue_wait_p50_ms']:.1f} ms; "
+              f"batches {res['batches']}, occupancy {res['avg_batch_occupancy']}; "
+              f"compile_post_warmup {res['compile_post_warmup']}, programs_cached "
+              f"{res['programs_cached']}; checksum {res['tokens_checksum']}; peak "
+              f"{res['peak_mib']:.0f} MiB; launches {res['launches']}; {res['phase_s']:.1f} s "
+              f"with the engine's build")
+        if res["compile_post_warmup"] != 0:
+            raise AssertionError(f"GPT-2 medium ({label}) built a decode family after warm-up")
+        assert_no_flash(f"GPT-2 medium serving ({label})", res["launches"])
+    g, e = runs["graphs"][0], runs["eager"][0]
+    print(f"[serve] GPT-2 medium fixed batch: graphs {g['tokens_per_sec']:.1f} against eager "
+          f"{e['tokens_per_sec']:.1f} tokens/s ({g['tokens_per_sec'] / e['tokens_per_sec']:.2f}x)"
+          f"; checksums {g['tokens_checksum']} and {e['tokens_checksum']}")
+    if g["tokens_checksum"] != e["tokens_checksum"]:
+        raise AssertionError("GPT-2 medium: the decode graphs' tokens differ from eager's")
+    model = runs["graphs"][1].module
+    tokens = torch.randint(0, model.cfg.vocab_size, (2, 48), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(1))
+    dec = _decode_logits(model, tokens, 16)
+    with torch.inference_mode():
+        full = model(tokens).float()
+    err, scale = max_err(dec, full), float(full.abs().max())
+    agree = float((dec.argmax(-1) == full.argmax(-1)).float().mean())
+    print(f"[serve] GPT-2 medium bf16 decode (prefill 16, then 32 single steps) vs the full "
+          f"forward, two rows: max_abs_err {err:.4f} of max |logit| {scale:.3f} (tolerance "
+          f"{MEDIUM_DECODE_RTOL} of it); argmax agreement {agree:.1%}")
+    if not err <= MEDIUM_DECODE_RTOL * scale:
+        raise AssertionError("GPT-2 medium decode logits differ from the full forward")
+    return runs, {f"gpt2_medium_serve_{k}": r["launches"] for k, (r, _) in runs.items()}
+
+
+DECODE_SCOPES = {"serve:head": "float32 head", "serve:attention": "attention ops"}
+
+
+def decode_parts(prof):
+    """Device ms of a profiled decode step by part: the kernels launched
+    inside the tied head (``_head_logits``: wte's casts and the float32
+    GEMM) and inside the cached attention (the scope wrappers'), then the
+    rest by name: GEMMs, casts (copy kernels), other.  Returns (ms by part,
+    the 3 largest kernels of each part) or (None, None) when the profile
+    holds no kernel of a CPU op."""
+    parts, kernels = {}, {}
+    for evt in prof.events():
+        for k in evt.kernels:
+            scope, e = None, evt
+            while e is not None and scope is None:
+                scope = DECODE_SCOPES.get(e.name)
+                e = e.cpu_parent
+            low = k.name.lower()
+            part = scope or ("GEMMs" if any(s in low for s in ("gemm", "xmma", "cutlass",
+                                                              "sm90_", "nvjet"))
+                             else "casts" if "copy" in low else "other")
+            parts[part] = parts.get(part, 0.0) + k.duration / 1e3
+            kernels.setdefault(part, {}).setdefault(k.name, 0.0)
+            kernels[part][k.name] += k.duration / 1e3
+    if not parts:
+        return None, None
+    return parts, {p: sorted(ks.items(), key=lambda kv: -kv[1])[:3] for p, ks in kernels.items()}
+
+
+def profile_decode(runs):
+    """12c: one decode step of the (8 rows, 320) family (prompt 256, 64 new
+    tokens): the graph replay's device time (16 replays back to back
+    between two events, median of 5) and host time a replay; the eager
+    step's wall and host enqueue a token, and its device time by part
+    under torch.profiler (the head and the attention by scopes wrapped
+    around them here); the idle shares; the KV cache's MiB and the serving
+    run's peak.  Each timing rewinds the family to position 288."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from distributed_tensorflow_tpu_torch.models import gpt2
+
+    rows, prompt, new = DECODE_PROFILE["rows"], DECODE_PROFILE["prompt"], DECODE_PROFILE["new"]
+    prompts = torch.randint(0, 50257, (rows, prompt), generator=torch.Generator().manual_seed(2))
+    prompts = prompts.to(torch.int32).numpy()
+    (g_res, g_eng), (e_res, e_eng) = runs["graphs"], runs["eager"]
+    if not (g_eng.generate(prompts, new) == e_eng.generate(prompts, new)).all():
+        raise AssertionError("GPT-2 medium: graphs and eager decode differ at (8, 320)")
+    reps, key = 16, (0.0, 0)
+
+    def rewind(geom):
+        geom.cache.cache_index.fill_(prompt + 32)
+        geom.cache.position.fill_(prompt + 32)
+        geom.counter.fill_(33)
+
+    out = {}
+    for label, eng in (("graphs", g_eng), ("eager", e_eng)):
+        geom = eng._geometry(rows, prompt + new)
+        step = eng._step_fn(geom, key)
+        walls, hosts = [], []
+        with torch.inference_mode():
+            for _ in range(6):
+                rewind(geom)
+                torch.cuda.synchronize()
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    step()
+                hosts.append((time.perf_counter() - t0) / reps)
+                end.record()
+                end.synchronize()
+                walls.append(start.elapsed_time(end) / reps)
+        out[label] = {"step_ms": statistics.median(walls[1:]),
+                      "host_ms": 1e3 * statistics.median(hosts[1:])}
+    real_head, real_attn = gpt2._head_logits, gpt2.Block._cached_attention
+
+    def head(*a, **kw):
+        with record_function("serve:head"):
+            return real_head(*a, **kw)
+
+    def attention(*a, **kw):
+        with record_function("serve:attention"):
+            return real_attn(*a, **kw)
+
+    geom = e_eng._geometry(rows, prompt + new)
+    step = e_eng._step_fn(geom, key)
+    gpt2._head_logits, gpt2.Block._cached_attention = head, attention
+    try:
+        with torch.inference_mode():
+            rewind(geom)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(4):
+                    step()
+                torch.cuda.synchronize()
+    finally:
+        gpt2._head_logits, gpt2.Block._cached_attention = real_head, real_attn
+    parts, top = decode_parts(prof)
+    weights = sum(p.numel() for p in g_eng.module.parameters())
+    kv_mib = g_eng.cache_hbm_bytes(g_eng._geometry(rows, prompt + new).cache) / 2**20
+    g, e = out["graphs"], out["eager"]
+    print(f"[serve] decode step (8 rows, cache 320): graph replay {g['step_ms']:.4f} ms a step on "
+          f"the device ({1e3 / g['step_ms'] * rows:.0f} tokens/s), host {g['host_ms']:.4f} ms a "
+          f"replay; eager {e['step_ms']:.4f} ms a step, host enqueue {e['host_ms']:.4f} ms a "
+          f"step ({e['host_ms'] / rows:.4f} ms a token)")
+    busy = None
+    if parts is None:
+        print("[serve] decode step by part: not measured (the profile holds no kernel of a CPU "
+              "op)")
+    else:
+        parts = {p: ms / 4 for p, ms in parts.items()}
+        busy = sum(parts.values())
+        for p, ms in sorted(parts.items(), key=lambda kv: -kv[1]):
+            print(f"[serve] decode step by part (eager, a step): {p} {ms:.4f} ms "
+                  f"({ms / busy:.1%}); largest: "
+                  + "; ".join(f"{n[:240]} {t / 4:.4f}" for n, t in top[p]))
+        print(f"[serve] decode step: device busy {busy:.4f} ms a step (the eager step's "
+              f"kernels); idle share of the eager step {1 - busy / e['step_ms']:.1%}; the "
+              f"graph's replay takes {g['step_ms']:.4f} ms for the same kernels")
+    print(f"[serve] decode step floor: {weights / 1e6:.1f}M parameters, bf16 weights read once "
+          f"{2 * weights / 1e9:.3f} GB = {2 * weights / PEAK_BYTES * 1e3:.4f} ms; the float32 "
+          f"weights read and their bf16 casts written and read (the port today) "
+          f"{8 * weights / 1e9:.3f} GB = {8 * weights / PEAK_BYTES * 1e3:.4f} ms; KV cache "
+          f"{kv_mib:.1f} MiB; the serving run's peak {g_res['peak_mib']:.0f} MiB (graphs), "
+          f"{e_res['peak_mib']:.0f} MiB (eager)")
+    return {"graph_step_ms": g["step_ms"], "graph_host_ms": g["host_ms"],
+            "eager_step_ms": e["step_ms"], "eager_host_ms": e["host_ms"], "parts": parts,
+            "busy_ms": busy, "kv_mib": kv_mib}
+
+
+def fwd_bound_ms(B, T, H, D, lens):
+    """(bound ms, "operations" or "bytes") of the key-masked forward at
+    dropout 0 without keep bits, this data's valid keys only: 4 D flops a
+    (query, valid key) pair; q read and out written for every row, k and v
+    read for the valid keys alone, lse written and the key mask read once."""
+    pairs = H * T * sum(lens)
+    rows = B * T * H * D * 2  # q's bf16 bytes, and out's
+    keys = H * D * 2 * sum(lens)  # k's bf16 bytes over the valid keys, and v's
+    return bound_ms({"bf16": 4 * D * pairs}, 2 * rows + 2 * keys + B * H * T * 4 + B * T * 4,
+                    {"bf16": PEAK_BF16_FLOPS})
+
+
+def serve_classify(fa):
+    """12d: BERT-base seq 512 (flash, synthetic_mlm's ragged keys), ResNet-50
+    at 224x224 and MNIST through ``classify_batch``, each with the launch
+    counts set to 0 just before 5 batches and read just after: examples/s;
+    BERT launches 12 forwards a batch and no backward kernel, the others no
+    flash kernel.  BERT's NSP logits against its plain-attention branch
+    (the same weights, another engine) within NSP_RTOL, and outside it with
+    the key mask dropped; the forward at the classify shape (its q, k, v
+    drawn, the batch's key lengths) held against its plain version, then as
+    device time alone beside it, SDPA's and its bound."""
+    import numpy as np
+
+    from distributed_tensorflow_tpu_torch.serve import ServeEngine
+
+    reps, out, by_path = 5, {}, {}
+    for name, factory, rows in CLASSIFY:
+        gc.collect()
+        torch.cuda.empty_cache()
+        eng = ServeEngine(name, device="cuda", **factory)
+        batch = next(eng.workload.data_fn(rows))
+        examples = [{k: np.asarray(v[i]) for k, v in batch.items() if k != "label"}
+                    for i in range(rows)]
+        eng.classify_batch(examples)
+        torch.cuda.synchronize()
+        for k in fa.LAUNCHES:
+            fa.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            preds = eng.classify_batch(examples)
+        dt = (time.perf_counter() - t0) / reps
+        launches = dict(fa.LAUNCHES)
+        by_path[f"{name}_classify"] = launches
+        print(f"[serve] {name} classify_batch of {rows}: {rows / dt:.1f} examples/s "
+              f"({1e3 * dt:.2f} ms a batch, host copies included); launches in {reps} batches "
+              f"{launches}; predictions {preds[:4]}")
+        if name == "bert":
+            if (launches["flash_fwd"] != 12 * reps
+                    or any(launches[k] for k in BACKWARD)):
+                raise AssertionError(f"BERT classify: expected 12 forwards a batch and no "
+                                     f"backward kernel, got {launches}")
+            plain = ServeEngine(name, device="cuda", use_flash_attention=False, **factory)
+            plain.install_params(dict(eng.module.named_parameters()))
+            stacked = {k: np.stack([e[k] for e in examples]) for k in examples[0]}
+            got, want = eng.classify(stacked), plain.classify(stacked)
+            # What a faulty attention reads against the same limit: the key
+            # mask dropped (every key attended), through the flash engine.
+            unmasked = eng.classify({**stacked, "input_mask": np.ones_like(
+                stacked["input_mask"])})
+            err, scale = float(np.abs(got - want).max()), float(np.abs(want).max())
+            fault = float(np.abs(unmasked - want).max())
+            print(f"[serve] BERT-base NSP logits, flash vs plain attention on the card: "
+                  f"max_abs_err {err:.4f} of max |logit| {scale:.4f} (tolerance {NSP_RTOL} of "
+                  f"it: {err / scale:.4f}); argmax agreement "
+                  f"{float((got.argmax(-1) == want.argmax(-1)).mean()):.1%}; with the key mask "
+                  f"dropped {fault:.4f} ({fault / scale:.4f} of it)")
+            if not err <= NSP_RTOL * scale:
+                raise AssertionError("BERT classify: flash NSP logits differ from plain")
+            if not fault > NSP_RTOL * scale:
+                raise AssertionError("BERT classify: NSP_RTOL does not tell a dropped key mask "
+                                     "from the plain attention")
+            lens = [int(n) for n in batch["input_mask"].sum(1)]
+            out["bert_kernel"] = time_classify_forward(fa, rows, 512, lens,
+                                                       launches["flash_fwd"] / reps)
+            del plain
+        else:
+            assert_no_flash(f"{name} classify", launches)
+        out[name] = {"examples_per_sec": rows / dt, "batch_ms": 1e3 * dt, "rows": rows}
+        del eng
+    return out, by_path
+
+
+def time_classify_forward(fa, B, T, lens, launches_per_batch):
+    """The forward as BERT-base classify runs it (B rows of T, H=12, D=64,
+    bf16, non-causal, key mask, dropout 0, no keep bits): out and lse held
+    against its plain version (``check``; raises beyond the tolerance), then
+    device time alone beside the plain version and SDPA given the same
+    boolean key mask, and its bound over this data's valid keys."""
+    H, D = 12, 64
+    q, k, v, _, mask, _ = make_inputs(B, T, H, D, torch.bfloat16, seed=21, mask_lens=lens)
+    args = dict(causal=False, scale=1.0 / math.sqrt(D))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    keys = (mask > 0)[:, None, None, :]
+    fns = {"flash_fwd": lambda: fa.flash_fwd(q, k, v, mask, **args),
+           "plain": lambda: fa._dense_with_lse(q, k, v, kv_mask=mask, **args),
+           "SDPA": lambda: sdpa(qt, kt, vt, attn_mask=keys)}
+    print(f"[serve] BERT classify shape (B={B}, T={T}, H={H}, D={D}, keys {min(lens)}-"
+          f"{max(lens)}), flash_fwd against plain:")
+    result = {"errors": {}, "ratios": {}, "failures": []}
+    out, lse = fa.flash_fwd(q, k, v, mask, **args)
+    ref_out, ref_lse = fa._dense_with_lse(q, k, v, kv_mask=mask, **args)
+    torch.cuda.synchronize()
+    check("out", out, ref_out, torch.bfloat16, result)
+    check("lse", lse, ref_lse, torch.float32, result)
+    if result["failures"]:
+        raise AssertionError(f"BERT classify shape: flash_fwd differs from its plain version "
+                             f"beyond the tolerance in: {', '.join(result['failures'])}")
+    err = max(result["errors"].values())
+    queued = queued_ms(fns)
+    bms, by = fwd_bound_ms(B, T, H, D, lens)
+    print(f"[serve] BERT classify shape: flash_fwd queued {queued['flash_fwd']:.4f} ms, plain "
+          f"{queued['plain']:.4f} ms, SDPA {queued['SDPA']:.4f} ms "
+          f"({sdpa_backend(fns['SDPA'])}); bound {bms:.4f} ms ({by}, valid keys) -> "
+          f"{100 * bms / queued['flash_fwd']:.2f}% of bound; max_abs_err against plain "
+          f"{err:.3e} (out {result['errors']['out']:.3e}, err/tol "
+          f"{result['ratios']['out']:.3f}); {launches_per_batch:g} launches a batch")
+    return {"shape": [B, T, H, D], "launches_per_batch": launches_per_batch,
+            "queued_ms": queued["flash_fwd"], "plain_queued_ms": queued["plain"],
+            "library_queued_ms": queued["SDPA"], "bound_ms": bms, "bound_by": by,
+            "max_abs_err": err}
+
+
+def check_serve_checkpoint(data_dir: Path):
+    """12e: tiny GPT-2 trained 3 steps on the card by train_lib's
+    ``build_state_and_step`` and saved by its ``CheckpointManager``, then
+    served from the checkpoint: ``restored_step`` 3 and the greedy tokens
+    equal to an engine given the trained weights in memory."""
+    import numpy as np
+
+    from distributed_tensorflow_tpu_torch import train_lib
+    from distributed_tensorflow_tpu_torch.checkpoint.manager import CheckpointManager
+    from distributed_tensorflow_tpu_torch.models import get_workload
+    from distributed_tensorflow_tpu_torch.serve import ServeEngine
+
+    ckpt = data_dir / "serve_ckpt"
+    wl = get_workload("gpt2", preset="tiny", batch_size=8, seq_len=64, grad_accum_steps=1,
+                      device="cuda")
+    state, step = train_lib.build_state_and_step(wl, total_steps=3)
+    for batch, _ in zip(wl.data_fn(8), range(3)):
+        state, m = step(state, {k: torch.from_numpy(v).cuda() for k, v in batch.items()}, 1)
+    with CheckpointManager(str(ckpt), async_save=False) as mgr:
+        mgr.save(3, state)
+    prompts = np.random.RandomState(4).randint(0, 256, (8, 6)).astype(np.int32)
+    with ServeEngine("gpt2", device="cuda", preset="tiny", checkpoint_dir=str(ckpt)) as eng:
+        restored, got = eng.restored_step, eng.generate(prompts, 12)
+    with ServeEngine("gpt2", device="cuda", preset="tiny") as live:
+        live.install_params({n: p.detach() for n, p in state.params.items()})
+        want = live.generate(prompts, 12)
+    print(f"[serve] tiny GPT-2 from a train_lib checkpoint: restored_step {restored} (saved 3), "
+          f"greedy tokens equal to the in-memory weights': {bool((got == want).all())}")
+    if restored != 3 or not (got == want).all():
+        raise AssertionError("serving from the checkpoint differs from the in-memory model")
+
+
+def check_serve_cli():
+    """12f: the entry points as a user runs them, one after the other: the
+    serve module (GPT-2 medium, 16 requests of 16 tokens) and the bench's
+    ``--mode=serve`` (the traffic of 12b); each must print one JSON line."""
+    root = Path(__file__).resolve().parent
+    lines = {}
+    for label, argv in (
+            ("serve", ["-m", "distributed_tensorflow_tpu_torch.serve", "--steps=16",
+                       "--max_new_tokens=16", "--prompt_lens=16,32"]),
+            ("bench --mode=serve", ["-m", "distributed_tensorflow_tpu_torch.bench",
+                                    "--mode=serve"])):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, *argv], cwd=root, capture_output=True, text=True,
+                              timeout=600)
+        json_lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+        if proc.returncode != 0 or len(json_lines) != 1:
+            raise AssertionError(f"{label}: exit {proc.returncode}, {len(json_lines)} JSON lines:"
+                                 f" {proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+        lines[label] = json.loads(json_lines[0])
+        print(f"[serve] python {' '.join(argv)} ({time.perf_counter() - t0:.1f} s): "
+              f"{json_lines[0][:900]}")
+    return lines
+
+
+def host_load() -> str:
+    """The host's 1-minute load average and the processes this script
+    started that still run (children by their parent id in /proc): a busy
+    host slows every host-bound figure after it."""
+    import os
+
+    me, alive = str(os.getpid()), []
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if fields[1] == me:  # field 4, the parent pid
+            alive.append(pid)
+    return (f"load average {os.getloadavg()[0]:.2f} on {os.cpu_count()} cores; children "
+            f"alive {alive}")
+
+
+def check_serving(fa, data_dir: Path):
+    """Phase 12 in order (12a-12f); returns (its results, launches by path)."""
+    t0 = time.perf_counter()
+    print(f"[serve] host: {host_load()}")
+    check_tiny_decode()
+    runs, by_path = serve_medium(fa)
+    decode = profile_decode(runs)
+    runs = {k: r for k, (r, _) in runs.items()}  # the engines go
+    gc.collect()
+    torch.cuda.empty_cache()
+    classify, classify_paths = serve_classify(fa)
+    by_path.update(classify_paths)
+    check_serve_checkpoint(data_dir)
+    cli = check_serve_cli()
+    print(f"[phase] 12 serving: {time.perf_counter() - t0:.1f} s")
+    return {"medium": runs, "decode": decode, "classify": classify, "cli": cli}, by_path
 
 
 def main() -> int:
@@ -3270,6 +3830,9 @@ def main() -> int:
         other_runs.update({label: {"launches": n}
                            for label, n in check_pipe_and_expert(par_dir).items()})
         print(f"[phase] 11 pipelines and the expert axis: {time.perf_counter() - t_pipe:.1f} s")
+        # Phase 12: serving, part A.
+        serving, serve_paths = check_serving(fa, data_dir)
+        other_runs.update({label: {"launches": n} for label, n in serve_paths.items()})
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
 
@@ -3295,6 +3858,8 @@ def main() -> int:
             "device_ms": r["device_ms"], "queued_ms": r["queued_ms"],
             "step_device_ms": step_device_ms.get(name), "launches_by_path": by_path,
             "bert_base": bert_row,
+            "bert_base_classify": (serving["classify"]["bert_kernel"] if name == "flash_fwd"
+                                   else None),
             **{key: val for key, val in r.items() if key.startswith(("ms_", "device_ms_",
                                                                      "queued_ms_", "library_",
                                                                      "backward_"))
@@ -3308,7 +3873,7 @@ def main() -> int:
     return 0
 
 
-ONE_CARD_LABELS = ("two_workers", "phase11")  # --cluster_only labels any card runs
+ONE_CARD_LABELS = ("two_workers", "phase11", "serving")  # --cluster_only labels any card runs
 
 
 def cluster_main(labels) -> int:
@@ -3316,8 +3881,9 @@ def cluster_main(labels) -> int:
     alone; on four cards, also the configurations of CLUSTER_CONFIGS and
     the NCCL abort check (``nccl_abort``).  On a host with two or more
     cards each worker owns one, so the ranks run NCCL.  Labels (of
-    CLUSTER_CONFIGS, ``nccl_abort``, or ``two_workers`` and ``phase11``:
-    phases 8b and 11 on any card) run those alone."""
+    CLUSTER_CONFIGS, ``nccl_abort``, or ``two_workers``, ``phase11`` and
+    ``serving``: phases 8b, 11 and 12 on any card, 12 after the kernels'
+    build) run those alone."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only", file=sys.stderr)
         return 2
@@ -3342,6 +3908,14 @@ def cluster_main(labels) -> int:
         if "phase11" in labels:
             par_dir.mkdir(parents=True, exist_ok=True)
             check_pipe_and_expert(par_dir)
+        if "serving" in labels:
+            from distributed_tensorflow_tpu_torch.ops import _build
+            from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+
+            secs, _ = _build.build_all(verbose=True)
+            print(f"[build] nvcc {' '.join(_build.NVCC_FLAGS)}: {secs:.1f} s")
+            _, by_path = check_serving(fa, data_dir)
+            print(f"[serve] launches by path {json.dumps(by_path)}")
         if torch.cuda.device_count() >= 4 and (four or not labels):
             par_dir.mkdir(parents=True, exist_ok=True)
             if not four or set(four) - {"nccl_abort"}:

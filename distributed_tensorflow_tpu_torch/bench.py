@@ -1,4 +1,4 @@
-"""Train-mode bench of the PyTorch port: ResNet-50 images/sec on one GPU.
+"""Bench of the PyTorch port: ResNet-50 images/sec on one GPU, or serving.
 
 Port of ``bench.py``'s train mode (``main`` with ``--mode=train``,
 ``_measure``): ResNet-50 v1.5 at batch 256, 224x224, bf16, the recipe's
@@ -18,6 +18,7 @@ counters and ``gap_pct``, the input pipeline's toll on the hot loop.
     python -m distributed_tensorflow_tpu_torch.bench            # on the GPU
     python -m distributed_tensorflow_tpu_torch.bench --input=both --records=2048
     python -m distributed_tensorflow_tpu_torch.bench --device=cpu
+    python -m distributed_tensorflow_tpu_torch.bench --mode=serve   # GPT-2 medium, fixed batch
 
 On the CPU it runs the reference's tiny smoke config (batch 16, 64x64,
 stages (1, 1, 1, 1), 1 warmup step, 3 steps a window) under its own metric
@@ -25,6 +26,11 @@ name, and neither reads nor writes the baseline.  The first GPU run writes
 its value to ``.torch_bench_baseline.json`` beside the repo's root; later
 runs report ``vs_baseline`` against it (a loader-fed run compares with that
 cached anchor and never writes it).
+
+``--mode=serve`` runs the reference's core fixed-batch serving arm
+(``_serve_bench``) and prints its own metric,
+``torch_gpt2_medium_serve_fixed_batch_tokens_per_sec`` (on the CPU the tiny
+preset's ``torch_gpt2_tiny_cpu_smoke_serve_fixed_batch_tokens_per_sec``).
 """
 
 from __future__ import annotations
@@ -130,6 +136,40 @@ def _vs_baseline(value: float, write: bool = True) -> float:
     return 1.0
 
 
+def _serve_bench(flags, device):
+    """``--mode=serve``: the reference's core fixed-batch arm
+    (``bench.py:_serve_bench``) over its traffic, one JSON line.  The card
+    serves GPT-2 medium: at least 64 requests, prompt lengths cycling
+    16,32,48 five times then 256, 64 new tokens cycling down to 8; the CPU
+    the tiny preset's short mix.  Serving has no baseline yet:
+    ``vs_baseline`` is 1.0, as in the reference."""
+    import dataclasses
+
+    from distributed_tensorflow_tpu_torch.serve import ServeArgs, run_serve
+
+    on_gpu = device.type == "cuda"
+    if on_gpu:
+        args = ServeArgs(model="gpt2", preset="medium", steps=max(64, flags.serve_requests),
+                         prompt_len=64, prompt_lens=",".join(["16,32,48"] * 5 + ["256"]),
+                         max_new_tokens=64, min_new_tokens=8, checkpoint_dir=flags.checkpoint_dir)
+    else:
+        args = ServeArgs(model="gpt2", preset="tiny", steps=flags.serve_requests or 16,
+                         prompt_len=8, prompt_lens=",".join(["4,6,8"] * 5 + ["48"]),
+                         max_new_tokens=12, min_new_tokens=2, checkpoint_dir=flags.checkpoint_dir)
+    res = run_serve(dataclasses.replace(args, device=device.type))
+    out = {
+        "metric": ("torch_gpt2_medium_serve_fixed_batch_tokens_per_sec" if on_gpu
+                   else "torch_gpt2_tiny_cpu_smoke_serve_fixed_batch_tokens_per_sec"),
+        "value": res["tokens_per_sec"],
+        "unit": "tokens/sec",
+        "vs_baseline": 1.0,  # serving has no anchor yet, as in the reference
+        "device": torch.cuda.get_device_name(device) if on_gpu else "cpu",
+        **{k: v for k, v in res.items() if k != "tokens_per_sec"},
+    }
+    print(json.dumps(out))
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Train-mode bench of the PyTorch port")
     ap.add_argument("--mode", choices=("train", "serve"), default="train")
@@ -141,11 +181,14 @@ def main(argv=None):
                     help="timed windows; the value is their median, with the spread")
     ap.add_argument("--fence", choices=("full", "loss"), default="full")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--serve_requests", type=int, default=0,
+                    help="serve mode: requests to drive (the card serves at least 64)")
+    ap.add_argument("--checkpoint_dir", default=None,
+                    help="serve mode: serve this checkpoint (fresh init when unset)")
     flags = ap.parse_args(argv)
-    if flags.mode == "serve":
-        raise ValueError("--mode=serve is not ported to PyTorch yet; it comes with the "
-                         "serving slice")
     device = resolve_device(flags.device)
+    if flags.mode == "serve":
+        return _serve_bench(flags, device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     on_gpu = device.type == "cuda"

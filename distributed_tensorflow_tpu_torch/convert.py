@@ -1,6 +1,7 @@
 """Weights between the flax variable trees and the port's state dicts.
 
-GPT-2 (``params_from_flax``/``params_to_flax``): Flax Dense kernels are
+GPT-2 (``params_from_flax``/``params_to_flax``, and the decode cache:
+``cache_from_flax``/``cache_to_flax``): Flax Dense kernels are
 stored (in, out) and ``nn.Linear.weight`` is (out, in); a LayerNorm
 ``scale`` is ``weight``; ``wte`` stays tied to the head.  The flax tree
 comes in two layouts: the scanned stack (``blocks/<module>/<leaf>`` with a
@@ -101,6 +102,50 @@ def params_to_flax(state_dict: Mapping[str, torch.Tensor], *, scanned: bool = Tr
                               for leaf in layers[0][m]} for m in _DENSE + _NORMS}
     else:
         tree.update({f"h_{i}": layer for i, layer in enumerate(layers)})
+    return tree
+
+
+def cache_from_flax(tree: Mapping[str, Any], *, device=None):
+    """The reference's GPT-2 decode cache (the flax ``"cache"`` collection,
+    scanned ``blocks/{cached_key,cached_value,cache_index}`` with a leading
+    layer dim, or one ``h_<i>`` subtree per layer, plus ``position``) ->
+    the port's ``models.gpt2.DecodeCache`` (the dtypes kept)."""
+    from distributed_tensorflow_tpu_torch.models.gpt2 import DecodeCache
+
+    def t(x):
+        x = np.array(x)
+        if x.dtype.name == "bfloat16":  # numpy has no bf16 of its own: exactly through f32
+            return torch.from_numpy(x.astype(np.float32)).to(device, torch.bfloat16)
+        return torch.from_numpy(x).to(device)
+
+    if "blocks" in tree:
+        stack = tree["blocks"]
+        return DecodeCache(keys=list(t(stack["cached_key"]).clone().unbind(0)),
+                           values=list(t(stack["cached_value"]).clone().unbind(0)),
+                           cache_index=t(stack["cache_index"]), position=t(tree["position"]))
+    layers = [tree[f"h_{i}"] for i in range(sum(1 for k in tree if k.startswith("h_")))]
+    return DecodeCache(keys=[t(layer["cached_key"]) for layer in layers],
+                       values=[t(layer["cached_value"]) for layer in layers],
+                       cache_index=torch.stack([t(layer["cache_index"]) for layer in layers]),
+                       position=t(tree["position"]))
+
+
+def cache_to_flax(cache, *, scanned: bool = True) -> Dict[str, Any]:
+    """The port's ``DecodeCache`` -> the reference's ``"cache"`` tree of
+    numpy arrays, scanned (``blocks``) or per layer (``h_<i>``); bf16
+    leaves come out as float32."""
+    def a(x):  # a copy: the cache advances in place
+        return (x.detach().float() if x.is_floating_point() else x).cpu().numpy().copy()
+
+    if scanned:
+        return {"blocks": {"cached_key": np.stack([a(k) for k in cache.keys]),
+                           "cached_value": np.stack([a(v) for v in cache.values]),
+                           "cache_index": a(cache.cache_index)},
+                "position": a(cache.position)}
+    tree: Dict[str, Any] = {f"h_{i}": {"cached_key": a(k), "cached_value": a(v),
+                                       "cache_index": a(cache.cache_index[i])}
+                            for i, (k, v) in enumerate(zip(cache.keys, cache.values))}
+    tree["position"] = a(cache.position)
     return tree
 
 

@@ -1,13 +1,23 @@
-"""GPT-2 training path of the PyTorch port.
+"""GPT-2 of the PyTorch port: training and the dense-cache decode path.
 
-Port of ``distributed_tensorflow_tpu/models/gpt2.py`` (training only):
-``GPT2Config`` and its presets, ``Block``'s flash and dense attention
-branches, ``GPT2.__call__``'s non-decode path, ``_tied_head_ce``,
-``_chunked_ce`` (``ce_chunk``), ``_loss_fn``,
-``_guard_dense_attention_memory``, ``make_workload``, ``gpt2_rules`` and
-the pipelined path (``_pipelined_blocks``, ``_pipe_stage_fn``,
-``_pipe_staging``, ``_auto_microbatches``, ``_pipe_1f1b_loss``).  Decode
-comes with a later slice.
+Port of ``distributed_tensorflow_tpu/models/gpt2.py``: ``GPT2Config`` and
+its presets, ``Block``'s flash and dense attention branches and
+``_cached_attention``, ``GPT2.__call__`` with and without ``decode``,
+``_tied_head_ce``, ``_chunked_ce`` (``ce_chunk``), ``_loss_fn``,
+``_guard_dense_attention_memory``, ``make_workload``, ``gpt2_rules``,
+``gpt2_cache_rules`` and the pipelined path (``_pipelined_blocks``,
+``_pipe_stage_fn``, ``_pipe_staging``, ``_auto_microbatches``,
+``_pipe_1f1b_loss``).  The slot-table and paged decode paths
+(``slot_ids``, ``paged``, ``block_tables``) come with serving part B.
+
+Decode (``forward(tokens, decode=True, cache=...)``): the flax ``"cache"``
+collection is a ``DecodeCache`` the caller owns, with each layer's
+``cached_key`` and ``cached_value`` (B, S, h_local, hd) in ``cfg.dtype``,
+each layer's int32 ``cache_index`` and the int32 ``position``, all device
+tensors updated in place, so a captured decode step replays.  The first
+call takes the whole prompt (prefill), later calls one token; attention is
+the reference's plain masked softmax over the cache (no flash kernel, as
+in the reference, where decode takes precedence over ring and flash).
 
 On a mesh (``mesh=``, ``cluster.topology``) the model runs the
 reference's parallel layouts, placed by ``gpt2_rules``:
@@ -162,6 +172,57 @@ def site_seed(seed: Optional[int], mesh, *data: int, heads: bool = False) -> Opt
     return seed
 
 
+@dataclasses.dataclass
+class DecodeCache:
+    """The decode cache of one (batch, total length) geometry, the flax
+    ``"cache"`` collection: each layer's ``cached_key`` and ``cached_value``
+    (B, S, h_local, hd) in ``cfg.dtype`` (``keys[i]``, ``values[i]`` for
+    layer i), every layer's ``cache_index`` ((n_layer,) int32, the
+    scanned stack's) and ``position`` (() int32).  ``reset`` rewinds it for
+    a new batch without reallocating (the keys past the index are masked)."""
+
+    keys: List[torch.Tensor]
+    values: List[torch.Tensor]
+    cache_index: torch.Tensor
+    position: torch.Tensor
+
+    def reset(self) -> None:
+        self.cache_index.zero_()
+        self.position.zero_()
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (*self.keys, *self.values, self.cache_index, self.position))
+
+
+def gpt2_cache_rules(cfg: "GPT2Config", mesh, batch: int, total_len: int) -> Tuple[int, ...]:
+    """This rank's shape of one layer's cached key (or value) on ``mesh``,
+    the reference's ``gpt2_cache_rules`` as a shape: (B, S, H, head_dim)
+    with the batch over the data axes and the heads over ``tensor``, the
+    same split as ``c_attn``'s column-parallel heads, so decode under
+    tensor parallelism needs no resharding at the cache."""
+    dp, tp = _axis(mesh, "data") * _axis(mesh, "fsdp"), _axis(mesh, "tensor")
+    if batch % dp:
+        raise ValueError(f"batch {batch} does not divide over data x fsdp = {dp}")
+    if cfg.n_head % tp:
+        raise ValueError(f"n_head {cfg.n_head} does not divide over tensor={tp}")
+    return (batch // dp, total_len, cfg.n_head // tp, cfg.d_model // cfg.n_head)
+
+
+def init_decode_cache(cfg: "GPT2Config", mesh, batch: int, total_len: int, *,
+                      device=None) -> DecodeCache:
+    """A zeroed ``DecodeCache`` for ``batch`` rows of up to ``total_len``
+    tokens (prompt and generated) on ``mesh``."""
+    if total_len > cfg.n_positions:
+        raise ValueError(f"total length {total_len} exceeds n_positions {cfg.n_positions}")
+    shape = gpt2_cache_rules(cfg, mesh, batch, total_len)
+    return DecodeCache(
+        keys=[torch.zeros(shape, dtype=cfg.dtype, device=device) for _ in range(cfg.n_layer)],
+        values=[torch.zeros(shape, dtype=cfg.dtype, device=device) for _ in range(cfg.n_layer)],
+        cache_index=torch.zeros(cfg.n_layer, dtype=torch.int32, device=device),
+        position=torch.zeros((), dtype=torch.int32, device=device))
+
+
 class Block(nn.Module):
     def __init__(self, cfg: GPT2Config, layer: int, device=None, mesh=None):
         super().__init__()
@@ -179,7 +240,8 @@ class Block(nn.Module):
     def _seed(self, seed: Optional[int], site: int) -> Optional[int]:
         return site_seed(seed, self.mesh, self.layer, site, heads=site == _ATTN_PROBS)
 
-    def forward(self, x: torch.Tensor, seed: Optional[int] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, seed: Optional[int] = None,
+                cache: Optional["DecodeCache"] = None) -> torch.Tensor:
         cfg, mesh = self.cfg, self.mesh
         dt = cfg.dtype
         h = cfg.n_head // _axis(mesh, "tensor")  # this rank's heads
@@ -190,7 +252,11 @@ class Block(nn.Module):
         y = copy_to(_layer_norm(self.ln_1, x), mesh)
         q, k, v = _dense(self.c_attn, y, dt).split(h * hd, dim=-1)
         q, k, v = (t.view(B, T, h, hd) for t in (q, k, v))
-        if _axis(mesh, "context") > 1:
+        if cache is not None:
+            # Serve path: exact attention over the preallocated KV cache.
+            # Takes precedence over ring and flash, as in the reference.
+            ctx = self._cached_attention(q, k, v, cache)
+        elif _axis(mesh, "context") > 1:
             ctx = ring_attention(q, k, v, mesh=mesh, causal=True,
                                  chunk_size=cfg.ring_chunk_size or None, dropout_rate=rate,
                                  dropout_rng=self._seed(seed, _ATTN_PROBS))
@@ -211,6 +277,31 @@ class Block(nn.Module):
         mlp = F.gelu(_dense(self.mlp_c_fc, y, dt), approximate="tanh")
         mlp = row_parallel(self.mlp_c_proj, mlp, dt, mesh)
         return x + _dropout(mlp, rate, self._seed(seed, _MLP))
+
+    def _cached_attention(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          cache: "DecodeCache") -> torch.Tensor:
+        """The reference's fixed-batch ``_cached_attention``: this call's T
+        keys and values are written at ``cache_index`` (one index for the
+        whole batch), and the queries attend over the (B, S) cache with keys
+        past ``cache_index + query offset`` masked, so the cache's unwritten
+        tail never enters the softmax.  bf16 scores as the reference rounds
+        them (``finfo`` minimum as the mask value), the softmax in float32,
+        the probabilities cast to ``cfg.dtype``.  Device ops only: no host
+        read of the index."""
+        B, T, h, hd = q.shape
+        k_all, v_all = cache.keys[self.layer], cache.values[self.layer]
+        idx = cache.cache_index[self.layer]
+        offsets = idx + torch.arange(T, device=q.device, dtype=idx.dtype)
+        k_all.index_copy_(1, offsets.long(), k.to(k_all.dtype))
+        v_all.index_copy_(1, offsets.long(), v.to(v_all.dtype))
+        idx.add_(T)
+        S = k_all.shape[1]
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, k_all) / math.sqrt(hd)
+        keys = torch.arange(S, device=q.device, dtype=offsets.dtype)
+        mask = keys[None, :] <= offsets[:, None]  # (T, S) causal over the cache
+        scores = scores.masked_fill(~mask, torch.finfo(scores.dtype).min)
+        probs = torch.softmax(scores.float(), dim=-1).to(self.cfg.dtype)
+        return torch.einsum("bhqk,bkhd->bqhd", probs, v_all)
 
 
 def _head_logits(hidden: torch.Tensor, wte: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -323,30 +414,70 @@ class GPT2(nn.Module):
 
     def forward(self, tokens: torch.Tensor, *, seed: Optional[int] = None,
                 return_hidden: bool = False,
-                pipeline: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+                pipeline: Optional[List[torch.Tensor]] = None, decode: bool = False,
+                cache: Optional[DecodeCache] = None, slot_ids=None, paged=None,
+                block_tables=None) -> torch.Tensor:
         """Logits (B, T, V) float32, or with ``return_hidden`` the final
         LayerNorm's output (B, T, d) float32.  ``seed=None`` runs without
         dropout (flax ``deterministic=True``).  ``pipeline`` (pipe > 1):
         this stage's pipelined loss and the gradients of the given leaves
-        (``_pipelined_loss``)."""
+        (``_pipelined_loss``).  ``decode``: KV-cache decode against
+        ``cache``, which it advances in place; positions continue from
+        ``cache.position``.  On a tensor mesh the logits are this rank's
+        vocab columns, as in training."""
+        if slot_ids is not None or paged is not None or block_tables is not None:
+            raise NotImplementedError(
+                "slot_ids, paged and block_tables (the continuous-batching slot table and the "
+                "paged KV cache) come with serving part B; this port serves the fixed-batch "
+                "dense cache")
         if pipeline is not None:
             return self._pipelined_loss(tokens, pipeline)
         cfg, mesh = self.cfg, self.mesh
-        B, T = tokens.shape
-        tokens = tokens.long()
-        start, T = _seq_shard(T, mesh)  # this context rank's positions
-        tokens = tokens[:, start:start + T]
-        x = (vocab_embedding(tokens, self.wte, mesh).to(cfg.dtype)
-             + self.wpe[start:start + T].to(cfg.dtype))
-        x = _dropout(x, cfg.dropout, site_seed(seed, mesh, _EMBED_LAYER))
+        if decode:
+            x = self._decode_embed(tokens, cache)
+        else:
+            if cache is not None:
+                raise ValueError("cache only applies to decode=True calls")
+            B, T = tokens.shape
+            tokens = tokens.long()
+            start, T = _seq_shard(T, mesh)  # this context rank's positions
+            tokens = tokens[:, start:start + T]
+            x = (vocab_embedding(tokens, self.wte, mesh).to(cfg.dtype)
+                 + self.wpe[start:start + T].to(cfg.dtype))
+            x = _dropout(x, cfg.dropout, site_seed(seed, mesh, _EMBED_LAYER))
         for i, block in self.blocks.items():
-            x = _run_block(block, x, None if seed is None else fold_in(seed, int(i)), cfg.remat)
+            if decode:  # no remat and no dropout: there is no backward pass
+                x = block(x, None, cache)
+            else:
+                x = _run_block(block, x, None if seed is None else fold_in(seed, int(i)),
+                               cfg.remat)
         x = _layer_norm(self.ln_f, x)
         if return_hidden:
             return x
         # On a mesh: this context rank's positions and this tensor rank's
         # vocab columns.
         return _head_logits(copy_to(x, mesh), self.wte, cfg.dtype)
+
+    def _decode_embed(self, tokens: torch.Tensor, cache: Optional[DecodeCache]) -> torch.Tensor:
+        """The decode call's embedding: the token rows at positions
+        ``cache.position + arange(T)`` (``position`` advances by T), with
+        the reference's refusals of a pipeline or context mesh."""
+        cfg, mesh = self.cfg, self.mesh
+        if _axis(mesh, "pipe") > 1:
+            raise ValueError(
+                "decode=True with pipe>1 is unsupported: the serve engine runs the block stack "
+                "directly (TP/DP shardings apply; re-mesh without a pipe axis to serve)")
+        if _axis(mesh, "context") > 1:
+            raise ValueError("decode=True with context>1 is unsupported: decode steps are "
+                             "(B, 1) and cannot split the sequence over the context axis")
+        if cache is None:
+            raise ValueError("decode=True needs cache= (init_decode_cache)")
+        T = tokens.shape[1]
+        pos = cache.position
+        rows = (pos + torch.arange(T, device=pos.device, dtype=pos.dtype)).long()
+        pos.add_(T)
+        return (vocab_embedding(tokens.long(), self.wte, mesh).to(cfg.dtype)
+                + self.wpe.index_select(0, rows).to(cfg.dtype))
 
     def _pipelined_loss(self, tokens: torch.Tensor, leaves: List[torch.Tensor]):
         """This stage's schedule over the batch's M microbatches

@@ -1,0 +1,244 @@
+"""Per-request sampling parameters as runtime vectors.
+
+Copied unchanged from ``distributed_tensorflow_tpu/serve/sampling.py``
+(numpy only; the reference's ``serve/__init__`` imports JAX, so the port
+keeps its own copy).  The port's engine reads the same vectors as
+tensors (``serve.engine._select_next``).
+
+Sampling config belongs to the REQUEST, not the compiled program (the
+Orca / vLLM ``SamplingParams`` move): ``temperature``/``top_k``/``top_p``/
+presence-frequency penalties/per-request seeds ride into the slot
+programs as ``(num_slots,)`` DEVICE VECTORS, so the engine compiles ONE
+program per (family, paged, K/k) and a fleet mixing a million users'
+sampling configs in one batch never recompiles and never splits a batch
+by config.
+
+``SamplingParams`` is a FROZEN dataclass by design: it is hashable (the
+scheduler dedups distinct configs for its stats surface) and it can
+never become a jit cache key hazard — the ``recompile-hazard`` lint rule
+flags non-frozen dataclasses flowing into compile caches, and the
+``sampling_bad.py`` fixture pins exactly the per-request-scalar-in-key
+antipattern this module replaces.
+
+Greedy is ``temperature <= 0`` (the default): inside the one compiled
+program those rows compute penalized argmax via ``jnp.where`` — the
+greedy-row-equivalence invariant the parity suite pins against the
+scalar-keyed fixed-batch program.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+# Vector field -> (numpy dtype, padding value for empty slots).  The
+# padding row is GREEDY: idle slots compute (and discard) argmax, the
+# cheapest row of the shared program.
+VECTOR_FIELDS: Dict[str, Tuple[type, float]] = {
+    "temperature": (np.float32, 0.0),
+    "top_k": (np.int32, 0),
+    "top_p": (np.float32, 1.0),
+    "presence": (np.float32, 0.0),
+    "frequency": (np.float32, 0.0),
+    "seed": (np.int32, -1),   # -1 = shared in-step RNG (rng + counter)
+    "step": (np.int32, 0),    # per-slot emitted-token count (seeded keys)
+}
+
+# SLO tier bounds for ``SamplingParams.priority`` — host-side scheduling
+# metadata, deliberately NOT a VECTOR_FIELDS entry: priority and
+# deadline_ms never enter a packed launch vector or a program cache key.
+MIN_PRIORITY = 0
+MAX_PRIORITY = 9
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplingParams:
+    """One request's sampling config.
+
+    - ``temperature <= 0`` is greedy argmax (the default); ``> 0`` scales
+      logits before the categorical draw.
+    - ``top_k > 0`` keeps the k highest logits (0 = full vocab).
+    - ``top_p < 1.0`` keeps the smallest sorted-cumsum nucleus reaching
+      p (1.0 = off, an exact no-op on the logits).
+    - ``presence_penalty``/``frequency_penalty`` subtract from the logits
+      of tokens the request already EMITTED (presence: flat once seen;
+      frequency: per occurrence) — counts reset with the slot, never
+      inherited from a previous occupant, and they apply to greedy rows'
+      argmax too.
+    - ``seed`` pins the request's own RNG stream: its draws depend only
+      on (seed, params, logits, tokens-emitted-so-far), independent of
+      batch composition, counter interleaving, megastep K, or spec k —
+      the seed-per-slot reproducibility invariant.  ``None`` uses the
+      engine's shared in-step RNG (base key + launch counter).
+    - ``priority``/``deadline_ms`` are SLO scheduling hints, HOST-side
+      only: ``priority`` is an integer tier in [0, 9] (higher = more
+      important; the scheduler admits high tiers first and preempts low
+      tiers under block pressure), ``deadline_ms`` an optional TTFT
+      target the goodput gauges score against.  Neither field is in
+      ``VECTOR_FIELDS`` — they NEVER enter a packed launch vector or any
+      compiled-program identity, so varying them never recompiles.
+    """
+
+    temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 1.0
+    presence_penalty: float = 0.0
+    frequency_penalty: float = 0.0
+    seed: Optional[int] = None
+    priority: int = 0
+    deadline_ms: Optional[float] = None
+
+    def validate(self) -> "SamplingParams":
+        if not np.isfinite(self.temperature):
+            raise ValueError(f"temperature must be finite, "
+                             f"got {self.temperature}")
+        if self.top_k < 0:
+            raise ValueError(f"top_k must be >= 0, got {self.top_k}")
+        if not 0.0 < self.top_p <= 1.0:
+            raise ValueError(f"top_p must be in (0, 1], got {self.top_p}")
+        for name in ("presence_penalty", "frequency_penalty"):
+            v = getattr(self, name)
+            if not np.isfinite(v):
+                raise ValueError(f"{name} must be finite, got {v}")
+        if self.seed is not None and not 0 <= int(self.seed) < 2 ** 31:
+            raise ValueError(
+                f"seed must be in [0, 2**31) or None, got {self.seed}")
+        if not isinstance(self.priority, int) \
+                or isinstance(self.priority, bool) \
+                or not MIN_PRIORITY <= self.priority <= MAX_PRIORITY:
+            raise ValueError(
+                f"priority must be an int tier in [{MIN_PRIORITY}, "
+                f"{MAX_PRIORITY}], got {self.priority!r}")
+        if self.deadline_ms is not None:
+            d = self.deadline_ms
+            if isinstance(d, bool) or not isinstance(d, (int, float)) \
+                    or not np.isfinite(d) or d <= 0:
+                raise ValueError(
+                    f"deadline_ms must be a positive finite number or "
+                    f"None, got {self.deadline_ms!r}")
+        return self
+
+    @property
+    def greedy(self) -> bool:
+        return self.temperature <= 0.0
+
+
+GREEDY = SamplingParams()
+
+
+def coerce(value) -> SamplingParams:
+    """Submit-time adapter: SamplingParams, a kwargs dict, or None."""
+    if value is None:
+        return GREEDY
+    if isinstance(value, SamplingParams):
+        return value.validate()
+    if isinstance(value, dict):
+        return SamplingParams(**value).validate()
+    raise TypeError(
+        f"sampling must be a SamplingParams or a kwargs dict, "
+        f"got {type(value).__name__}")
+
+
+def pack(params: Sequence[Optional[SamplingParams]],
+         steps: Sequence[int]) -> Dict[str, np.ndarray]:
+    """Per-launch vector dict from one SamplingParams (or None = greedy)
+    per row plus each row's emitted-token count (the seeded-key step).
+    The dict is a plain pytree argument of the slot programs — varying
+    its VALUES never recompiles; only the row count is a shape."""
+    n = len(params)
+    out = {name: np.full((n,), fill, dtype)
+           for name, (dtype, fill) in VECTOR_FIELDS.items()}
+    for i, p in enumerate(params):
+        if p is None:
+            continue
+        out["temperature"][i] = p.temperature
+        out["top_k"][i] = p.top_k
+        out["top_p"][i] = p.top_p
+        out["presence"][i] = p.presence_penalty
+        out["frequency"][i] = p.frequency_penalty
+        out["seed"][i] = -1 if p.seed is None else int(p.seed)
+    out["step"][:] = np.asarray(steps, np.int32)
+    return out
+
+
+def uniform(n: int, temperature: float = 0.0, top_k: int = 0,
+            steps: Optional[Sequence[int]] = None) -> Dict[str, np.ndarray]:
+    """Uniform vector dict — every row the old engine-wide scalar config.
+    The parity suite pins that this is token-identical to the scalar-keyed
+    program."""
+    p = SamplingParams(temperature=float(temperature), top_k=int(top_k))
+    return pack([p] * n, steps if steps is not None else [0] * n)
+
+
+def parse_sampling_mix(spec: str) -> List[Tuple[SamplingParams, float]]:
+    """Parse a ``--sampling_mix`` spec into (params, weight) entries.
+
+    Grammar: comma-separated ``<config>:<weight>`` entries; ``<config>``
+    is ``greedy`` or a concatenation of ``t<float>`` (temperature),
+    ``k<int>`` (top_k), ``p<float>`` (top_p), ``a<float>`` (presence),
+    ``f<float>`` (frequency), ``s<int>`` (seed).  Example:
+    ``greedy:0.5,t0.8k40:0.3,t1.0p0.9:0.2``.
+    """
+    entries: List[Tuple[SamplingParams, float]] = []
+    for raw in spec.split(","):
+        raw = raw.strip()
+        if not raw:
+            continue
+        cfg, _, w = raw.partition(":")
+        weight = float(w) if w else 1.0
+        if weight <= 0:
+            raise ValueError(f"sampling_mix weight must be > 0 in {raw!r}")
+        if cfg == "greedy":
+            entries.append((GREEDY, weight))
+            continue
+        kw: Dict[str, float] = {}
+        field = {"t": "temperature", "k": "top_k", "p": "top_p",
+                 "a": "presence_penalty", "f": "frequency_penalty",
+                 "s": "seed"}
+        i = 0
+        while i < len(cfg):
+            c = cfg[i]
+            if c not in field:
+                raise ValueError(
+                    f"sampling_mix: unknown token {c!r} in {raw!r} "
+                    f"(expected greedy or t/k/p/a/f/s<number> runs)")
+            j = i + 1
+            while j < len(cfg) and (cfg[j].isdigit() or cfg[j] in ".-"):
+                j += 1
+            if j == i + 1:
+                raise ValueError(
+                    f"sampling_mix: {c!r} needs a number in {raw!r}")
+            num = cfg[i + 1:j]
+            kw[field[c]] = int(num) if c in "ks" else float(num)
+            i = j
+        entries.append((SamplingParams(**kw).validate(), weight))
+    if not entries:
+        raise ValueError(f"sampling_mix parsed to nothing: {spec!r}")
+    return entries
+
+
+class MixAssigner:
+    """Deterministic weighted round-robin over a sampling mix: request i
+    always lands on the same config for a given spec (smooth-WRR — pick
+    the entry whose realized share lags its weight most), so two runs of
+    the same traffic shape draw identical per-request configs and the
+    bench A/B stays reproducible."""
+
+    def __init__(self, mix: Sequence[Tuple[SamplingParams, float]]):
+        if not mix:
+            raise ValueError("sampling mix must be non-empty")
+        total = sum(w for _, w in mix)
+        self._params = [p for p, _ in mix]
+        self._weights = [w / total for _, w in mix]
+        self._counts = [0] * len(mix)
+        self._n = 0
+
+    def next(self) -> SamplingParams:
+        self._n += 1
+        deficits = [self._weights[i] * self._n - self._counts[i]
+                    for i in range(len(self._params))]
+        i = max(range(len(deficits)), key=lambda j: deficits[j])
+        self._counts[i] += 1
+        return self._params[i]

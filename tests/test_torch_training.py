@@ -264,8 +264,12 @@ def test_bench_prints_one_json_line_on_cpu(capsys):
     assert len(lines) == 1 and json.loads(lines[0]) == out
     assert out["metric"] == "torch_resnet_tiny_cpu_smoke_images_per_sec"
     assert out["value"] > 0 and out["spread"]["n"] == 2 and out["device"] == "cpu"
-    with pytest.raises(ValueError, match="not ported"):
-        bench.main(["--device=cpu", "--mode=serve"])
+    # --mode=serve is ported (serving part A): its own metric, one line
+    serve = bench.main(["--device=cpu", "--mode=serve", "--serve_requests=4"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1 and json.loads(lines[0]) == serve
+    assert serve["metric"] == "torch_gpt2_tiny_cpu_smoke_serve_fixed_batch_tokens_per_sec"
+    assert serve["value"] > 0 and serve["completed"] == 4
 
 
 def test_cuda_without_a_card_raises(monkeypatch):
@@ -349,4 +353,5 @@ def test_port_imports_no_jax_and_no_reference():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 65  # every module was imported (pipeline too)
+    # every module was imported (pipeline too; serve/ and obs/serve.py since serving part A)
+    assert int(proc.stdout.split()[-1]) >= 72
