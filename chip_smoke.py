@@ -216,8 +216,23 @@ Phases (any failure raises; there is no CPU path):
    (e) tiny GPT-2 trained 3 steps, saved by the port's
    ``CheckpointManager`` and served from it: ``restored_step`` and the
    greedy tokens equal to the in-memory weights'; (f) ``python -m
-   distributed_tensorflow_tpu_torch.serve`` and the bench's
-   ``--mode=serve`` each print one JSON line.
+   distributed_tensorflow_tpu_torch.serve`` (the fixed batch, and the
+   continuous scheduler with the paged cache, prefix caching and chunked
+   prefill) and the bench's ``--mode=serve --serve_arm=core`` each print
+   one JSON line; (g) serving part B1: tiny GPT-2's continuous scheduler on
+   the card against the CPU (float32 greedy tokens equal, dense, paged and
+   paged with prefix caching and a prefill budget; a bf16 pool's tokens
+   equal the dense cache's; int8 pool logits within 0.05 of the full
+   forward), then GPT-2 medium (bf16) through ``run_serve`` on the bench's
+   traffic with 16 slots, the launch counts set to 0 before each arm:
+   continuous dense (graphed, then eager on a fresh engine: equal
+   checksums), paged at the 45% pool, shared-prefix traffic cold and warm,
+   the whale mix without and with a prefill budget, each building nothing
+   after warm-up: tokens/s, latency and TTFT/TPOT percentiles, peak MiB,
+   KV MiB dense against paged, the block high-water mark, beside 12b's
+   fixed batch; and one (16 slots, 320) ``decode_slots`` step: the graphed
+   call, the replay alone, the eager step by part, against the weights'
+   floor.
 
 The line before the last is a JSON object of the kernels' numbers; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -234,6 +249,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -2192,9 +2208,14 @@ def _as_hook(cls):
     return type(cls.__name__, (cls, Hook), {})
 
 
+# Phase 9a's steps an epoch: its depth, cut from 10 to keep the whole script
+# inside its time (a fit step of ResNet-50 takes ~1.7 s).
+FIT_STEPS = 5
+
+
 def check_fit(fa, synthetic):
     """Phase 9a: ``compat.fit.Model("resnet50")`` (batch 256, 224x224,
-    bf16, the synthetic stream), fit 2 epochs of 10 steps with validation
+    bf16, the synthetic stream), fit 2 epochs of FIT_STEPS steps with validation
     (2 batches) and EarlyStopping; History has both epochs and val_ keys;
     images/s beside train_lib's ResNet-50 phase of this call; then
     save_weights, load_weights into a fresh Model and evaluate: the
@@ -2208,18 +2229,19 @@ def check_fit(fa, synthetic):
     model = Model("resnet50", batch_size=256)
     model.compile()
     rec = _as_hook(StepRecorder)(0)  # wall a step after a sync; no profiler
-    hist = model.fit(epochs=2, steps_per_epoch=10, validation_steps=2,
+    hist = model.fit(epochs=2, steps_per_epoch=FIT_STEPS, validation_steps=2,
                      validation_data=model.workload.eval_data_fn,
                      callbacks=[EarlyStopping(monitor="val_loss", patience=2), rec])
     launches = dict(fa.LAUNCHES)
     step_s = [b - a for a, b in zip(rec.t, rec.t[1:])]
     # The first step of each epoch waits for the stream's start (and, in
     # the second, for the first epoch's validation): left out.
-    steady = [s for i, s in enumerate(step_s, 1) if i not in (1, 11)]
+    steady = [s for i, s in enumerate(step_s, 1) if i not in (1, FIT_STEPS + 1)]
     rate = 256 / statistics.median(steady)
     print(f"[fit] ResNet-50 Model.fit: history {hist.history} epochs {hist.epoch}")
     print(f"[fit] ResNet-50 Model.fit: step seconds {[round(s, 4) for s in step_s]}; images/s "
-          f"(median of steps 2-10, 12-20) {rate:.1f}; train_lib on the same synthetic stream in "
+          f"(median of steps 2-{FIT_STEPS}, {FIT_STEPS + 2}-{2 * FIT_STEPS}) {rate:.1f}; "
+          f"train_lib on the same synthetic stream in "
           f"this call {synthetic['rate']:.1f} ({rate / synthetic['rate'] - 1:+.1%})")
     if hist.epoch != [0, 1] or not {"loss", "val_loss", "val_accuracy"} <= set(hist.history) \
             or any(len(v) != 2 or not math.isfinite(v[0]) for v in hist.history.values()):
@@ -2240,7 +2262,7 @@ def check_fit(fa, synthetic):
     second = fresh.evaluate(steps=2)
     print(f"[fit] evaluate {first}; after save_weights ({t_save:.2f} s) and load_weights into a "
           f"fresh Model ({t_load:.2f} s): {second}; bit-identical: {first == second}")
-    if first != second or fresh.state.step != 20:
+    if first != second or fresh.state.step != 2 * FIT_STEPS:
         raise AssertionError("the reloaded Model evaluates differently")
     del fresh
     shutil.rmtree(ckpt, ignore_errors=True)
@@ -2661,6 +2683,10 @@ RECSYS_VOCAB = {"dlrm_multi": 1_000_000, "wide_deep": 100_000}  # the streams' i
 PAR_TRAIN = {  # name: (model, global batch)
     "gpt2_medium": ("gpt2", 32), "bert_base_seq512": ("bert", 256), "resnet50": ("resnet", 256),
 }
+# Phase 10's GPT-2 medium runs ("gpt2_cut"): its widths at 4 of its 24 layers,
+# the depth cut that keeps the whole script inside its time (two ranks
+# sharing the card over gloo spend most of a step in each layer's collectives).
+PAR_GPT2_LAYERS = 4
 
 
 def ring_inputs(name, rate_seed=SEED):
@@ -2673,14 +2699,18 @@ def ring_inputs(name, rate_seed=SEED):
 
 def par_workload(model, mesh, schedule=None):
     """Phases 10's and 11's workloads at full width, dropout 0: GPT-2 medium
-    (flash, batch 32 in 4 microbatches, remat; ``schedule`` at pipe > 1),
+    (flash, batch 32 in 4 microbatches, remat; ``schedule`` at pipe > 1;
+    "gpt2_cut" its widths at PAR_GPT2_LAYERS layers),
     BERT-base at seq 512 (flash, batch 256), ResNet-50 (batch 256, no
     augmentation), the multi-table DLRM on ``criteo_tables()`` and
     Wide&Deep (batch 4,096, vocab 100,000, emb 64)."""
     from distributed_tensorflow_tpu_torch.models import bert, gpt2, resnet, wide_deep
 
-    if model == "gpt2":
-        return gpt2.make_workload(config=gpt2.GPT2Config.medium(dropout=0.0),
+    if model in ("gpt2", "gpt2_cut"):
+        cfg = gpt2.GPT2Config.medium(dropout=0.0)
+        if model == "gpt2_cut":
+            cfg = dataclasses.replace(cfg, n_layer=PAR_GPT2_LAYERS)
+        return gpt2.make_workload(config=cfg,
                                   use_flash_attention=True, batch_size=32, seq_len=1024,
                                   grad_accum_steps=4, device="cuda", mesh=mesh,
                                   pipe_schedule=schedule)
@@ -2699,7 +2729,7 @@ def par_workload(model, mesh, schedule=None):
 
 def par_batch(model, step, batch):
     """Global batch ``step`` of phase 10's runs, the same in every process."""
-    if model == "gpt2":
+    if model in ("gpt2", "gpt2_cut"):
         b = global_stream("synthetic_lm", batch_size=batch, seq_len=1024, vocab_size=50257,
                           seed=step)
     elif model == "bert":
@@ -3057,13 +3087,14 @@ def one_process(model):
 
 
 def check_parallel_training(out: Path):
-    """10b and 10c on two ranks sharing the card: GPT-2 medium at tensor=2
-    and at fsdp=2, ResNet-50 at data=2 with synchronised BatchNorm (its
-    running statistics too), each against one process on the same global
-    batches.  Returns their launch counts (rank 0's)."""
+    """10b and 10c on two ranks sharing the card: GPT-2 medium (its widths
+    at PAR_GPT2_LAYERS layers) at tensor=2 and at fsdp=2, ResNet-50 at
+    data=2 with synchronised BatchNorm (its running statistics too), each
+    against one process on the same global batches.  Returns their launch
+    counts (rank 0's)."""
     launches = {}
-    for label, model, axes in (("gpt2_medium_tensor2", "gpt2", {"tensor": 2}),
-                               ("gpt2_medium_fsdp2", "gpt2", {"fsdp": 2}),
+    for label, model, axes in (("gpt2_medium_tensor2", "gpt2_cut", {"tensor": 2}),
+                               ("gpt2_medium_fsdp2", "gpt2_cut", {"fsdp": 2}),
                                ("resnet50_data2", "resnet", {"data": 2})):
         t0 = time.perf_counter()
         want = one_process(model)
@@ -3079,8 +3110,8 @@ def check_parallel_training(out: Path):
                   f"|diff| / max|stat| {worst:.3e}")
             if not worst <= PAR_LOSS_RTOL:
                 raise AssertionError(f"{label}: running statistics differ by {worst}")
-        else:  # 24 layers x 4 microbatches a step on every rank
-            assert_flash_launches(label, got["launches"], 24 * 4, PAR_STEPS)
+        else:  # the layers x 4 microbatches a step on every rank
+            assert_flash_launches(label, got["launches"], PAR_GPT2_LAYERS * 4, PAR_STEPS)
         launches[label] = got["launches"]
         print(f"[phase] 10 {label}: {time.perf_counter() - t0:.1f} s")
     return launches
@@ -3236,6 +3267,10 @@ def check_cluster_parallel(out: Path, labels=None):
 SERVE_TRAFFIC = dict(model="gpt2", preset="medium", steps=64, prompt_len=64,
                      prompt_lens=",".join(["16,32,48"] * 5 + ["256"]), max_new_tokens=64,
                      min_new_tokens=8, max_batch_size=8, clients=4)
+# The eager runs that hold the decode graphs' token checksums (12b, 12g)
+# take the traffic's first 16 requests, a depth cut to keep the whole
+# script inside its time (an eager step is host-bound).
+EAGER_REQUESTS = 16
 DECODE_F32_TOL = 1e-4  # decode against the full forward in float32, the reference's own
 DECODE_BF16_TOL = 1e-2  # bf16 decode logits, the card against the CPU
 # GPT-2 medium in bf16: decode (prefill, then one token a call) against the
@@ -3304,13 +3339,35 @@ def check_tiny_decode():
             raise AssertionError("tiny GPT-2 bf16 decode on the card differs from the CPU")
 
 
+def fixed_batches(args, engine):
+    """The batches the fixed-batch arm forms from ``args``' traffic when every
+    request is queued before the first batch: one prompt length a batch, in
+    submission order, at most ``max_batch_size`` rows."""
+    import numpy as np
+
+    from distributed_tensorflow_tpu_torch.serve import driver
+
+    by_len = {}
+    for prompt, _ in driver._make_requests(args, engine, np.random.default_rng(args.seed)):
+        by_len.setdefault(len(prompt), []).append(prompt)
+    n = args.max_batch_size
+    return [ps[i:i + n] for ps in by_len.values() for i in range(0, len(ps), n)]
+
+
 def serve_medium(fa):
     """12b: GPT-2 medium (bf16, seed 0) serving the bench's traffic through
-    ``run_serve``, with its decode graphs and then eagerly, each engine
-    fresh and the launch counts set to 0 just before: the two token
-    checksums equal, ``compile_post_warmup`` 0, no flash launch.  Then the
-    graphed engine's decode logits of two rows against its full forward.
-    Returns ({"graphs"|"eager": (result, engine)}, the serving launches)."""
+    ``run_serve`` with its decode graphs, then its first EAGER_REQUESTS
+    requests on the graphed engine and on a fresh eager one, the launch
+    counts set to 0 just before each engine's first run:
+    ``compile_post_warmup`` 0, no flash launch.  The two engines' tokens
+    must be equal on the same batches of those requests (``fixed_batches``:
+    the dynamic batcher's batches follow the clients' timing, and in bf16 a
+    batch of other rows decodes at other GEMM shapes, so the two runs'
+    checksums are printed, not compared).  Then the graphed engine's decode
+    logits of two rows against its full forward.  Returns
+    ({"graphs"|"eager": (result, engine)}, the serving launches)."""
+    import numpy as np
+
     from distributed_tensorflow_tpu_torch.serve import ServeArgs, ServeEngine, run_serve
 
     runs = {}
@@ -3322,7 +3379,8 @@ def serve_medium(fa):
         eng = ServeEngine("gpt2", device="cuda", preset="medium", cuda_graphs=graphs)
         for name in fa.LAUNCHES:
             fa.LAUNCHES[name] = 0
-        res = run_serve(ServeArgs(device="cuda", **SERVE_TRAFFIC), engine=eng)
+        traffic = SERVE_TRAFFIC if graphs else dict(SERVE_TRAFFIC, steps=EAGER_REQUESTS)
+        res = run_serve(ServeArgs(device="cuda", **traffic), engine=eng)
         torch.cuda.synchronize()
         res.update(launches=dict(fa.LAUNCHES), peak_mib=torch.cuda.max_memory_allocated() / 2**20,
                    phase_s=time.perf_counter() - t0)
@@ -3340,11 +3398,23 @@ def serve_medium(fa):
         if res["compile_post_warmup"] != 0:
             raise AssertionError(f"GPT-2 medium ({label}) built a decode family after warm-up")
         assert_no_flash(f"GPT-2 medium serving ({label})", res["launches"])
-    g, e = runs["graphs"][0], runs["eager"][0]
-    print(f"[serve] GPT-2 medium fixed batch: graphs {g['tokens_per_sec']:.1f} against eager "
-          f"{e['tokens_per_sec']:.1f} tokens/s ({g['tokens_per_sec'] / e['tokens_per_sec']:.2f}x)"
-          f"; checksums {g['tokens_checksum']} and {e['tokens_checksum']}")
-    if g["tokens_checksum"] != e["tokens_checksum"]:
+        if graphs:
+            short = run_serve(ServeArgs(device="cuda", **dict(SERVE_TRAFFIC,
+                                                              steps=EAGER_REQUESTS)), engine=eng)
+    g, e = short, runs["eager"][0]
+    batches = fixed_batches(ServeArgs(device="cuda", **dict(SERVE_TRAFFIC, steps=EAGER_REQUESTS)),
+                            runs["graphs"][1])
+    tokens = {label: [np.stack(eng.generate_batch(b, SERVE_TRAFFIC["max_new_tokens"]))
+                      for b in batches] for label, (_, eng) in runs.items()}
+    same = all(np.array_equal(a, b) for a, b in zip(tokens["graphs"], tokens["eager"]))
+    print(f"[serve] GPT-2 medium fixed batch, {EAGER_REQUESTS} requests: graphs "
+          f"{g['tokens_per_sec']:.1f} against eager {e['tokens_per_sec']:.1f} tokens/s "
+          f"({g['tokens_per_sec'] / e['tokens_per_sec']:.2f}x); run checksums "
+          f"{g['tokens_checksum']} and {e['tokens_checksum']} ({g['batches']} and "
+          f"{e['batches']} batches); on the same {len(batches)} batches of rows "
+          f"{[len(b) for b in batches]} the graphs' {SERVE_TRAFFIC['max_new_tokens']} tokens a "
+          f"row equal eager's: {same}")
+    if not same:
         raise AssertionError("GPT-2 medium: the decode graphs' tokens differ from eager's")
     model = runs["graphs"][1].module
     tokens = torch.randint(0, model.cfg.vocab_size, (2, 48), device="cuda",
@@ -3649,27 +3719,448 @@ def check_serve_checkpoint(data_dir: Path):
 
 
 def check_serve_cli():
-    """12f: the entry points as a user runs them, one after the other: the
-    serve module (GPT-2 medium, 16 requests of 16 tokens) and the bench's
-    ``--mode=serve`` (the traffic of 12b); each must print one JSON line."""
+    """12f: the entry points as a user runs them: the serve module (GPT-2
+    medium, 16 requests of 16 tokens), fixed batch and continuous (paged,
+    prefix caching over a 64-token shared prefix, a prefill budget of 64)
+    side by side, then the bench's ``--mode=serve`` alone (the traffic of
+    12b: the fixed-vs-continuous pair; 12g runs the arms); each must print
+    one JSON line."""
     root = Path(__file__).resolve().parent
     lines = {}
-    for label, argv in (
-            ("serve", ["-m", "distributed_tensorflow_tpu_torch.serve", "--steps=16",
-                       "--max_new_tokens=16", "--prompt_lens=16,32"]),
-            ("bench --mode=serve", ["-m", "distributed_tensorflow_tpu_torch.bench",
-                                    "--mode=serve"])):
+    waves = (
+        (("serve", ["-m", "distributed_tensorflow_tpu_torch.serve", "--steps=16",
+                    "--max_new_tokens=16", "--prompt_lens=16,32"]),
+         ("serve --continuous", ["-m", "distributed_tensorflow_tpu_torch.serve", "--continuous",
+                                 "--cache_mode=paged", "--prefix_cache", "--prefill_budget=64",
+                                 "--shared_prefix_len=64", "--steps=16", "--max_new_tokens=16",
+                                 "--prompt_lens=16,32"])),
+        (("bench --mode=serve", ["-m", "distributed_tensorflow_tpu_torch.bench", "--mode=serve",
+                                 "--serve_arm=core"]),))
+    for wave in waves:  # the two serve runs together; the bench, which times, alone
         t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, *argv], cwd=root, capture_output=True, text=True,
-                              timeout=600)
-        json_lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
-        if proc.returncode != 0 or len(json_lines) != 1:
-            raise AssertionError(f"{label}: exit {proc.returncode}, {len(json_lines)} JSON lines:"
-                                 f" {proc.stdout[-2000:]} {proc.stderr[-3000:]}")
-        lines[label] = json.loads(json_lines[0])
-        print(f"[serve] python {' '.join(argv)} ({time.perf_counter() - t0:.1f} s): "
-              f"{json_lines[0][:900]}")
+        procs = []
+        for label, argv in wave:  # output to files: a full pipe would stall a process
+            files = (tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+"))
+            procs.append((label, argv, files, subprocess.Popen(
+                [sys.executable, *argv], cwd=root, text=True, stdout=files[0], stderr=files[1])))
+        try:
+            for label, argv, files, proc in procs:
+                proc.wait(timeout=600)
+                for f in files:
+                    f.seek(0)
+                out, err = (f.read() for f in files)
+                json_lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+                if proc.returncode != 0 or len(json_lines) != 1:
+                    raise AssertionError(f"{label}: exit {proc.returncode}, {len(json_lines)} "
+                                         f"JSON lines: {out[-2000:]} {err[-3000:]}")
+                lines[label] = json.loads(json_lines[0])
+                print(f"[serve] python {' '.join(argv)} ({time.perf_counter() - t0:.1f} s, "
+                      f"{len(wave)} at once): {json_lines[0][:900]}")
+        finally:
+            for _, _, files, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                for f in files:
+                    f.close()
     return lines
+
+
+# -- 12g: serving part B1 (the continuous scheduler, the slot and paged caches) --
+
+INT8_ATOL = 0.05  # int8 paged prefill logits against the full forward (the CPU test's)
+# The int8 path on the card against the CPU's: both quantise float32 K/V
+# the same way, so they agree to float32 rounding (3.2e-7 read on an H100).
+INT8_CPU_ATOL = 1e-4
+CONT_SLOTS = 16  # the bench's num_slots on the card
+# The whale mix's requests (the bench runs 192), cut to keep the whole
+# script inside its time.
+CHUNK_REQUESTS = 96
+PREFIX_F32_REQUESTS = 32  # the float32 prefix witness: 16 cold admissions, then 16 hits
+SLOT_PROFILE = dict(slots=16, total=320, index=288)  # one (16, 320) decode_slots step
+
+
+def _tiny_requests(seed, n=10, lengths=(4, 6, 9, 17), horizons=(2, 5, 3, 7)):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, 256, size=(lengths[i % len(lengths)],), dtype=np.int32),
+             horizons[i % len(horizons)]) for i in range(n)]
+
+
+def _schedule(engine, reqs, **kw):
+    from distributed_tensorflow_tpu_torch.serve import ContinuousScheduler
+
+    with ContinuousScheduler(engine, **kw) as sched:
+        futs = [sched.submit(p, max_new_tokens=m) for p, m in reqs[: len(reqs) // 2]]
+        outs = [f.result(timeout=300) for f in futs]  # the first wave registers its prefixes
+        futs = [sched.submit(p, max_new_tokens=m) for p, m in reqs[len(reqs) // 2:]]
+        return outs + [f.result(timeout=300) for f in futs], sched.stats()
+
+
+def check_prefix_hits_together(engine):
+    """12g (1b): the scheduler case the decode step's trash routing is for,
+    through the card's graphs: a request caches a two-block prefix and
+    decodes while three hits of it are admitted in one iteration under a
+    prefill budget of 4; two wait out that iteration's prefill, inactive in
+    its decode step with their table rows already mapping the shared blocks
+    and their index rows not yet reset.  Every stream must equal the card's
+    fixed batch."""
+    import numpy as np
+
+    from distributed_tensorflow_tpu_torch.serve import ContinuousScheduler
+
+    rng = np.random.default_rng(13)
+    prefix = rng.integers(1, 256, size=(8,), dtype=np.int32)
+    prompts = [np.concatenate([prefix, rng.integers(0, 256, size=(4,), dtype=np.int32)])
+               for _ in range(4)]
+    horizons = (12, 6, 6, 6)
+    sched = ContinuousScheduler(engine, num_slots=4, max_total_len=32, cache_mode="paged",
+                                block_size=4, prefix_cache=True, prefill_budget=4, start=False)
+    try:  # the iterations on this thread, so the admissions land together
+        futs = [sched.submit(prompts[0], max_new_tokens=horizons[0])]
+        for _ in range(3):  # three chunks of 4, then the first decode step
+            sched._iteration()
+        futs += [sched.submit(p, max_new_tokens=m) for p, m in zip(prompts[1:], horizons[1:])]
+        sched._iteration()
+        waiting = sched.stats()["prefilling_slots"]
+        for _ in range(40):
+            if all(f.done() for f in futs):
+                break
+            sched._iteration()
+        outs = [f.result(timeout=0) for f in futs]
+    finally:
+        sched.close()
+    same = [bool(np.array_equal(o, engine.generate(p[None, :], m)[0]))
+            for p, m, o in zip(prompts, horizons, outs)]
+    print(f"[serve-b1] tiny GPT-2 float32 on the card, three prefix hits admitted together "
+          f"({int(waiting)} waiting out the prefill budget): streams equal the fixed batch's "
+          f"{same}")
+    if waiting != 2 or not all(same):
+        raise AssertionError("prefix hits admitted together: a stream differs from the fixed "
+                             "batch's (a decode step wrote into a shared prefix block)")
+
+
+def check_tiny_continuous():
+    """12g (1): tiny GPT-2 on the card (the slot decode graphs) against the
+    CPU from the same weights.  In float32 the continuous scheduler's
+    greedy tokens on mixed shared-prefix traffic, dense, paged (the pool in
+    the compute dtype) and paged with prefix caching and a prefill budget
+    of 4, equal to the CPU's; in bf16 on the card a bf16 pool's tokens equal
+    the dense cache's; the int8 pool's prefill logits within INT8_ATOL of
+    the full forward on the card and within INT8_CPU_ATOL of the CPU's int8
+    logits."""
+    import numpy as np
+
+    from distributed_tensorflow_tpu_torch.models import gpt2
+    from distributed_tensorflow_tpu_torch.serve import ServeEngine
+
+    prefix = np.random.default_rng(5).integers(0, 256, size=(8,), dtype=np.int32)
+    reqs = [(np.concatenate([prefix, p]), m) for p, m in _tiny_requests(6)]
+    modes = {"dense": {}, "paged": dict(cache_mode="paged", block_size=4),
+             "paged+prefix+chunked": dict(cache_mode="paged", block_size=4, prefix_cache=True,
+                                          prefill_budget=4)}
+    cfg = gpt2.GPT2Config.tiny(dtype=torch.float32)
+    engines = {dev: ServeEngine("gpt2", device=dev, config=cfg) for dev in ("cuda", "cpu")}
+    engines["cuda"].install_params(dict(engines["cpu"].module.named_parameters()))
+    for mode, kw in modes.items():
+        outs = {dev: _schedule(e, reqs, num_slots=4, max_total_len=48, **kw)
+                for dev, e in engines.items()}
+        same = all(np.array_equal(a, b) for a, b in zip(outs["cuda"][0], outs["cpu"][0]))
+        s = outs["cuda"][1]
+        print(f"[serve-b1] tiny GPT-2 float32 continuous {mode}: card tokens equal the CPU's "
+              f"{same} ({len(reqs)} requests, {int(sum(map(len, outs['cuda'][0])))} tokens; "
+              f"prefix hits {s['prefix_hits']:g}, chunks {s['prefill_chunks']:g}, slot "
+              f"decode graphs {int(s['compile_total'])} builds)")
+        if not same:
+            raise AssertionError(f"tiny GPT-2 continuous {mode}: the card's tokens differ")
+    check_prefix_hits_together(engines["cuda"])
+    # int8 pool: a prefill of two slots through scattered tables.
+    paged = gpt2.PagedKVConfig(block_size=4, num_blocks=13, kv_dtype="int8")
+    tables = torch.zeros(4, 8, dtype=torch.int32)
+    tables[3, :2], tables[1, :2] = torch.tensor([7, 2]), torch.tensor([5, 11])
+    tokens = torch.randint(0, 256, (2, 6), generator=torch.Generator().manual_seed(3))
+    logits = {}
+    for dev, e in engines.items():
+        cache = gpt2.init_paged_cache(e.module.cfg, None, 4, 32, paged, device=dev)
+        with torch.inference_mode():
+            logits[dev] = e.module(tokens.to(dev), decode=True, cache=cache,
+                                   slot_ids=torch.tensor([3, 1], device=dev), paged=paged,
+                                   block_tables=tables.to(dev)).float().cpu()
+            if dev == "cuda":
+                full = e.module(tokens.cuda()).float().cpu()
+    vs_full, vs_cpu = max_err(logits["cuda"], full), max_err(logits["cuda"], logits["cpu"])
+    print(f"[serve-b1] tiny GPT-2 int8 pool prefill logits on the card: max_abs_err {vs_full:.4f} "
+          f"against the full forward (tolerance {INT8_ATOL}), {vs_cpu:.3e} against the CPU's "
+          f"int8 path (tolerance {INT8_CPU_ATOL})")
+    if not (vs_full <= INT8_ATOL and vs_cpu <= INT8_CPU_ATOL):
+        raise AssertionError("tiny GPT-2 int8 pool logits on the card out of tolerance")
+    bf16 = ServeEngine("gpt2", device="cuda", config=gpt2.GPT2Config.tiny())
+    dense, _ = _schedule(bf16, reqs, num_slots=4, max_total_len=48)
+    pooled, _ = _schedule(bf16, reqs, num_slots=4, max_total_len=48, cache_mode="paged",
+                          block_size=4, kv_dtype="bfloat16")
+    same = all(np.array_equal(a, b) for a, b in zip(dense, pooled))
+    print(f"[serve-b1] tiny GPT-2 bf16 on the card: the bf16 pool's tokens equal the dense "
+          f"cache's {same}")
+    if not same:
+        raise AssertionError("tiny GPT-2 bf16: the paged pool's tokens differ from the dense path")
+    for e in (*engines.values(), bf16):
+        e.close()
+
+
+def _arm_line(label, res):
+    return (f"[serve-b1] GPT-2 medium {label}: {res['tokens_per_sec']:.1f} tokens/s "
+            f"({res['tokens_generated']} tokens, {res['requests']} requests in "
+            f"{res['elapsed_s']:.3f} s), p50 {res['p50_latency_ms']:.1f} ms, p99 "
+            f"{res['p99_latency_ms']:.1f} ms, TTFT p50 {res['ttft_p50_ms']:.1f} / p99 "
+            f"{res['ttft_p99_ms']:.1f} ms, TPOT p50 {res['tpot_p50_ms']:.3f} / p99 "
+            f"{res['tpot_p99_ms']:.3f} ms, occupancy {res['slot_occupancy']}, idle "
+            f"{res['device_idle_fraction']}; KV {res['kv_hbm_bytes'] / 2**20:.1f} MiB, blocks "
+            f"high-water {res['blocks_high_water']} of {res['blocks_total']}; prefix hit rate "
+            f"{res.get('prefix_hit_rate', 0.0)}, skipped {res.get('prefill_tokens_skipped', 0)}; "
+            f"chunks {res['prefill_chunks']}; compile_post_warmup {res['compile_post_warmup']}; "
+            f"checksum {res['tokens_checksum']}; peak {res['peak_mib']:.0f} MiB; launches "
+            f"{res['launches']}")
+
+
+def _serve_arm(fa, eng, cfg, label, path, runs, paths):
+    """One ``run_serve`` arm on ``eng``, the launch counts set to 0 just
+    before it: it must build nothing after warm-up and launch no flash
+    kernel."""
+    from distributed_tensorflow_tpu_torch.serve import run_serve
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(fa)
+    t0 = time.perf_counter()
+    res = run_serve(cfg, engine=eng)
+    torch.cuda.synchronize()
+    res.update(launches=dict(fa.LAUNCHES), phase_s=time.perf_counter() - t0,
+               peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+    runs[label] = res
+    paths[path] = res["launches"]
+    print(_arm_line(label, res) + f"; {res['phase_s']:.1f} s with warm-up")
+    if res["compile_post_warmup"] != 0:
+        raise AssertionError(f"GPT-2 medium {label}: built programs after warm-up")
+    assert_no_flash(f"GPT-2 medium continuous {label}", res["launches"])
+    return res
+
+
+def _same_tokens(what, a, b):
+    if a["tokens_checksum"] != b["tokens_checksum"]:
+        raise AssertionError(f"GPT-2 medium: {what}: token checksums {a['tokens_checksum']} and "
+                             f"{b['tokens_checksum']} differ")
+
+
+def serve_continuous(fa, fixed_res):
+    """12g (2): GPT-2 medium (bf16, seed 0) on the bench's serving traffic
+    (``bench.serve_configs``: 64 requests, 16 slots) through ``run_serve``
+    on one graphed engine: continuous dense, paged at the 45% pool,
+    shared-prefix traffic cold and warm (prefix caching), the whale mix
+    (CHUNK_REQUESTS) without and with a prefill budget of 384.  Paged must
+    give the dense cache's tokens and chunked the unchunked ones (the same
+    arithmetic, laid out or split otherwise); warm against cold is printed
+    (in bf16 a suffix prefilled alone rounds otherwise than inside its whole
+    prompt: ``check_prefix_f32`` is the witness).  Then the first
+    EAGER_REQUESTS requests of the continuous traffic on the graphed engine
+    and on a fresh eager one: equal token checksums.  Prints each arm beside
+    12b's fixed batch (same traffic).  Returns (results by arm, the graphed
+    engine, the eager engine, launches by path)."""
+    from distributed_tensorflow_tpu_torch.bench import serve_configs
+    from distributed_tensorflow_tpu_torch.serve import ServeEngine
+
+    cfgs, _ = serve_configs(on_gpu=True, device="cuda")
+    for arm in ("chunk_base", "chunked"):
+        cfgs[arm] = dataclasses.replace(cfgs[arm], steps=CHUNK_REQUESTS)
+    short = dataclasses.replace(cfgs["continuous"], steps=EAGER_REQUESTS)
+    engines, runs, paths = {}, {}, {}
+    for graphs in (True, False):
+        gc.collect()
+        torch.cuda.empty_cache()
+        eng = engines[graphs] = ServeEngine("gpt2", device="cuda", preset="medium",
+                                            cuda_graphs=graphs)
+        for arm in (("continuous", "paged", "prefix_cold", "prefix_warm", "chunk_base", "chunked")
+                    if graphs else ()):
+            _serve_arm(fa, eng, cfgs[arm], arm, f"gpt2_medium_serve_{arm}", runs, paths)
+        label = f"continuous, {EAGER_REQUESTS} requests" + ("" if graphs else " (eager)")
+        _serve_arm(fa, eng, short, label, "gpt2_medium_serve_continuous_short"
+                   + ("" if graphs else "_eager"), runs, paths)
+    c, p, w, cold = runs["continuous"], runs["paged"], runs["prefix_warm"], runs["prefix_cold"]
+    base, chunked = runs["chunk_base"], runs["chunked"]
+    g, e = (runs[f"continuous, {EAGER_REQUESTS} requests" + x] for x in ("", " (eager)"))
+    print(f"[serve-b1] GPT-2 medium continuous dense, {EAGER_REQUESTS} requests: graphs "
+          f"{g['tokens_per_sec']:.1f} against eager {e['tokens_per_sec']:.1f} tokens/s; "
+          f"checksums {g['tokens_checksum']} and {e['tokens_checksum']}")
+    print(f"[serve-b1] GPT-2 medium, the bench's traffic: fixed batch (12b) "
+          f"{fixed_res['tokens_per_sec']:.1f} tokens/s p50 {fixed_res['p50_latency_ms']:.1f} ms "
+          f"p99 {fixed_res['p99_latency_ms']:.1f} ms; continuous {c['tokens_per_sec']:.1f} "
+          f"({c['tokens_per_sec'] / fixed_res['tokens_per_sec']:.2f}x) p50 "
+          f"{c['p50_latency_ms']:.1f} p99 {c['p99_latency_ms']:.1f} ms; paged "
+          f"{p['tokens_per_sec']:.1f} ({p['tokens_per_sec'] / c['tokens_per_sec']:.3f}x of "
+          f"dense); KV dense {c['kv_hbm_bytes'] / 2**20:.1f} MiB against paged "
+          f"{p['kv_hbm_bytes'] / 2**20:.1f} MiB ({p['kv_hbm_bytes'] / c['kv_hbm_bytes']:.4f}), "
+          f"the pool's high-water {p['blocks_high_water']} of {p['blocks_total']} blocks; "
+          f"paged tokens equal dense: {p['tokens_checksum'] == c['tokens_checksum']}")
+    print(f"[serve-b1] GPT-2 medium prefix caching: TTFT p50 cold {cold['ttft_p50_ms']:.1f} ms, "
+          f"warm {w['ttft_p50_ms']:.1f} ms ({cold['ttft_p50_ms'] / w['ttft_p50_ms']:.2f}x); hit "
+          f"rate {w['prefix_hit_rate']}; tokens equal cold's (bf16): "
+          f"{w['tokens_checksum'] == cold['tokens_checksum']}; chunked prefill (budget "
+          f"{cfgs['chunked'].prefill_budget}, {CHUNK_REQUESTS} requests): TPOT p99 "
+          f"{base['tpot_p99_ms']:.3f} -> {chunked['tpot_p99_ms']:.3f} ms, "
+          f"{base['tokens_per_sec']:.1f} -> {chunked['tokens_per_sec']:.1f} tokens/s; tokens "
+          f"equal unchunked: {chunked['tokens_checksum'] == base['tokens_checksum']}")
+    _same_tokens("continuous graphs against eager", g, e)
+    _same_tokens("paged against dense", p, c)
+    _same_tokens("chunked against unchunked", chunked, base)
+    return runs, engines[True], engines[False], paths
+
+
+def check_prefix_f32(fa, paths):
+    """12g (2b): the witness for the bf16 prefix arms' tokens: GPT-2 medium
+    in float32 on the shared-prefix traffic (PREFIX_F32_REQUESTS requests):
+    cold, warm (prefix caching) and warm with the bench's chunked_prefix
+    budget of 64 (hits admitted together wait out chunks while other slots
+    decode) must give identical tokens.  Float32 rounds a suffix prefilled
+    alone and inside its whole prompt alike to far below a greedy choice's
+    margin, so a difference here is a fault, not rounding."""
+    from distributed_tensorflow_tpu_torch.bench import serve_configs
+    from distributed_tensorflow_tpu_torch.models import gpt2
+    from distributed_tensorflow_tpu_torch.serve import ServeEngine
+
+    cfgs, _ = serve_configs(on_gpu=True, device="cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = ServeEngine("gpt2", device="cuda", preset="medium",
+                      config=gpt2.GPT2Config.medium(dtype=torch.float32))
+    runs = {}
+    for arm in ("prefix_cold", "prefix_warm", "chunked_prefix"):
+        _serve_arm(fa, eng, dataclasses.replace(cfgs[arm], steps=PREFIX_F32_REQUESTS),
+                   f"float32 {arm}", f"gpt2_medium_f32_serve_{arm}", runs, paths)
+    eng.close()
+    cold, warm, chunked = (runs[f"float32 {a}"] for a in ("prefix_cold", "prefix_warm",
+                                                          "chunked_prefix"))
+    print(f"[serve-b1] GPT-2 medium float32 prefix caching ({PREFIX_F32_REQUESTS} requests): hit "
+          f"rate {warm['prefix_hit_rate']} / {chunked['prefix_hit_rate']} (budget 64, "
+          f"{chunked['prefill_chunks']} chunks); tokens equal cold's: warm "
+          f"{warm['tokens_checksum'] == cold['tokens_checksum']}, chunked "
+          f"{chunked['tokens_checksum'] == cold['tokens_checksum']}")
+    _same_tokens("float32 prefix warm against cold", warm, cold)
+    _same_tokens("float32 prefix warm with a budget of 64 against cold", chunked, cold)
+    return runs
+
+
+def profile_slot_step(g_eng, e_eng):
+    """12g (3): one decode_slots step of the (16 slots, 320) dense family,
+    every slot active at position 288: through ``decode_slots`` (its
+    inputs' copies and the graph replay; 16 calls between two events,
+    median of 5), the replay alone, and the eager engine's step, whose
+    device time by part comes from torch.profiler (the head and the
+    attention by scopes wrapped around them); against the weights' floor."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from distributed_tensorflow_tpu_torch.models import gpt2
+    from distributed_tensorflow_tpu_torch.serve import sampling
+
+    N, S, at = SLOT_PROFILE["slots"], SLOT_PROFILE["total"], SLOT_PROFILE["index"]
+    last = np.random.RandomState(3).randint(0, 50257, (N, 1)).astype(np.int32)
+    active, samp = np.ones((N,), bool), sampling.uniform(N)
+    out = {}
+    for label, eng in (("graphs", g_eng), ("eager", e_eng)):
+        cache = eng.init_slot_cache(N, S)
+        counts = eng.init_slot_counts(cache)
+        fam = eng._family(cache)
+
+        def call():
+            return eng.decode_slots(cache, last, active, sampling=samp, counts=counts)
+
+        calls, replays = [], []
+        with torch.inference_mode():
+            for _ in range(6):
+                cache.cache_index.fill_(at)
+                cache.position.fill_(at)
+                for fn, acc in ((call, calls),
+                                (fam.steps.get("greedy") or call, replays)):
+                    torch.cuda.synchronize()
+                    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                    start.record()
+                    t0 = time.perf_counter()
+                    for _ in range(16):
+                        fn()
+                    host = (time.perf_counter() - t0) / 16
+                    end.record()
+                    end.synchronize()
+                    acc.append((start.elapsed_time(end) / 16, 1e3 * host))
+                    cache.cache_index.fill_(at)
+                    cache.position.fill_(at)
+        out[label] = {"call_ms": statistics.median(c for c, _ in calls[1:]),
+                      "call_host_ms": statistics.median(h for _, h in calls[1:]),
+                      "replay_ms": statistics.median(c for c, _ in replays[1:])}
+        if label == "eager":
+            real_head, real_attn = gpt2._head_logits, gpt2.Block._cached_attention
+
+            def head(*a, **kw):
+                with record_function("serve:head"):
+                    return real_head(*a, **kw)
+
+            def attention(*a, **kw):
+                with record_function("serve:attention"):
+                    return real_attn(*a, **kw)
+
+            gpt2._head_logits, gpt2.Block._cached_attention = head, attention
+            try:
+                with torch.inference_mode():
+                    cache.cache_index.fill_(at)
+                    cache.position.fill_(at)
+                    torch.cuda.synchronize()
+                    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                        for _ in range(4):
+                            call()
+                        torch.cuda.synchronize()
+            finally:
+                gpt2._head_logits, gpt2.Block._cached_attention = real_head, real_attn
+            out["parts"], out["top"] = decode_parts(prof)
+        out[label]["kv_mib"] = eng.cache_hbm_bytes(cache) / 2**20
+        eng.release_cache(cache)
+    g, e = out["graphs"], out["eager"]
+    weights = sum(p.numel() for p in g_eng.module.parameters())
+    print(f"[serve-b1] decode_slots step ({N} slots, cache {S}, at {at}): graphed call "
+          f"{g['call_ms']:.4f} ms a step ({1e3 / g['call_ms'] * N:.0f} tokens/s), host "
+          f"{g['call_host_ms']:.4f} ms a call, the replay alone {g['replay_ms']:.4f} ms; eager "
+          f"{e['call_ms']:.4f} ms a step, host {e['call_host_ms']:.4f} ms")
+    busy = None
+    if out["parts"] is None:
+        print("[serve-b1] decode_slots step by part: not measured (the profile holds no kernel "
+              "of a CPU op)")
+    else:
+        parts = {p: ms / 4 for p, ms in out["parts"].items()}
+        busy = sum(parts.values())
+        for p, ms in sorted(parts.items(), key=lambda kv: -kv[1]):
+            print(f"[serve-b1] decode_slots step by part (eager, a step): {p} {ms:.4f} ms "
+                  f"({ms / busy:.1%}); largest: "
+                  + "; ".join(f"{n[:200]} {t / 4:.4f}" for n, t in out["top"][p]))
+        out["parts"] = parts
+    print(f"[serve-b1] decode_slots step: device busy {busy if busy is None else round(busy, 4)} "
+          f"ms (the eager step's kernels); floor: bf16 weights read once "
+          f"{2 * weights / PEAK_BYTES * 1e3:.4f} ms, the float32 weights and their bf16 casts "
+          f"{8 * weights / PEAK_BYTES * 1e3:.4f} ms; the graph's step is "
+          f"{g['replay_ms'] / (2 * weights / PEAK_BYTES * 1e3):.1f}x the bf16 floor; KV "
+          f"{g['kv_mib']:.1f} MiB")
+    return {"graph": g, "eager": e, "parts": out["parts"], "busy_ms": busy}
+
+
+def check_serving_b1(fa, fixed_res):
+    """12g in order; returns (its results, launches by path)."""
+    t0 = time.perf_counter()
+    check_tiny_continuous()
+    runs, g_eng, e_eng, paths = serve_continuous(fa, fixed_res)
+    step = profile_slot_step(g_eng, e_eng)
+    g_eng.close()
+    e_eng.close()
+    runs.update(check_prefix_f32(fa, paths))
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[phase] 12g continuous scheduler and paged cache: {time.perf_counter() - t0:.1f} s")
+    return {"runs": runs, "step": step}, paths
 
 
 def host_load() -> str:
@@ -3692,7 +4183,7 @@ def host_load() -> str:
 
 
 def check_serving(fa, data_dir: Path):
-    """Phase 12 in order (12a-12f); returns (its results, launches by path)."""
+    """Phase 12 in order (12a-12g); returns (its results, launches by path)."""
     t0 = time.perf_counter()
     print(f"[serve] host: {host_load()}")
     check_tiny_decode()
@@ -3705,8 +4196,11 @@ def check_serving(fa, data_dir: Path):
     by_path.update(classify_paths)
     check_serve_checkpoint(data_dir)
     cli = check_serve_cli()
+    b1, b1_paths = check_serving_b1(fa, runs["graphs"])
+    by_path.update(b1_paths)
     print(f"[phase] 12 serving: {time.perf_counter() - t0:.1f} s")
-    return {"medium": runs, "decode": decode, "classify": classify, "cli": cli}, by_path
+    return {"medium": runs, "decode": decode, "classify": classify, "cli": cli,
+            "continuous": b1}, by_path
 
 
 def main() -> int:

@@ -18,7 +18,8 @@ counters and ``gap_pct``, the input pipeline's toll on the hot loop.
     python -m distributed_tensorflow_tpu_torch.bench            # on the GPU
     python -m distributed_tensorflow_tpu_torch.bench --input=both --records=2048
     python -m distributed_tensorflow_tpu_torch.bench --device=cpu
-    python -m distributed_tensorflow_tpu_torch.bench --mode=serve   # GPT-2 medium, fixed batch
+    python -m distributed_tensorflow_tpu_torch.bench --mode=serve   # GPT-2 medium, every arm
+    python -m distributed_tensorflow_tpu_torch.bench --mode=serve --serve_arm=paged,prefix
 
 On the CPU it runs the reference's tiny smoke config (batch 16, 64x64,
 stages (1, 1, 1, 1), 1 warmup step, 3 steps a window) under its own metric
@@ -27,15 +28,22 @@ its value to ``.torch_bench_baseline.json`` beside the repo's root; later
 runs report ``vs_baseline`` against it (a loader-fed run compares with that
 cached anchor and never writes it).
 
-``--mode=serve`` runs the reference's core fixed-batch serving arm
-(``_serve_bench``) and prints its own metric,
-``torch_gpt2_medium_serve_fixed_batch_tokens_per_sec`` (on the CPU the tiny
-preset's ``torch_gpt2_tiny_cpu_smoke_serve_fixed_batch_tokens_per_sec``).
+``--mode=serve`` runs the reference's serving arms (``_serve_bench``) on
+one engine and prints one line under the port's metric,
+``torch_gpt2_medium_serve_tokens_per_sec`` (on the CPU the tiny preset's
+``torch_gpt2_tiny_cpu_smoke_serve_tokens_per_sec``): the core
+fixed-vs-continuous pair always, then the ``--serve_arm`` groups (all by
+default): ``paged`` (the 45% pool, and int8), ``prefix`` (shared-prefix
+traffic cold and warm, and chunked), ``chunked`` (a whale prompt with and
+without a prefill budget) and ``sampling`` (a three-config mix).  The
+reference's other arms come with later serving slices and their keys are
+absent.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import itertools
 import json
 import os
@@ -136,36 +144,216 @@ def _vs_baseline(value: float, write: bool = True) -> float:
     return 1.0
 
 
-def _serve_bench(flags, device):
-    """``--mode=serve``: the reference's core fixed-batch arm
-    (``bench.py:_serve_bench``) over its traffic, one JSON line.  The card
-    serves GPT-2 medium: at least 64 requests, prompt lengths cycling
-    16,32,48 five times then 256, 64 new tokens cycling down to 8; the CPU
-    the tiny preset's short mix.  Serving has no baseline yet:
-    ``vs_baseline`` is 1.0, as in the reference."""
-    import dataclasses
+SERVE_ARMS = ("chunked", "paged", "prefix", "sampling")
+_LATER_ARMS = {"megastep": "serving part B2", "spec": "serving part B2",
+               "async": "serving part B2", "async_depth": "serving part B2",
+               "slo": "serving part B2", "fleet": "serving part C",
+               "streaming": "serving part C", "loadgen": "serving part C"}
 
-    from distributed_tensorflow_tpu_torch.serve import ServeArgs, run_serve
 
-    on_gpu = device.type == "cuda"
+def _parse_serve_arms(spec: str):
+    """``--serve_arm``: '' = every arm of the port; else a comma list of
+    ``SERVE_ARMS`` ('core' alone runs the pair).  The reference's arms of
+    later slices raise, naming the slice."""
+    if not spec:
+        return set(SERVE_ARMS)
+    arms = set()
+    for name in (s.strip() for s in spec.split(",") if s.strip()):
+        if name in _LATER_ARMS:
+            raise ValueError(f"--serve_arm={name} comes with {_LATER_ARMS[name]}")
+        if name != "core" and name not in SERVE_ARMS:
+            raise ValueError(f"--serve_arm: unknown arm {name!r} (choose from "
+                             f"{', '.join(('core',) + SERVE_ARMS)})")
+        if name != "core":
+            arms.add(name)
+    return arms
+
+
+def serve_configs(on_gpu: bool, serve_requests: int = 0, checkpoint_dir=None,
+                  device: str = "cuda"):
+    """The reference bench's serving configurations over its traffic: the
+    card serves GPT-2 medium (at least 64 requests, prompt lengths 16,32,48
+    five times then 256, 64 new tokens cycling to 8, 16 slots, blocks of
+    16), the CPU the tiny preset's short mix.  Returns (configs by name,
+    the chunked arm's prefill budget)."""
+    from distributed_tensorflow_tpu_torch.serve import ServeArgs
+
     if on_gpu:
-        args = ServeArgs(model="gpt2", preset="medium", steps=max(64, flags.serve_requests),
-                         prompt_len=64, prompt_lens=",".join(["16,32,48"] * 5 + ["256"]),
-                         max_new_tokens=64, min_new_tokens=8, checkpoint_dir=flags.checkpoint_dir)
+        fixed = ServeArgs(model="gpt2", preset="medium", steps=max(64, serve_requests),
+                          prompt_len=64, prompt_lens=",".join(["16,32,48"] * 5 + ["256"]),
+                          max_new_tokens=64, min_new_tokens=8, num_slots=16,
+                          checkpoint_dir=checkpoint_dir, device=device)
+        block_size = 16
     else:
-        args = ServeArgs(model="gpt2", preset="tiny", steps=flags.serve_requests or 16,
-                         prompt_len=8, prompt_lens=",".join(["4,6,8"] * 5 + ["48"]),
-                         max_new_tokens=12, min_new_tokens=2, checkpoint_dir=flags.checkpoint_dir)
-    res = run_serve(dataclasses.replace(args, device=device.type))
-    out = {
-        "metric": ("torch_gpt2_medium_serve_fixed_batch_tokens_per_sec" if on_gpu
-                   else "torch_gpt2_tiny_cpu_smoke_serve_fixed_batch_tokens_per_sec"),
-        "value": res["tokens_per_sec"],
-        "unit": "tokens/sec",
-        "vs_baseline": 1.0,  # serving has no anchor yet, as in the reference
-        "device": torch.cuda.get_device_name(device) if on_gpu else "cpu",
-        **{k: v for k, v in res.items() if k != "tokens_per_sec"},
+        fixed = ServeArgs(model="gpt2", preset="tiny", steps=serve_requests or 16, prompt_len=8,
+                          prompt_lens=",".join(["4,6,8"] * 5 + ["48"]), max_new_tokens=12,
+                          min_new_tokens=2, num_slots=8, checkpoint_dir=checkpoint_dir,
+                          device=device)
+        block_size = 4
+    continuous = dataclasses.replace(fixed, continuous=True)
+    # The pool: 45% of the dense cache's token capacity (the dense cache is
+    # sized by the rare long request), plus the trash block.
+    max_total = max(int(p) for p in fixed.prompt_lens.split(",")) + fixed.max_new_tokens
+    dense_blocks = fixed.num_slots * (-(-max_total // block_size))
+    pool = max(2, int(dense_blocks * 0.45)) + 1
+    paged = dataclasses.replace(continuous, cache_mode="paged", block_size=block_size,
+                                num_blocks=pool)
+    # Shared-prefix traffic (one of 2 system prompts on every request),
+    # the pool at full capacity so TTFT measures the prefill skipped.
+    prefix_cold = dataclasses.replace(paged, num_blocks=0, prefix_cache=False,
+                                      shared_prefix_len=256 if on_gpu else 64,
+                                      shared_prefix_groups=2)
+    prefix_warm = dataclasses.replace(prefix_cold, prefix_cache=True)
+    # A whale prompt many budgets long among short ones; the CPU runs the
+    # mini preset, the smallest whose prefill compute shows the stall.
+    budget = 384 if on_gpu else 192
+    chunk_base = dataclasses.replace(
+        continuous, steps=3 * fixed.steps, preset="medium" if on_gpu else "mini",
+        prompt_lens=",".join((["16,32,48"] * 4 + ["768"]) if on_gpu
+                             else (["8,12,16"] * 4 + ["384"])),
+        max_new_tokens=32, min_new_tokens=8)
+    configs = {
+        "fixed": fixed, "continuous": continuous, "paged": paged,
+        "paged_int8": dataclasses.replace(paged, kv_dtype="int8"),
+        "prefix_cold": prefix_cold, "prefix_warm": prefix_warm,
+        "chunked_prefix": dataclasses.replace(prefix_warm, prefill_budget=64 if on_gpu else 16),
+        "chunk_base": chunk_base,
+        "chunked": dataclasses.replace(chunk_base, prefill_budget=budget),
+        "sampling_mixed": dataclasses.replace(
+            continuous, sampling_mix="greedy:0.5,t0.8k40:0.3,t1.0p0.9:0.2"),
     }
+    return configs, budget
+
+
+def _serve_bench(flags, device):
+    """``--mode=serve``: the reference's ``_serve_bench`` arms of this slice
+    over one engine (the chunked arm's CPU run on its own mini engine), one
+    JSON line with the reference's keys: ``value`` the continuous
+    scheduler's tokens/s beside the fixed batch's (``continuous_speedup``),
+    ``paged_speedup`` and ``kv_hbm_ratio_*`` (paged at the 45% pool, and
+    int8), the prefix cache's hit rate, skipped tokens and TTFT speedup
+    with ``prefix_parity`` (warm tokens equal to cold), the chunked arm's
+    TPOT p99 and ``chunked_parity``, and the sampling mix's
+    ``sampling_compile_post_warmup`` (0) and scalar program sets.  Serving
+    has no baseline yet: ``vs_baseline`` is 1.0, as in the reference."""
+    import numpy as np
+
+    from distributed_tensorflow_tpu_torch.serve import ServeEngine, run_serve
+
+    arms = _parse_serve_arms(flags.serve_arm)
+    on_gpu = device.type == "cuda"
+    cfg, budget = serve_configs(on_gpu, flags.serve_requests, flags.checkpoint_dir,
+                                device.type)
+    fixed = cfg["fixed"]
+    engine = ServeEngine("gpt2", checkpoint_dir=flags.checkpoint_dir, seed=fixed.seed,
+                         device=device, preset=fixed.preset)
+    chunk_engine = engine
+    if not on_gpu and "chunked" in arms:
+        chunk_engine = ServeEngine("gpt2", checkpoint_dir=flags.checkpoint_dir,
+                                   seed=fixed.seed, device=device, preset="mini")
+    out = {}
+    try:
+        fixed_res = run_serve(fixed, engine=engine)
+        cont_res = run_serve(cfg["continuous"], engine=engine)
+        out.update({
+            "metric": ("torch_gpt2_medium_serve_tokens_per_sec" if on_gpu
+                       else "torch_gpt2_tiny_cpu_smoke_serve_tokens_per_sec"),
+            "value": cont_res["tokens_per_sec"],
+            "unit": "tokens/sec",
+            "vs_baseline": 1.0,  # serving has no anchor yet, as in the reference
+            "device": torch.cuda.get_device_name(device) if on_gpu else "cpu",
+            "serve_arms": sorted(arms),
+            **{k: cont_res[k] for k in (
+                "p50_latency_ms", "p99_latency_ms", "ttft_p50_ms", "ttft_p99_ms",
+                "tpot_mean_ms", "tpot_p99_ms", "slot_occupancy", "num_slots",
+                "queue_wait_p50_ms", "queue_wait_p99_ms", "requests", "completed",
+                "checkpoint_step")},
+            "fixed_tokens_per_sec": fixed_res["tokens_per_sec"],
+            "fixed_p50_latency_ms": fixed_res["p50_latency_ms"],
+            "fixed_p99_latency_ms": fixed_res["p99_latency_ms"],
+            "avg_batch_occupancy": fixed_res["avg_batch_occupancy"],
+            "continuous_speedup": round(cont_res["tokens_per_sec"]
+                                        / max(fixed_res["tokens_per_sec"], 1e-9), 3),
+        })
+        if "chunked" in arms:
+            base_res = run_serve(cfg["chunk_base"], engine=chunk_engine)
+            chunked_res = run_serve(cfg["chunked"], engine=chunk_engine)
+            out.update({
+                "tpot_p99_unchunked": base_res["tpot_p99_ms"],
+                "tpot_p99_chunked": chunked_res["tpot_p99_ms"],
+                "tpot_p99_speedup_chunked": round(
+                    base_res["tpot_p99_ms"] / max(chunked_res["tpot_p99_ms"], 1e-9), 3),
+                "unchunked_tokens_per_sec": base_res["tokens_per_sec"],
+                "chunked_tokens_per_sec": chunked_res["tokens_per_sec"],
+                "chunked_prefill_budget": budget,
+                "chunked_prefill_chunks": chunked_res["prefill_chunks"],
+                "chunked_parity": chunked_res["tokens_checksum"] == base_res["tokens_checksum"],
+            })
+        if "paged" in arms:
+            paged_res = run_serve(cfg["paged"], engine=engine)
+            int8_res = run_serve(cfg["paged_int8"], engine=engine)
+            out.update({
+                "paged_tokens_per_sec": paged_res["tokens_per_sec"],
+                "paged_speedup": round(paged_res["tokens_per_sec"]
+                                       / max(cont_res["tokens_per_sec"], 1e-9), 3),
+                "paged_int8_tokens_per_sec": int8_res["tokens_per_sec"],
+                "kv_hbm_bytes": {"dense": cont_res["kv_hbm_bytes"],
+                                 "paged": paged_res["kv_hbm_bytes"],
+                                 "paged_int8": int8_res["kv_hbm_bytes"]},
+                "kv_hbm_ratio_paged": round(paged_res["kv_hbm_bytes"]
+                                            / max(cont_res["kv_hbm_bytes"], 1), 4),
+                "kv_hbm_ratio_paged_int8": round(int8_res["kv_hbm_bytes"]
+                                                 / max(cont_res["kv_hbm_bytes"], 1), 4),
+                "block_size": paged_res["block_size"],
+                "num_blocks": paged_res["blocks_total"] + 1,  # + trash
+                "block_utilization": round(paged_res["blocks_high_water"]
+                                           / max(paged_res["blocks_total"], 1), 4),
+            })
+        if "prefix" in arms:
+            cold = run_serve(cfg["prefix_cold"], engine=engine)
+            warm = run_serve(cfg["prefix_warm"], engine=engine)
+            chunked_prefix = run_serve(cfg["chunked_prefix"], engine=engine)
+            out.update({
+                "prefix_hit_rate": warm["prefix_hit_rate"],
+                "prefill_tokens_skipped": warm["prefill_tokens_skipped"],
+                "prefix_ttft_p50_ms": warm["ttft_p50_ms"],
+                "prefix_cold_ttft_p50_ms": cold["ttft_p50_ms"],
+                "ttft_speedup_prefix": round(cold["ttft_p50_ms"]
+                                             / max(warm["ttft_p50_ms"], 1e-9), 3),
+                "prefix_parity": warm["tokens_checksum"] == cold["tokens_checksum"],
+                "chunked_prefix_parity": (chunked_prefix["tokens_checksum"]
+                                          == warm["tokens_checksum"]),
+                "chunked_prefix_skip_parity": (chunked_prefix["prefill_tokens_skipped"]
+                                               == warm["prefill_tokens_skipped"]),
+            })
+        if "sampling" in arms:
+            mixed = run_serve(cfg["sampling_mixed"], engine=engine)
+            if mixed["compile_post_warmup"] != 0:
+                raise AssertionError(f"heterogeneous sampling mix built programs after warm-up: "
+                                     f"{mixed['compile_post_warmup']}")
+            # The fixed-batch family keys its graphs on (temperature,
+            # top_k): the mix's three configs cost a program set each there.
+            probe = [np.arange(8, dtype=np.int32)]
+            scalar_sets = 0
+            for _ in range(2):
+                for temperature, top_k in ((0.0, 0), (0.8, 40), (1.0, 0)):
+                    before = engine.compile_stats()["compile_total"]
+                    engine.generate_batch(probe, 2, temperature=temperature, top_k=top_k)
+                    scalar_sets += engine.compile_stats()["compile_total"] > before
+            out.update({
+                "sampling_mix": mixed["sampling_mix"],
+                "sampling_configs": mixed["sampling_configs"],
+                "sampling_tokens_per_sec": mixed["tokens_per_sec"],
+                "sampling_speedup": round(mixed["tokens_per_sec"]
+                                          / max(cont_res["tokens_per_sec"], 1e-9), 3),
+                "sampling_programs_cached": mixed["programs_cached"],
+                "sampling_compile_post_warmup": mixed["compile_post_warmup"],
+                "sampling_scalar_program_sets": scalar_sets,
+            })
+    finally:
+        engine.close()
+        if chunk_engine is not engine:
+            chunk_engine.close()
     print(json.dumps(out))
     return out
 
@@ -183,6 +371,9 @@ def main(argv=None):
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--serve_requests", type=int, default=0,
                     help="serve mode: requests to drive (the card serves at least 64)")
+    ap.add_argument("--serve_arm", default="",
+                    help="serve mode: comma list of arms beside the core pair ("
+                         + ", ".join(SERVE_ARMS) + "; '' = all, 'core' = the pair alone)")
     ap.add_argument("--checkpoint_dir", default=None,
                     help="serve mode: serve this checkpoint (fresh init when unset)")
     flags = ap.parse_args(argv)

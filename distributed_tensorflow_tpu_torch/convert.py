@@ -105,12 +105,25 @@ def params_to_flax(state_dict: Mapping[str, torch.Tensor], *, scanned: bool = Tr
     return tree
 
 
-def cache_from_flax(tree: Mapping[str, Any], *, device=None):
+# The reference's cache leaves and the port's cache fields, by layout: the
+# fixed-batch cache, the slot cache (``slot_ids``) and the paged pools.
+_CACHE_LEAVES = {
+    "dense": (("cached_key", "keys"), ("cached_value", "values")),
+    "paged": (("cached_key_pool", "keys"), ("cached_value_pool", "values"),
+              ("key_scale", "key_scales"), ("value_scale", "value_scales")),
+}
+
+
+def cache_from_flax(tree: Mapping[str, Any], *, paged=None, device=None):
     """The reference's GPT-2 decode cache (the flax ``"cache"`` collection,
-    scanned ``blocks/{cached_key,cached_value,cache_index}`` with a leading
-    layer dim, or one ``h_<i>`` subtree per layer, plus ``position``) ->
-    the port's ``models.gpt2.DecodeCache`` (the dtypes kept)."""
-    from distributed_tensorflow_tpu_torch.models.gpt2 import DecodeCache
+    scanned ``blocks/...`` with a leading layer dim, or one ``h_<i>``
+    subtree per layer, plus ``position``) -> the port's cache (the dtypes
+    kept): a ``DecodeCache`` for the fixed batch's scalar index, a
+    ``SlotCache`` for the slot cache's per-slot ``(num_slots,)`` indices,
+    and a ``PagedCache`` of ``paged`` (its ``PagedKVConfig``, required) for
+    the pools (``cached_key_pool``, ``cached_value_pool`` and, under
+    int8, ``key_scale`` and ``value_scale``)."""
+    from distributed_tensorflow_tpu_torch.models.gpt2 import DecodeCache, PagedCache, SlotCache
 
     def t(x):
         x = np.array(x)
@@ -120,31 +133,44 @@ def cache_from_flax(tree: Mapping[str, Any], *, device=None):
 
     if "blocks" in tree:
         stack = tree["blocks"]
-        return DecodeCache(keys=list(t(stack["cached_key"]).clone().unbind(0)),
-                           values=list(t(stack["cached_value"]).clone().unbind(0)),
-                           cache_index=t(stack["cache_index"]), position=t(tree["position"]))
-    layers = [tree[f"h_{i}"] for i in range(sum(1 for k in tree if k.startswith("h_")))]
-    return DecodeCache(keys=[t(layer["cached_key"]) for layer in layers],
-                       values=[t(layer["cached_value"]) for layer in layers],
-                       cache_index=torch.stack([t(layer["cache_index"]) for layer in layers]),
-                       position=t(tree["position"]))
+        layers = [{k: v[i] for k, v in stack.items()}
+                  for i in range(np.shape(stack["cache_index"])[0])]
+    else:
+        layers = [tree[f"h_{i}"] for i in range(sum(1 for k in tree if k.startswith("h_")))]
+    kind = "paged" if "cached_key_pool" in layers[0] else "dense"
+    fields = {field: [t(layer[leaf]) for layer in layers]
+              for leaf, field in _CACHE_LEAVES[kind] if leaf in layers[0]}
+    index = torch.stack([t(layer["cache_index"]) for layer in layers])
+    position = t(tree["position"])
+    if kind == "paged":
+        if paged is None:
+            raise ValueError("a paged cache converts with paged= (its PagedKVConfig)")
+        return PagedCache(cache_index=index, position=position, paged=paged, **fields)
+    if index.ndim == 2:
+        return SlotCache(cache_index=index, position=position, **fields)
+    return DecodeCache(cache_index=index, position=position, **fields)
 
 
 def cache_to_flax(cache, *, scanned: bool = True) -> Dict[str, Any]:
-    """The port's ``DecodeCache`` -> the reference's ``"cache"`` tree of
-    numpy arrays, scanned (``blocks``) or per layer (``h_<i>``); bf16
-    leaves come out as float32."""
+    """The port's cache (``DecodeCache``, ``SlotCache`` or ``PagedCache``)
+    -> the reference's ``"cache"`` tree of numpy arrays, scanned
+    (``blocks``) or per layer (``h_<i>``); bf16 leaves come out as
+    float32, int8 pools as int8."""
+    from distributed_tensorflow_tpu_torch.models.gpt2 import PagedCache
+
     def a(x):  # a copy: the cache advances in place
         return (x.detach().float() if x.is_floating_point() else x).cpu().numpy().copy()
 
+    kind = "paged" if isinstance(cache, PagedCache) else "dense"
+    leaves = [(leaf, getattr(cache, field)) for leaf, field in _CACHE_LEAVES[kind]
+              if getattr(cache, field)]
+    layers = [{leaf: a(ts[i]) for leaf, ts in leaves} for i in range(len(cache.keys))]
+    for i, layer in enumerate(layers):
+        layer["cache_index"] = a(cache.cache_index[i])
     if scanned:
-        return {"blocks": {"cached_key": np.stack([a(k) for k in cache.keys]),
-                           "cached_value": np.stack([a(v) for v in cache.values]),
-                           "cache_index": a(cache.cache_index)},
+        return {"blocks": {k: np.stack([layer[k] for layer in layers]) for k in layers[0]},
                 "position": a(cache.position)}
-    tree: Dict[str, Any] = {f"h_{i}": {"cached_key": a(k), "cached_value": a(v),
-                                       "cache_index": a(cache.cache_index[i])}
-                            for i, (k, v) in enumerate(zip(cache.keys, cache.values))}
+    tree: Dict[str, Any] = {f"h_{i}": layer for i, layer in enumerate(layers)}
     tree["position"] = a(cache.position)
     return tree
 

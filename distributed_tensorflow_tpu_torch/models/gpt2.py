@@ -1,4 +1,4 @@
-"""GPT-2 of the PyTorch port: training and the dense-cache decode path.
+"""GPT-2 of the PyTorch port: training and the decode paths.
 
 Port of ``distributed_tensorflow_tpu/models/gpt2.py``: ``GPT2Config`` and
 its presets, ``Block``'s flash and dense attention branches and
@@ -7,17 +7,31 @@ its presets, ``Block``'s flash and dense attention branches and
 ``_guard_dense_attention_memory``, ``make_workload``, ``gpt2_rules``,
 ``gpt2_cache_rules`` and the pipelined path (``_pipelined_blocks``,
 ``_pipe_stage_fn``, ``_pipe_staging``, ``_auto_microbatches``,
-``_pipe_1f1b_loss``).  The slot-table and paged decode paths
-(``slot_ids``, ``paged``, ``block_tables``) come with serving part B.
+``_pipe_1f1b_loss``), and the continuous-batching caches:
+``PagedKVConfig``, ``_quantize_kv_int8``, ``_cached_attention(slot_ids=)``
+and ``_paged_cached_attention``.
 
 Decode (``forward(tokens, decode=True, cache=...)``): the flax ``"cache"``
-collection is a ``DecodeCache`` the caller owns, with each layer's
-``cached_key`` and ``cached_value`` (B, S, h_local, hd) in ``cfg.dtype``,
-each layer's int32 ``cache_index`` and the int32 ``position``, all device
-tensors updated in place, so a captured decode step replays.  The first
-call takes the whole prompt (prefill), later calls one token; attention is
-the reference's plain masked softmax over the cache (no flash kernel, as
-in the reference, where decode takes precedence over ring and flash).
+collection is a cache object the caller owns, of device tensors updated in
+place, so a captured decode step replays.  Three layouts:
+
+- ``DecodeCache`` (fixed batch): each layer's ``cached_key`` and
+  ``cached_value`` (B, S, h_local, hd) in ``cfg.dtype``, each layer's int32
+  ``cache_index`` and the int32 ``position``, one for the whole batch;
+- ``SlotCache`` (``slot_ids=``, the continuous scheduler's dense resident
+  cache): (num_slots, S, h_local, hd) rows with per-slot ``(n_layer,
+  num_slots)`` indices and ``(num_slots,)`` positions; a call's rows are
+  its ``slot_ids`` (unique), each written at its own offset;
+- ``PagedCache`` (``slot_ids=``, ``paged=``, ``block_tables=``): each
+  layer's (num_blocks, block_size, h_local, hd) pools in the storage dtype
+  (and (num_blocks, block_size) float32 scales under int8), the same
+  per-slot indices, and logical position p of slot s at block
+  ``block_tables[s, p // block_size]``, offset ``p % block_size``.
+
+The first call takes the whole prompt (prefill; a prefix-cached or chunked
+one starts at the slot's preset index), later calls one token; attention is
+the reference's plain masked softmax over the cache (no flash kernel, as in
+the reference, where decode takes precedence over ring and flash).
 
 On a mesh (``mesh=``, ``cluster.topology``) the model runs the
 reference's parallel layouts, placed by ``gpt2_rules``:
@@ -223,6 +237,215 @@ def init_decode_cache(cfg: "GPT2Config", mesh, batch: int, total_len: int, *,
         position=torch.zeros((), dtype=torch.int32, device=device))
 
 
+def _kv_storage_dtype(name: str) -> torch.dtype:
+    """The torch dtype a ``kv_dtype`` name stores ("int8", "bfloat16", ...);
+    a name that is not a dtype raises ``TypeError``, as ``jnp.dtype``."""
+    dtype = getattr(torch, name, None) if isinstance(name, str) else None
+    if not isinstance(dtype, torch.dtype):
+        raise TypeError(f"kv_dtype {name!r} is not a dtype name")
+    return dtype
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedKVConfig:
+    """Geometry of the block-table (paged) KV cache, the reference's: a
+    (num_blocks, block_size, heads, head_dim) pool per layer, a slot's
+    logical positions mapped to physical blocks through the host's
+    (num_slots, max_blocks_per_slot) int32 block table.  Block 0 is the
+    trash block (never allocated): inactive decode rows write their
+    garbage K/V there.  ``kv_dtype``: None stores the compute dtype, a
+    dtype name casts on write, "int8" stores per-token symmetric int8 with
+    float32 (num_blocks, block_size) scales.  Frozen and hashable: the
+    engine keys its decode graphs by it."""
+
+    block_size: int = 16
+    num_blocks: int = 64
+    kv_dtype: Optional[str] = None
+    # Per-shard pools: shard s owns blocks [s*per, (s+1)*per), its trash
+    # block at s*per.
+    data_shards: int = 1
+
+    def __post_init__(self):
+        if self.block_size < 1:
+            raise ValueError(f"block_size must be >= 1, got {self.block_size}")
+        if self.num_blocks < 2:
+            raise ValueError(f"num_blocks must be >= 2 (block 0 is the reserved trash block), "
+                             f"got {self.num_blocks}")
+        if self.data_shards < 1:
+            raise ValueError(f"data_shards must be >= 1, got {self.data_shards}")
+        if self.num_blocks % self.data_shards:
+            raise ValueError(f"num_blocks {self.num_blocks} must divide evenly over "
+                             f"data_shards {self.data_shards} per-shard pools")
+        if self.num_blocks // self.data_shards < 2:
+            raise ValueError(f"num_blocks {self.num_blocks} leaves fewer than 2 blocks per shard "
+                             f"across data_shards {self.data_shards} (each shard reserves its "
+                             f"own trash block)")
+        if self.kv_dtype is not None:
+            _kv_storage_dtype(self.kv_dtype)  # fail fast on typos
+
+    @property
+    def quantized(self) -> bool:
+        return self.kv_dtype == "int8"
+
+    def storage_dtype(self, compute_dtype: torch.dtype) -> torch.dtype:
+        return compute_dtype if self.kv_dtype is None else _kv_storage_dtype(self.kv_dtype)
+
+    def blocks_for(self, tokens: int) -> int:
+        """Physical blocks covering ``tokens`` logical positions."""
+        return -(-max(0, tokens) // self.block_size)
+
+    def prefix_blocks(self, prompt_len: int) -> int:
+        """Leading full blocks of a prompt that prefix caching may map: never
+        the whole prompt (prefill computes at least the final position, so
+        a block-aligned prompt recomputes its last block)."""
+        return max(0, int(prompt_len) - 1) // self.block_size
+
+    def max_blocks_per_slot(self, total_len: int) -> int:
+        return self.blocks_for(total_len)
+
+    def blocks_for_megastep(self, prompt_len: int, generated: int, steps: int,
+                            max_new_tokens: int) -> int:
+        """Blocks a ``steps``-iteration fused decode needs mapped before it
+        launches, clamped to the admission reservation (``prompt_len +
+        max_new_tokens - 1``)."""
+        if steps < 1:
+            raise ValueError(f"steps must be >= 1, got {steps}")
+        covered = min(prompt_len + generated + steps - 1, prompt_len + max_new_tokens - 1)
+        return self.blocks_for(covered)
+
+    def blocks_for_spec(self, prompt_len: int, generated: int, draft_len: int,
+                        max_new_tokens: int) -> int:
+        """Blocks a speculative verify of ``draft_len`` drafts needs mapped:
+        the megastep's with ``steps = draft_len + 1``."""
+        if draft_len < 0:
+            raise ValueError(f"draft_len must be >= 0, got {draft_len}")
+        return self.blocks_for_megastep(prompt_len, generated, draft_len + 1, max_new_tokens)
+
+    @property
+    def usable_blocks(self) -> int:
+        """Blocks available to requests (the pool less the trash blocks)."""
+        return self.num_blocks - self.data_shards
+
+    @property
+    def blocks_per_shard(self) -> int:
+        return self.num_blocks // self.data_shards
+
+    @property
+    def usable_blocks_per_shard(self) -> int:
+        return self.blocks_per_shard - 1
+
+    def trash_block(self, shard: int = 0) -> int:
+        return shard * self.blocks_per_shard
+
+
+def _quantize_kv_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-token int8 of (..., h, hd) K or V: one float32 scale a
+    (row, position), shared across heads (the max |x| over the heads and
+    head dims over 127, at least 1e-8), values rounded half to even and
+    clipped to [-127, 127]."""
+    xf = x.float()
+    scale = (xf.abs().amax(dim=(-2, -1)) / 127.0).clamp_min(1e-8)
+    q = torch.round(xf / scale[..., None, None]).clamp(-127, 127)
+    return q.to(torch.int8), scale
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+@dataclasses.dataclass
+class SlotCache:
+    """The continuous scheduler's dense resident cache (the reference's
+    ``slot_ids`` cache): each layer's (num_slots, S, h_local, hd) keys and
+    values in ``cfg.dtype``, ``cache_index`` (n_layer, num_slots) int32 and
+    ``position`` (num_slots,) int32.  ``all_slots`` is ``arange(num_slots)``:
+    a call given it (the decode step) writes and reads the rows in place,
+    with no gather of the slot rows."""
+
+    keys: List[torch.Tensor]
+    values: List[torch.Tensor]
+    cache_index: torch.Tensor
+    position: torch.Tensor
+
+    def __post_init__(self):
+        self.all_slots = torch.arange(self.num_slots, device=self.position.device)
+
+    @property
+    def num_slots(self) -> int:
+        return int(self.position.shape[0])
+
+    def tensors(self) -> List[torch.Tensor]:
+        return [*self.keys, *self.values, self.cache_index, self.position]
+
+    def nbytes(self) -> int:
+        return _nbytes(self.tensors())
+
+    def reset_rows(self, slot_ids: torch.Tensor, starts: torch.Tensor) -> None:
+        """Slot reuse: the index and position rows of ``slot_ids`` set to
+        ``starts`` (0, or a prefix hit's or chunk's first position).  K/V
+        needs no zeroing: the causal mask hides everything past the index."""
+        starts = starts.to(self.position.dtype)
+        self.cache_index.index_copy_(1, slot_ids,
+                                     starts.expand(self.cache_index.shape[0], -1).contiguous())
+        self.position.index_copy_(0, slot_ids, starts)
+
+
+@dataclasses.dataclass
+class PagedCache(SlotCache):
+    """The paged resident cache: ``keys``/``values`` are each layer's
+    (num_blocks, block_size, h_local, hd) pools in ``paged``'s storage
+    dtype, ``key_scales``/``value_scales`` each layer's (num_blocks,
+    block_size) float32 scales under int8 (empty otherwise), with the same
+    per-slot index rows as ``SlotCache``.  The block table is not part of
+    it: the caller owns it and passes it to every call."""
+
+    paged: Optional[PagedKVConfig] = None
+    key_scales: List[torch.Tensor] = dataclasses.field(default_factory=list)
+    value_scales: List[torch.Tensor] = dataclasses.field(default_factory=list)
+
+    def tensors(self) -> List[torch.Tensor]:
+        return [*super().tensors(), *self.key_scales, *self.value_scales]
+
+
+def _check_slot_geometry(cfg: "GPT2Config", mesh, num_slots: int, total_len: int) -> Tuple:
+    if total_len > cfg.n_positions:
+        raise ValueError(f"max_total_len {total_len} exceeds n_positions {cfg.n_positions}")
+    return gpt2_cache_rules(cfg, mesh, num_slots, total_len)
+
+
+def _slot_indices(cfg: "GPT2Config", num_slots: int, device):
+    return (torch.zeros(cfg.n_layer, num_slots, dtype=torch.int32, device=device),
+            torch.zeros(num_slots, dtype=torch.int32, device=device))
+
+
+def init_slot_cache(cfg: "GPT2Config", mesh, num_slots: int, total_len: int, *,
+                    device=None) -> SlotCache:
+    """A zeroed ``SlotCache`` of ``num_slots`` rows of ``total_len`` positions."""
+    shape = _check_slot_geometry(cfg, mesh, num_slots, total_len)
+    index, position = _slot_indices(cfg, num_slots, device)
+    return SlotCache(
+        keys=[torch.zeros(shape, dtype=cfg.dtype, device=device) for _ in range(cfg.n_layer)],
+        values=[torch.zeros(shape, dtype=cfg.dtype, device=device) for _ in range(cfg.n_layer)],
+        cache_index=index, position=position)
+
+
+def init_paged_cache(cfg: "GPT2Config", mesh, num_slots: int, total_len: int,
+                     paged: PagedKVConfig, *, device=None) -> PagedCache:
+    """A zeroed ``PagedCache`` of ``paged``'s pools for ``num_slots`` slots
+    of up to ``total_len`` positions."""
+    _, _, h, hd = _check_slot_geometry(cfg, mesh, num_slots, total_len)
+    shape = (paged.num_blocks, paged.block_size, h, hd)
+    store = paged.storage_dtype(cfg.dtype)
+    scales = (lambda: [torch.zeros(shape[:2], dtype=torch.float32, device=device)
+                       for _ in range(cfg.n_layer)]) if paged.quantized else list
+    index, position = _slot_indices(cfg, num_slots, device)
+    return PagedCache(
+        keys=[torch.zeros(shape, dtype=store, device=device) for _ in range(cfg.n_layer)],
+        values=[torch.zeros(shape, dtype=store, device=device) for _ in range(cfg.n_layer)],
+        cache_index=index, position=position, paged=paged, key_scales=scales(),
+        value_scales=scales())
+
+
 class Block(nn.Module):
     def __init__(self, cfg: GPT2Config, layer: int, device=None, mesh=None):
         super().__init__()
@@ -240,8 +463,9 @@ class Block(nn.Module):
     def _seed(self, seed: Optional[int], site: int) -> Optional[int]:
         return site_seed(seed, self.mesh, self.layer, site, heads=site == _ATTN_PROBS)
 
-    def forward(self, x: torch.Tensor, seed: Optional[int] = None,
-                cache: Optional["DecodeCache"] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, seed: Optional[int] = None, cache=None,
+                slot_ids: Optional[torch.Tensor] = None,
+                block_tables: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg, mesh = self.cfg, self.mesh
         dt = cfg.dtype
         h = cfg.n_head // _axis(mesh, "tensor")  # this rank's heads
@@ -252,10 +476,14 @@ class Block(nn.Module):
         y = copy_to(_layer_norm(self.ln_1, x), mesh)
         q, k, v = _dense(self.c_attn, y, dt).split(h * hd, dim=-1)
         q, k, v = (t.view(B, T, h, hd) for t in (q, k, v))
-        if cache is not None:
+        if isinstance(cache, PagedCache):
+            # Paged serve path: K/V in a pool of blocks, each slot's
+            # positions routed through its block-table row.
+            ctx = self._paged_cached_attention(q, k, v, cache, slot_ids, block_tables)
+        elif cache is not None:
             # Serve path: exact attention over the preallocated KV cache.
             # Takes precedence over ring and flash, as in the reference.
-            ctx = self._cached_attention(q, k, v, cache)
+            ctx = self._cached_attention(q, k, v, cache, slot_ids)
         elif _axis(mesh, "context") > 1:
             ctx = ring_attention(q, k, v, mesh=mesh, causal=True,
                                  chunk_size=cfg.ring_chunk_size or None, dropout_rate=rate,
@@ -279,29 +507,103 @@ class Block(nn.Module):
         return x + _dropout(mlp, rate, self._seed(seed, _MLP))
 
     def _cached_attention(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          cache: "DecodeCache") -> torch.Tensor:
-        """The reference's fixed-batch ``_cached_attention``: this call's T
-        keys and values are written at ``cache_index`` (one index for the
-        whole batch), and the queries attend over the (B, S) cache with keys
-        past ``cache_index + query offset`` masked, so the cache's unwritten
-        tail never enters the softmax.  bf16 scores as the reference rounds
-        them (``finfo`` minimum as the mask value), the softmax in float32,
-        the probabilities cast to ``cfg.dtype``.  Device ops only: no host
-        read of the index."""
+                          cache, slot_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The reference's ``_cached_attention``.  Fixed batch
+        (``DecodeCache``, ``slot_ids`` None): this call's T keys and values
+        are written at ``cache_index`` (one index for the whole batch), and
+        the queries attend over the (B, S) cache with keys past
+        ``cache_index + query offset`` masked, so the cache's unwritten tail
+        never enters the softmax.  Slots (``SlotCache``): each row of the
+        call is slot ``slot_ids[b]``, written at its own index (clamped so
+        the T positions fit, as ``dynamic_update_slice``) and masked past
+        it.  bf16 scores as the reference rounds them (``finfo`` minimum as
+        the mask value), the softmax in float32, the probabilities cast to
+        ``cfg.dtype``.  Device ops only: no host read of an index."""
         B, T, h, hd = q.shape
         k_all, v_all = cache.keys[self.layer], cache.values[self.layer]
-        idx = cache.cache_index[self.layer]
-        offsets = idx + torch.arange(T, device=q.device, dtype=idx.dtype)
-        k_all.index_copy_(1, offsets.long(), k.to(k_all.dtype))
-        v_all.index_copy_(1, offsets.long(), v.to(v_all.dtype))
-        idx.add_(T)
         S = k_all.shape[1]
-        scores = torch.einsum("bqhd,bkhd->bhqk", q, k_all) / math.sqrt(hd)
-        keys = torch.arange(S, device=q.device, dtype=offsets.dtype)
-        mask = keys[None, :] <= offsets[:, None]  # (T, S) causal over the cache
-        scores = scores.masked_fill(~mask, torch.finfo(scores.dtype).min)
+        steps = torch.arange(T, device=q.device)
+        if slot_ids is None:
+            idx = cache.cache_index[self.layer]
+            offsets = idx + steps.to(idx.dtype)
+            k_all.index_copy_(1, offsets.long(), k.to(k_all.dtype))
+            v_all.index_copy_(1, offsets.long(), v.to(v_all.dtype))
+            idx.add_(T)
+            scores = torch.einsum("bqhd,bkhd->bhqk", q, k_all) / math.sqrt(hd)
+            keys = torch.arange(S, device=q.device, dtype=offsets.dtype)
+            mask = keys[None, :] <= offsets[:, None]  # (T, S) causal over the cache
+            scores = scores.masked_fill(~mask, torch.finfo(scores.dtype).min)
+            probs = torch.softmax(scores.float(), dim=-1).to(self.cfg.dtype)
+            return torch.einsum("bhqk,bkhd->bqhd", probs, v_all)
+        index = cache.cache_index[self.layer]
+        idx = index.index_select(0, slot_ids).long()  # (B,) each slot's own
+        write = idx.clamp(max=S - T)[:, None] + steps  # (B, T)
+        rows = slot_ids[:, None].expand(B, T)
+        k_all.index_put_((rows, write), k.to(k_all.dtype))
+        v_all.index_put_((rows, write), v.to(v_all.dtype))
+        index.index_copy_(0, slot_ids, (idx + T).to(index.dtype))
+        if slot_ids is cache.all_slots:  # every slot in order: the rows in place
+            rows_k, rows_v = k_all, v_all
+        else:
+            rows_k, rows_v = k_all.index_select(0, slot_ids), v_all.index_select(0, slot_ids)
+        return self._slot_softmax(q, rows_k, rows_v, idx)
+
+    def _slot_softmax(self, q: torch.Tensor, rows_k: torch.Tensor, rows_v: torch.Tensor,
+                      idx: torch.Tensor) -> torch.Tensor:
+        """The slot paths' masked softmax: row b's query t attends over the
+        keys at positions <= ``idx[b] + t`` of its (S, h, hd) rows."""
+        B, T, h, hd = q.shape
+        S = rows_k.shape[1]
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, rows_k) / math.sqrt(hd)
+        q_pos = idx[:, None] + torch.arange(T, device=q.device)  # (B, T)
+        mask = torch.arange(S, device=q.device)[None, None, :] <= q_pos[:, :, None]
+        scores = scores.masked_fill(~mask[:, None], torch.finfo(scores.dtype).min)
         probs = torch.softmax(scores.float(), dim=-1).to(self.cfg.dtype)
-        return torch.einsum("bhqk,bkhd->bqhd", probs, v_all)
+        return torch.einsum("bhqk,bkhd->bqhd", probs, rows_v)
+
+    def _paged_cached_attention(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                cache: "PagedCache", slot_ids: torch.Tensor,
+                                block_tables: torch.Tensor) -> torch.Tensor:
+        """The reference's ``_paged_cached_attention``: the call's K/V
+        scattered into the blocks that own each (row, position), one write a
+        (row, token) (offsets are unique within a call because slot ids
+        are; an unallocated table entry points at trash block 0), int8
+        quantised per token with its scale beside it; then each row's whole
+        table row gathered into a contiguous (max_blocks * block_size, h,
+        hd) view, dequantised or cast to ``cfg.dtype``, for the dense slot
+        path's masked softmax.  A prefix-cached suffix or a chunk starts at
+        the slot's preset index, so the scatter writes only positions at or
+        past it while the gather still reads the mapped blocks below."""
+        pg = cache.paged
+        B, T, h, hd = q.shape
+        bs = pg.block_size
+        pool_k, pool_v = cache.keys[self.layer], cache.values[self.layer]
+        index = cache.cache_index[self.layer]
+        idx = index.index_select(0, slot_ids).long()  # (B,)
+        rows_bt = block_tables.index_select(0, slot_ids).long().clamp(min=0)  # (B, max_blk)
+        max_blk = rows_bt.shape[1]
+        pos = idx[:, None] + torch.arange(T, device=q.device)  # (B, T)
+        pb = rows_bt.gather(1, torch.div(pos, bs, rounding_mode="floor").clamp(max=max_blk - 1))
+        where = (pb.reshape(-1), (pos % bs).reshape(-1))
+        if pg.quantized:
+            kq, k_scale = _quantize_kv_int8(k)
+            vq, v_scale = _quantize_kv_int8(v)
+            pool_k.index_put_(where, kq.reshape(B * T, h, hd))
+            pool_v.index_put_(where, vq.reshape(B * T, h, hd))
+            cache.key_scales[self.layer].index_put_(where, k_scale.reshape(-1))
+            cache.value_scales[self.layer].index_put_(where, v_scale.reshape(-1))
+        else:
+            pool_k.index_put_(where, k.to(pool_k.dtype).reshape(B * T, h, hd))
+            pool_v.index_put_(where, v.to(pool_v.dtype).reshape(B * T, h, hd))
+        index.index_copy_(0, slot_ids, (idx + T).to(index.dtype))
+        gk, gv = pool_k[rows_bt], pool_v[rows_bt]  # (B, max_blk, bs, h, hd)
+        if pg.quantized:
+            gk = (gk.float() * cache.key_scales[self.layer][rows_bt][..., None, None])
+            gv = (gv.float() * cache.value_scales[self.layer][rows_bt][..., None, None])
+        S = max_blk * bs
+        gk = gk.to(self.cfg.dtype).reshape(B, S, h, hd)
+        gv = gv.to(self.cfg.dtype).reshape(B, S, h, hd)
+        return self._slot_softmax(q, gk, gv, idx)
 
 
 def _head_logits(hidden: torch.Tensor, wte: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -415,26 +717,27 @@ class GPT2(nn.Module):
     def forward(self, tokens: torch.Tensor, *, seed: Optional[int] = None,
                 return_hidden: bool = False,
                 pipeline: Optional[List[torch.Tensor]] = None, decode: bool = False,
-                cache: Optional[DecodeCache] = None, slot_ids=None, paged=None,
-                block_tables=None) -> torch.Tensor:
+                cache=None, slot_ids: Optional[torch.Tensor] = None,
+                paged: Optional[PagedKVConfig] = None,
+                block_tables: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Logits (B, T, V) float32, or with ``return_hidden`` the final
         LayerNorm's output (B, T, d) float32.  ``seed=None`` runs without
         dropout (flax ``deterministic=True``).  ``pipeline`` (pipe > 1):
         this stage's pipelined loss and the gradients of the given leaves
         (``_pipelined_loss``).  ``decode``: KV-cache decode against
         ``cache``, which it advances in place; positions continue from
-        ``cache.position``.  On a tensor mesh the logits are this rank's
-        vocab columns, as in training."""
-        if slot_ids is not None or paged is not None or block_tables is not None:
-            raise NotImplementedError(
-                "slot_ids, paged and block_tables (the continuous-batching slot table and the "
-                "paged KV cache) come with serving part B; this port serves the fixed-batch "
-                "dense cache")
+        ``cache.position``.  ``slot_ids`` (B,) long, unique: the rows of a
+        ``SlotCache`` or ``PagedCache`` this call's rows are, each at its
+        own position; ``paged`` (the cache's ``PagedKVConfig``) and
+        ``block_tables`` ((num_slots, max_blocks) int) go with a
+        ``PagedCache``.  On a tensor mesh the logits are this rank's vocab
+        columns, as in training."""
+        _check_slot_args(decode, cache, slot_ids, paged, block_tables)
         if pipeline is not None:
             return self._pipelined_loss(tokens, pipeline)
         cfg, mesh = self.cfg, self.mesh
         if decode:
-            x = self._decode_embed(tokens, cache)
+            x = self._decode_embed(tokens, cache, slot_ids)
         else:
             if cache is not None:
                 raise ValueError("cache only applies to decode=True calls")
@@ -447,7 +750,7 @@ class GPT2(nn.Module):
             x = _dropout(x, cfg.dropout, site_seed(seed, mesh, _EMBED_LAYER))
         for i, block in self.blocks.items():
             if decode:  # no remat and no dropout: there is no backward pass
-                x = block(x, None, cache)
+                x = block(x, None, cache, slot_ids, block_tables)
             else:
                 x = _run_block(block, x, None if seed is None else fold_in(seed, int(i)),
                                cfg.remat)
@@ -458,10 +761,13 @@ class GPT2(nn.Module):
         # vocab columns.
         return _head_logits(copy_to(x, mesh), self.wte, cfg.dtype)
 
-    def _decode_embed(self, tokens: torch.Tensor, cache: Optional[DecodeCache]) -> torch.Tensor:
+    def _decode_embed(self, tokens: torch.Tensor, cache,
+                      slot_ids: Optional[torch.Tensor]) -> torch.Tensor:
         """The decode call's embedding: the token rows at positions
-        ``cache.position + arange(T)`` (``position`` advances by T), with
-        the reference's refusals of a pipeline or context mesh."""
+        ``cache.position + arange(T)`` (``position`` advances by T; with
+        ``slot_ids`` each row from its slot's position, and only those
+        slots advance), with the reference's refusals of a pipeline or
+        context mesh."""
         cfg, mesh = self.cfg, self.mesh
         if _axis(mesh, "pipe") > 1:
             raise ValueError(
@@ -474,10 +780,16 @@ class GPT2(nn.Module):
             raise ValueError("decode=True needs cache= (init_decode_cache)")
         T = tokens.shape[1]
         pos = cache.position
-        rows = (pos + torch.arange(T, device=pos.device, dtype=pos.dtype)).long()
-        pos.add_(T)
-        return (vocab_embedding(tokens.long(), self.wte, mesh).to(cfg.dtype)
-                + self.wpe.index_select(0, rows).to(cfg.dtype))
+        if slot_ids is not None:
+            offset = pos.index_select(0, slot_ids)  # (B,)
+            rows = (offset[:, None] + torch.arange(T, device=pos.device, dtype=pos.dtype)).long()
+            pos.index_copy_(0, slot_ids, offset + T)
+            wpe = self.wpe[rows]
+        else:
+            rows = (pos + torch.arange(T, device=pos.device, dtype=pos.dtype)).long()
+            pos.add_(T)
+            wpe = self.wpe.index_select(0, rows)
+        return vocab_embedding(tokens.long(), self.wte, mesh).to(cfg.dtype) + wpe.to(cfg.dtype)
 
     def _pipelined_loss(self, tokens: torch.Tensor, leaves: List[torch.Tensor]):
         """This stage's schedule over the batch's M microbatches
@@ -497,6 +809,30 @@ class GPT2(nn.Module):
                          schedule=cfg.pipe_schedule, train=torch.is_grad_enabled())
         self.pipe_in_flight = r.peak_in_flight
         return r.loss, r.grads
+
+
+def _check_slot_args(decode: bool, cache, slot_ids, paged, block_tables) -> None:
+    """The reference's argument checks of ``slot_ids``/``paged``/
+    ``block_tables``, and the cache layout each asks for."""
+    if slot_ids is not None and not decode:
+        raise ValueError("slot_ids only applies to decode=True calls")
+    if paged is not None:
+        if slot_ids is None:
+            raise ValueError("paged KV cache requires slot_ids (the block table is indexed per "
+                             "slot; only the continuous-batching slot path is paged)")
+        if block_tables is None:
+            raise ValueError("paged=... requires block_tables, the (num_slots, "
+                             "max_blocks_per_slot) int32 logical->physical block map")
+        if not isinstance(cache, PagedCache) or cache.paged != paged:
+            raise ValueError("paged=... requires the PagedCache of that PagedKVConfig "
+                             "(init_paged_cache)")
+    elif block_tables is not None:
+        raise ValueError("block_tables only applies with paged=...")
+    elif isinstance(cache, PagedCache):
+        raise ValueError("a PagedCache takes paged= and block_tables=")
+    if decode and cache is not None and (slot_ids is not None) != isinstance(cache, SlotCache):
+        raise ValueError("slot_ids goes with a SlotCache or PagedCache (init_slot_cache, "
+                         "init_paged_cache), a DecodeCache without it")
 
 
 def _run_block(block: Block, x: torch.Tensor, seed: Optional[int], remat: bool) -> torch.Tensor:

@@ -8,6 +8,10 @@ percentiles, occupancy).  It takes the reference's flags plus
 
     python -m distributed_tensorflow_tpu_torch.serve                 # GPT-2 medium on the card
     python -m distributed_tensorflow_tpu_torch.serve --device=cpu --model=gpt2 --preset=tiny
+    python -m distributed_tensorflow_tpu_torch.serve --continuous --cache_mode=paged \
+        --prefix_cache --prefill_budget=64 --shared_prefix_len=256
+    python -m distributed_tensorflow_tpu_torch.serve --device=cpu --continuous \
+        --cache_mode=paged --prefix_cache --prefill_budget=8
     python -m distributed_tensorflow_tpu_torch.serve --model=bert --steps=64
     python -m distributed_tensorflow_tpu_torch.serve --checkpoint_dir=/path/to/ckpt
 
@@ -78,9 +82,38 @@ def parse_args(argv=None) -> ServeArgs:
                    help="graceful-drain budget on SIGTERM/Ctrl-C")
     p.add_argument("--device", choices=("cuda", "cpu"), default=d.device,
                    help="cuda (default; no fallback to the CPU) or cpu")
+    cont = p.add_argument_group("continuous batching (--continuous)")
+    cont.add_argument("--continuous", action="store_true",
+                      help="iteration-level scheduling (ContinuousScheduler) instead of fixed "
+                           "batches")
+    cont.add_argument("--num_slots", type=int, default=d.num_slots,
+                      help="decode slots of the resident cache")
+    cont.add_argument("--cache_mode", choices=("dense", "paged"), default=d.cache_mode,
+                      help="dense (num_slots, max_total_len) rows, or paged block pools")
+    cont.add_argument("--block_size", type=int, default=d.block_size,
+                      help="tokens a KV block (paged; also the dense gauges' unit)")
+    cont.add_argument("--num_blocks", type=int, default=d.num_blocks,
+                      help="paged pool size (0 = full capacity plus the trash block)")
+    cont.add_argument("--kv_dtype", default=d.kv_dtype,
+                      help="paged storage dtype: '' = the compute dtype, int8, or a torch "
+                           "dtype name")
+    cont.add_argument("--prefix_cache", action="store_true",
+                      help="map shared full prompt blocks from cache (paged)")
+    cont.add_argument("--prefill_budget", type=int, default=d.prefill_budget,
+                      help="prompt tokens prefilled an iteration (0 = whole prompts)")
+    cont.add_argument("--shared_prefix_len", type=int, default=d.shared_prefix_len,
+                      help="traffic: prepend one of --shared_prefix_groups system prompts of "
+                           "this many tokens to every request (0 = off)")
+    cont.add_argument("--shared_prefix_groups", type=int, default=d.shared_prefix_groups)
+    cont.add_argument("--sampling_mix", default=d.sampling_mix,
+                      help="per-request sampling by weighted round-robin, e.g. "
+                           "'greedy:0.5,t0.8k40:0.3,t1.0p0.9:0.2'")
+    cont.add_argument("--lifecycle_log", default=d.lifecycle_log,
+                      help="write the per-request lifecycle events here as JSONL ('' = off)")
     # Flags of later serving slices: parsed, then refused by run_serve,
     # naming the slice.
-    later = p.add_argument_group("serving parts B and C (refused, naming the slice)")
+    later = p.add_argument_group("serving part B2, serving on a mesh and part C (refused, "
+                                 "naming the slice)")
     for flag, (default, where) in later_flags().items():
         if isinstance(default, bool):
             later.add_argument(f"--{flag}", action="store_true", help=where)

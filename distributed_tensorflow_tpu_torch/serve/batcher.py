@@ -2,7 +2,7 @@
 
 Copied from ``distributed_tensorflow_tpu/serve/batcher.py`` (host only),
 its import pointed at the port's ``obs.metrics``.  The iteration-level
-mode's ``ContinuousScheduler`` comes with serving part B.
+mode feeds the port's ``serve.continuous.ContinuousScheduler``.
 
 Behavioral model: TF Serving's ``BatchingSession`` / ``SharedBatchScheduler``
 (batch coalescing with a timeout, bounded queues with rejection) and the

@@ -1,30 +1,41 @@
 """In-process serve loop: synthetic clients -> batcher -> engine.
 
-Port of ``distributed_tensorflow_tpu/serve/driver.py``, its fixed-batch
-arm: ``ServeArgs`` (every flag of the reference, plus ``device``),
-``run_serve``, ``_make_requests``, the fixed-batch ``_make_batcher``,
-``_warm`` and ``_drive`` with the reference's output keys for the
-fixed-batch and classify cases.  ``python -m
+Port of ``distributed_tensorflow_tpu/serve/driver.py`` less megastep,
+async decode, speculative decoding, SLO scheduling, the fleet, the gateway
+and the load generator: ``ServeArgs`` (every flag of the reference, plus
+``device``), ``run_serve``, ``_make_requests`` (mixed prompt lengths and
+horizons, shared-prefix groups, a sampling mix), ``_make_batcher``,
+``_warm`` and ``_drive`` with the reference's output keys.  ``python -m
 distributed_tensorflow_tpu_torch.serve`` and the bench's ``--mode=serve``
-drive it.  A ``DynamicBatcher`` coalesces shape-uniform buckets (prompt
-length) and each flushed batch decodes the whole shared horizon
-(``ServeEngine.generate_batch``); a few client threads submitting through it
-exercise the coalescing and backpressure a frontend would.
+drive it.  Two scheduling disciplines, the same client loop:
+
+- fixed batch (default): a ``DynamicBatcher`` coalesces shape-uniform
+  buckets (prompt length) and each flushed batch decodes the whole shared
+  horizon (``ServeEngine.generate_batch``);
+- ``continuous=True``: ``DynamicBatcher(iteration_level=True)`` streams
+  requests into a ``ContinuousScheduler`` that re-forms the decode batch
+  every step over one resident cache (``cache_mode`` dense or paged,
+  ``kv_dtype``, ``prefix_cache``, ``prefill_budget``), with per-request
+  sampling (``sampling_mix``) and the lifecycle recorder
+  (``lifecycle_log``).
 
 The flags of later serving slices raise a ``ValueError`` naming the slice:
-continuous batching, the paged KV cache, prefix caching, chunked prefill,
-megastep, async decode, speculative decoding, SLO scheduling and the
-lifecycle log (part B); the fleet, the gateway and the load generator (part
-C).  So do ``--data``/``--fsdp`` > 1 and a multi-rank mesh.
+megastep, async decode, speculative decoding and SLO scheduling (serving
+part B2), per-shard KV pools (serving on a mesh), the fleet, the gateway
+and the load generator (part C); so do ``--data``/``--fsdp`` > 1 and a
+multi-rank mesh.  The continuous path's own flags raise without
+``--continuous`` rather than being ignored.
 
-``_warm`` builds every decode family the traffic can reach (each prompt
-length at each padded batch size the batcher can flush) before the clients
-start, so on the card every CUDA graph is captured outside the timed window
-and ``compile_post_warmup`` is 0.
+``_warm`` builds every program the traffic can reach before the clients
+start (each prompt length's decode family at each padded batch size, or a
+warm scheduler over every prompt and suffix length, greedy and sampled),
+so on the card every CUDA graph is captured outside the timed window and
+``compile_post_warmup`` is 0.
 
 Reported numbers: delivered tokens/sec (GPT-2) or classified examples/sec,
-per-request latency percentiles, batch occupancy, and ``tokens_checksum``,
-a digest of every generated stream in submission order.
+per-request latency percentiles, batch or slot occupancy, TTFT/TPOT, the
+block gauges, and ``tokens_checksum``, a digest of every generated stream
+in submission order.
 """
 
 from __future__ import annotations
@@ -39,24 +50,25 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from distributed_tensorflow_tpu_torch.obs.serve import ServeMonitorHook
+from distributed_tensorflow_tpu_torch.serve import sampling as sampling_lib
 from distributed_tensorflow_tpu_torch.serve.batcher import DynamicBatcher, ServeOverloadedError
+from distributed_tensorflow_tpu_torch.serve.continuous import ContinuousScheduler
 from distributed_tensorflow_tpu_torch.serve.engine import ServeEngine
 
 logger = logging.getLogger(__name__)
 
 
 def _later(default, where):
-    """A flag of a later serving slice: parsed, refused by ``check_part_a``
+    """A flag of a later serving slice: parsed, refused by ``check_flags``
     unless left at ``default``, naming ``where`` it comes with."""
     return dataclasses.field(default=default, metadata={"later": where})
 
 
-_CONTINUOUS = "serving part B (continuous batching)"
-_PAGED = "serving part B (the paged KV cache)"
-_PREFIX = "serving part B (prefix caching)"
-_ASYNC = "serving part B (async decode)"
-_SPEC = "serving part B (speculative decoding)"
-_SLO = "serving part B (SLO scheduling)"
+_MEGASTEP = "serving part B2 (megastep decode)"
+_ASYNC = "serving part B2 (async decode)"
+_SPEC = "serving part B2 (speculative decoding)"
+_SLO = "serving part B2 (SLO scheduling)"
+_MESH = "serving on a mesh (per-shard KV pools)"
 _FLEET = "serving part C (the fleet)"
 _GATEWAY = "serving part C (the gateway)"
 _LOADGEN = "serving part C (the load generator)"
@@ -98,17 +110,25 @@ class ServeArgs:
     trace_out: str = ""
     # The port's device: "cuda" (the default; raises without a card) or "cpu".
     device: str = "cuda"
-    # -- serving part B: continuous batching and its cache layouts ----------
-    continuous: bool = _later(False, _CONTINUOUS)
-    num_slots: int = _later(8, _CONTINUOUS)
-    cache_mode: str = _later("dense", _PAGED)
-    block_size: int = _later(16, _PAGED)
-    num_blocks: int = _later(0, _PAGED)
-    kv_dtype: str = _later("", _PAGED)
-    per_shard_kv: bool = _later(False, _PAGED)
-    prefix_cache: bool = _later(False, _PREFIX)
-    prefill_budget: int = _later(0, "serving part B (chunked prefill)")
-    megastep: Any = _later(1, "serving part B (megastep decode)")
+    # -- continuous batching (serve/continuous.py) ----------------------------
+    continuous: bool = False
+    num_slots: int = 8
+    # "dense": the (num_slots, max_total_len) resident cache; "paged": K/V
+    # in a block pool indexed through per-slot block tables.
+    cache_mode: str = "dense"
+    block_size: int = 16
+    # 0 = the pool at full capacity (num_slots * blocks a slot + the trash
+    # block); smaller pools trade admission backpressure for memory.
+    num_blocks: int = 0
+    # "" = the compute dtype; "int8" = per-token symmetric int8 with float32
+    # scales; any torch dtype name ("bfloat16", ...) stores that dtype.
+    kv_dtype: str = ""
+    per_shard_kv: bool = _later(False, _MESH)
+    # Prefix caching (paged): shared full prompt blocks mapped from cache.
+    prefix_cache: bool = False
+    # Chunked prefill: >0 bounds the prompt tokens prefilled an iteration.
+    prefill_budget: int = 0
+    megastep: Any = _later(1, _MEGASTEP)
     async_decode: bool = _later(False, _ASYNC)
     async_depth: int = _later(2, _ASYNC)
     spec_k: int = _later(0, _SPEC)
@@ -117,10 +137,17 @@ class ServeArgs:
     slo_scheduling: bool = _later(False, _SLO)
     swap_min_tokens: int = _later(32, _SLO)
     starvation_age_s: float = _later(5.0, _SLO)
-    shared_prefix_len: int = _later(0, _PREFIX)  # its traffic mix
-    shared_prefix_groups: int = _later(2, _PREFIX)
-    sampling_mix: str = _later("", "serving part B (per-request sampling on the slot programs)")
-    lifecycle_log: str = _later("", "serving part B (the lifecycle recorder)")
+    # Shared-prefix traffic: >0 prepends one of ``shared_prefix_groups``
+    # system prompts of this many tokens to every request.
+    shared_prefix_len: int = 0
+    shared_prefix_groups: int = 2
+    # "" = every request uses the scalars above; a mix spec (e.g.
+    # "greedy:0.5,t0.8k40:0.3,t1.0p0.9:0.2") gives each request its own
+    # SamplingParams by weighted round-robin (--continuous).
+    sampling_mix: str = ""
+    # "" = lifecycle attribution off; a path attaches the per-request
+    # LifecycleRecorder and streams its events there as JSONL (--continuous).
+    lifecycle_log: str = ""
     # -- serving part C: fleet, gateway, load generator ---------------------
     num_replicas: int = _later(1, _FLEET)
     reload_poll_s: float = _later(0.0, _FLEET)
@@ -131,21 +158,34 @@ class ServeArgs:
     arrival_rate: float = _later(8.0, _LOADGEN)
 
 
+# The continuous path's own flags: refused off their defaults without
+# --continuous on GPT-2 rather than ignored.
+CONTINUOUS_FLAGS = ("cache_mode", "block_size", "num_blocks", "kv_dtype", "prefix_cache",
+                    "prefill_budget", "sampling_mix", "lifecycle_log")
+
+
 def later_flags() -> Dict[str, Tuple[Any, str]]:
     """Every flag of a later slice: its default and the slice it comes with."""
     return {f.name: (f.default, f.metadata["later"]) for f in dataclasses.fields(ServeArgs)
             if "later" in f.metadata}
 
 
-def check_part_a(args: ServeArgs) -> None:
-    """Refuse the flags of later serving slices, naming each slice."""
+def check_flags(args: ServeArgs) -> None:
+    """Refuse the flags of later serving slices, naming each slice, and the
+    continuous path's flags without ``--continuous``."""
     for flag, (default, where) in later_flags().items():
         if getattr(args, flag) != default:
             raise ValueError(f"--{flag}={getattr(args, flag)!r} comes with {where}; the port "
-                             "serves the fixed-batch dense-cache path so far")
+                             "serves the fixed batch and the continuous scheduler so far")
     if args.data > 1 or args.fsdp > 1:
         raise ValueError("--data/--fsdp > 1 (the batch split over ranks) comes with a later "
                          "serving slice")
+    if not (args.continuous and args.model == "gpt2"):
+        defaults = ServeArgs()
+        for flag in CONTINUOUS_FLAGS:
+            if getattr(args, flag) != getattr(defaults, flag):
+                raise ValueError(f"--{flag} applies to the continuous gpt2 path (--continuous "
+                                 f"--model=gpt2); it would be ignored here")
 
 
 def _auto_preset(args: ServeArgs) -> Optional[str]:
@@ -166,6 +206,29 @@ def _horizons(args: ServeArgs) -> List[int]:
     return [hi, lo, max(lo, (lo + hi) // 2), hi]
 
 
+def _cache_kwargs(args: ServeArgs) -> Dict[str, Any]:
+    """ContinuousScheduler cache-layout kwargs from the flag surface."""
+    if args.cache_mode == "dense":
+        return {"cache_mode": "dense"}
+    return {"cache_mode": args.cache_mode, "block_size": args.block_size,
+            "num_blocks": args.num_blocks or None, "kv_dtype": args.kv_dtype or None,
+            "prefix_cache": args.prefix_cache}
+
+
+def _payload_parts(payload) -> Tuple[np.ndarray, int]:
+    """(prompt, max_new_tokens) of one gpt2 payload: the plain tuple or the
+    dict a ``--sampling_mix`` run submits."""
+    if isinstance(payload, dict):
+        return payload["prompt"], payload["max_new_tokens"]
+    return payload
+
+
+def _max_total_len(args: ServeArgs, engine: ServeEngine, payloads) -> int:
+    """The scheduler's slot length: the longest request, at most n_positions."""
+    need = max(p.shape[0] + m for p, m in map(_payload_parts, payloads))
+    return min(engine.module.cfg.n_positions, need)
+
+
 def _prompt_lengths(args: ServeArgs) -> List[int]:
     if not args.prompt_lens:
         return [args.prompt_len]
@@ -175,16 +238,32 @@ def _prompt_lengths(args: ServeArgs) -> List[int]:
 
 def _make_requests(args: ServeArgs, engine: ServeEngine, rng: np.random.Generator):
     """One synthetic payload per request: GPT-2's are (prompt,
-    max_new_tokens) tuples over the cycled lengths and horizons; a
+    max_new_tokens) tuples over the cycled lengths and horizons (both
+    schedulers serve the same traffic), request i carrying shared prefix
+    i % groups before its own tail with ``shared_prefix_len``, and dicts
+    with each request's own ``SamplingParams`` under ``sampling_mix``; a
     classifier's one example of its stream (the label dropped)."""
     if args.model == "gpt2":
         vocab = engine.module.cfg.vocab_size
         lens = _prompt_lengths(args)
         horizons = _horizons(args)
+        assigner = None
+        if args.sampling_mix:
+            assigner = sampling_lib.MixAssigner(sampling_lib.parse_sampling_mix(args.sampling_mix))
+        prefixes = None
+        if args.shared_prefix_len > 0:
+            prefixes = [rng.integers(0, vocab, size=(args.shared_prefix_len,), dtype=np.int32)
+                        for _ in range(max(1, args.shared_prefix_groups))]
         payloads = []
         for i in range(args.steps):
             prompt = rng.integers(0, vocab, size=(lens[i % len(lens)],), dtype=np.int32)
-            payloads.append((prompt, horizons[i % len(horizons)]))
+            if prefixes is not None:
+                prompt = np.concatenate([prefixes[i % len(prefixes)], prompt])
+            if assigner is None:
+                payloads.append((prompt, horizons[i % len(horizons)]))
+            else:
+                payloads.append({"prompt": prompt, "max_new_tokens": horizons[i % len(horizons)],
+                                 "sampling": assigner.next()})
         return payloads
     batch = next(engine.workload.data_fn(max(2, args.max_batch_size)))
     n = len(next(iter(batch.values())))
@@ -196,7 +275,7 @@ def run_serve(args: ServeArgs, engine: Optional[ServeEngine] = None) -> Dict[str
     """Drive ``args.steps`` requests; returns the serve metrics dict.  Pass
     ``engine`` to reuse one restored engine (and its decode families)
     across runs."""
-    check_part_a(args)
+    check_flags(args)
     own_engine = engine is None
     if own_engine:
         from distributed_tensorflow_tpu_torch.cluster.topology import MeshConfig, build_mesh
@@ -233,13 +312,27 @@ def run_serve(args: ServeArgs, engine: Optional[ServeEngine] = None) -> Dict[str
             engine.close()
 
 
-def _make_batcher(args: ServeArgs, engine: ServeEngine) -> DynamicBatcher:
-    """Fixed buckets: a classifier's batches of examples, or GPT-2's
-    batches of one prompt length decoding the shared horizon."""
+def _scheduler(args: ServeArgs, engine: ServeEngine, payloads, **kw) -> ContinuousScheduler:
+    return ContinuousScheduler(engine, num_slots=args.num_slots,
+                               max_total_len=_max_total_len(args, engine, payloads),
+                               max_queue_size=args.max_queue_size, temperature=args.temperature,
+                               top_k=args.top_k, prefill_budget=args.prefill_budget, **kw)
+
+
+def _make_batcher(args: ServeArgs, engine: ServeEngine, payloads,
+                  lifecycle=None) -> DynamicBatcher:
+    """The scheduling discipline behind one run: fixed buckets (a
+    classifier's batches of examples, or GPT-2's batches of one prompt
+    length decoding the shared horizon) or iteration-level streaming into
+    a continuous scheduler."""
     if args.model != "gpt2":
         return DynamicBatcher(engine.classify_batch, max_batch_size=args.max_batch_size,
                               batch_timeout_ms=args.batch_timeout_ms,
                               max_queue_size=args.max_queue_size)
+    if args.continuous:
+        scheduler = _scheduler(args, engine, payloads, lifecycle=lifecycle,
+                               **_cache_kwargs(args))
+        return DynamicBatcher(iteration_level=True, scheduler=scheduler)
 
     def run_batch(payloads: List[Tuple[np.ndarray, int]]) -> List[Any]:
         # Request-level batching decodes the SHARED horizon for the whole
@@ -254,13 +347,55 @@ def _make_batcher(args: ServeArgs, engine: ServeEngine) -> DynamicBatcher:
                           bucket_fn=lambda payload: len(payload[0]))
 
 
+def _warm_continuous(args: ServeArgs, engine: ServeEngine, payloads) -> None:
+    """A warm scheduler of the run's geometry (prefix caching off) serves a
+    donor of every prompt length, and of every suffix length a shared
+    prefix's cached blocks leave, with the run's prefill budget (so every
+    chunk shape runs), greedy and with each sampled config of the traffic:
+    its decode graphs are captured here and its cache goes back to the
+    engine for the timed scheduler."""
+    warm_kwargs = ({**_cache_kwargs(args), "prefix_cache": False}
+                   if args.cache_mode == "paged" else _cache_kwargs(args))
+    sched = _scheduler(args, engine, payloads, **warm_kwargs)
+    lengths = sorted({_payload_parts(p)[0].shape[0] for p in payloads})
+    warm_lengths = set(lengths)
+    if args.prefix_cache and args.shared_prefix_len > 0:
+        aligned = args.shared_prefix_len // args.block_size * args.block_size
+        for length in lengths:
+            s = min(aligned, (length - 1) // args.block_size * args.block_size)
+            if 0 < s < length:
+                warm_lengths.add(length - s)
+    prompts = [_payload_parts(p)[0] for p in payloads]
+    configs = {p["sampling"] for p in payloads if isinstance(p, dict)}
+    sampled = [c for c in configs
+               if not c.greedy or c.presence_penalty or c.frequency_penalty]
+    if args.temperature > 0:
+        sampled.append(sched.default_sampling)
+    try:
+        futs = []
+        for length in sorted(warm_lengths):
+            donor = next(p for p in prompts if p.shape[0] >= length)
+            futs.append(sched.submit(donor[:length], max_new_tokens=2,
+                                     sampling=sampling_lib.SamplingParams()))
+        for f in futs:
+            f.result(timeout=600.0)
+        for config in sampled[:1]:  # one sampled request builds the mixed step
+            sched.submit(prompts[0], max_new_tokens=2, sampling=config).result(timeout=600.0)
+    finally:
+        sched.close()
+
+
 def _warm(args: ServeArgs, engine: ServeEngine, payloads) -> None:
     """Build outside the timed window: a classifier runs one full batch;
-    GPT-2 builds the decode family of every (padded batch, prompt length)
-    the batcher can flush, then decodes one batch through the path."""
+    GPT-2's fixed batch builds the decode family of every (padded batch,
+    prompt length) the batcher can flush, then decodes one batch through
+    the path; the continuous path runs a warm scheduler."""
     warm = payloads[: min(len(payloads), args.max_batch_size)]
     if args.model != "gpt2":
         engine.classify_batch(warm)
+        return
+    if args.continuous:
+        _warm_continuous(args, engine, payloads)
         return
     buckets = sorted({engine.bucket_rows(n) for n in range(1, args.max_batch_size + 1)})
     for length in sorted({len(p) for p, _ in payloads}):
@@ -271,12 +406,91 @@ def _warm(args: ServeArgs, engine: ServeEngine, payloads) -> None:
                           temperature=args.temperature, top_k=args.top_k)
 
 
+_BREAKDOWN_PHASES = ("queue_wait", "prefill", "decode_compute", "fetch_wait", "swap",
+                     "scheduler_stall")
+
+
+def _lifecycle_keys(stats: Dict[str, float], args: ServeArgs) -> Dict[str, Any]:
+    """Per-phase attribution keys for the JSON line (the scheduler's
+    ``stats()`` already merged the recorder's aggregates)."""
+    out: Dict[str, Any] = {
+        "lifecycle_requests_total": int(stats.get("lifecycle_requests_total", 0.0)),
+        "lifecycle_events_total": int(stats.get("lifecycle_events_total", 0.0)),
+        "lifecycle_dropped_total": int(stats.get("lifecycle_dropped_total", 0.0)),
+        "breakdown_sum_to_wall_ratio": round(stats.get("breakdown_sum_to_wall_ratio", 0.0), 4),
+    }
+    for ph in _BREAKDOWN_PHASES:
+        out[f"breakdown_{ph}_p99_ms"] = round(stats.get(f"breakdown_{ph}_p99_ms", 0.0), 3)
+    for ph in ("queue_wait", "prefill", "swap"):
+        out[f"ttft_breakdown_{ph}_p99_ms"] = round(
+            stats.get(f"ttft_breakdown_{ph}_p99_ms", 0.0), 3)
+    if args.lifecycle_log:
+        out["lifecycle_log"] = args.lifecycle_log
+    return out
+
+
+def _continuous_keys(stats: Dict[str, float], args: ServeArgs) -> Dict[str, Any]:
+    """The continuous run's keys of the JSON line, the reference's (megastep
+    1, async decode, speculative decoding and SLO scheduling off)."""
+    out: Dict[str, Any] = {
+        "slot_occupancy": round(stats["slot_occupancy"], 4),
+        "num_slots": int(stats["num_slots"]),
+        "iterations": int(stats["iterations"]),
+        "admissions_per_iter": round(stats["admissions_per_iter"], 3),
+        "retirements_per_iter": round(stats["retirements_per_iter"], 3),
+        "ttft_p50_ms": round(stats["ttft_p50_ms"], 3),
+        "ttft_p99_ms": round(stats["ttft_p99_ms"], 3),
+        "tpot_mean_ms": round(stats["tpot_mean_ms"], 4),
+        "tpot_p50_ms": round(stats.get("tpot_p50_ms", 0.0), 4),
+        "tpot_p99_ms": round(stats.get("tpot_p99_ms", 0.0), 4),
+        "cancelled": int(stats.get("cancelled", 0.0)),
+        "ttfb_p50_ms": round(stats.get("ttfb_p50_ms", 0.0), 3),
+        "ttfb_p99_ms": round(stats.get("ttfb_p99_ms", 0.0), 3),
+        "prefill_budget": int(args.prefill_budget),
+        "prefill_chunks": int(stats.get("prefill_chunks", 0.0)),
+        "megastep": 1,
+        "megastep_auto": False,
+        "megastep_launches": int(stats.get("megastep_launches", 0.0)),
+        "megastep_tokens": int(stats.get("megastep_tokens", 0.0)),
+        "async_decode": False,
+        "device_idle_fraction": round(stats.get("device_idle_fraction", 0.0), 4),
+        "spec_k": 0,
+        "slo_scheduling": False,
+        "cache_mode": args.cache_mode,
+        "kv_dtype": args.kv_dtype or None,
+    }
+    if args.cache_mode == "paged":
+        out["prefix_cache"] = bool(args.prefix_cache)
+    if args.prefix_cache:
+        out["prefix_hit_rate"] = round(stats["prefix_hit_rate"], 4)
+        out["prefill_tokens_skipped"] = int(stats["prefill_tokens_skipped"])
+        out["prefix_cached_blocks"] = int(stats["prefix_cached_blocks"])
+        out["prefix_evictions"] = int(stats["prefix_evictions"])
+    out["kv_hbm_bytes"] = int(stats["kv_hbm_bytes"])
+    out["block_size"] = int(stats["block_size"])
+    out["blocks_total"] = int(stats["blocks_total"])
+    out["blocks_high_water"] = int(stats["blocks_high_water"])
+    out["block_utilization"] = round(stats["block_utilization"], 4)
+    out["blocks_per_request_mean"] = round(stats["blocks_per_request_mean"], 2)
+    logger.info("serve shutdown: cache_mode=%s%s kv=%.1fMiB blocks hw=%d/%d blk/req mean=%.1f",
+                args.cache_mode, f" kv_dtype={args.kv_dtype}" if args.kv_dtype else "",
+                out["kv_hbm_bytes"] / 2**20, out["blocks_high_water"], out["blocks_total"],
+                out["blocks_per_request_mean"])
+    return out
+
+
 def _drive(args: ServeArgs, engine: ServeEngine) -> Dict[str, Any]:
+    lifecycle = None
+    if args.lifecycle_log:
+        from distributed_tensorflow_tpu_torch.obs.lifecycle import LifecycleRecorder
+
+        lifecycle = LifecycleRecorder(jsonl_path=args.lifecycle_log)
     rng = np.random.default_rng(args.seed)
     payloads = _make_requests(args, engine, rng)
     is_lm = args.model == "gpt2"
+    continuous = is_lm and args.continuous
     _warm(args, engine, payloads)
-    batcher = _make_batcher(args, engine)
+    batcher = _make_batcher(args, engine, payloads, lifecycle=lifecycle)
     monitor = ServeMonitorHook(batcher, every_steps=args.log_every)
     futures: List[Any] = [None] * len(payloads)
     rejected = [0]
@@ -341,11 +555,13 @@ def _drive(args: ServeArgs, engine: ServeEngine) -> Dict[str, Any]:
     stats = batcher.stats()
     batcher.close()
     monitor.log(len(payloads))
+    if lifecycle is not None:
+        lifecycle.close()
 
     completed = int(stats["completed"])
     out: Dict[str, Any] = {
         "model": args.model,
-        "scheduler": "fixed_batch",
+        "scheduler": "continuous" if continuous else "fixed_batch",
         "requests": args.steps,
         "completed": completed,
         "rejected_retries": rejected[0],
@@ -360,10 +576,18 @@ def _drive(args: ServeArgs, engine: ServeEngine) -> Dict[str, Any]:
     out["programs_cached"] = int(cstats["programs_cached"])
     out["compile_total"] = int(cstats["compile_total"])
     out["compile_post_warmup"] = int(cstats["compile_total"] - compile_warm)
+    if args.sampling_mix:
+        out["sampling_mix"] = args.sampling_mix
+        out["sampling_configs"] = len(sampling_lib.parse_sampling_mix(args.sampling_mix))
     if interrupted:
         out["drained"] = True
-    out["avg_batch_occupancy"] = round(stats.get("avg_batch_occupancy", 0.0), 3)
-    out["batches"] = int(stats.get("batches", 0))
+    if continuous:
+        out.update(_continuous_keys(stats, args))
+        if lifecycle is not None:
+            out.update(_lifecycle_keys(stats, args))
+    else:
+        out["avg_batch_occupancy"] = round(stats.get("avg_batch_occupancy", 0.0), 3)
+        out["batches"] = int(stats.get("batches", 0))
     if is_lm:
         delivered = int(sum(len(r) for r in results))
         out["tokens_generated"] = delivered
@@ -376,7 +600,7 @@ def _drive(args: ServeArgs, engine: ServeEngine) -> Dict[str, Any]:
                 h.update(np.asarray(r, np.int32).tobytes())
             out["tokens_checksum"] = h.hexdigest()[:16]
         # Every delivered result honours its horizon.
-        assert all(len(r) == m for r, (_, m) in zip(results, done_payloads))
+        assert all(len(r) == _payload_parts(p)[1] for r, p in zip(results, done_payloads))
     else:
         out["examples_per_sec"] = round(completed / max(elapsed, 1e-9), 2)
         out["predictions"] = results[: min(8, len(results))]

@@ -1,16 +1,41 @@
 """Inference engine of the PyTorch port: checkpoint -> parameters -> decode and classify.
 
-Port of ``distributed_tensorflow_tpu/serve/engine.py``, its fixed-batch
-parts: restore a checkpoint inference-only (``CheckpointManager.
-restore_params``: no optimizer state is read), take this rank's parts of
-the parameters on the mesh, and serve two paths:
+Port of ``distributed_tensorflow_tpu/serve/engine.py`` less megastep,
+speculative verify and the KV-tiering block programs: restore a checkpoint
+inference-only (``CheckpointManager.restore_params``: no optimizer state is
+read), take this rank's parts of the parameters on the mesh, and serve
+three paths:
 
 - ``generate``: GPT-2 prefill and KV-cache decode (``models.gpt2``
   ``decode=True``) over a cache preallocated per (batch, total length),
   heads split over ``tensor`` (``gpt2_cache_rules``);
+- the slot programs of the continuous scheduler (``serve.continuous``):
+  ``init_slot_cache``/``init_paged_cache`` (one resident cache, dense rows
+  or block pools), ``prefill_into_slots`` (a subset of slots, each from its
+  start offset) and ``decode_slots`` (one (num_slots, 1) step over every
+  slot, inactive slots gated), with per-slot sampling vectors and
+  emitted-token counts;
 - ``classify``: one batched forward of MNIST, ResNet-50 (BatchNorm on its
   running statistics) or BERT (the NSP logits), under
   ``torch.inference_mode``.
+
+The slot programs: a resident cache belongs to a ``_SlotFamily``, the
+static buffers of its (num_slots, max_total_len, PagedKVConfig or None):
+the cache, the (num_slots, vocab) counts, the step's tokens, active mask,
+block tables, sampling vectors and counter, and the output row.
+``decode_slots`` copies its arguments into them and replays the family's
+CUDA graph of its sampling key ("greedy": every row greedy and
+unpenalised, the argmax alone; "mixed": the vectorised ``_select_next``),
+captured on first use; the step gates the index and position rows and the
+count bumps of inactive slots with a device ``where`` and points their
+block-table rows at the trash block, so nothing in the graph reads a host
+value and an inactive row writes into no live block.  Prefill runs eagerly into the same buffers.  A
+scheduler hands its cache back at close (``release_cache``) and the next
+scheduler of the same geometry reuses the family and its graphs, so a
+warm-up scheduler's captures serve the timed one.  Rows pinned to an older
+weight generation (hot reload) decode eagerly on that generation's own
+tensors (``torch.func.functional_call``): the graphs read the module's,
+which hold the newest.
 
 The reference's jit program cache becomes one CUDA graph per decode-step
 family, (batch, total length, sampling key), captured on the card the
@@ -57,6 +82,7 @@ from distributed_tensorflow_tpu_torch.models.layers import gather_last
 from distributed_tensorflow_tpu_torch.obs import metrics as obs_metrics
 from distributed_tensorflow_tpu_torch.ops.flash_attention import philox4x32_10
 from distributed_tensorflow_tpu_torch.rng import fold_in
+from distributed_tensorflow_tpu_torch.serve import sampling as sampling_lib
 from distributed_tensorflow_tpu_torch.train_lib import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -195,6 +221,31 @@ def _select_next(logits: torch.Tensor, base_seed: int, counter: torch.Tensor,
     return torch.where(sampling["temperature"] <= 0.0, penalized.argmax(-1), sampled)
 
 
+def _all_greedy(sampling: Mapping[str, np.ndarray]) -> bool:
+    """Every row greedy and unpenalised: the reference's ``_all_greedy``
+    branch, whose choice is the argmax of the logits alone."""
+    return bool(np.all((np.asarray(sampling["temperature"]) <= 0.0)
+                       & (np.asarray(sampling["presence"]) == 0.0)
+                       & (np.asarray(sampling["frequency"]) == 0.0)))
+
+
+def _choose_rows(logits: torch.Tensor, key: str, base_seed: int, counter: torch.Tensor,
+                 sampling: Mapping[str, torch.Tensor], counts: torch.Tensor) -> torch.Tensor:
+    """The slot programs' choice over (B, V) float32 logits: "greedy" the
+    argmax, "mixed" the vectorised ``_select_next``."""
+    if key == "greedy":
+        return logits.argmax(-1)
+    return _select_next(logits, base_seed, counter, sampling, counts)
+
+
+def _bump_counts(counts: torch.Tensor, rows: torch.Tensor, toks: torch.Tensor,
+                 inc: torch.Tensor) -> None:
+    """+1 at (row, token) where ``inc``: the emitted-token accounting the
+    penalties read (a scatter-add, so a masked row adds 0 at whatever token
+    it carries)."""
+    counts.view(-1).scatter_add_(0, rows * counts.shape[1] + toks, inc.to(counts.dtype))
+
+
 def pad_rows(arr: np.ndarray, target: int) -> np.ndarray:
     """Pad the leading (batch) dim to ``target`` rows by repeating the last
     row — inert filler whose outputs the caller slices off."""
@@ -234,6 +285,27 @@ class _Geometry:
     lock: threading.Lock = dataclasses.field(default_factory=threading.Lock)
 
 
+@dataclasses.dataclass
+class _SlotFamily:
+    """A resident slot or paged cache and the static buffers of its decode
+    step (see the module docstring), keyed by (num_slots, max_total_len,
+    PagedKVConfig or None).  ``steps`` maps a sampling key to its step (a
+    captured graph's replay, or the eager step); ``leased`` while a
+    scheduler holds the cache."""
+
+    key: Tuple[int, int, Any]
+    cache: Any
+    counts: torch.Tensor
+    tokens: torch.Tensor
+    active: torch.Tensor
+    tables: Optional[torch.Tensor]
+    sampling: Dict[str, torch.Tensor]
+    counter: torch.Tensor
+    out: torch.Tensor
+    steps: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    leased: bool = True
+
+
 class ServeEngine:
     """Checkpoint-backed inference on one device (or a tensor mesh of CPU
     ranks).  ``checkpoint_dir=None`` (or an empty directory) falls back to
@@ -269,6 +341,12 @@ class ServeEngine:
         self._obs = _engine_instruments()
         self._geometries: Dict[Tuple[int, int], _Geometry] = {}
         self._geometry_lock = threading.Lock()
+        # Every resident cache's family, by the cache's id (a released one
+        # serves the next lease of its geometry), and the cache layouts
+        # whose prefill ran (the reference's one prefill program a layout).
+        self._families: Dict[int, _SlotFamily] = {}
+        self._prefill_kinds: set = set()
+        self._lifecycle = None
         self.restored_step: Optional[int] = None
         # Base sampling seed (folded with a step counter inside the step,
         # never split on the host per token).
@@ -315,12 +393,19 @@ class ServeEngine:
             return (0.0, 0)
         return (float(temperature), max(0, int(top_k)))
 
+    def set_lifecycle(self, lifecycle) -> None:
+        """Attach a lifecycle recorder (``obs.lifecycle``): every new program
+        family records a rid-0 COMPILE event."""
+        self._lifecycle = lifecycle
+
     def _note_compile(self, kind: str) -> None:
         """One new program family (a capture on the card, a first use on
         the CPU): the per-kind counter, the total and the resident gauge."""
         self._obs["compiles"].labels(kind=kind).inc()
         self._obs["compile_total"].inc()
         self._obs["programs_cached"].inc()
+        if self._lifecycle is not None:
+            self._lifecycle.record(0, "COMPILE", program=kind)
 
     def compile_stats(self) -> Dict[str, float]:
         """Program-family telemetry from the metrics alone (no lock)."""
@@ -342,7 +427,15 @@ class ServeEngine:
 
     @staticmethod
     def cache_hbm_bytes(cache) -> int:
-        """Bytes of a decode cache on this rank."""
+        """Resident bytes of a decode cache (dense rows or paged pools,
+        scales and index rows) on this rank: the serving-capacity
+        denominator the block gauges and the bench report."""
+        return int(cache.nbytes())
+
+    @staticmethod
+    def cache_hbm_bytes_per_shard(cache) -> int:
+        """Bytes of a cache on one device: the whole of it, since the slot
+        programs run on one device (no pool is split over ranks)."""
         return int(cache.nbytes())
 
     def _geometry(self, batch: int, total_len: int) -> _Geometry:
@@ -502,6 +595,276 @@ class ServeEngine:
                 results[i] = _trim_at_eos(gen[row], eos_token)
         return results  # type: ignore[return-value]
 
+    # -- the slot programs (continuous batching) ----------------------------------
+
+    def _slot_geometry(self, num_slots: int, total_len: int) -> None:
+        dp = max(1, self.data_parallelism)
+        if num_slots < 1 or num_slots % dp:
+            raise ValueError(f"num_slots {num_slots} must be a positive multiple of the "
+                             f"data-parallel extent {dp} (slot rows shard over data)")
+        cfg = getattr(self.module, "cfg", None)
+        if cfg is not None and total_len > cfg.n_positions:
+            raise ValueError(f"max_total_len {total_len} exceeds n_positions {cfg.n_positions}")
+
+    def _lease_family(self, num_slots: int, total_len: int, paged) -> Any:
+        """A released family of this geometry (its index rows and counts
+        zeroed), or a new one; returns its cache."""
+        from distributed_tensorflow_tpu_torch.models import gpt2
+
+        key = (num_slots, total_len, paged)
+        with self._geometry_lock:
+            fam = next((f for f in self._families.values() if f.key == key and not f.leased),
+                       None)
+            if fam is not None:
+                fam.leased = True
+                with torch.inference_mode(), _launch_lock:
+                    fam.cache.cache_index.zero_()
+                    fam.cache.position.zero_()
+                    fam.counts.zero_()
+                return fam.cache
+            self._note_compile("slot_cache_init" if paged is None else "paged_cache_init")
+            cfg, dev = self.module.cfg, self.device
+            with torch.inference_mode():
+                if paged is None:
+                    cache = gpt2.init_slot_cache(cfg, self.mesh, num_slots, total_len, device=dev)
+                    tables = None
+                else:
+                    cache = gpt2.init_paged_cache(cfg, self.mesh, num_slots, total_len, paged,
+                                                  device=dev)
+                    tables = torch.zeros(num_slots, paged.max_blocks_per_slot(total_len),
+                                         dtype=torch.int32, device=dev)
+                fam = _SlotFamily(
+                    key=key, cache=cache,
+                    counts=torch.zeros(num_slots, cfg.vocab_size, dtype=torch.int32, device=dev),
+                    tokens=torch.zeros(num_slots, 1, dtype=torch.int64, device=dev),
+                    active=torch.zeros(num_slots, dtype=torch.bool, device=dev), tables=tables,
+                    sampling={k: torch.from_numpy(v).to(dev)
+                              for k, v in sampling_lib.uniform(num_slots).items()},
+                    counter=torch.zeros((), dtype=torch.int64, device=dev),
+                    out=torch.zeros(num_slots, dtype=torch.int64, device=dev))
+            self._families[id(cache)] = fam
+            return cache
+
+    def _family(self, cache) -> _SlotFamily:
+        fam = self._families.get(id(cache))
+        if fam is None or fam.cache is not cache:
+            raise ValueError("not a resident cache of this engine (init_slot_cache, "
+                             "init_paged_cache)")
+        return fam
+
+    def init_slot_cache(self, num_slots: int, total_len: int):
+        """One resident dense cache for a continuous scheduler's lifetime:
+        (num_slots, total_len) K/V rows with per-slot index and position
+        rows (``models.gpt2.SlotCache``), zeroed."""
+        self._slot_geometry(num_slots, total_len)
+        return self._lease_family(num_slots, total_len, None)
+
+    def init_paged_cache(self, num_slots: int, total_len: int, *, paged):
+        """One resident paged cache (``cache_mode="paged"``): per-layer
+        (num_blocks, block_size, heads, head_dim) pools (and float32 scales
+        under int8) and the same per-slot index rows (``models.gpt2.
+        PagedCache``).  The block table is the caller's, passed to every
+        call; the pool must hold one maximum-length request beside the
+        trash block."""
+        self._slot_geometry(num_slots, total_len)
+        if paged.data_shards > 1:
+            raise NotImplementedError(
+                "per-shard KV pools come with serving on a mesh (a later serving slice); the "
+                "port keeps one pool")
+        max_blocks = paged.max_blocks_per_slot(total_len)
+        if paged.usable_blocks_per_shard < max_blocks:
+            raise ValueError(
+                f"num_blocks {paged.num_blocks} cannot hold one max-length request: need "
+                f"{max_blocks} usable blocks (block_size {paged.block_size} x max_total_len "
+                f"{total_len}) plus the reserved trash block")
+        return self._lease_family(num_slots, total_len, paged)
+
+    def release_cache(self, cache) -> None:
+        """Hand a resident cache back (a scheduler's close): the next
+        scheduler of its geometry reuses it and its decode graphs."""
+        with self._geometry_lock:
+            fam = self._families.get(id(cache))
+            if fam is not None and fam.cache is cache:
+                fam.leased = False
+
+    def init_slot_counts(self, cache) -> torch.Tensor:
+        """The resident ``cache``'s (num_slots, vocab) int32 emitted-token
+        counts, zeroed: the per-slot state the presence and frequency
+        penalties read, a static buffer of the decode step, passed to and
+        returned by every slot call."""
+        fam = self._family(cache)
+        with torch.inference_mode(), _launch_lock:
+            fam.counts.zero_()
+        return fam.counts
+
+    @staticmethod
+    def _reset_slot_rows(cache, slot_ids: torch.Tensor, starts: torch.Tensor) -> None:
+        """The index and position rows of ``slot_ids`` set to ``starts``:
+        slot reuse hygiene (0 for a full prefill; a prefix hit's or chunk's
+        first position otherwise)."""
+        cache.reset_rows(slot_ids, starts)
+
+    def put_replicated(self, arr) -> torch.Tensor:
+        """A host array on the engine's device: the scheduler's
+        device-resident copy of its block tables."""
+        with _launch_lock:
+            return torch.as_tensor(np.asarray(arr)).to(self.device)
+
+    def _live(self, params) -> bool:
+        """Whether ``params`` are the module's own tensors (the newest
+        generation), which the graphs read."""
+        return params is None or params.get("wte") is self.module.wte
+
+    def _slot_forward(self, params, tokens, cache, slot_ids, tables) -> torch.Tensor:
+        kw = dict(decode=True, cache=cache, slot_ids=slot_ids)
+        if tables is not None:
+            kw.update(paged=cache.paged, block_tables=tables)
+        if self._live(params):
+            return self.module(tokens, **kw)
+        return torch.func.functional_call(self.module, params, (tokens,), kw)
+
+    @staticmethod
+    def _check_paged(fam: _SlotFamily, paged, block_tables) -> None:
+        if (paged is None) != (block_tables is None):
+            raise ValueError("paged and block_tables go together")
+        if paged != fam.key[2]:
+            raise ValueError(f"the cache's PagedKVConfig is {fam.key[2]}, the call's {paged}")
+
+    @staticmethod
+    def _check_counts(fam: _SlotFamily, counts) -> None:
+        if counts is not fam.counts:
+            raise ValueError("counts must be the cache's own (init_slot_counts(cache))")
+
+    def _sampling_tensors(self, sampling) -> Dict[str, torch.Tensor]:
+        return {k: torch.as_tensor(np.asarray(v)).to(self.device) for k, v in sampling.items()}
+
+    def prefill_into_slots(self, cache, prompts: np.ndarray, slot_ids, *, sampling, counts,
+                           commit=None, counter: int = 0, paged=None, block_tables=None,
+                           params=None, start_offsets=None):
+        """Admit requests: each prompt's K/V written into its slot (index and
+        position rows reset to ``start_offsets``, 0 by default, and its
+        counts to 0 first), returning (first generated tokens (n,) on the
+        device, the cache, the counts).  ``prompts`` (n, T), ``slot_ids``
+        (n,) unique; ``counts`` is ``init_slot_counts(cache)``.  ``start_offsets``
+        starts each row at that position: a prefix-cached suffix (the table
+        rows below it map the cached blocks) or the next chunk of a chunked
+        prefill.  ``sampling`` (n,)-row vectors (``sampling.pack``);
+        ``commit`` (n,) bool marks the rows whose token is emitted (a final
+        chunk), which alone bump the counts.  ``params`` pins an older
+        weight generation.  Eager on the card too."""
+        fam = self._family(cache)
+        self._check_paged(fam, paged, block_tables)
+        prompts = np.asarray(prompts, np.int32)
+        if prompts.ndim != 2:
+            raise ValueError(f"prompts must be (n, T), got {prompts.shape}")
+        n = prompts.shape[0]
+        starts = (np.zeros((n,), np.int32) if start_offsets is None
+                  else np.asarray(start_offsets, np.int32))
+        if starts.shape != (n,):
+            raise ValueError(f"start_offsets must be ({n},), got {starts.shape}")
+        self._check_counts(fam, counts)
+        commit = np.ones((n,), bool) if commit is None else np.asarray(commit, bool)
+        key = "greedy" if _all_greedy(sampling) else "mixed"
+        t0 = time.perf_counter()
+        with torch.inference_mode(), _launch_lock:
+            if fam.key[2] not in self._prefill_kinds:
+                self._prefill_kinds.add(fam.key[2])
+                self._note_compile("slot_prefill")
+            dev = self.device
+            slots = torch.as_tensor(np.asarray(slot_ids, np.int64)).to(dev)
+            self._reset_slot_rows(cache, slots, torch.from_numpy(starts).to(dev))
+            counts.index_fill_(0, slots, 0)
+            tables = None if block_tables is None else torch.as_tensor(block_tables, device=dev)
+            logits = self._slot_forward(params, torch.from_numpy(prompts).to(dev), cache, slots,
+                                        tables)
+            nxt = _choose_rows(self._full_logits(logits), key, self._sample_seed,
+                               torch.tensor(counter, device=dev), self._sampling_tensors(sampling),
+                               counts.index_select(0, slots))
+            _bump_counts(counts, slots, nxt, torch.from_numpy(commit).to(dev))
+            nxt = nxt.to(torch.int32)
+        self._obs["prefill"].observe(time.perf_counter() - t0)
+        return nxt, cache, counts
+
+    def _slot_step(self, fam: _SlotFamily, key: str, params=None) -> None:
+        """One (num_slots, 1) decode step of the family, device ops only: the
+        forward over every slot in order (an inactive slot's table row the
+        trash block's, so its garbage K/V lands in no live block: not in a
+        prefix block mapped into a slot whose index row prefill has not yet
+        reset), the index and position rows of inactive slots restored
+        (``where``), the choice of ``key``, the active rows' counts bumped,
+        the tokens written to ``out``."""
+        cache = fam.cache
+        index, position = cache.cache_index.clone(), cache.position.clone()
+        tables = None if fam.tables is None else torch.where(fam.active[:, None], fam.tables, 0)
+        logits = self._slot_forward(params, fam.tokens, cache, cache.all_slots, tables)
+        cache.cache_index.copy_(torch.where(fam.active[None, :], cache.cache_index, index))
+        cache.position.copy_(torch.where(fam.active, cache.position, position))
+        nxt = _choose_rows(self._full_logits(logits), key, self._sample_seed, fam.counter,
+                           fam.sampling, fam.counts)
+        _bump_counts(fam.counts, cache.all_slots, nxt, fam.active)
+        fam.out.copy_(nxt)
+
+    def _capture_slots(self, fam: _SlotFamily, key: str):
+        """Capture the family's step of ``key``: two eager steps on a side
+        stream first (library workspaces, lazy initialisation) with every
+        slot inactive, so they move no index, position or count (their K/V
+        writes land in the trash block, or in a dense row at its current
+        index, where the next step writes its own), then the capture.  A
+        failed capture raises."""
+        active = fam.active.clone()
+        fam.active.zero_()
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            for _ in range(2):
+                self._slot_step(fam, key)
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._slot_step(fam, key)
+        fam.active.copy_(active)
+        return graph.replay
+
+    def decode_slots(self, cache, last_tokens, active: np.ndarray, *, sampling, counts,
+                     counter: int = 0, paged=None, block_tables=None, params=None):
+        """One iteration-level decode step over every slot: (num_slots, 1)
+        tokens against the resident cache, each slot at its own position;
+        slots off in ``active`` keep their index, position and counts
+        (their garbage K/V lands in the trash block, or in a dense row past
+        its frozen index).  Returns (next tokens (num_slots,) on the
+        device, the cache, the counts); ``counts`` is
+        ``init_slot_counts(cache)``.  ``last_tokens`` may be the previous
+        step's device tokens.  On the card the step is the family's CUDA graph of its
+        sampling key; ``params`` of an older generation run it eagerly on
+        those tensors."""
+        fam = self._family(cache)
+        self._check_paged(fam, paged, block_tables)
+        self._check_counts(fam, counts)
+        N = cache.num_slots
+        key = "greedy" if _all_greedy(sampling) else "mixed"
+        t0 = time.perf_counter()
+        with torch.inference_mode(), _launch_lock:
+            fam.tokens.copy_(torch.as_tensor(last_tokens).reshape(N, 1))
+            fam.active.copy_(torch.as_tensor(np.asarray(active, bool)))
+            for k, v in sampling.items():
+                fam.sampling[k].copy_(torch.as_tensor(np.asarray(v)))
+            fam.counter.fill_(int(counter))
+            if block_tables is not None:
+                fam.tables.copy_(torch.as_tensor(block_tables))
+            if not self._live(params):
+                self._slot_step(fam, key, params)
+            else:
+                step = fam.steps.get(key)
+                if step is None:
+                    self._note_compile("slot_decode")
+                    step = (self._capture_slots(fam, key) if self.use_graphs
+                            else (lambda: self._slot_step(fam, key)))
+                    fam.steps[key] = step
+                step()
+            nxt = fam.out.to(torch.int32)
+        self._obs["decode_step"].observe(time.perf_counter() - t0)
+        return nxt, cache, counts
+
     # -- classify (MNIST / ResNet-50 / BERT) ---------------------------------------
 
     def _predict(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -565,6 +928,7 @@ class ServeEngine:
             self._manager = None
         with self._geometry_lock:
             self._geometries.clear()
+            self._families.clear()
 
     def __enter__(self):
         return self

@@ -10,8 +10,10 @@
   same logits; a seeded row's stream is its own; the draws follow the
   softmax (chi-square).  A vocabulary of 6-64 columns: enough for a
   nucleus and a top-k cut to differ from the whole row.
-- Refusals: decode on a pipeline mesh, and every flag of serving parts B
-  and C.
+- Refusals: decode on a pipeline mesh, misused slot-cache arguments, and
+  every flag of serving part B2, serving on a mesh and part C; each flag
+  of serving part B1 reaches the continuous scheduler (and is refused
+  without ``--continuous``).
 - The entry points in process: ``run_serve`` on tiny GPT-2 and MNIST
   gives the reference's keys, ``python -m ...serve``'s ``main`` and the
   bench's ``--mode=serve`` one JSON line each.
@@ -41,6 +43,7 @@ from distributed_tensorflow_tpu_torch.cluster.topology import MESH_AXES, Mesh  #
 from distributed_tensorflow_tpu_torch.models import gpt2 as tgpt2  # noqa: E402
 from distributed_tensorflow_tpu_torch.obs.serve import ServeMonitorHook  # noqa: E402
 from distributed_tensorflow_tpu_torch.serve import (  # noqa: E402
+    ContinuousScheduler,
     DynamicBatcher,
     ServeArgs,
     ServeEngine,
@@ -387,26 +390,33 @@ def test_decode_on_a_pipeline_mesh_is_refused():
 
 
 def test_decode_arguments_of_part_b_are_refused():
+    """The slot-cache arguments (serving part B) are refused with the fixed
+    batch's cache, as the reference's argument checks refuse them."""
     model = tgpt2.GPT2(tgpt2.GPT2Config.tiny())
     cache = tgpt2.init_decode_cache(model.cfg, None, 2, 8)
     tokens = torch.zeros(2, 4, dtype=torch.long)
-    for kw in ({"slot_ids": torch.arange(2)}, {"paged": object()}, {"block_tables": object()}):
-        with pytest.raises(NotImplementedError, match="part B"):
+    paged = tgpt2.PagedKVConfig(block_size=4, num_blocks=5)
+    for kw, match in (({"slot_ids": torch.arange(2)}, "SlotCache"),
+                      ({"paged": paged}, "requires slot_ids"),
+                      ({"block_tables": torch.zeros(2, 2)}, "only applies with paged")):
+        with pytest.raises(ValueError, match=match):
             model(tokens, decode=True, cache=cache, **kw)
     with pytest.raises(ValueError, match="cache="):
         model(tokens, decode=True)
 
 
 @pytest.mark.parametrize("flag,value,where", [
-    ("continuous", True, "part B"), ("cache_mode", "paged", "part B"),
-    ("prefix_cache", True, "part B"), ("prefill_budget", 32, "part B"),
+    ("per_shard_kv", True, "serving on a mesh"), ("cache_mode", "paged", "--continuous"),
+    ("prefix_cache", True, "--continuous"), ("prefill_budget", 32, "--continuous"),
     ("megastep", 4, "part B"), ("async_decode", True, "part B"), ("spec_k", 2, "part B"),
-    ("slo_scheduling", True, "part B"), ("sampling_mix", "greedy:1", "part B"),
-    ("lifecycle_log", "x.jsonl", "part B"), ("num_replicas", 2, "part C"),
+    ("slo_scheduling", True, "part B"), ("sampling_mix", "greedy:1", "--continuous"),
+    ("lifecycle_log", "x.jsonl", "--continuous"), ("num_replicas", 2, "part C"),
     ("gateway_port", 8080, "part C"), ("loadgen_trace", "poisson:n=4", "part C"),
     ("data", 2, "later serving slice"), ("fsdp", 2, "later serving slice"),
 ])
 def test_flags_of_later_slices_are_refused(flag, value, where):
+    """Flags of later slices name their slice; the continuous path's own
+    flags are refused without ``--continuous`` rather than ignored."""
     from distributed_tensorflow_tpu_torch.serve.__main__ import parse_args
 
     with pytest.raises(ValueError, match=where):
@@ -427,10 +437,61 @@ def test_every_flag_of_a_later_slice_is_refused_from_the_command_line(flag):
     from distributed_tensorflow_tpu_torch.serve.__main__ import parse_args
 
     default, where = later_flags()[flag]
+    assert re.match(r"serving part (B2|C) |serving on a mesh ", where), where
     value = _other_value(default)
     argv = ["--device=cpu", f"--{flag}" if value is None else f"--{flag}={value}"]
     with pytest.raises(ValueError, match=re.escape(where)):
         run_serve(parse_args(argv))
+
+
+# Serving part B1's flags: each one's command-line value and what the
+# continuous scheduler (or its traffic) must show of it.
+B1_FLAGS = {
+    "continuous": ([], lambda s, p: isinstance(s, ContinuousScheduler)),
+    "num_slots": (["--num_slots=2"], lambda s, p: s.num_slots == 2),
+    "cache_mode": (["--cache_mode=paged"], lambda s, p: s.cache_mode == "paged"),
+    "block_size": (["--cache_mode=paged", "--block_size=8"],
+                   lambda s, p: s.paged.block_size == 8),
+    "num_blocks": (["--cache_mode=paged", "--num_blocks=40"],
+                   lambda s, p: s.paged.num_blocks == 40),
+    "kv_dtype": (["--cache_mode=paged", "--kv_dtype=int8"], lambda s, p: s.paged.quantized),
+    "prefix_cache": (["--cache_mode=paged", "--prefix_cache"], lambda s, p: s.prefix_cache),
+    "prefill_budget": (["--prefill_budget=3"], lambda s, p: s.prefill_budget == 3),
+    "shared_prefix_len": (["--shared_prefix_len=5"],
+                          lambda s, p: all(np.array_equal(p[0][:5], q[:5]) for q in p[::2])),
+    "shared_prefix_groups": (["--shared_prefix_len=5", "--shared_prefix_groups=3"],
+                             lambda s, p: not np.array_equal(p[0][:5], p[1][:5])
+                             and np.array_equal(p[0][:5], p[3][:5])),
+    "sampling_mix": (["--sampling_mix=t0.8k40:1"],
+                     lambda s, p: s.engine.compile_stats()["compile_total"] >= 1),
+    "lifecycle_log": (["--lifecycle_log=LOG"], lambda s, p: s._lifecycle is not None),
+}
+
+
+@pytest.mark.parametrize("flag", sorted(B1_FLAGS))
+def test_each_part_b1_flag_reaches_the_scheduler(flag, monkeypatch, tmp_path):
+    """Each flag of serving part B1 the entry point parses reaches the
+    timed run's continuous scheduler (or the prompts it is sent), and the
+    run completes: none is refused or ignored."""
+    from distributed_tensorflow_tpu_torch.serve import driver
+    from distributed_tensorflow_tpu_torch.serve.__main__ import parse_args
+
+    extra, holds = B1_FLAGS[flag]
+    extra = [a.replace("LOG", str(tmp_path / "life.jsonl")) for a in extra]
+    built = []
+
+    class Recording(driver.ContinuousScheduler):
+        def submit(self, prompt, **kw):
+            self.prompts = getattr(self, "prompts", []) + [np.asarray(prompt)]
+            return super().submit(prompt, **kw)
+
+    monkeypatch.setattr(driver, "ContinuousScheduler",
+                        lambda *a, **kw: built.append(Recording(*a, **kw)) or built[-1])
+    out = run_serve(parse_args(["--device=cpu", "--continuous", "--steps=4", "--clients=1",
+                                "--max_new_tokens=2", "--prompt_len=6", *extra]))
+    assert out["scheduler"] == "continuous" and out["completed"] == 4
+    timed = built[-1]  # the warm-up scheduler came first
+    assert len(timed.prompts) == 4 and holds(timed, timed.prompts), flag
 
 
 def test_the_entry_point_parses_exactly_the_serve_args():
@@ -475,12 +536,14 @@ def test_the_entry_point_and_the_bench_print_one_json_line(capsys, tmp_path):
     lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.strip()]
     assert len(lines) == 1 and json.loads(lines[0])["tokens_generated"] == 8
     assert "traceEvents" in json.loads(trace.read_text())
-    bench.main(["--mode=serve", "--device=cpu", "--serve_requests=6"])
+    bench.main(["--mode=serve", "--device=cpu", "--serve_requests=6", "--serve_arm=core"])
     lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.strip()]
     assert len(lines) == 1
     out = json.loads(lines[0])
-    assert out["metric"] == "torch_gpt2_tiny_cpu_smoke_serve_fixed_batch_tokens_per_sec"
+    # The reference's core pair: the continuous scheduler's headline, the fixed batch beside it.
+    assert out["metric"] == "torch_gpt2_tiny_cpu_smoke_serve_tokens_per_sec"
     assert out["vs_baseline"] == 1.0 and out["value"] > 0 and out["completed"] == 6
+    assert out["fixed_tokens_per_sec"] > 0 and out["serve_arms"] == []
 
 
 # -- tensor=2 over two gloo ranks ----------------------------------------------------
