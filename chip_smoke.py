@@ -10,9 +10,9 @@
     python3 chip_smoke.py --cluster_only LABEL ...  # those of the four-card
                                            # configurations (or nccl_abort),
                                            # or phase 8b (two_workers), 11
-                                           # (phase11) or 12 (serving, with
-                                           # the kernels' build) alone on
-                                           # any card
+                                           # (phase11), 12 (serving, with
+                                           # the kernels' build) or 12h
+                                           # (serving_b2) alone on any card
 
 Phases (any failure raises; there is no CPU path):
 
@@ -232,7 +232,16 @@ Phases (any failure raises; there is no CPU path):
    KV MiB dense against paged, the block high-water mark, beside 12b's
    fixed batch; and one (16 slots, 320) ``decode_slots`` step: the graphed
    call, the replay alone, the eager step by part, against the weights'
-   floor.
+   floor; (h) serving part B2: tiny GPT-2 in float32 on the card against
+   the CPU (megastep 4, async depth 2, spec_k 3, SLO pressure with a forced
+   swap and a forced recompute: greedy tokens equal), then GPT-2 medium
+   (bf16, graphed, 16 slots) on the bench's B2 traffic: megastep 1 and 8
+   and ``auto``, async depths 1, 2 and 4 against sync, spec_k 4 against off
+   on motif prompts, the K=32 megastep graph's capture, and the SLO arm (a
+   256-token whale swapped out and back) against the same pool without
+   pressure; megastep, async and the swap resume identical in bf16, spec in
+   a float32 witness at GPT-2 medium; tokens/s, TPOT, launches a token,
+   acceptance, ring occupancy and fetch wait, swap bytes and ms, peak MiB.
 
 The line before the last is a JSON object of the kernels' numbers; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -3923,22 +3932,56 @@ def _arm_line(label, res):
             f"{res['launches']}")
 
 
-def _serve_arm(fa, eng, cfg, label, path, runs, paths):
+class _TimedSchedulerStats:
+    """Within the block, the ``stats()`` and the streams (in submission
+    order) of the last continuous scheduler closed (``run_serve``'s timed
+    one: its warm-up schedulers close first)."""
+
+    def __enter__(self):
+        from distributed_tensorflow_tpu_torch.serve import continuous
+
+        self.cls, self.last, self.streams = continuous.ContinuousScheduler, None, None
+        self.real = (self.cls.close, self.cls.submit)
+        real_close, real_submit = self.real
+
+        def submit(sched, *a, **kw):
+            fut = real_submit(sched, *a, **kw)
+            sched.__dict__.setdefault("_smoke_futures", []).append(fut)
+            return fut
+
+        def close(sched, *a, **kw):
+            if not sched._stopped:
+                self.last = sched.stats()
+                self.streams = [f.result() for f in sched.__dict__.get("_smoke_futures", [])
+                                if f.done() and not f.cancelled() and f.exception() is None]
+            return real_close(sched, *a, **kw)
+
+        self.cls.close, self.cls.submit = close, submit
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.close, self.cls.submit = self.real
+        return False
+
+
+def _serve_arm(fa, eng, cfg, label, path, runs, paths, line=None):
     """One ``run_serve`` arm on ``eng``, the launch counts set to 0 just
     before it: it must build nothing after warm-up and launch no flash
-    kernel."""
+    kernel.  The timed scheduler's stats ride along as ``sched``."""
     from distributed_tensorflow_tpu_torch.serve import run_serve
 
     torch.cuda.reset_peak_memory_stats()
     zero_launches(fa)
     t0 = time.perf_counter()
-    res = run_serve(cfg, engine=eng)
+    with _TimedSchedulerStats() as timed:
+        res = run_serve(cfg, engine=eng)
     torch.cuda.synchronize()
     res.update(launches=dict(fa.LAUNCHES), phase_s=time.perf_counter() - t0,
-               peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+               peak_mib=torch.cuda.max_memory_allocated() / 2**20, sched=timed.last,
+               streams=timed.streams)
     runs[label] = res
     paths[path] = res["launches"]
-    print(_arm_line(label, res) + f"; {res['phase_s']:.1f} s with warm-up")
+    print((line or _arm_line)(label, res) + f"; {res['phase_s']:.1f} s with warm-up")
     if res["compile_post_warmup"] != 0:
         raise AssertionError(f"GPT-2 medium {label}: built programs after warm-up")
     assert_no_flash(f"GPT-2 medium continuous {label}", res["launches"])
@@ -4163,6 +4206,301 @@ def check_serving_b1(fa, fixed_res):
     return {"runs": runs, "step": step}, paths
 
 
+# Phase 12h: the B2 arms' requests (the bench runs 128), cut to hold the
+# phase inside its 90 s, and the SLO arm's whale and shorts: a resident whale
+# holds every usable block, so a short admits only by preempting it; its
+# 256-token context moves ~24 MiB each way.
+B2_REQUESTS = 32
+B2_F32_REQUESTS = 16  # the float32 spec witness at GPT-2 medium
+B2_SLO = dict(whale=(256, 40), short=(4, 8), block=16, slots=4)
+B2_LARGEST_K = 32  # megastep="auto"'s ceiling: its capture is timed
+
+
+def _b2_pressure(sched, whale, shorts, whale_new, short_new):
+    """Hand-stepped SLO pressure: the whale (priority 0) until it holds 4
+    tokens, then the shorts at priority 9, which admit only by preempting
+    it; every stream to the end.  Returns the outputs, whale first."""
+    wf = sched.submit(whale, max_new_tokens=whale_new, sampling={"priority": 0})
+    for _ in range(40):
+        if sched._active and len(next(iter(sched._active.values())).tokens) >= 4:
+            break
+        sched._iteration()
+    futs = [wf] + [sched.submit(p, max_new_tokens=short_new, sampling={"priority": 9})
+                   for p in shorts]
+    for _ in range(2000):
+        if all(f.done() for f in futs):
+            break
+        sched._iteration()
+    return [f.result(timeout=0) for f in futs]
+
+
+def _motif_requests(seed, n, lengths=(6, 9), horizon=16):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        motif = rng.integers(0, 256, size=(3,), dtype=np.int32)
+        length = lengths[i % len(lengths)]
+        out.append((np.tile(motif, -(-length // 3))[:length], horizon))
+    return out
+
+
+def check_tiny_b2():
+    """12h (1): tiny GPT-2 in float32 on the card (the megastep, verify and
+    block programs as graphs and pinned copies) against the CPU from the same
+    weights: megastep 4, async depth 2 (megastep 2), spec_k 3 on motif
+    prompts, and SLO pressure with a forced swap and a forced recompute,
+    each scheduler stepped by hand: the greedy tokens equal the CPU's."""
+    import numpy as np
+
+    from distributed_tensorflow_tpu_torch.models import gpt2
+    from distributed_tensorflow_tpu_torch.serve import ContinuousScheduler, ServeEngine
+
+    cfg = gpt2.GPT2Config.tiny(dtype=torch.float32)
+    engines = {dev: ServeEngine("gpt2", device=dev, config=cfg) for dev in ("cuda", "cpu")}
+    engines["cuda"].install_params(dict(engines["cpu"].module.named_parameters()))
+    mixed, motifs = _tiny_requests(8), _motif_requests(3, 6)
+    rng = np.random.default_rng(11)
+    whale = rng.integers(0, 256, size=(8,), dtype=np.int32)
+    shorts = [rng.integers(0, 256, size=(4,), dtype=np.int32) for _ in range(3)]
+    slo = dict(num_slots=4, max_total_len=24, cache_mode="paged", block_size=4, num_blocks=9,
+               slo_scheduling=True)
+    modes = {"megastep 4": (mixed, dict(megastep=4)),
+             "async depth 2": (mixed, dict(megastep=2, async_decode=True)),
+             "spec_k 3": (motifs, dict(spec_k=3, max_total_len=32)),
+             "SLO swap": (None, dict(slo, swap_min_tokens=4)),
+             "SLO recompute": (None, dict(slo, swap_min_tokens=10_000))}
+    for mode, (reqs, kw) in modes.items():
+        outs, stats = {}, {}
+        for dev, e in engines.items():
+            sched = ContinuousScheduler(e, start=False, **{"num_slots": 4, "max_total_len": 48,
+                                                           **kw})
+            try:
+                if reqs is None:
+                    outs[dev] = _b2_pressure(sched, whale, shorts, 16, 8)
+                else:
+                    futs = [sched.submit(p, max_new_tokens=m) for p, m in reqs]
+                    for _ in range(400):
+                        if all(f.done() for f in futs):
+                            break
+                        sched._iteration()
+                    outs[dev] = [f.result(timeout=0) for f in futs]
+                stats[dev] = sched.stats()
+            finally:
+                sched.close()
+        same = all(np.array_equal(a, b) for a, b in zip(outs["cuda"], outs["cpu"]))
+        s = stats["cuda"]
+        print(f"[serve-b2] tiny GPT-2 float32 {mode}: card tokens equal the CPU's {same} "
+              f"(launches {s['megastep_launches']:g}, steps run {s['megastep_effective_steps']:g},"
+              f" spec launches {s['spec_launches']:g} accepted {s['spec_accepted']:g}, ring max "
+              f"{s['async_ring_depth_max']:g}, preemptions swap {s['preempt_swapped_total']:g} "
+              f"recompute {s['preempt_recompute_total']:g})")
+        if not same:
+            raise AssertionError(f"tiny GPT-2 {mode}: the card's tokens differ from the CPU's")
+        if mode.startswith("SLO") and not s["preemptions_total"]:
+            raise AssertionError(f"tiny GPT-2 {mode}: nothing was preempted")
+    for e in engines.values():
+        e.close()
+
+
+def _b2_line(label, res):
+    launches, tokens = res["megastep_launches"], max(res["megastep_tokens"], 1)
+    st = res["sched"]
+    return (f"[serve-b2] GPT-2 medium {label}: {res['tokens_per_sec']:.1f} tokens/s "
+            f"({res['tokens_generated']} tokens in {res['elapsed_s']:.3f} s), TPOT p50 "
+            f"{res['tpot_p50_ms']:.3f} / p99 {res['tpot_p99_ms']:.3f} ms, launches a token "
+            f"{launches / tokens:.4f}, idle {res['device_idle_fraction']}, ring avg "
+            f"{res.get('async_ring_depth_avg', 0.0)} fetch wait "
+            f"{res.get('async_fetch_wait_s', 0.0)} s, spec acceptance "
+            f"{res.get('spec_acceptance_rate', 0.0)}; megastep K={res['megastep']}: "
+            f"{launches} launches ran {st['megastep_effective_steps']:g} steps of "
+            f"{launches * res['megastep']} (steps_run against K); compile_post_warmup "
+            f"{res['compile_post_warmup']}; checksum {res['tokens_checksum']}; peak "
+            f"{res['peak_mib']:.0f} MiB")
+
+
+def _timed_tier(engine):
+    """Wrap the host KV tier's swaps to time them (the card synchronised
+    inside each); returns the list they append (kind, bytes, seconds) to."""
+    from distributed_tensorflow_tpu_torch.serve import tiering
+
+    log = []
+    pool_cls = tiering.HostKVPool
+
+    def timed(name, real):
+        def wrapper(self, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(self, *a, **kw)
+            torch.cuda.synchronize()
+            entry = self.get(kw["rid"])
+            log.append((name, entry.bytes if entry is not None else 0,
+                        time.perf_counter() - t0))
+            return out
+        return wrapper
+
+    originals = {n: getattr(pool_cls, n) for n in ("swap_out", "swap_in")}
+    for n, real in originals.items():
+        setattr(pool_cls, n, timed(n, real))
+    return log, lambda: [setattr(pool_cls, n, real) for n, real in originals.items()]
+
+
+def serve_b2_medium(fa):
+    """12h (2): GPT-2 medium (bf16, seed 0, graphed) on the bench's B2
+    traffic (B2_REQUESTS requests an arm, 16 slots), the launch counts set
+    to 0 before each arm, none building after warm-up and none launching a
+    flash kernel: megastep 1 and 8 (identical tokens asserted), ``auto``
+    (the K it froze at), async depths 1, 2 and 4 against sync megastep 2
+    (identical tokens asserted), spec_k 4 against off on the motif traffic
+    (equal streams and acceptance printed: a (16, 5) bf16 forward rounds
+    otherwise than five (16, 1) steps), the capture of the K=32 megastep
+    graph (seconds and pool MiB); the SLO arm (a 256-token whale preempted
+    by priority-9 shorts in a pool it fills, swapped out and back) against
+    the same pool without pressure (identical tokens asserted, swap bytes
+    and ms a swap printed); then the float32 witness: spec on and off at
+    GPT-2 medium in float32 (identical tokens asserted)."""
+    import numpy as np
+
+    from distributed_tensorflow_tpu_torch.bench import serve_configs
+    from distributed_tensorflow_tpu_torch.models import gpt2
+    from distributed_tensorflow_tpu_torch.serve import ContinuousScheduler, ServeEngine, sampling
+
+    cfgs, _ = serve_configs(on_gpu=True, device="cuda")
+    arms = ("mega_base", "mega8", "mega_auto", "async_base", "async_d1", "async_d2", "async_d4",
+            "spec_base", "spec4")
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = ServeEngine("gpt2", device="cuda", preset="medium")
+    runs, paths = {}, {}
+    for arm in arms:
+        # The async arms keep the bench's one wave of 16 requests.
+        cfg = (cfgs[arm] if arm.startswith("async") or arm == "mega_auto"
+               else dataclasses.replace(cfgs[arm], steps=B2_REQUESTS))
+        _serve_arm(fa, eng, cfg, arm, f"gpt2_medium_serve_{arm}", runs, paths, line=_b2_line)
+    same = {"megastep 8 against 1": runs["mega8"]["tokens_checksum"]
+            == runs["mega_base"]["tokens_checksum"]}
+    for d in (1, 2, 4):
+        same[f"async depth {d} against sync"] = (runs[f"async_d{d}"]["tokens_checksum"]
+                                                 == runs["async_base"]["tokens_checksum"])
+    pairs = list(zip(runs["spec4"]["streams"], runs["spec_base"]["streams"]))
+    spec_equal = sum(bool(np.array_equal(a, b)) for a, b in pairs)
+    print(f"[serve-b2] GPT-2 medium bf16 identities: {same}; megastep auto froze at K="
+          f"{runs['mega_auto']['megastep']}; spec_k 4 against off (bf16, printed only): "
+          f"{spec_equal} of {len(pairs)} streams equal, acceptance "
+          f"{runs['spec4']['spec_acceptance_rate']}, "
+          f"launches a token {runs['spec4']['megastep_launches'] / max(runs['spec4']['megastep_tokens'], 1):.4f}"
+          f" against {runs['spec_base']['megastep_launches'] / max(runs['spec_base']['megastep_tokens'], 1):.4f}")
+    if not all(same.values()):
+        raise AssertionError(f"GPT-2 medium bf16: a B2 path changed the tokens: {same}")
+    # The largest megastep graph: captured on an idle leased cache.
+    cache = eng.init_slot_cache(CONT_SLOTS, 320)
+    counts = eng.init_slot_counts(cache)
+    before = len(eng.captures)
+    eng.decode_megastep(cache, np.zeros((CONT_SLOTS, 1), np.int32), np.zeros(CONT_SLOTS, bool),
+                        np.zeros(CONT_SLOTS, np.int64), steps=B2_LARGEST_K,
+                        sampling=sampling.uniform(CONT_SLOTS), counts=counts)
+    torch.cuda.synchronize()
+    cap = eng.captures[before] if len(eng.captures) > before else None
+    # The unrolled megastep's dead tail: a K=8 launch of every slot at 288
+    # with horizon 8 against horizon 1 (7 steps dead), between CUDA events.
+    tail = {}
+    samp = sampling.uniform(CONT_SLOTS)
+    tokens = np.random.RandomState(3).randint(0, 50257, (CONT_SLOTS, 1)).astype(np.int32)
+    for h in (8, 1, 8, 1):
+        with torch.inference_mode():  # the cache's rows are inference tensors
+            cache.cache_index.fill_(288)
+            cache.position.fill_(288)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        eng.decode_megastep(cache, tokens, np.ones(CONT_SLOTS, bool),
+                            np.full(CONT_SLOTS, h, np.int64), steps=8, sampling=samp,
+                            counts=counts)
+        end.record()
+        end.synchronize()
+        tail[h] = start.elapsed_time(end)  # the second of each (the first builds)
+    eng.release_cache(cache)
+    print(f"[serve-b2] megastep K=8 (16 slots at 288): every horizon 8 {tail[8]:.4f} ms, every "
+          f"horizon 1 {tail[1]:.4f} ms (7 dead steps; the reference's early exit would stop "
+          f"after 1): the dead tail costs {(tail[1] - tail[8] / 8) / 7:.4f} ms a step")
+    big = {"seconds": cap["seconds"] if cap else None,
+           "pool_mib": cap["pool_mib"] if cap else None, "k8_ms_by_horizon": tail}
+    print(f"[serve-b2] megastep K={B2_LARGEST_K} graph of (16 slots, 320): capture "
+          f"{big['seconds']} s, its pool {big['pool_mib']} MiB (memory_reserved's growth); the "
+          f"captures of this engine: " + "; ".join(
+              f"{c['program']} {c['seconds']:.2f} s {c['pool_mib']:.0f} MiB" for c in eng.captures))
+    # SLO: preemption by swap against the same pool without pressure.
+    (wl, wn), (sl, sn) = B2_SLO["whale"], B2_SLO["short"]
+    bs = B2_SLO["block"]
+    pool = -(-(wl + wn - 1) // bs) + -(-(sl + sn - 1) // bs)
+    rng = np.random.default_rng(17)
+    whale = rng.integers(0, 50257, size=(wl,), dtype=np.int32)
+    shorts = [rng.integers(0, 50257, size=(sl,), dtype=np.int32) for _ in range(3)]
+    kw = dict(num_slots=B2_SLO["slots"], max_total_len=wl + wn, cache_mode="paged",
+              block_size=bs, num_blocks=pool)
+    with ContinuousScheduler(eng, **kw) as plain:
+        want = [plain.submit(p, max_new_tokens=m).result(timeout=300)
+                for p, m in [(whale, wn)] + [(q, sn) for q in shorts]]
+    log, restore = _timed_tier(eng)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(fa)
+    t0 = time.perf_counter()
+    sched = ContinuousScheduler(eng, start=False, slo_scheduling=True, swap_min_tokens=4, **kw)
+    try:
+        got = _b2_pressure(sched, whale, shorts, wn, sn)
+        slo = sched.stats()
+    finally:
+        sched.close()
+        restore()
+    slo_s = time.perf_counter() - t0
+    paths["gpt2_medium_serve_slo"] = dict(fa.LAUNCHES)
+    assert_no_flash("GPT-2 medium SLO", paths["gpt2_medium_serve_slo"])
+    swap_same = all(np.array_equal(a, b) for a, b in zip(got, want))
+    swaps = {n: [(b, t) for k, b, t in log if k == n] for n in ("swap_out", "swap_in")}
+    print(f"[serve-b2] GPT-2 medium SLO (pool {pool} blocks of {bs}, {B2_SLO['slots']} slots): "
+          f"preemptions swap {slo['preempt_swapped_total']:g} recompute "
+          f"{slo['preempt_recompute_total']:g}, resumes by swap {slo['resume_swapped_total']:g}; "
+          f"swap bytes out {slo['swap_out_bytes_total']:g} in {slo['swap_in_bytes_total']:g}; "
+          + "; ".join(f"{n} " + ", ".join(f"{b / 2**20:.2f} MiB in {t * 1e3:.3f} ms" for b, t in v)
+                      for n, v in swaps.items())
+          + f"; tokens equal the unpressured run's: {swap_same}; {slo_s:.1f} s; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    if not (swap_same and slo["resume_swapped_total"] >= 1 and slo["blocks_in_use"] == 0):
+        raise AssertionError("GPT-2 medium SLO: the swap resume's tokens differ from the "
+                             "unpressured run's, or no swap resume happened, or blocks leaked")
+    eng.close()
+    # The float32 witness of spec on against off.
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32 = ServeEngine("gpt2", device="cuda", preset="medium",
+                      config=gpt2.GPT2Config.medium(dtype=torch.float32))
+    for arm in ("spec_base", "spec4"):
+        _serve_arm(fa, f32, dataclasses.replace(cfgs[arm], steps=B2_F32_REQUESTS),
+                   f"float32 {arm}", f"gpt2_medium_f32_serve_{arm}", runs, paths, line=_b2_line)
+    f32.close()
+    base, spec = runs["float32 spec_base"], runs["float32 spec4"]
+    print(f"[serve-b2] GPT-2 medium float32 spec_k 4 ({B2_F32_REQUESTS} requests): tokens equal "
+          f"spec off's {spec['tokens_checksum'] == base['tokens_checksum']}; acceptance "
+          f"{spec['spec_acceptance_rate']}, launches a token "
+          f"{spec['megastep_launches'] / max(spec['megastep_tokens'], 1):.4f}")
+    _same_tokens("float32 spec_k 4 against spec off", spec, base)
+    return {"runs": runs, "largest_k": big, "slo": {k: slo[k] for k in (
+        "preempt_swapped_total", "swap_out_bytes_total", "swap_in_bytes_total")},
+        "swaps": swaps}, paths
+
+
+def check_serving_b2(fa):
+    """12h in order; returns (its results, launches by path)."""
+    t0 = time.perf_counter()
+    check_tiny_b2()
+    print(f"[phase] 12h (1) tiny card against CPU: {time.perf_counter() - t0:.1f} s")
+    res, paths = serve_b2_medium(fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[phase] 12h megastep, async, spec and SLO: {time.perf_counter() - t0:.1f} s")
+    return res, paths
+
+
 def host_load() -> str:
     """The host's 1-minute load average and the processes this script
     started that still run (children by their parent id in /proc): a busy
@@ -4183,7 +4521,7 @@ def host_load() -> str:
 
 
 def check_serving(fa, data_dir: Path):
-    """Phase 12 in order (12a-12g); returns (its results, launches by path)."""
+    """Phase 12 in order (12a-12h); returns (its results, launches by path)."""
     t0 = time.perf_counter()
     print(f"[serve] host: {host_load()}")
     check_tiny_decode()
@@ -4198,9 +4536,11 @@ def check_serving(fa, data_dir: Path):
     cli = check_serve_cli()
     b1, b1_paths = check_serving_b1(fa, runs["graphs"])
     by_path.update(b1_paths)
+    b2, b2_paths = check_serving_b2(fa)
+    by_path.update(b2_paths)
     print(f"[phase] 12 serving: {time.perf_counter() - t0:.1f} s")
     return {"medium": runs, "decode": decode, "classify": classify, "cli": cli,
-            "continuous": b1}, by_path
+            "continuous": b1, "b2": b2}, by_path
 
 
 def main() -> int:
@@ -4367,7 +4707,8 @@ def main() -> int:
     return 0
 
 
-ONE_CARD_LABELS = ("two_workers", "phase11", "serving")  # --cluster_only labels any card runs
+# --cluster_only labels any card runs ("serving_b2": phase 12h alone, no kernel build)
+ONE_CARD_LABELS = ("two_workers", "phase11", "serving", "serving_b2")
 
 
 def cluster_main(labels) -> int:
@@ -4375,9 +4716,9 @@ def cluster_main(labels) -> int:
     alone; on four cards, also the configurations of CLUSTER_CONFIGS and
     the NCCL abort check (``nccl_abort``).  On a host with two or more
     cards each worker owns one, so the ranks run NCCL.  Labels (of
-    CLUSTER_CONFIGS, ``nccl_abort``, or ``two_workers``, ``phase11`` and
-    ``serving``: phases 8b, 11 and 12 on any card, 12 after the kernels'
-    build) run those alone."""
+    CLUSTER_CONFIGS, ``nccl_abort``, or ``two_workers``, ``phase11``,
+    ``serving`` and ``serving_b2``: phases 8b, 11, 12 and 12h on any card,
+    12 after the kernels' build) run those alone."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only", file=sys.stderr)
         return 2
@@ -4409,6 +4750,11 @@ def cluster_main(labels) -> int:
             secs, _ = _build.build_all(verbose=True)
             print(f"[build] nvcc {' '.join(_build.NVCC_FLAGS)}: {secs:.1f} s")
             _, by_path = check_serving(fa, data_dir)
+            print(f"[serve] launches by path {json.dumps(by_path)}")
+        if "serving_b2" in labels:
+            from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+
+            _, by_path = check_serving_b2(fa)
             print(f"[serve] launches by path {json.dumps(by_path)}")
         if torch.cuda.device_count() >= 4 and (four or not labels):
             par_dir.mkdir(parents=True, exist_ok=True)

@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import itertools
 import json
 import os
@@ -144,11 +145,10 @@ def _vs_baseline(value: float, write: bool = True) -> float:
     return 1.0
 
 
-SERVE_ARMS = ("chunked", "paged", "prefix", "sampling")
-_LATER_ARMS = {"megastep": "serving part B2", "spec": "serving part B2",
-               "async": "serving part B2", "async_depth": "serving part B2",
-               "slo": "serving part B2", "fleet": "serving part C",
-               "streaming": "serving part C", "loadgen": "serving part C"}
+SERVE_ARMS = ("chunked", "megastep", "spec", "paged", "prefix", "sampling", "async",
+              "async_depth", "slo")
+_LATER_ARMS = {"fleet": "serving part C", "streaming": "serving part C",
+               "loadgen": "serving part C"}
 
 
 def _parse_serve_arms(spec: str):
@@ -212,6 +212,28 @@ def serve_configs(on_gpu: bool, serve_requests: int = 0, checkpoint_dir=None,
         prompt_lens=",".join((["16,32,48"] * 4 + ["768"]) if on_gpu
                              else (["8,12,16"] * 4 + ["384"])),
         max_new_tokens=32, min_new_tokens=8)
+    # Megastep: a uniform horizon of 33, so every request decodes 32 = 4 K
+    # tokens and retires on a megastep boundary (the arm measures dispatch
+    # amortisation, not ragged tails); the CPU on the mini preset.
+    mega_base = dataclasses.replace(
+        continuous, steps=2 * fixed.steps, preset="medium" if on_gpu else "mini",
+        prompt_lens="16,32,48" if on_gpu else "8,12,16", max_new_tokens=33, min_new_tokens=33)
+    # Speculative decoding: the megastep mix made repetitive (each prompt
+    # tiles a 4-token motif), on the main engine; the claim is launches per
+    # generated token.
+    spec_base = dataclasses.replace(
+        continuous, steps=2 * fixed.steps, prompt_lens="16,32,48" if on_gpu else "8,12,16",
+        prompt_period=4, max_new_tokens=33, min_new_tokens=33)
+    spec4 = dataclasses.replace(spec_base, spec_k=4)
+    # Async: one admission wave of uniform long horizons (steady-state
+    # decode, where dispatch N+1 overlapping fetch N is the whole story), K=2.
+    async_base = dataclasses.replace(
+        continuous, steps=fixed.num_slots, num_slots=fixed.num_slots, prompt_lens="",
+        prompt_len=32 if on_gpu else 8, max_new_tokens=64, min_new_tokens=0,
+        clients=fixed.num_slots, megastep=2)
+    async_on = dataclasses.replace(async_base, async_decode=True)
+    async_chunked = dataclasses.replace(async_on, prefill_budget=16 if on_gpu else 4)
+    spec_async = dataclasses.replace(spec4, async_decode=True)
     configs = {
         "fixed": fixed, "continuous": continuous, "paged": paged,
         "paged_int8": dataclasses.replace(paged, kv_dtype="int8"),
@@ -221,8 +243,236 @@ def serve_configs(on_gpu: bool, serve_requests: int = 0, checkpoint_dir=None,
         "chunked": dataclasses.replace(chunk_base, prefill_budget=budget),
         "sampling_mixed": dataclasses.replace(
             continuous, sampling_mix="greedy:0.5,t0.8k40:0.3,t1.0p0.9:0.2"),
+        "mega_base": mega_base, "mega8": dataclasses.replace(mega_base, megastep=8),
+        "spec_base": spec_base, "spec4": spec4,
+        "spec_chunked": dataclasses.replace(spec4, prefill_budget=8),
+        "spec_mega": dataclasses.replace(spec4, megastep=4),
+        "spec_prefix": dataclasses.replace(prefix_warm, spec_k=4),
+        "async_base": async_base, "async_on": async_on,
+        "mega_auto": dataclasses.replace(async_on, megastep="auto"),
+        **{f"async_d{d}": dataclasses.replace(async_on, async_depth=d) for d in ASYNC_DEPTHS},
+        "spec_async": spec_async, "spec_async4": dataclasses.replace(spec_async, async_depth=4),
+        "async_chunked": async_chunked,
+        "async_chunked4": dataclasses.replace(async_chunked, async_depth=4),
     }
     return configs, budget
+
+
+ASYNC_DEPTHS = (1, 2, 4)
+
+
+def _best_of(engine, cfgs, passes=4):
+    """Interleaved passes of ``run_serve`` over ``cfgs`` (the order flipped
+    every pass), the first pass discarded (the first run after a build is
+    slow): each config's runs, its best by tokens/s first."""
+    from distributed_tensorflow_tpu_torch.serve import run_serve
+
+    runs = {name: [] for name in cfgs}
+    for i in range(passes):
+        for name in (list(cfgs) if i % 2 == 0 else list(cfgs)[::-1]):
+            gc.collect()
+            res = run_serve(cfgs[name], engine=engine)
+            if i:
+                runs[name].append(res)
+    return {name: sorted(rs, key=lambda r: -r["tokens_per_sec"]) for name, rs in runs.items()}
+
+
+def _slo_arm(engine, cont, block_size):
+    """The reference's SLO A/B over a deliberately undersized paged pool:
+    low-priority whales first, then high-priority deadline-carrying shorts.
+    FIFO strands the shorts behind the whales' blocks; ranked admission
+    preempts the resident whale (its blocks swapped to pinned host
+    memory), admits the shorts, and swaps the whale back.  Asserts:
+    preemption moved bytes in the timed phase; every stream, the preempted
+    whale's included, equals the same request run alone through the same
+    pool without pressure (``preempt_resume_parity``: the same graphs, so
+    bf16 too); every block back; nothing parked; goodput with SLO on no
+    worse than off; nothing built after the warm pressure phase."""
+    import threading
+
+    import numpy as np
+
+    from distributed_tensorflow_tpu_torch.serve import ContinuousScheduler
+
+    vocab = engine.module.cfg.vocab_size
+    rng = np.random.default_rng(cont.seed + 17)
+    whale_len, whale_new, short_len, short_new = 8, 40, 4, 8
+    max_total = whale_len + whale_new
+    # A resident whale leaves less than one short's blocks free, so a short
+    # runs only by preempting it.  Block 0 is the trash block.
+    pool = -(-(max_total - 1) // block_size) + -(-(short_len + short_new - 1) // block_size)
+
+    def run_phase(sched, deadline_ms):
+        whales = [rng.integers(0, vocab, size=(whale_len,), dtype=np.int32) for _ in range(3)]
+        shorts = [rng.integers(0, vocab, size=(short_len,), dtype=np.int32) for _ in range(4)]
+        decoding, count = threading.Event(), [0]
+
+        def on_tok(toks):
+            count[0] += len(toks)
+            if count[0] >= 4:
+                decoding.set()
+
+        wf = [sched.submit(whales[0], max_new_tokens=whale_new, sampling={"priority": 0},
+                           on_token=on_tok)]
+        wf += [sched.submit(w, max_new_tokens=whale_new, sampling={"priority": 0})
+               for w in whales[1:]]
+        # The shorts arrive once the resident whale decodes: its preemption
+        # has bytes to move.
+        decoding.wait(timeout=600.0)
+        sampling = {"priority": 9}
+        if deadline_ms is not None:
+            sampling["deadline_ms"] = deadline_ms
+        sf = [sched.submit(p, max_new_tokens=short_new, sampling=sampling) for p in shorts]
+        for p, f, m in [(w, f, whale_new) for w, f in zip(whales, wf)] + [
+                (p, f, short_new) for p, f in zip(shorts, sf)]:
+            np.testing.assert_array_equal(
+                f.result(timeout=600.0),
+                sched_alone.submit(p, max_new_tokens=m).result(timeout=600.0))
+        return sched.stats()
+
+    mk = dict(num_slots=4, max_total_len=max_total, cache_mode="paged",
+              block_size=block_size, num_blocks=pool)
+    sched_alone = ContinuousScheduler(engine, **mk)
+    sched_off = ContinuousScheduler(engine, **mk)
+    sched_on = ContinuousScheduler(engine, slo_scheduling=True, swap_min_tokens=4, **mk)
+    try:
+        # Warm pressure phase through both: every program, the block
+        # programs included, built before the compile count is taken.
+        run_phase(sched_off, None)
+        warm = run_phase(sched_on, None)
+        if not warm["preemptions_total"]:
+            raise AssertionError("the warm pressure phase never preempted: pool sizing is off")
+        baseline_in_use = int(warm["blocks_in_use"])
+        compile_warm = engine.compile_stats()["compile_total"]
+        # The shorts' deadline: one unpressured whale's decode.
+        t0 = time.perf_counter()
+        sched_off.submit(rng.integers(0, vocab, size=(whale_len,), dtype=np.int32),
+                         max_new_tokens=whale_new).result(timeout=600.0)
+        deadline_ms = max(50.0, (time.perf_counter() - t0) * 1000.0)
+        off = run_phase(sched_off, deadline_ms)
+        on = run_phase(sched_on, deadline_ms)
+    finally:
+        sched_alone.close()
+        sched_off.close()
+        sched_on.close()
+
+    def timed(key):
+        return int(on[key] - warm[key])
+
+    def goodput(st):
+        return st["deadline_met_total"] / max(st["deadline_met_total"]
+                                              + st["deadline_missed_total"], 1.0)
+
+    compile_post_warmup = int(engine.compile_stats()["compile_total"] - compile_warm)
+    if timed("preemptions_total") <= 0 or timed("swap_bytes_total") <= 0:
+        raise AssertionError("the timed phase never preempted, or moved no bytes through the "
+                             "host tier")
+    if goodput(on) < goodput(off):
+        raise AssertionError(f"SLO scheduling worsened deadline goodput: on={goodput(on):.3f} "
+                             f"off={goodput(off):.3f}")
+    if int(on["blocks_in_use"]) != baseline_in_use or int(on["swapped_resident"]):
+        raise AssertionError("preempt/resume leaked KV blocks or left a payload parked")
+    if compile_post_warmup:
+        raise AssertionError(f"the SLO arm built {compile_post_warmup} programs after warm-up")
+    return {
+        "goodput_slo_on": round(goodput(on), 4), "goodput_slo_off": round(goodput(off), 4),
+        "slo_deadline_ms": round(deadline_ms, 1),
+        **{key: timed(key) for key in ("preemptions_total", "preempt_swapped_total",
+                                       "preempt_recompute_total", "resumes_total",
+                                       "swap_bytes_total")},
+        "preempt_resume_parity": True,  # asserted above
+        "slo_blocks_in_use_after": int(on["blocks_in_use"]),
+        "slo_compile_post_warmup": compile_post_warmup,
+    }
+
+
+def _async_arm(engine, cfg):
+    """Async decode on and off (megastep 2, one steady-state wave), best of
+    three interleaved passes: identical tokens and a smaller device idle
+    share are asserted; then ``megastep="auto"``, which must build nothing
+    after warm-up."""
+    from distributed_tensorflow_tpu_torch.serve import run_serve
+
+    runs = _best_of(engine, {"base": cfg["async_base"], "on": cfg["async_on"]})
+    every = runs["base"] + runs["on"]
+    parity = all(r["tokens_checksum"] == every[0]["tokens_checksum"] for r in every)
+    idle_sync = statistics.mean(r["device_idle_fraction"] for r in runs["base"])
+    idle_async = statistics.mean(r["device_idle_fraction"] for r in runs["on"])
+    if not parity:
+        raise AssertionError("async decode changed greedy output")
+    if not idle_async < idle_sync:
+        raise AssertionError(f"async decode did not shrink device idle: async={idle_async:.4f} "
+                             f"vs sync={idle_sync:.4f}")
+    auto = run_serve(cfg["mega_auto"], engine=engine)
+    if auto["compile_post_warmup"] != 0 or not 1 <= auto["megastep"] <= 32:
+        raise AssertionError(f"megastep=auto: K {auto['megastep']}, "
+                             f"{auto['compile_post_warmup']} builds after warm-up")
+    base, on = runs["base"][0], runs["on"][0]
+    return {
+        "async_tokens_per_sec": on["tokens_per_sec"],
+        "async_base_tokens_per_sec": base["tokens_per_sec"],
+        "async_speedup": round(on["tokens_per_sec"] / max(base["tokens_per_sec"], 1e-9), 3),
+        "async_parity": parity,
+        "device_idle_fraction_sync": round(idle_sync, 4),
+        "device_idle_fraction_async": round(idle_async, 4),
+        "megastep_auto_selected": auto["megastep"],
+        "megastep_auto_compile_post_warmup": auto["compile_post_warmup"],
+        "megastep_auto_parity": auto["tokens_checksum"] == every[0]["tokens_checksum"],
+    }
+
+
+def _async_depth_arm(engine, cfg):
+    """The launch ring at depths 1, 2 and 4 on the async wave (best of three
+    interleaved passes), then speculative decoding and chunked prefill
+    through the ring.  Asserted: identical tokens at every depth and in
+    each composition, no build after warm-up (the first spec-async run may
+    build its chained verify: the warm-up's 2-token horizon never drafts),
+    no sync fallback, and depth >= 2 no more idle than depth 1."""
+    from distributed_tensorflow_tpu_torch.serve import run_serve
+
+    depth_runs = _best_of(engine, {d: cfg[f"async_d{d}"] for d in ASYNC_DEPTHS})
+    sweep = [r for runs in depth_runs.values() for r in runs]
+    ring_ref = depth_runs[1][0]["tokens_checksum"]
+    if any(r["tokens_checksum"] != ring_ref for r in sweep):
+        raise AssertionError("the async ring's depth changed greedy output")
+    if any(r["compile_post_warmup"] or r["async_sync_fallbacks"] for r in sweep):
+        raise AssertionError("an async depth run built after warm-up or fell back to sync")
+    idle = {d: statistics.mean(r["device_idle_fraction"] for r in runs)
+            for d, runs in depth_runs.items()}
+    for d in ASYNC_DEPTHS[1:]:
+        if idle[d] > idle[1]:
+            raise AssertionError(f"depth {d} left the device more idle than depth 1: "
+                                 f"{idle[d]:.4f} vs {idle[1]:.4f}")
+    spec_ref = run_serve(cfg["spec4"], engine=engine)["tokens_checksum"]
+    comp = {}
+    for name, ref, first in (("spec_async", spec_ref, True), ("spec_async4", spec_ref, False),
+                             ("async_chunked", ring_ref, False),
+                             ("async_chunked4", ring_ref, False)):
+        gc.collect()
+        res = comp[name] = run_serve(cfg[name], engine=engine)
+        if res["tokens_checksum"] != ref or res["async_sync_fallbacks"]:
+            raise AssertionError(f"{name} changed greedy output or fell back to sync")
+        if not first and res["compile_post_warmup"]:
+            raise AssertionError(f"{name} built after warm-up")
+    best = {d: runs[0] for d, runs in depth_runs.items()}
+    return {
+        "async_depths": list(ASYNC_DEPTHS),
+        "async_depth_parity": True,  # asserted above
+        **{f"async_d{d}_tokens_per_sec": best[d]["tokens_per_sec"] for d in ASYNC_DEPTHS},
+        **{f"async_depth_speedup_d{d}": round(best[d]["tokens_per_sec"]
+                                              / max(best[1]["tokens_per_sec"], 1e-9), 3)
+           for d in ASYNC_DEPTHS[1:]},
+        **{f"device_idle_fraction_d{d}": round(idle[d], 4) for d in ASYNC_DEPTHS},
+        "async_ring_depth_avg_d4": best[4]["async_ring_depth_avg"],
+        "async_fetch_wait_s_d4": best[4]["async_fetch_wait_s"],
+        "spec_async_parity": True,  # asserted above
+        "spec_async_compile_first": comp["spec_async"]["compile_post_warmup"],
+        "spec_async_sync_fallbacks": comp["spec_async4"]["async_sync_fallbacks"],
+        "spec_async_acceptance_rate": comp["spec_async"]["spec_acceptance_rate"],
+        "chunked_async_parity": True,  # asserted above
+        "chunked_async_sync_fallbacks": comp["async_chunked4"]["async_sync_fallbacks"],
+        "chunked_async_prefill_chunks": comp["async_chunked"]["prefill_chunks"],
+    }
 
 
 def _serve_bench(flags, device):
@@ -233,9 +483,12 @@ def _serve_bench(flags, device):
     ``paged_speedup`` and ``kv_hbm_ratio_*`` (paged at the 45% pool, and
     int8), the prefix cache's hit rate, skipped tokens and TTFT speedup
     with ``prefix_parity`` (warm tokens equal to cold), the chunked arm's
-    TPOT p99 and ``chunked_parity``, and the sampling mix's
-    ``sampling_compile_post_warmup`` (0) and scalar program sets.  Serving
-    has no baseline yet: ``vs_baseline`` is 1.0, as in the reference."""
+    TPOT p99 and ``chunked_parity``, the sampling mix's
+    ``sampling_compile_post_warmup`` (0) and scalar program sets, the
+    megastep's and async's speedups with their parity and idle shares,
+    speculative decoding's launches per token and acceptance, the ring's
+    depth sweep, and the SLO arm's goodput and preemptions.  Serving has no
+    baseline yet: ``vs_baseline`` is 1.0, as in the reference."""
     import numpy as np
 
     from distributed_tensorflow_tpu_torch.serve import ServeEngine, run_serve
@@ -248,7 +501,7 @@ def _serve_bench(flags, device):
     engine = ServeEngine("gpt2", checkpoint_dir=flags.checkpoint_dir, seed=fixed.seed,
                          device=device, preset=fixed.preset)
     chunk_engine = engine
-    if not on_gpu and "chunked" in arms:
+    if not on_gpu and {"chunked", "megastep"} & arms:
         chunk_engine = ServeEngine("gpt2", checkpoint_dir=flags.checkpoint_dir,
                                    seed=fixed.seed, device=device, preset="mini")
     out = {}
@@ -289,6 +542,44 @@ def _serve_bench(flags, device):
                 "chunked_prefill_chunks": chunked_res["prefill_chunks"],
                 "chunked_parity": chunked_res["tokens_checksum"] == base_res["tokens_checksum"],
             })
+        if "megastep" in arms:
+            runs = _best_of(chunk_engine, {"base": cfg["mega_base"], "mega8": cfg["mega8"]})
+            base_res, mega_res = runs["base"][0], runs["mega8"][0]
+            out.update({
+                "megastep": mega_res["megastep"],
+                "megastep_tokens_per_sec": mega_res["tokens_per_sec"],
+                "megastep_base_tokens_per_sec": base_res["tokens_per_sec"],
+                "megastep_speedup": round(mega_res["tokens_per_sec"]
+                                          / max(base_res["tokens_per_sec"], 1e-9), 3),
+                "megastep_parity": all(r["tokens_checksum"] == base_res["tokens_checksum"]
+                                       for r in runs["base"] + runs["mega8"]),
+                "megastep_launches": mega_res["megastep_launches"],
+                "megastep_base_launches": base_res["megastep_launches"],
+            })
+        if "spec" in arms:
+            spec = {name: run_serve(cfg[name], engine=engine)
+                    for name in ("spec_base", "spec4", "spec_chunked", "spec_mega")}
+            base_res, spec_res = spec["spec_base"], spec["spec4"]
+
+            def steps_per_token(r):
+                return r["megastep_launches"] / max(r["megastep_tokens"], 1)
+
+            out.update({
+                "spec_k": spec_res["spec_k"],
+                "spec_tokens_per_sec": spec_res["tokens_per_sec"],
+                "spec_base_tokens_per_sec": base_res["tokens_per_sec"],
+                "spec_base_steps_per_token": round(steps_per_token(base_res), 4),
+                "spec_steps_per_token": round(steps_per_token(spec_res), 4),
+                "spec_speedup": round(steps_per_token(base_res)
+                                      / max(steps_per_token(spec_res), 1e-9), 3),
+                "spec_parity": spec_res["tokens_checksum"] == base_res["tokens_checksum"],
+                **{key: spec_res[key] for key in ("spec_acceptance_rate", "spec_launches",
+                                                  "spec_drafted", "spec_accepted")},
+                "spec_chunked_parity": (spec["spec_chunked"]["tokens_checksum"]
+                                        == base_res["tokens_checksum"]),
+                "spec_megastep_parity": (spec["spec_mega"]["tokens_checksum"]
+                                         == base_res["tokens_checksum"]),
+            })
         if "paged" in arms:
             paged_res = run_serve(cfg["paged"], engine=engine)
             int8_res = run_serve(cfg["paged_int8"], engine=engine)
@@ -313,7 +604,9 @@ def _serve_bench(flags, device):
             cold = run_serve(cfg["prefix_cold"], engine=engine)
             warm = run_serve(cfg["prefix_warm"], engine=engine)
             chunked_prefix = run_serve(cfg["chunked_prefix"], engine=engine)
+            spec_prefix = run_serve(cfg["spec_prefix"], engine=engine)
             out.update({
+                "spec_prefix_parity": spec_prefix["tokens_checksum"] == warm["tokens_checksum"],
                 "prefix_hit_rate": warm["prefix_hit_rate"],
                 "prefill_tokens_skipped": warm["prefill_tokens_skipped"],
                 "prefix_ttft_p50_ms": warm["ttft_p50_ms"],
@@ -350,6 +643,12 @@ def _serve_bench(flags, device):
                 "sampling_compile_post_warmup": mixed["compile_post_warmup"],
                 "sampling_scalar_program_sets": scalar_sets,
             })
+        if "async" in arms:
+            out.update(_async_arm(engine, cfg))
+        if "async_depth" in arms:
+            out.update(_async_depth_arm(engine, cfg))
+        if "slo" in arms:
+            out.update(_slo_arm(engine, cfg["continuous"], 16 if on_gpu else 4))
     finally:
         engine.close()
         if chunk_engine is not engine:

@@ -12,6 +12,10 @@ percentiles, occupancy).  It takes the reference's flags plus
         --prefix_cache --prefill_budget=64 --shared_prefix_len=256
     python -m distributed_tensorflow_tpu_torch.serve --device=cpu --continuous \
         --cache_mode=paged --prefix_cache --prefill_budget=8
+    python -m distributed_tensorflow_tpu_torch.serve --device=cpu --continuous \
+        --cache_mode=paged --megastep=4 --async_decode --spec_k=3 --prompt_period=4
+    python -m distributed_tensorflow_tpu_torch.serve --device=cpu --continuous \
+        --cache_mode=paged --slo_scheduling --swap_min_tokens=8
     python -m distributed_tensorflow_tpu_torch.serve --model=bert --steps=64
     python -m distributed_tensorflow_tpu_torch.serve --checkpoint_dir=/path/to/ckpt
 
@@ -31,7 +35,7 @@ from distributed_tensorflow_tpu_torch.serve.driver import ServeArgs, later_flags
 
 
 def _megastep_arg(value):
-    # int K, or the literal "auto" (serving part B)
+    # int K, or the literal "auto"
     if value == "auto":
         return value
     try:
@@ -110,16 +114,36 @@ def parse_args(argv=None) -> ServeArgs:
                            "'greedy:0.5,t0.8k40:0.3,t1.0p0.9:0.2'")
     cont.add_argument("--lifecycle_log", default=d.lifecycle_log,
                       help="write the per-request lifecycle events here as JSONL ('' = off)")
+    cont.add_argument("--megastep", type=_megastep_arg, default=d.megastep,
+                      help="decode steps a launch (K unrolled, gated steps), or 'auto' to "
+                           "freeze K from the dispatch/step-time ratio")
+    cont.add_argument("--async_decode", action="store_true",
+                      help="dispatch each launch before resolving the previous ones (the "
+                           "launch ring)")
+    cont.add_argument("--async_depth", type=int, default=d.async_depth,
+                      help="launches the async ring holds in flight (2 = double buffer)")
+    cont.add_argument("--spec_k", type=int, default=d.spec_k,
+                      help="speculative decoding: drafts a verify launch scores (0 = off)")
+    cont.add_argument("--spec_ngram", type=int, default=d.spec_ngram,
+                      help="longest history n-gram the prompt-lookup drafter matches")
+    cont.add_argument("--slo_scheduling", action="store_true",
+                      help="rank admission by priority, deadline and age; preempt lower tiers "
+                           "under block pressure (swap or recompute)")
+    cont.add_argument("--swap_min_tokens", type=int, default=d.swap_min_tokens,
+                      help="contexts shorter than this recompute instead of swapping")
+    cont.add_argument("--starvation_age_s", type=float, default=d.starvation_age_s,
+                      help="seconds of waiting a request climbs one priority tier")
+    p.add_argument("--prompt_period", type=int, default=d.prompt_period,
+                   help="traffic: tile each prompt from a motif of this many tokens (0 = "
+                        "random prompts)")
     # Flags of later serving slices: parsed, then refused by run_serve,
     # naming the slice.
-    later = p.add_argument_group("serving part B2, serving on a mesh and part C (refused, "
-                                 "naming the slice)")
+    later = p.add_argument_group("serving on a mesh and part C (refused, naming the slice)")
     for flag, (default, where) in later_flags().items():
         if isinstance(default, bool):
             later.add_argument(f"--{flag}", action="store_true", help=where)
         else:
-            kind = _megastep_arg if flag == "megastep" else type(default)
-            later.add_argument(f"--{flag}", type=kind, default=default, help=where)
+            later.add_argument(f"--{flag}", type=type(default), default=default, help=where)
     return ServeArgs(**vars(p.parse_args(argv)))
 
 

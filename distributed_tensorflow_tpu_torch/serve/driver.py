@@ -1,11 +1,11 @@
 """In-process serve loop: synthetic clients -> batcher -> engine.
 
-Port of ``distributed_tensorflow_tpu/serve/driver.py`` less megastep,
-async decode, speculative decoding, SLO scheduling, the fleet, the gateway
-and the load generator: ``ServeArgs`` (every flag of the reference, plus
-``device``), ``run_serve``, ``_make_requests`` (mixed prompt lengths and
-horizons, shared-prefix groups, a sampling mix), ``_make_batcher``,
-``_warm`` and ``_drive`` with the reference's output keys.  ``python -m
+Port of ``distributed_tensorflow_tpu/serve/driver.py`` less the fleet,
+the gateway and the load generator: ``ServeArgs`` (every flag of the
+reference, plus ``device``), ``run_serve``, ``_make_requests`` (mixed
+prompt lengths and horizons, shared-prefix groups, ``prompt_period``
+motifs, a sampling mix), ``_make_batcher``, ``_resolve_megastep``, ``_warm``
+and ``_drive`` with the reference's output keys.  ``python -m
 distributed_tensorflow_tpu_torch.serve`` and the bench's ``--mode=serve``
 drive it.  Two scheduling disciplines, the same client loop:
 
@@ -15,22 +15,26 @@ drive it.  Two scheduling disciplines, the same client loop:
 - ``continuous=True``: ``DynamicBatcher(iteration_level=True)`` streams
   requests into a ``ContinuousScheduler`` that re-forms the decode batch
   every step over one resident cache (``cache_mode`` dense or paged,
-  ``kv_dtype``, ``prefix_cache``, ``prefill_budget``), with per-request
-  sampling (``sampling_mix``) and the lifecycle recorder
+  ``kv_dtype``, ``prefix_cache``, ``prefill_budget``, ``megastep`` or
+  ``auto``, ``async_decode``/``async_depth``, ``spec_k``/``spec_ngram``,
+  ``slo_scheduling``/``swap_min_tokens``/``starvation_age_s``), with
+  per-request sampling (``sampling_mix``) and the lifecycle recorder
   (``lifecycle_log``).
 
 The flags of later serving slices raise a ``ValueError`` naming the slice:
-megastep, async decode, speculative decoding and SLO scheduling (serving
-part B2), per-shard KV pools (serving on a mesh), the fleet, the gateway
-and the load generator (part C); so do ``--data``/``--fsdp`` > 1 and a
-multi-rank mesh.  The continuous path's own flags raise without
-``--continuous`` rather than being ignored.
+per-shard KV pools (serving on a mesh), the fleet, the gateway and the load
+generator (part C); so do ``--data``/``--fsdp`` > 1 and a multi-rank mesh.
+The continuous path's own flags raise without ``--continuous`` rather than
+being ignored; ``--prompt_period`` shapes the traffic of either path.
 
 ``_warm`` builds every program the traffic can reach before the clients
 start (each prompt length's decode family at each padded batch size, or a
-warm scheduler over every prompt and suffix length, greedy and sampled),
-so on the card every CUDA graph is captured outside the timed window and
-``compile_post_warmup`` is 0.
+warm scheduler of the run's own B2 arguments over every prompt and suffix
+length, greedy and sampled, then the verify graphs by a launch with every
+slot inactive and the swap path's block programs on the trash block), so
+on the card every CUDA graph is captured outside the timed window and
+``compile_post_warmup`` is 0.  ``--megastep=auto`` is resolved first, on a
+throwaway scheduler whose graphs the timed run reuses.
 
 Reported numbers: delivered tokens/sec (GPT-2) or classified examples/sec,
 per-request latency percentiles, batch or slot occupancy, TTFT/TPOT, the
@@ -64,10 +68,6 @@ def _later(default, where):
     return dataclasses.field(default=default, metadata={"later": where})
 
 
-_MEGASTEP = "serving part B2 (megastep decode)"
-_ASYNC = "serving part B2 (async decode)"
-_SPEC = "serving part B2 (speculative decoding)"
-_SLO = "serving part B2 (SLO scheduling)"
 _MESH = "serving on a mesh (per-shard KV pools)"
 _FLEET = "serving part C (the fleet)"
 _GATEWAY = "serving part C (the gateway)"
@@ -128,15 +128,21 @@ class ServeArgs:
     prefix_cache: bool = False
     # Chunked prefill: >0 bounds the prompt tokens prefilled an iteration.
     prefill_budget: int = 0
-    megastep: Any = _later(1, _MEGASTEP)
-    async_decode: bool = _later(False, _ASYNC)
-    async_depth: int = _later(2, _ASYNC)
-    spec_k: int = _later(0, _SPEC)
-    spec_ngram: int = _later(3, _SPEC)
-    prompt_period: int = _later(0, _SPEC)  # its traffic mix
-    slo_scheduling: bool = _later(False, _SLO)
-    swap_min_tokens: int = _later(32, _SLO)
-    starvation_age_s: float = _later(5.0, _SLO)
+    # Megastep: K decode steps a launch, or "auto" (resolved before the run).
+    megastep: Any = 1
+    # Async decode: the launch ring, async_depth launches in flight.
+    async_decode: bool = False
+    async_depth: int = 2
+    # Speculative decoding: spec_k drafts from the prompt-lookup drafter.
+    spec_k: int = 0
+    spec_ngram: int = 3
+    # Traffic: >0 tiles each prompt from a motif of this many tokens (the
+    # repetitive mix speculative decoding is measured on).
+    prompt_period: int = 0
+    # SLO scheduling: ranked admission, swap or recompute preemption.
+    slo_scheduling: bool = False
+    swap_min_tokens: int = 32
+    starvation_age_s: float = 5.0
     # Shared-prefix traffic: >0 prepends one of ``shared_prefix_groups``
     # system prompts of this many tokens to every request.
     shared_prefix_len: int = 0
@@ -161,7 +167,9 @@ class ServeArgs:
 # The continuous path's own flags: refused off their defaults without
 # --continuous on GPT-2 rather than ignored.
 CONTINUOUS_FLAGS = ("cache_mode", "block_size", "num_blocks", "kv_dtype", "prefix_cache",
-                    "prefill_budget", "sampling_mix", "lifecycle_log")
+                    "prefill_budget", "sampling_mix", "lifecycle_log", "megastep",
+                    "async_decode", "async_depth", "spec_k", "spec_ngram", "slo_scheduling",
+                    "swap_min_tokens", "starvation_age_s")
 
 
 def later_flags() -> Dict[str, Tuple[Any, str]]:
@@ -176,7 +184,8 @@ def check_flags(args: ServeArgs) -> None:
     for flag, (default, where) in later_flags().items():
         if getattr(args, flag) != default:
             raise ValueError(f"--{flag}={getattr(args, flag)!r} comes with {where}; the port "
-                             "serves the fixed batch and the continuous scheduler so far")
+                             "serves the fixed batch and the continuous scheduler (parts A, B1 "
+                             "and B2) so far")
     if args.data > 1 or args.fsdp > 1:
         raise ValueError("--data/--fsdp > 1 (the batch split over ranks) comes with a later "
                          "serving slice")
@@ -213,6 +222,18 @@ def _cache_kwargs(args: ServeArgs) -> Dict[str, Any]:
     return {"cache_mode": args.cache_mode, "block_size": args.block_size,
             "num_blocks": args.num_blocks or None, "kv_dtype": args.kv_dtype or None,
             "prefix_cache": args.prefix_cache}
+
+
+def _b2_kwargs(args: ServeArgs) -> Dict[str, Any]:
+    """ContinuousScheduler megastep, async, spec and SLO kwargs from the
+    flag surface (the reference's ``_slo_kwargs`` folded in)."""
+    out: Dict[str, Any] = {"megastep": args.megastep, "async_decode": args.async_decode,
+                           "async_depth": args.async_depth, "spec_k": args.spec_k or None,
+                           "spec_ngram": args.spec_ngram}
+    if args.slo_scheduling:
+        out.update(slo_scheduling=True, swap_min_tokens=args.swap_min_tokens,
+                   starvation_age_s=args.starvation_age_s)
+    return out
 
 
 def _payload_parts(payload) -> Tuple[np.ndarray, int]:
@@ -256,7 +277,14 @@ def _make_requests(args: ServeArgs, engine: ServeEngine, rng: np.random.Generato
                         for _ in range(max(1, args.shared_prefix_groups))]
         payloads = []
         for i in range(args.steps):
-            prompt = rng.integers(0, vocab, size=(lens[i % len(lens)],), dtype=np.int32)
+            n = lens[i % len(lens)]
+            if args.prompt_period > 0:
+                # The repetitive mix: a per-request motif tiled to the length,
+                # the structured text the prompt-lookup drafter exists for.
+                motif = rng.integers(0, vocab, size=(min(args.prompt_period, n),), dtype=np.int32)
+                prompt = np.tile(motif, -(-n // motif.size))[:n]
+            else:
+                prompt = rng.integers(0, vocab, size=(n,), dtype=np.int32)
             if prefixes is not None:
                 prompt = np.concatenate([prefixes[i % len(prefixes)], prompt])
             if assigner is None:
@@ -316,7 +344,8 @@ def _scheduler(args: ServeArgs, engine: ServeEngine, payloads, **kw) -> Continuo
     return ContinuousScheduler(engine, num_slots=args.num_slots,
                                max_total_len=_max_total_len(args, engine, payloads),
                                max_queue_size=args.max_queue_size, temperature=args.temperature,
-                               top_k=args.top_k, prefill_budget=args.prefill_budget, **kw)
+                               top_k=args.top_k, prefill_budget=args.prefill_budget,
+                               **{**_b2_kwargs(args), **kw})
 
 
 def _make_batcher(args: ServeArgs, engine: ServeEngine, payloads,
@@ -381,8 +410,58 @@ def _warm_continuous(args: ServeArgs, engine: ServeEngine, payloads) -> None:
             f.result(timeout=600.0)
         for config in sampled[:1]:  # one sampled request builds the mixed step
             sched.submit(prompts[0], max_new_tokens=2, sampling=config).result(timeout=600.0)
+        if args.spec_k:
+            # Whether a request drafts depends on what it decodes: the verify
+            # graphs of each sampling key are built by a launch with every
+            # slot inactive on the idle warm cache, which moves nothing.
+            N, k = sched.num_slots, args.spec_k
+            for config in [sampling_lib.SamplingParams()] + sampled[:1]:
+                engine.verify_slots(
+                    sched._cache, np.zeros((N, k + 1), np.int32), np.zeros((N,), bool),
+                    np.zeros((N,), np.int32), sampling=sampling_lib.pack([config] * N, [0] * N),
+                    counts=sched._counts, **sched._paged_call_kwargs())
+        if sched.slo_scheduling and sched.paged is not None:
+            # The swap path's block programs, on the trash block of the idle
+            # warm cache, so a preemption in the timed run builds nothing.
+            cache, counts = sched._cache, sched._counts
+            payload = engine.gather_kv_block(cache, 0, paged=sched.paged)
+            engine.scatter_kv_block(cache, 0, payload, paged=sched.paged)
+            engine.bind_slot_rows(cache, [0], [0])
+            engine.scatter_counts_row(counts, 0, engine.gather_counts_row(counts, 0))
     finally:
         sched.close()
+
+
+def _resolve_megastep(args: ServeArgs, engine: ServeEngine, payloads) -> int:
+    """``--megastep=auto`` to a concrete K before the timed run: a
+    throwaway scheduler with ``megastep="auto"`` on the same engine replays
+    the run's traffic until autotune froze its pick; the timed run (and its
+    warm-up) gets that K as an int, and the probe's graphs of it serve
+    them, so ``compile_post_warmup`` stays 0."""
+    if args.megastep != "auto":
+        return int(args.megastep)
+    if args.model != "gpt2" or not args.continuous:
+        raise ValueError("--megastep=auto autotunes the continuous gpt2 decode loop "
+                         "(--continuous); fixed-batch decode has no megastep")
+    warm_kwargs = ({**_cache_kwargs(args), "prefix_cache": False}
+                   if args.cache_mode == "paged" else _cache_kwargs(args))
+    probe = _scheduler(args, engine, payloads, megastep="auto", **warm_kwargs)
+    try:
+        deadline = time.monotonic() + 120.0
+        i = 0
+        while not probe.stats()["megastep_autotune_frozen"] and time.monotonic() < deadline:
+            batch = []
+            for _ in range(max(2, args.num_slots)):
+                p, m = _payload_parts(payloads[i % len(payloads)])
+                batch.append(probe.submit(p, max_new_tokens=m))
+                i += 1
+            for f in batch:
+                f.result(timeout=600.0)
+        k = int(probe.stats()["megastep"])
+    finally:
+        probe.close()
+    logger.info("megastep=auto resolved to K=%d before the timed run", k)
+    return k
 
 
 def _warm(args: ServeArgs, engine: ServeEngine, payloads) -> None:
@@ -429,9 +508,9 @@ def _lifecycle_keys(stats: Dict[str, float], args: ServeArgs) -> Dict[str, Any]:
     return out
 
 
-def _continuous_keys(stats: Dict[str, float], args: ServeArgs) -> Dict[str, Any]:
-    """The continuous run's keys of the JSON line, the reference's (megastep
-    1, async decode, speculative decoding and SLO scheduling off)."""
+def _continuous_keys(stats: Dict[str, float], args: ServeArgs,
+                     megastep_auto: bool = False) -> Dict[str, Any]:
+    """The continuous run's keys of the JSON line, the reference's."""
     out: Dict[str, Any] = {
         "slot_occupancy": round(stats["slot_occupancy"], 4),
         "num_slots": int(stats["num_slots"]),
@@ -448,17 +527,32 @@ def _continuous_keys(stats: Dict[str, float], args: ServeArgs) -> Dict[str, Any]
         "ttfb_p99_ms": round(stats.get("ttfb_p99_ms", 0.0), 3),
         "prefill_budget": int(args.prefill_budget),
         "prefill_chunks": int(stats.get("prefill_chunks", 0.0)),
-        "megastep": 1,
-        "megastep_auto": False,
+        "megastep": int(args.megastep),
+        "megastep_auto": megastep_auto,
         "megastep_launches": int(stats.get("megastep_launches", 0.0)),
         "megastep_tokens": int(stats.get("megastep_tokens", 0.0)),
-        "async_decode": False,
+        "async_decode": bool(args.async_decode),
         "device_idle_fraction": round(stats.get("device_idle_fraction", 0.0), 4),
-        "spec_k": 0,
-        "slo_scheduling": False,
-        "cache_mode": args.cache_mode,
-        "kv_dtype": args.kv_dtype or None,
     }
+    if args.async_decode:
+        out["async_depth"] = int(args.async_depth)
+        out["async_sync_fallbacks"] = int(stats.get("async_sync_fallbacks", 0.0))
+        out["async_ring_depth_avg"] = round(stats.get("async_ring_depth_avg", 0.0), 3)
+        out["async_fetch_wait_s"] = round(stats.get("async_fetch_wait_s", 0.0), 4)
+    out["spec_k"] = int(args.spec_k)
+    if args.spec_k:
+        for key in ("spec_launches", "spec_drafted", "spec_accepted", "spec_emitted"):
+            out[key] = int(stats.get(key, 0.0))
+        out["spec_acceptance_rate"] = round(stats.get("spec_acceptance_rate", 0.0), 4)
+    out["slo_scheduling"] = bool(args.slo_scheduling)
+    if args.slo_scheduling:
+        for key in ("preemptions_total", "preempt_swapped_total", "preempt_recompute_total",
+                    "resumes_total", "swap_bytes_total", "deadline_met_total",
+                    "deadline_missed_total"):
+            out[key] = int(stats.get(key, 0.0))
+        out["deadline_goodput"] = round(stats.get("deadline_goodput", 0.0), 4)
+    out["cache_mode"] = args.cache_mode
+    out["kv_dtype"] = args.kv_dtype or None
     if args.cache_mode == "paged":
         out["prefix_cache"] = bool(args.prefix_cache)
     if args.prefix_cache:
@@ -487,6 +581,11 @@ def _drive(args: ServeArgs, engine: ServeEngine) -> Dict[str, Any]:
         lifecycle = LifecycleRecorder(jsonl_path=args.lifecycle_log)
     rng = np.random.default_rng(args.seed)
     payloads = _make_requests(args, engine, rng)
+    megastep_auto = args.megastep == "auto"
+    if megastep_auto:
+        # Resolved before warm-up and the batcher: the warm pass builds the
+        # chosen K's graphs and the timed run never sees a dynamic K.
+        args = dataclasses.replace(args, megastep=_resolve_megastep(args, engine, payloads))
     is_lm = args.model == "gpt2"
     continuous = is_lm and args.continuous
     _warm(args, engine, payloads)
@@ -582,7 +681,7 @@ def _drive(args: ServeArgs, engine: ServeEngine) -> Dict[str, Any]:
     if interrupted:
         out["drained"] = True
     if continuous:
-        out.update(_continuous_keys(stats, args))
+        out.update(_continuous_keys(stats, args, megastep_auto))
         if lifecycle is not None:
             out.update(_lifecycle_keys(stats, args))
     else:

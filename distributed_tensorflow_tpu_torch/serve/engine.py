@@ -1,10 +1,9 @@
 """Inference engine of the PyTorch port: checkpoint -> parameters -> decode and classify.
 
-Port of ``distributed_tensorflow_tpu/serve/engine.py`` less megastep,
-speculative verify and the KV-tiering block programs: restore a checkpoint
-inference-only (``CheckpointManager.restore_params``: no optimizer state is
-read), take this rank's parts of the parameters on the mesh, and serve
-three paths:
+Port of ``distributed_tensorflow_tpu/serve/engine.py``: restore a
+checkpoint inference-only (``CheckpointManager.restore_params``: no
+optimizer state is read), take this rank's parts of the parameters on the
+mesh, and serve three paths:
 
 - ``generate``: GPT-2 prefill and KV-cache decode (``models.gpt2``
   ``decode=True``) over a cache preallocated per (batch, total length),
@@ -12,9 +11,12 @@ three paths:
 - the slot programs of the continuous scheduler (``serve.continuous``):
   ``init_slot_cache``/``init_paged_cache`` (one resident cache, dense rows
   or block pools), ``prefill_into_slots`` (a subset of slots, each from its
-  start offset) and ``decode_slots`` (one (num_slots, 1) step over every
-  slot, inactive slots gated), with per-slot sampling vectors and
-  emitted-token counts;
+  start offset), ``decode_slots`` (one (num_slots, 1) step over every
+  slot, inactive slots gated), ``decode_megastep`` (K gated steps a
+  launch), ``verify_slots`` (one (num_slots, k+1) speculative verify) and
+  the KV-tiering block programs (``gather_kv_block``/``scatter_kv_block``
+  through pinned host memory, ``bind_slot_rows``, the count rows), with
+  per-slot sampling vectors and emitted-token counts;
 - ``classify``: one batched forward of MNIST, ResNet-50 (BatchNorm on its
   running statistics) or BERT (the NSP logits), under
   ``torch.inference_mode``.
@@ -22,14 +24,23 @@ three paths:
 The slot programs: a resident cache belongs to a ``_SlotFamily``, the
 static buffers of its (num_slots, max_total_len, PagedKVConfig or None):
 the cache, the (num_slots, vocab) counts, the step's tokens, active mask,
-block tables, sampling vectors and counter, and the output row.
-``decode_slots`` copies its arguments into them and replays the family's
-CUDA graph of its sampling key ("greedy": every row greedy and
-unpenalised, the argmax alone; "mixed": the vectorised ``_select_next``),
-captured on first use; the step gates the index and position rows and the
-count bumps of inactive slots with a device ``where`` and points their
-block-table rows at the trash block, so nothing in the graph reads a host
-value and an inactive row writes into no live block.  Prefill runs eagerly into the same buffers.  A
+block tables, sampling vectors and counter, the megastep's horizons, eos
+tokens, fresh rows and clock, and the output rows.  ``decode_slots``,
+``decode_megastep`` and ``verify_slots`` copy their arguments into them
+(host values staged through pinned memory, so a call never waits on the
+card) and replay the family's CUDA graph of their (program, K or k,
+sampling key) ("greedy": every row greedy and unpenalised, the argmax
+alone; "mixed": the vectorised ``_select_next``), captured on first use;
+the step gates the index and position rows and the count bumps of
+inactive slots with a device ``where`` and points their block-table rows
+at the trash block, so nothing in the graph reads a host value and an
+inactive row writes into no live block.  A graph cannot branch on the
+host: the megastep unrolls its K steps, each gated by the device's
+``alive`` mask, and counts ``steps_run`` as the steps in which any row
+was alive, which is what the reference's early-exit ``while_loop`` runs;
+the dead tail still costs its steps' time.  Every output is a fresh
+tensor, copied out of the static buffers on the stream before the next
+replay.  Prefill runs eagerly into the same buffers.  A
 scheduler hands its cache back at close (``release_cache``) and the next
 scheduler of the same geometry reuses the family and its graphs, so a
 warm-up scheduler's captures serve the timed one.  Rows pinned to an older
@@ -122,6 +133,13 @@ def _engine_instruments(registry=None):
         "decode_step": r.histogram(
             "dtt_serve_decode_step_seconds",
             "Host-side slot-decode dispatch duration"),
+        "megastep": r.histogram(
+            "dtt_serve_megastep_seconds",
+            "Host-side megastep dispatch duration (K fused decode steps)"),
+        "verify": r.histogram(
+            "dtt_serve_verify_seconds",
+            "Host-side speculative-verify dispatch duration "
+            "(one (num_slots, k+1) forward)"),
     }
 
 
@@ -302,8 +320,35 @@ class _SlotFamily:
     sampling: Dict[str, torch.Tensor]
     counter: torch.Tensor
     out: torch.Tensor
-    steps: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    # The megastep's and the chained verify's inputs: each row's remaining
+    # horizon and eos token (-1 none), the rows whose host token is newer
+    # than the device carry and that token, the device iteration clock.
+    horizon: torch.Tensor
+    eos: torch.Tensor
+    fresh: torch.Tensor
+    fresh_tokens: torch.Tensor
+    clock: torch.Tensor
+    steps: Dict[Any, Any] = dataclasses.field(default_factory=dict)
+    # Per-K megastep and per-k verify buffers (``_mega_buffers``,
+    # ``_verify_buffers``).
+    mega: Dict[int, Dict[str, torch.Tensor]] = dataclasses.field(default_factory=dict)
+    verify: Dict[int, Dict[str, torch.Tensor]] = dataclasses.field(default_factory=dict)
     leased: bool = True
+
+
+class HostFetch:
+    """Host copies of a launch's outputs in flight (``ServeEngine.
+    fetch_async``): ``wait`` blocks on the copies' CUDA event, then hands
+    the host arrays out."""
+
+    def __init__(self, hosts, event):
+        self._hosts, self._event = hosts, event
+
+    def wait(self) -> List[np.ndarray]:
+        if self._event is None:
+            return list(self._hosts)
+        self._event.synchronize()
+        return [h.numpy() for h in self._hosts]
 
 
 class ServeEngine:
@@ -342,10 +387,14 @@ class ServeEngine:
         self._geometries: Dict[Tuple[int, int], _Geometry] = {}
         self._geometry_lock = threading.Lock()
         # Every resident cache's family, by the cache's id (a released one
-        # serves the next lease of its geometry), and the cache layouts
-        # whose prefill ran (the reference's one prefill program a layout).
+        # serves the next lease of its geometry), and the eager programs
+        # (prefill, the block programs) whose first use on a cache layout
+        # was counted: the reference compiles one program a layout.
         self._families: Dict[int, _SlotFamily] = {}
-        self._prefill_kinds: set = set()
+        self._eager_built: set = set()
+        # Every graph capture of the slot programs: its program, seconds
+        # and the memory its pool holds.
+        self.captures: List[Dict[str, Any]] = []
         self._lifecycle = None
         self.restored_step: Optional[int] = None
         # Base sampling seed (folded with a step counter inside the step,
@@ -455,11 +504,12 @@ class ServeEngine:
                 self._geometries[key] = geom
             return geom
 
-    def _full_logits(self, logits: torch.Tensor) -> torch.Tensor:
-        """(B, V) float32 last-position logits over the whole vocabulary:
-        on a tensor mesh gathered over ``tensor`` and cut to ``vocab_size``
-        (the zero-padded rows of ``wte`` dropped)."""
-        last = logits[:, -1]
+    def _full_logits(self, logits: torch.Tensor, pos: int = -1) -> torch.Tensor:
+        """(B, V) float32 logits at position ``pos`` (the last by default)
+        over the whole vocabulary: on a tensor mesh gathered over
+        ``tensor`` and cut to ``vocab_size`` (the zero-padded rows of
+        ``wte`` dropped)."""
+        last = logits[:, pos]
         if self.mesh.shape["tensor"] > 1:
             last = gather_last(last.contiguous(), self.mesh)[:, : self.module.cfg.vocab_size]
         return last
@@ -633,15 +683,19 @@ class ServeEngine:
                                                   device=dev)
                     tables = torch.zeros(num_slots, paged.max_blocks_per_slot(total_len),
                                          dtype=torch.int32, device=dev)
+                def rows(dtype=torch.int64):
+                    return torch.zeros(num_slots, dtype=dtype, device=dev)
+
                 fam = _SlotFamily(
                     key=key, cache=cache,
                     counts=torch.zeros(num_slots, cfg.vocab_size, dtype=torch.int32, device=dev),
                     tokens=torch.zeros(num_slots, 1, dtype=torch.int64, device=dev),
-                    active=torch.zeros(num_slots, dtype=torch.bool, device=dev), tables=tables,
+                    active=rows(torch.bool), tables=tables,
                     sampling={k: torch.from_numpy(v).to(dev)
                               for k, v in sampling_lib.uniform(num_slots).items()},
-                    counter=torch.zeros((), dtype=torch.int64, device=dev),
-                    out=torch.zeros(num_slots, dtype=torch.int64, device=dev))
+                    counter=torch.zeros((), dtype=torch.int64, device=dev), out=rows(),
+                    horizon=rows(), eos=rows() - 1, fresh=rows(torch.bool), fresh_tokens=rows(),
+                    clock=torch.zeros((), dtype=torch.int64, device=dev))
             self._families[id(cache)] = fam
             return cache
 
@@ -704,11 +758,31 @@ class ServeEngine:
         first position otherwise)."""
         cache.reset_rows(slot_ids, starts)
 
+    def _to_device(self, value, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """``value`` on the engine's device without waiting on the card: a
+        tensor already there passes through; a host value is copied (so the
+        caller may mutate its array at once) into pinned memory and sent
+        with ``non_blocking``, ordered on the stream behind every launch
+        before it.  A pageable copy would synchronise the stream, and with
+        it the async ring."""
+        if isinstance(value, torch.Tensor) and value.device.type == self.device.type:
+            return value if dtype is None else value.to(dtype)
+        host = torch.as_tensor(value if isinstance(value, torch.Tensor) else np.asarray(value))
+        if dtype is not None:
+            host = host.to(dtype)
+        if self.device.type != "cuda":
+            return host.clone()
+        return host.pin_memory().to(self.device, non_blocking=True)
+
+    def _stage(self, dst: torch.Tensor, value) -> None:
+        """Copy ``value`` (host or device) into the static buffer ``dst``."""
+        dst.copy_(self._to_device(value, dst.dtype).reshape(dst.shape))
+
     def put_replicated(self, arr) -> torch.Tensor:
         """A host array on the engine's device: the scheduler's
         device-resident copy of its block tables."""
         with _launch_lock:
-            return torch.as_tensor(np.asarray(arr)).to(self.device)
+            return self._to_device(arr)
 
     def _live(self, params) -> bool:
         """Whether ``params`` are the module's own tensors (the newest
@@ -736,7 +810,7 @@ class ServeEngine:
             raise ValueError("counts must be the cache's own (init_slot_counts(cache))")
 
     def _sampling_tensors(self, sampling) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(np.asarray(v)).to(self.device) for k, v in sampling.items()}
+        return {k: self._to_device(v) for k, v in sampling.items()}
 
     def prefill_into_slots(self, cache, prompts: np.ndarray, slot_ids, *, sampling, counts,
                            commit=None, counter: int = 0, paged=None, block_tables=None,
@@ -767,63 +841,194 @@ class ServeEngine:
         key = "greedy" if _all_greedy(sampling) else "mixed"
         t0 = time.perf_counter()
         with torch.inference_mode(), _launch_lock:
-            if fam.key[2] not in self._prefill_kinds:
-                self._prefill_kinds.add(fam.key[2])
-                self._note_compile("slot_prefill")
+            self._note_eager("slot_prefill", fam.key[2])
             dev = self.device
-            slots = torch.as_tensor(np.asarray(slot_ids, np.int64)).to(dev)
-            self._reset_slot_rows(cache, slots, torch.from_numpy(starts).to(dev))
+            slots = self._to_device(np.asarray(slot_ids, np.int64))
+            self._reset_slot_rows(cache, slots, self._to_device(starts))
             counts.index_fill_(0, slots, 0)
-            tables = None if block_tables is None else torch.as_tensor(block_tables, device=dev)
-            logits = self._slot_forward(params, torch.from_numpy(prompts).to(dev), cache, slots,
-                                        tables)
+            tables = None if block_tables is None else self._to_device(block_tables)
+            logits = self._slot_forward(params, self._to_device(prompts), cache, slots, tables)
             nxt = _choose_rows(self._full_logits(logits), key, self._sample_seed,
-                               torch.tensor(counter, device=dev), self._sampling_tensors(sampling),
-                               counts.index_select(0, slots))
-            _bump_counts(counts, slots, nxt, torch.from_numpy(commit).to(dev))
+                               torch.full((), int(counter), dtype=torch.int64, device=dev),
+                               self._sampling_tensors(sampling), counts.index_select(0, slots))
+            _bump_counts(counts, slots, nxt, self._to_device(commit))
             nxt = nxt.to(torch.int32)
         self._obs["prefill"].observe(time.perf_counter() - t0)
         return nxt, cache, counts
 
-    def _slot_step(self, fam: _SlotFamily, key: str, params=None) -> None:
-        """One (num_slots, 1) decode step of the family, device ops only: the
-        forward over every slot in order (an inactive slot's table row the
-        trash block's, so its garbage K/V lands in no live block: not in a
-        prefix block mapped into a slot whose index row prefill has not yet
-        reset), the index and position rows of inactive slots restored
-        (``where``), the choice of ``key``, the active rows' counts bumped,
-        the tokens written to ``out``."""
+    def _stage_step(self, fam: _SlotFamily, last_tokens, active, sampling, counter: int,
+                    block_tables) -> None:
+        """The inputs every slot program shares, into the family's buffers."""
+        self._stage(fam.tokens, last_tokens)
+        self._stage(fam.active, np.asarray(active, bool))
+        for k, v in sampling.items():
+            self._stage(fam.sampling[k], v)
+        fam.counter.fill_(int(counter))
+        if block_tables is not None:
+            self._stage(fam.tables, block_tables)
+
+    def _gated_forward(self, fam: _SlotFamily, tokens: torch.Tensor, rows: torch.Tensor,
+                       params) -> torch.Tensor:
+        """The (num_slots, T) forward of a slot program over every slot in
+        order, rows off in ``rows`` leaving their index and position rows as
+        they were and their table rows pointed at the trash block (their
+        garbage K/V lands in no live block: not in a prefix block mapped
+        into a slot whose index row prefill has not yet reset)."""
         cache = fam.cache
         index, position = cache.cache_index.clone(), cache.position.clone()
-        tables = None if fam.tables is None else torch.where(fam.active[:, None], fam.tables, 0)
-        logits = self._slot_forward(params, fam.tokens, cache, cache.all_slots, tables)
-        cache.cache_index.copy_(torch.where(fam.active[None, :], cache.cache_index, index))
-        cache.position.copy_(torch.where(fam.active, cache.position, position))
+        tables = None if fam.tables is None else torch.where(rows[:, None], fam.tables, 0)
+        logits = self._slot_forward(params, tokens, cache, cache.all_slots, tables)
+        cache.cache_index.copy_(torch.where(rows[None, :], cache.cache_index, index))
+        cache.position.copy_(torch.where(rows, cache.position, position))
+        return logits
+
+    def _slot_step(self, fam: _SlotFamily, key: str, params=None) -> None:
+        """One (num_slots, 1) decode step of the family, device ops only: the
+        gated forward, the choice of ``key``, the active rows' counts
+        bumped, the tokens written to ``out``."""
+        logits = self._gated_forward(fam, fam.tokens, fam.active, params)
         nxt = _choose_rows(self._full_logits(logits), key, self._sample_seed, fam.counter,
                            fam.sampling, fam.counts)
-        _bump_counts(fam.counts, cache.all_slots, nxt, fam.active)
+        _bump_counts(fam.counts, fam.cache.all_slots, nxt, fam.active)
         fam.out.copy_(nxt)
 
-    def _capture_slots(self, fam: _SlotFamily, key: str):
-        """Capture the family's step of ``key``: two eager steps on a side
-        stream first (library workspaces, lazy initialisation) with every
-        slot inactive, so they move no index, position or count (their K/V
-        writes land in the trash block, or in a dense row at its current
-        index, where the next step writes its own), then the capture.  A
-        failed capture raises."""
+    def _mega_buffers(self, fam: _SlotFamily, K: int) -> Dict[str, torch.Tensor]:
+        buf = fam.mega.get(K)
+        if buf is None:
+            N, dev = fam.cache.num_slots, self.device
+            buf = fam.mega[K] = {
+                "toks": torch.zeros(N, K, dtype=torch.int64, device=dev),
+                "final": torch.zeros(N, dtype=torch.int64, device=dev),
+                "steps": torch.zeros((), dtype=torch.int64, device=dev),
+                "clock": torch.zeros((), dtype=torch.int64, device=dev)}
+        return buf
+
+    def _megastep_body(self, fam: _SlotFamily, key: str, K: int, params=None) -> None:
+        """K decode steps of the family, unrolled, device ops only: the
+        reference's ``_megastep_apply`` without its host-side early exit.
+        A row is alive while it is active, has horizon left and has not
+        emitted its eos; each step is the gated forward over the alive rows
+        (a dead row's index and position frozen, its writes routed as an
+        inactive row's), the choice at ``counter + j`` and ``step + j``,
+        the alive rows' counts bumped.  ``steps`` counts the steps in which
+        any row was alive (the reference's executed iterations); a column
+        past the last such step stays 0, as the reference's untouched
+        buffer."""
+        buf = self._mega_buffers(fam, K)
+        tok = torch.where(fam.fresh, fam.fresh_tokens, fam.tokens[:, 0])
+        alive = fam.active & (fam.horizon > 0)
+        left = fam.horizon
+        ran = torch.zeros((), dtype=torch.int64, device=tok.device)
+        for j in range(K):
+            logits = self._gated_forward(fam, tok[:, None], alive, params)
+            samp = dict(fam.sampling, step=fam.sampling["step"] + j)
+            nxt = _choose_rows(self._full_logits(logits), key, self._sample_seed,
+                               fam.counter + j, samp, fam.counts)
+            tok_next = torch.where(alive, nxt, tok)
+            _bump_counts(fam.counts, fam.cache.all_slots, tok_next, alive)
+            any_alive = alive.any()
+            ran = ran + any_alive
+            buf["toks"][:, j].copy_(torch.where(any_alive, tok_next, torch.zeros_like(tok_next)))
+            left = torch.where(alive, left - 1, left)
+            alive = alive & ~((fam.eos >= 0) & (tok_next == fam.eos)) & (left > 0)
+            tok = tok_next
+        buf["final"].copy_(tok)
+        buf["steps"].copy_(ran)
+        buf["clock"].copy_(fam.clock + ran)
+
+    def _verify_buffers(self, fam: _SlotFamily, k: int) -> Dict[str, torch.Tensor]:
+        buf = fam.verify.get(k)
+        if buf is None:
+            N, dev = fam.cache.num_slots, self.device
+
+            def z(*shape):
+                return torch.zeros(*shape, dtype=torch.int64, device=dev)
+
+            buf = fam.verify[k] = {"tokens": z(N, k + 1), "lens": z(N), "carry": z(N),
+                                   "targets": z(N, k + 1), "accepted": z(N), "carry_out": z(N),
+                                   "clock": z(())}
+        return buf
+
+    def _verify_body(self, fam: _SlotFamily, key: str, k: int, params=None) -> None:
+        """The reference's ``_verify_chain_apply`` (and with it
+        ``_verify_slots_apply``), device ops only: column 0 is the carry
+        merged with the fresh rows' host tokens; one (num_slots, k+1)
+        forward; position j's target chosen at ``counter + j`` and
+        ``step + j`` over a provisional counts chain; ``accepted`` the
+        cumulative product of matches below ``draft_lens``; the index and
+        position rows advanced by ``accepted + 1`` from their values before
+        the call (inactive rows by 0), rolling back the k+1-token advance;
+        only accepted and bonus targets bumped into the counts; the carry
+        out each active row's last kept target; the clock advanced by 1."""
+        buf = self._verify_buffers(fam, k)
+        cache, active = fam.cache, fam.active
+        col0 = torch.where(fam.fresh, fam.fresh_tokens, buf["carry"])
+        tokens = torch.cat([col0[:, None], buf["tokens"][:, 1:]], dim=1)
+        index, position = cache.cache_index.clone(), cache.position.clone()
+        logits = self._gated_forward(fam, tokens, active, params)
+        provisional = fam.counts.clone()
+        targets = []
+        for j in range(k + 1):
+            samp = dict(fam.sampling, step=fam.sampling["step"] + j)
+            t = _choose_rows(self._full_logits(logits, j), key, self._sample_seed,
+                             fam.counter + j, samp, provisional)
+            _bump_counts(provisional, cache.all_slots, t, active)
+            targets.append(t)
+        targets = torch.stack(targets, dim=1)
+        pos = torch.arange(k, device=tokens.device)[None, :]
+        match = (tokens[:, 1:] == targets[:, :k]) & (pos < buf["lens"][:, None])
+        zero = torch.zeros_like(buf["accepted"])
+        accepted = torch.where(active, match.long().cumprod(dim=1).sum(dim=1), zero)
+        advance = torch.where(active, accepted + 1, zero)
+        for j in range(k + 1):
+            _bump_counts(fam.counts, cache.all_slots, targets[:, j], active & (j < advance))
+        cache.cache_index.copy_(index + advance.to(index.dtype)[None, :])
+        cache.position.copy_(position + advance.to(position.dtype))
+        last_kept = targets.gather(1, accepted.clamp(0, k)[:, None])[:, 0]
+        buf["targets"].copy_(targets)
+        buf["accepted"].copy_(accepted)
+        buf["carry_out"].copy_(torch.where(active, last_kept, col0))
+        buf["clock"].copy_(fam.clock + 1)
+
+    def _capture_family(self, fam: _SlotFamily, body, label: str):
+        """Capture ``body`` (a program of the family): two eager runs on a
+        side stream first (library workspaces, lazy initialisation) with
+        every slot inactive, so they move no index, position or count
+        (their K/V writes land in the trash block, or in a dense row at its
+        current index, where the next step writes its own), then the
+        capture, in thread-local mode so the async ring's fetch thread may
+        wait on its events meanwhile.  The capture's seconds and the memory
+        its graph pool holds are logged in ``captures``.  A failed capture
+        raises."""
+        t0 = time.perf_counter()
+        reserved = torch.cuda.memory_reserved(self.device)
         active = fam.active.clone()
         fam.active.zero_()
         stream = torch.cuda.Stream(self.device)
         stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(stream):
             for _ in range(2):
-                self._slot_step(fam, key)
+                body()
         torch.cuda.current_stream(self.device).wait_stream(stream)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self._slot_step(fam, key)
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            body()
         fam.active.copy_(active)
+        self.captures.append({"program": label, "seconds": time.perf_counter() - t0,
+                              "pool_mib": (torch.cuda.memory_reserved(self.device)
+                                           - reserved) / 2**20})
         return graph.replay
+
+    def _program(self, fam: _SlotFamily, name: str, kind: str, body):
+        """The family's step ``name``: its captured graph's replay on the
+        card (captured on first use), else the eager body (first use
+        counted as ``kind``'s build)."""
+        step = fam.steps.get(name)
+        if step is None:
+            self._note_compile(kind)
+            step = self._capture_family(fam, body, kind) if self.use_graphs else body
+            fam.steps[name] = step
+        return step
 
     def decode_slots(self, cache, last_tokens, active: np.ndarray, *, sampling, counts,
                      counter: int = 0, paged=None, block_tables=None, params=None):
@@ -840,30 +1045,233 @@ class ServeEngine:
         fam = self._family(cache)
         self._check_paged(fam, paged, block_tables)
         self._check_counts(fam, counts)
+        key = "greedy" if _all_greedy(sampling) else "mixed"
+        t0 = time.perf_counter()
+        with torch.inference_mode(), _launch_lock:
+            self._stage_step(fam, last_tokens, active, sampling, counter, block_tables)
+            if not self._live(params):
+                self._slot_step(fam, key, params)
+            else:
+                self._program(fam, key, "slot_decode", lambda: self._slot_step(fam, key))()
+            nxt = fam.out.to(torch.int32)
+        self._obs["decode_step"].observe(time.perf_counter() - t0)
+        return nxt, cache, counts
+
+    def _stage_carry(self, fam: _SlotFamily, fresh_tokens, fresh, clock) -> None:
+        N = fam.cache.num_slots
+        self._stage(fam.fresh, np.zeros((N,), bool) if fresh is None else np.asarray(fresh, bool))
+        if fresh_tokens is not None:
+            self._stage(fam.fresh_tokens, fresh_tokens)
+        if clock is None:
+            fam.clock.zero_()
+        else:
+            self._stage(fam.clock, clock)
+
+    def decode_megastep(self, cache, last_tokens, active: np.ndarray, horizon: np.ndarray, *,
+                        steps: int, eos_rows=None, sampling, counts, counter: int = 0,
+                        paged=None, block_tables=None, params=None, fresh_tokens=None,
+                        fresh=None, clock=None):
+        """K = ``steps`` decode iterations in one launch.  Returns (tokens
+        (num_slots, K) int32, the final token (num_slots,) from the gated
+        carry, ``steps_run`` and ``clock`` as device scalars, the cache, the
+        counts), all outputs fresh device tensors.  ``horizon`` (num_slots,)
+        is each row's remaining token budget and ``eos_rows`` its eos token
+        (-1 none): a row stops advancing once either ends it, and the host
+        trims its tail columns.  Step j chooses with ``counter + j`` and
+        seeded rows with ``step + j``, so sampled streams do not depend on
+        K; counts bump on alive rows only.  ``fresh`` rows take their input
+        token from ``fresh_tokens`` (a prefill that landed while a launch
+        was in flight) instead of ``last_tokens``, which may be the previous
+        launch's device carry; ``clock`` chains the device iteration clock
+        (0 when None).  Paged: the table must cover every position the K
+        steps may write (``PagedKVConfig.blocks_for_megastep``).  On the
+        card one CUDA graph per (K, sampling key) of the family; ``params``
+        of an older generation run the same steps eagerly."""
+        fam = self._family(cache)
+        self._check_paged(fam, paged, block_tables)
+        self._check_counts(fam, counts)
+        K = int(steps)
+        if K < 1:
+            raise ValueError(f"megastep steps must be >= 1, got {steps}")
         N = cache.num_slots
         key = "greedy" if _all_greedy(sampling) else "mixed"
         t0 = time.perf_counter()
         with torch.inference_mode(), _launch_lock:
-            fam.tokens.copy_(torch.as_tensor(last_tokens).reshape(N, 1))
-            fam.active.copy_(torch.as_tensor(np.asarray(active, bool)))
-            for k, v in sampling.items():
-                fam.sampling[k].copy_(torch.as_tensor(np.asarray(v)))
-            fam.counter.fill_(int(counter))
-            if block_tables is not None:
-                fam.tables.copy_(torch.as_tensor(block_tables))
+            self._stage_step(fam, last_tokens, active, sampling, counter, block_tables)
+            self._stage(fam.horizon, np.asarray(horizon, np.int64))
+            self._stage(fam.eos, np.full((N,), -1, np.int64) if eos_rows is None
+                        else np.asarray(eos_rows, np.int64))
+            self._stage_carry(fam, fresh_tokens, fresh, clock)
             if not self._live(params):
-                self._slot_step(fam, key, params)
+                self._megastep_body(fam, key, K, params)
             else:
-                step = fam.steps.get(key)
-                if step is None:
-                    self._note_compile("slot_decode")
-                    step = (self._capture_slots(fam, key) if self.use_graphs
-                            else (lambda: self._slot_step(fam, key)))
-                    fam.steps[key] = step
-                step()
-            nxt = fam.out.to(torch.int32)
-        self._obs["decode_step"].observe(time.perf_counter() - t0)
-        return nxt, cache, counts
+                self._program(fam, ("megastep", K, key), "slot_megastep",
+                              lambda: self._megastep_body(fam, key, K))()
+            buf = fam.mega[K]
+            out = (buf["toks"].to(torch.int32), buf["final"].clone(), buf["steps"].clone(),
+                   buf["clock"].clone())
+        self._obs["megastep"].observe(time.perf_counter() - t0)
+        return (*out, cache, counts)
+
+    def verify_slots(self, cache, tokens: np.ndarray, active: np.ndarray,
+                     draft_lens: np.ndarray, *, sampling, counts, counter: int = 0, paged=None,
+                     block_tables=None, params=None, chain: bool = False, carry=None,
+                     fresh_tokens=None, fresh=None, clock=None):
+        """One speculative verify over every slot: ``tokens`` (num_slots,
+        k+1), column 0 each slot's last token and columns 1..k its drafts,
+        padded past ``draft_lens``.  Returns (targets (num_slots, k+1)
+        int32, accepted draft counts (num_slots,), the cache, the counts);
+        row i emits ``targets[i, :accepted[i] + 1]``.  Position j's target
+        uses ``counter + j`` over a provisional counts chain; only accepted
+        and bonus targets commit.  ``cache_index``/``position`` advance by
+        ``accepted + 1`` from their values before the call.  ``chain``
+        (async decode): column 0 is taken from the device ``carry`` merged
+        with ``fresh_tokens`` at ``fresh`` rows, and the return grows to
+        (targets, accepted, carry_out, clock_out, cache, counts).  Paged:
+        the table must cover the written positions
+        (``PagedKVConfig.blocks_for_spec``).  On the card one CUDA graph per
+        (k, sampling key) of the family serves both forms."""
+        fam = self._family(cache)
+        self._check_paged(fam, paged, block_tables)
+        self._check_counts(fam, counts)
+        tokens = np.asarray(tokens, np.int32)
+        if tokens.ndim != 2 or tokens.shape[1] < 2:
+            raise ValueError(f"verify tokens must be (num_slots, k+1) with k >= 1, got "
+                             f"{tokens.shape} — a k=0 verify is just the plain decode step; "
+                             f"route it there instead")
+        if chain and carry is None:
+            raise ValueError("chain verify needs the device token carry for column 0")
+        k = tokens.shape[1] - 1
+        key = "greedy" if _all_greedy(sampling) else "mixed"
+        t0 = time.perf_counter()
+        with torch.inference_mode(), _launch_lock:
+            buf = self._verify_buffers(fam, k)
+            self._stage_step(fam, tokens[:, :1], active, sampling, counter, block_tables)
+            self._stage(buf["tokens"], tokens)
+            self._stage(buf["lens"], np.asarray(draft_lens, np.int64))
+            self._stage(buf["carry"], carry if chain else tokens[:, 0])
+            if chain:
+                self._stage_carry(fam, fresh_tokens, fresh, clock)
+            else:
+                self._stage_carry(fam, None, None, None)
+            if not self._live(params):
+                self._verify_body(fam, key, k, params)
+            else:
+                self._program(fam, ("verify", k, key), "slot_verify",
+                              lambda: self._verify_body(fam, key, k))()
+            out = (buf["targets"].to(torch.int32), buf["accepted"].clone())
+            if chain:
+                out += (buf["carry_out"].clone(), buf["clock"].clone())
+        self._obs["verify"].observe(time.perf_counter() - t0)
+        return (*out, cache, counts)
+
+    # -- KV tiering: a block to host memory and back ---------------------------
+
+    @staticmethod
+    def _pool_leaf_paths(cache) -> List[Tuple[str, str]]:
+        """The payload layout of a block: (the cache's field, the
+        reference's leaf name) in the reference's order of its scanned
+        cache's leaves (keys, values, and under int8 the float32 scales)."""
+        leaves = [("keys", "cached_key_pool"), ("values", "cached_value_pool")]
+        if getattr(cache, "key_scales", None):
+            leaves += [("key_scales", "key_scale"), ("value_scales", "value_scale")]
+        return leaves
+
+    def _note_eager(self, kind: str, layout=None) -> None:
+        """An eager program's first use on a cache layout (a ``PagedKVConfig``
+        or None), counted as the reference counts its compile."""
+        if (kind, layout) not in self._eager_built:
+            self._eager_built.add((kind, layout))
+            self._note_compile(kind)
+
+    @staticmethod
+    def _check_pool(fam: _SlotFamily, paged) -> None:
+        if paged is None or paged != fam.key[2]:
+            raise ValueError(f"the block programs move blocks of a paged pool; the cache's "
+                             f"PagedKVConfig is {fam.key[2]}, the call's {paged}")
+
+    def _sync_stream(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def gather_kv_block(self, cache, block: int, *, paged) -> List[torch.Tensor]:
+        """One physical block of the paged pools to host memory: each leaf
+        of ``_pool_leaf_paths`` as one (n_layer, block_size, ...) tensor,
+        copied from the card into pinned memory on the stream, returned once
+        the copies landed.  The KV-tiering swap-out unit; runs at iteration
+        boundaries, with no launch in flight, under the launch lock.  Scale
+        tables travel with their blocks, so an int8 pool round-trips
+        byte for byte."""
+        self._check_pool(self._family(cache), paged)
+        pinned = self.device.type == "cuda"
+        with torch.inference_mode(), _launch_lock:
+            self._note_eager("block_gather", paged)
+            out = []
+            for field, _ in self._pool_leaf_paths(cache):
+                dev = torch.stack([t[int(block)] for t in getattr(cache, field)])
+                host = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=pinned)
+                host.copy_(dev, non_blocking=pinned)
+                out.append(host)
+            self._sync_stream()
+        return out
+
+    def scatter_kv_block(self, cache, block: int, payload: List[torch.Tensor], *, paged):
+        """Write a ``gather_kv_block`` payload into physical ``block`` of
+        every pool leaf (the swap-in restore), byte for byte, copied from
+        pinned memory on the stream; returns the cache."""
+        self._check_pool(self._family(cache), paged)
+        with torch.inference_mode(), _launch_lock:
+            self._note_eager("block_scatter", paged)
+            for (field, _), host in zip(self._pool_leaf_paths(cache), payload):
+                tensors = getattr(cache, field)
+                dev = self._to_device(host, tensors[0].dtype)
+                for layer, t in enumerate(tensors):
+                    t[int(block)].copy_(dev[layer])
+        return cache
+
+    def bind_slot_rows(self, cache, slot_ids, starts):
+        """Set the index and position rows of ``slot_ids`` to ``starts``:
+        the resume of a swapped-in request (its restored blocks hold the
+        positions below its start; decode continues from there without a
+        prefill).  Returns the cache."""
+        self._family(cache)
+        with torch.inference_mode(), _launch_lock:
+            self._note_eager("slot_bind")
+            self._reset_slot_rows(cache, self._to_device(np.asarray(slot_ids, np.int64)),
+                                  self._to_device(np.asarray(starts, np.int32)))
+        return cache
+
+    def gather_counts_row(self, counts: torch.Tensor, slot: int) -> np.ndarray:
+        """One slot's emitted-token count row to the host: swapped out with
+        the victim's K/V so the penalties survive a preemption."""
+        with torch.inference_mode(), _launch_lock:
+            self._note_eager("counts_gather")
+            return counts[int(slot)].cpu().numpy().copy()
+
+    def scatter_counts_row(self, counts: torch.Tensor, slot: int, row) -> torch.Tensor:
+        """Restore a saved count row into ``slot``; returns the counts."""
+        with torch.inference_mode(), _launch_lock:
+            self._note_eager("counts_bind")
+            counts[int(slot)].copy_(self._to_device(np.asarray(row, np.int32)))
+        return counts
+
+    def fetch_async(self, tensors: List[torch.Tensor]) -> "HostFetch":
+        """Start the copy of ``tensors`` (a launch's outputs) to host: on the
+        card into pinned buffers of their own, ``non_blocking``, with a
+        CUDA event recorded after them on the stream; ``HostFetch.wait``
+        waits on that event alone and launches nothing.  The async ring's
+        fetch half."""
+        if self.device.type != "cuda":
+            return HostFetch([t.numpy().copy() for t in tensors], None)
+        with _launch_lock:
+            hosts = []
+            for t in tensors:
+                host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                host.copy_(t, non_blocking=True)
+                hosts.append(host)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+        return HostFetch(hosts, event)
 
     # -- classify (MNIST / ResNet-50 / BERT) ---------------------------------------
 

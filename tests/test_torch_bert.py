@@ -41,16 +41,31 @@ def _batch(B=4, T=64, seed=0):
     return next(synthetic_mlm(batch_size=B, seq_len=T, vocab_size=256, seed=seed))
 
 
-def _pair(flash, dtype=jnp.float32, tdtype=torch.float32):
+@pytest.fixture(scope="module")
+def shared():
+    """The perturbed params, drawn once for the module's tests: flax draws
+    float32 params whatever the compute dtype or attention path."""
+    return {}
+
+
+def _perturbed_params(jm, shared):
+    """The tiny BertPretrain's params moved off their init (kept in
+    ``shared``)."""
+    if "params" not in shared:
+        init = {k: jnp.asarray(v[:2]) for k, v in _batch().items()}
+        params = jax.tree_util.tree_map(np.asarray, jax.jit(jm.init)(jax.random.key(0), init))
+        rng = np.random.RandomState(1)
+        # LayerNorm scales, biases and mlm_bias start at 1 or 0: move them too.
+        shared["params"] = jax.tree_util.tree_map(
+            lambda x: (x + 0.1 * rng.randn(*x.shape) * max(float(np.abs(x).max()), 0.2))
+            .astype(np.float32), params["params"])
+    return shared["params"]
+
+
+def _pair(flash, dtype=jnp.float32, tdtype=torch.float32, shared=None):
     """(jax module, flax params moved off their init, port module)."""
     jm = jbert.BertPretrain(jbert.BertConfig.tiny(dtype=dtype, use_flash_attention=flash))
-    init = {k: jnp.asarray(v[:2]) for k, v in _batch().items()}
-    params = jax.tree_util.tree_map(np.asarray, jax.jit(jm.init)(jax.random.key(0), init))
-    rng = np.random.RandomState(1)
-    # LayerNorm scales, biases and mlm_bias start at 1 or 0: move them too.
-    params = jax.tree_util.tree_map(
-        lambda x: (x + 0.1 * rng.randn(*x.shape) * max(float(np.abs(x).max()), 0.2))
-        .astype(np.float32), params["params"])
+    params = _perturbed_params(jm, {} if shared is None else shared)
     tm = tbert.BertPretrain(tbert.BertConfig.tiny(dtype=tdtype, use_flash_attention=flash))
     tm.load_state_dict(variables_from_flax(tm, {"params": params}))
     return jm, params, tm
@@ -77,8 +92,8 @@ def interpret(monkeypatch):
 
 
 @pytest.mark.parametrize("flash", [False, True])
-def test_losses_aux_and_grads_match_reference(interpret, flash):
-    jm, params, tm = _pair(flash)
+def test_losses_aux_and_grads_match_reference(interpret, flash, shared):
+    jm, params, tm = _pair(flash, shared=shared)
     batch = _batch()
     assert batch["input_mask"].sum(1).min() < 64  # ragged key masks
     jloss, jaux, jgrads = _jax_loss_and_grads(jm, params, batch)
@@ -95,11 +110,11 @@ def test_losses_aux_and_grads_match_reference(interpret, flash):
 
 
 @pytest.mark.parametrize("flash", [False, True])
-def test_bf16_loss_and_grads_track_reference(interpret, flash):
+def test_bf16_loss_and_grads_track_reference(interpret, flash, shared):
     """One bf16 forward and backward: the loss to 1e-2, every gradient leaf
     to 5% of its largest entry (the two frameworks round to bf16 at other
     places)."""
-    jm, params, tm = _pair(flash, dtype=jnp.bfloat16, tdtype=torch.bfloat16)
+    jm, params, tm = _pair(flash, dtype=jnp.bfloat16, tdtype=torch.bfloat16, shared=shared)
     batch = _batch()
     jparams = jax.tree_util.tree_map(lambda x: jnp.asarray(x, jnp.bfloat16), params)
     jloss, _, jgrads = _jax_loss_and_grads(jm, jparams, batch)
@@ -112,10 +127,10 @@ def test_bf16_loss_and_grads_track_reference(interpret, flash):
                                    err_msg=k)
 
 
-def test_flash_and_dense_branches_agree_on_the_port():
+def test_flash_and_dense_branches_agree_on_the_port(shared):
     """Same weights, same ragged batch: the port's flash branch (the
     kernels' plain versions here) gives the dense branch's loss."""
-    _, params, dense = _pair(False)
+    _, params, dense = _pair(False, shared=shared)
     flash = tbert.BertPretrain(tbert.BertConfig.tiny(dtype=torch.float32,
                                                      use_flash_attention=True))
     flash.load_state_dict(dense.state_dict())
@@ -144,8 +159,8 @@ def test_dropout_draws_repeat_under_remat_and_change_with_the_seed():
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
 
 
-def test_params_round_trip_exactly():
-    _, params, tm = _pair(True)
+def test_params_round_trip_exactly(shared):
+    _, params, tm = _pair(True, shared=shared)
     back = _leaves(variables_to_flax(tm, tm.state_dict())["params"])
     want = _leaves(params)
     assert set(back) == set(want)

@@ -30,12 +30,25 @@ def _tokens(B=2, T=128, seed=0):
     return np.random.RandomState(seed).randint(0, 256, size=(B, T)).astype(np.int32)
 
 
-def _pair(flash, dtype=jnp.float32, tdtype=torch.float32, scan_layers=True, seed=0):
+@pytest.fixture(scope="module")
+def shared():
+    """The init params a (layout, seed), drawn once for the module's tests:
+    flax draws float32 params whatever the compute dtype or attention
+    path."""
+    return {}
+
+
+def _pair(flash, dtype=jnp.float32, tdtype=torch.float32, scan_layers=True, seed=0,
+          shared=None):
     """(jax module, flax params, port module with the same weights)."""
     jcfg = jgpt2.GPT2Config.tiny(dtype=dtype, use_flash_attention=flash,
                                  scan_layers=scan_layers)
     jm = jgpt2.GPT2(jcfg)
-    params = jm.init(jax.random.key(seed), jnp.asarray(_tokens(T=16)))["params"]
+    shared = {} if shared is None else shared
+    key = (scan_layers, seed)
+    if key not in shared:
+        shared[key] = jm.init(jax.random.key(seed), jnp.asarray(_tokens(T=16)))["params"]
+    params = shared[key]
     tm = tgpt2.GPT2(tgpt2.GPT2Config.tiny(dtype=tdtype, use_flash_attention=flash))
     tm.load_state_dict(params_from_flax(params))
     return jm, params, tm
@@ -66,8 +79,8 @@ def interpret(monkeypatch):
 
 
 @pytest.mark.parametrize("flash", [False, True])
-def test_logits_loss_and_grads_match_reference(interpret, flash):
-    jm, params, tm = _pair(flash)
+def test_logits_loss_and_grads_match_reference(interpret, flash, shared):
+    jm, params, tm = _pair(flash, shared=shared)
     tokens = _tokens()
     want = np.asarray(jm.apply({"params": params}, jnp.asarray(tokens)))
     with torch.no_grad():
@@ -86,7 +99,7 @@ def test_logits_loss_and_grads_match_reference(interpret, flash):
                                    err_msg=jax.tree_util.keystr(path))
 
 
-def test_bf16_loss_and_grads_track_reference(interpret):
+def test_bf16_loss_and_grads_track_reference(interpret, shared):
     """bf16 compute on bf16 copies of the same weights (the BF16 precision
     policy on both sides).  XLA on the CPU and PyTorch round to bf16 at
     different places (XLA rounds each dot's output and the bias add
@@ -94,7 +107,7 @@ def test_bf16_loss_and_grads_track_reference(interpret):
     in float32 before one rounding), so each side carries about 2^-8
     relative error per op; the loss agrees to 1e-2 and every gradient
     leaf to 5% of its largest entry."""
-    jm, params, tm = _pair(True, dtype=jnp.bfloat16, tdtype=torch.bfloat16)
+    jm, params, tm = _pair(True, dtype=jnp.bfloat16, tdtype=torch.bfloat16, shared=shared)
     tokens = _tokens()
     jloss, jgrads = _jax_loss_and_grads(jm, JBF16.cast_for_compute(params), tokens)
     tparams = TBF16.cast_for_compute(dict(tm.named_parameters()))

@@ -56,8 +56,28 @@ def _batch(B=4, size=32, seed=0):
             "label": rng.randint(0, 10, size=(B,)).astype(np.int32)}
 
 
-def _perturbed_variables(jm, size, seed=0):
-    """Init variables with every param and statistic moved off its init."""
+@pytest.fixture(scope="module")
+def shared():
+    """Work the module's tests share, computed once: the perturbed
+    variables a (size, seed) and the reference's float32 training forward
+    a size."""
+    return {}
+
+
+def _perturbed_variables(jm, size, seed=0, shared=None):
+    """Init variables with every param and statistic moved off its init,
+    kept in ``shared`` a (size, seed): every caller's ``jm`` is the TINY
+    ResNet, whose float32 params and statistics do not depend on its
+    compute dtype."""
+    key = ("variables", size, seed)
+    if shared is None:
+        return _draw_perturbed_variables(jm, size, seed)
+    if key not in shared:
+        shared[key] = _draw_perturbed_variables(jm, size, seed)
+    return shared[key]
+
+
+def _draw_perturbed_variables(jm, size, seed):
     v = jax.tree_util.tree_map(np.asarray, dict(jax.jit(jm.init)(
         jax.random.key(seed), jnp.zeros((2, size, size, 3)))))
     rng = np.random.RandomState(seed + 1)
@@ -71,9 +91,9 @@ def _perturbed_variables(jm, size, seed=0):
     return {"params": params, "batch_stats": stats}
 
 
-def _pair(size, dtype=jnp.float32, tdtype=torch.float32):
+def _pair(size, dtype=jnp.float32, tdtype=torch.float32, shared=None):
     jm = jresnet.ResNet(**TINY, dtype=dtype, norm_dtype=dtype)
-    variables = _perturbed_variables(jm, size)
+    variables = _perturbed_variables(jm, size, shared=shared)
     tm = tresnet.ResNet(**TINY, dtype=tdtype, norm_dtype=tdtype)
     tm.load_state_dict(variables_from_flax(tm, variables))
     return jm, variables, tm
@@ -113,11 +133,22 @@ def _torch_train(tm, batch, params=None):
     return logits.float().numpy(), float(loss.detach()), dict(zip(params, grads)), new
 
 
+def _f32_reference(size, shared):
+    """The reference's float32 (logits, loss, grads, batch_stats) on the
+    perturbed variables and ``_batch(size=size)``, kept in ``shared`` a size
+    (jitted at 32 px, op by op at 36: ``_jax_train``)."""
+    key = ("f32_reference", size)
+    if key not in shared:
+        jm, variables, _ = _pair(size, shared=shared)
+        shared[key] = _jax_train(jm, variables, _batch(size=size), jit=size == 32)
+    return shared[key]
+
+
 @pytest.mark.parametrize("size", [32, 36])
-def test_train_forward_grads_and_batch_stats_match_reference(size):
-    jm, variables, tm = _pair(size)
+def test_train_forward_grads_and_batch_stats_match_reference(size, shared):
+    jm, variables, tm = _pair(size, shared=shared)
     batch = _batch(size=size)
-    jlogits, jloss, jgrads, jstats = _jax_train(jm, variables, batch, jit=size == 32)
+    jlogits, jloss, jgrads, jstats = _f32_reference(size, shared)
     tlogits, tloss, tgrads, tstats = _torch_train(tm, batch)
     np.testing.assert_allclose(tlogits, jlogits, rtol=F32_TOL, atol=F32_TOL)
     assert abs(tloss - jloss) <= F32_TOL * max(1.0, abs(jloss))
@@ -134,8 +165,8 @@ def test_stride_two_same_padding_is_asymmetric_on_even_sizes():
     assert tresnet.same_pads(56, 1, 2) == (0, 0)
 
 
-def test_eval_loss_uses_running_averages():
-    jm, variables, tm = _pair(32)
+def test_eval_loss_uses_running_averages(shared):
+    jm, variables, tm = _pair(32, shared=shared)
     batch = _batch()
     jloss, jaux, _ = jax.jit(functools.partial(jresnet._eval_loss_fn, jm))(
         variables["params"], {"batch_stats": variables["batch_stats"]},
@@ -245,7 +276,7 @@ def test_batch_stats_after_a_step_are_the_last_microbatch_s():
         assert not torch.equal(v, mid[k]) and not torch.equal(mid[k], before[k])
 
 
-def test_bf16_loss_and_grads_track_reference():
+def test_bf16_loss_and_grads_track_reference(shared):
     """One bf16 forward and backward from the same weights: the loss to
     1e-2, each gradient leaf to 5% in its L2 norm, and the port's bf16
     gradient no farther from the f32 one than the reference's is.
@@ -255,10 +286,9 @@ def test_bf16_loss_and_grads_track_reference():
     backward over 4-16 values a channel cancels, and the reference's own
     bf16 gradient lies up to 50% of a leaf's largest entry, and 28% in the
     global L2 norm, from its f32 gradient (ROADMAP.md, Queue 3)."""
-    jm32, v32, _ = _pair(32)
     batch = _batch()
-    _, _, want32, _ = _jax_train(jm32, v32, batch)
-    jm, variables, tm = _pair(32, dtype=jnp.bfloat16, tdtype=torch.bfloat16)
+    _, _, want32, _ = _f32_reference(32, shared)
+    jm, variables, tm = _pair(32, dtype=jnp.bfloat16, tdtype=torch.bfloat16, shared=shared)
     jparams = jax.tree_util.tree_map(lambda x: jnp.asarray(x, jnp.bfloat16), variables["params"])
     # Op by op, as the port rounds: XLA's fused program keeps other
     # intermediates in f32, and its bf16 gradient lies 30% (leaf L2) from
@@ -279,8 +309,8 @@ def test_bf16_loss_and_grads_track_reference():
     assert dist(got, f32) <= 1.25 * dist(want, f32)
 
 
-def test_variables_round_trip_exactly():
-    jm, variables, tm = _pair(32)
+def test_variables_round_trip_exactly(shared):
+    jm, variables, tm = _pair(32, shared=shared)
     back = variables_to_flax(tm, tm.state_dict())
     want = _leaves(variables)
     got = _leaves(back)

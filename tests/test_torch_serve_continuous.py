@@ -525,9 +525,17 @@ def test_hook_exports_slot_counters_and_the_batcher_streams(eng, caplog):
 
 
 def test_part_b2_arguments_are_refused(eng):
-    for kw in ({"megastep": 4}, {"async_decode": True}, {"async_depth": 3}, {"spec_k": 2},
-               {"slo_scheduling": True}, {"swap_min_tokens": 8}, {"starvation_age_s": 1.0}):
-        with pytest.raises(NotImplementedError, match="serving part B2"):
+    """The reference's argument checks of serving part B2; per-shard pools
+    stay refused, naming serving on a mesh."""
+    for kw, match in (({"megastep": 0}, "megastep must be >= 1"),
+                      ({"megastep": "fast"}, "megastep must be an int >= 1 or 'auto'"),
+                      ({"megastep": "auto", "spec_k": 2}, "nothing to tune"),
+                      ({"async_depth": 0}, "async_depth must be >= 1"),
+                      ({"spec_k": 0}, "spec_k must be >= 1"), ({"spec_k": -1}, "spec_k"),
+                      ({"spec_ngram": 0}, "spec_ngram must be >= 1"),
+                      ({"swap_min_tokens": -1}, "swap_min_tokens must be >= 0"),
+                      ({"starvation_age_s": 0.0}, "starvation_age_s must be > 0")):
+        with pytest.raises(ValueError, match=match):
             ContinuousScheduler(eng, start=False, **kw)
     with pytest.raises(NotImplementedError, match="serving on a mesh"):
         ContinuousScheduler(eng, cache_mode="paged", per_shard_kv=True, start=False)

@@ -408,8 +408,9 @@ def test_decode_arguments_of_part_b_are_refused():
 @pytest.mark.parametrize("flag,value,where", [
     ("per_shard_kv", True, "serving on a mesh"), ("cache_mode", "paged", "--continuous"),
     ("prefix_cache", True, "--continuous"), ("prefill_budget", 32, "--continuous"),
-    ("megastep", 4, "part B"), ("async_decode", True, "part B"), ("spec_k", 2, "part B"),
-    ("slo_scheduling", True, "part B"), ("sampling_mix", "greedy:1", "--continuous"),
+    ("megastep", 4, "--continuous"), ("async_decode", True, "--continuous"),
+    ("spec_k", 2, "--continuous"), ("slo_scheduling", True, "--continuous"),
+    ("sampling_mix", "greedy:1", "--continuous"),
     ("lifecycle_log", "x.jsonl", "--continuous"), ("num_replicas", 2, "part C"),
     ("gateway_port", 8080, "part C"), ("loadgen_trace", "poisson:n=4", "part C"),
     ("data", 2, "later serving slice"), ("fsdp", 2, "later serving slice"),
@@ -432,12 +433,12 @@ def _other_value(default):
 
 @pytest.mark.parametrize("flag", sorted(later_flags()))
 def test_every_flag_of_a_later_slice_is_refused_from_the_command_line(flag):
-    """Each part B/C flag the entry point parses is refused, naming its
-    slice: none is accepted and silently ignored."""
+    """Each flag of part C or of serving on a mesh the entry point parses is
+    refused, naming its slice: none is accepted and silently ignored."""
     from distributed_tensorflow_tpu_torch.serve.__main__ import parse_args
 
     default, where = later_flags()[flag]
-    assert re.match(r"serving part (B2|C) |serving on a mesh ", where), where
+    assert re.match(r"serving part C |serving on a mesh ", where), where
     value = _other_value(default)
     argv = ["--device=cpu", f"--{flag}" if value is None else f"--{flag}={value}"]
     with pytest.raises(ValueError, match=re.escape(where)):
@@ -490,6 +491,53 @@ def test_each_part_b1_flag_reaches_the_scheduler(flag, monkeypatch, tmp_path):
     out = run_serve(parse_args(["--device=cpu", "--continuous", "--steps=4", "--clients=1",
                                 "--max_new_tokens=2", "--prompt_len=6", *extra]))
     assert out["scheduler"] == "continuous" and out["completed"] == 4
+    timed = built[-1]  # the warm-up scheduler came first
+    assert len(timed.prompts) == 4 and holds(timed, timed.prompts), flag
+
+
+# Serving part B2's flags: each one's command-line value and what the timed
+# run's continuous scheduler (or its traffic) must show of it.
+B2_FLAGS = {
+    "megastep": (["--megastep=2"], lambda s, p: s.megastep == 2
+                 and s.stats()["megastep_launches"] > 0),
+    "async_decode": (["--async_decode"], lambda s, p: s.async_decode
+                     and s._fetch_thread is not None),
+    "async_depth": (["--async_decode", "--async_depth=3"], lambda s, p: s.async_depth == 3),
+    "spec_k": (["--spec_k=2"], lambda s, p: s.spec_k == 2),
+    "spec_ngram": (["--spec_k=2", "--spec_ngram=1"], lambda s, p: s.spec_ngram == 1),
+    "prompt_period": (["--prompt_period=2"],
+                      lambda s, p: all(np.array_equal(q[:2], q[2:4]) for q in p)),
+    "slo_scheduling": (["--cache_mode=paged", "--slo_scheduling"],
+                       lambda s, p: s.slo_scheduling and s._tier_pool is not None),
+    "swap_min_tokens": (["--cache_mode=paged", "--slo_scheduling", "--swap_min_tokens=8"],
+                        lambda s, p: s._tier_pool.policy.swap_min_tokens == 8),
+    "starvation_age_s": (["--slo_scheduling", "--starvation_age_s=2.5"],
+                         lambda s, p: s.starvation_age_s == 2.5),
+}
+
+
+@pytest.mark.parametrize("flag", sorted(B2_FLAGS))
+def test_each_part_b2_flag_reaches_the_scheduler(flag, monkeypatch):
+    """Each flag of serving part B2 the entry point parses reaches the
+    timed run's continuous scheduler (or the prompts it is sent), and the
+    run completes: none is refused or ignored."""
+    from distributed_tensorflow_tpu_torch.serve import driver
+    from distributed_tensorflow_tpu_torch.serve.__main__ import parse_args
+
+    extra, holds = B2_FLAGS[flag]
+    built = []
+
+    class Recording(driver.ContinuousScheduler):
+        def submit(self, prompt, **kw):
+            self.prompts = getattr(self, "prompts", []) + [np.asarray(prompt)]
+            return super().submit(prompt, **kw)
+
+    monkeypatch.setattr(driver, "ContinuousScheduler",
+                        lambda *a, **kw: built.append(Recording(*a, **kw)) or built[-1])
+    out = run_serve(parse_args(["--device=cpu", "--continuous", "--steps=4", "--clients=1",
+                                "--max_new_tokens=4", "--prompt_len=6", *extra]))
+    assert out["scheduler"] == "continuous" and out["completed"] == 4
+    assert out["compile_post_warmup"] == 0
     timed = built[-1]  # the warm-up scheduler came first
     assert len(timed.prompts) == 4 and holds(timed, timed.prompts), flag
 
