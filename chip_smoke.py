@@ -11,8 +11,9 @@
                                            # configurations (or nccl_abort),
                                            # or phase 8b (two_workers), 11
                                            # (phase11), 12 (serving, with
-                                           # the kernels' build) or 12h
-                                           # (serving_b2) alone on any card
+                                           # the kernels' build), 12h
+                                           # (serving_b2) or 12i
+                                           # (serving_c) alone on any card
 
 Phases (any failure raises; there is no CPU path):
 
@@ -241,7 +242,21 @@ Phases (any failure raises; there is no CPU path):
    256-token whale swapped out and back) against the same pool without
    pressure; megastep, async and the swap resume identical in bf16, spec in
    a float32 witness at GPT-2 medium; tokens/s, TPOT, launches a token,
-   acceptance, ring occupancy and fetch wait, swap bytes and ms, peak MiB.
+   acceptance, ring occupancy and fetch wait, swap bytes and ms, peak MiB;
+   (i) serving part C: tiny GPT-2 in float32 on the card against the CPU (a
+   2-replica fleet through ``run_serve``, an SSE stream and a mid-stream
+   HTTP cancel through a hand-stepped gateway, a load-generator trace:
+   tokens equal, the cancel's blocks back), then GPT-2 medium (bf16,
+   graphed, 16 slots): the continuous traffic on 1 and 2 replicas (tokens/s,
+   dispatch, identical tokens), the bench's streaming arm (no token after a
+   cancel, streams equal to the whole responses, every block back; TTFB)
+   and loadgen arm (recorder parity, breakdown sums, nothing built after
+   warm-up; goodput and recorder overhead printed), a hot reload across 2
+   replicas from a checkpoint the port's manager wrote (the first wave on
+   the old weights' tokens, the second on the new ones'), and the gateway
+   on 127.0.0.1 (8 concurrent SSE clients, 429 with ``Retry-After`` past
+   ``max_inflight``, an HTTP cancel that returns its blocks); no path
+   launches a flash kernel.
 
 The line before the last is a JSON object of the kernels' numbers; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -4501,6 +4516,477 @@ def check_serving_b2(fa):
     return res, paths
 
 
+# Phase 12i: serving part C.  The fleet arm's requests (the bench runs 64),
+# the hot reload's two waves, the gateway's clients and the held seats.
+C_FLEET_REQUESTS = 64
+C_RELOAD = dict(wave=16, prompt=32, horizon=160, step=7)
+C_GATEWAY = dict(clients=8, prompt=32, horizon=32, total=128, block=16)
+
+
+class _GatewayStack:
+    """A paged continuous scheduler behind an iteration-level batcher behind
+    a ``GatewayServer`` on 127.0.0.1 at an ephemeral port; ``start=False``
+    leaves the scheduler to ``step`` (the calling thread iterates it)."""
+
+    def __init__(self, engine, *, start, num_slots, total, block, **gateway_kw):
+        from distributed_tensorflow_tpu_torch.serve import (
+            ContinuousScheduler,
+            DynamicBatcher,
+            GatewayServer,
+        )
+
+        self.sched = ContinuousScheduler(engine, num_slots=num_slots, max_total_len=total,
+                                         cache_mode="paged", block_size=block, start=start)
+        self.batcher = DynamicBatcher(iteration_level=True, scheduler=self.sched)
+        self.gw = GatewayServer(self.batcher, host="127.0.0.1", port=0, keepalive_s=0.05,
+                                **gateway_kw)
+        self.baseline = self.sched.stats()["blocks_in_use"]
+
+    def step_until(self, pred, limit=2000):
+        for _ in range(limit):
+            if pred():
+                return
+            with self.sched._cond:
+                busy = bool(self.sched._queue or self.sched._active or self.sched._ring)
+            if busy:
+                self.sched._iteration()
+            time.sleep(0.001)  # the handler threads take their turn
+        raise AssertionError("the hand-stepped gateway never reached its condition")
+
+    def close(self):
+        self.gw.close()
+        self.batcher.close(timeout=10.0)
+
+
+def _http_post(port, path, body, read=True):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    conn.request("POST", path, json.dumps(body), {"Content-Type": "application/json"})
+    return conn, (conn.getresponse() if read else None)
+
+
+def _sse_events(resp, max_events=None):
+    """SSE events of a close-delimited response up to ``done`` (or
+    ``max_events``), keepalive comments skipped."""
+    events, event = [], None
+    while True:
+        line = resp.readline()
+        if not line:
+            return events
+        line = line.decode("utf-8").rstrip("\n")
+        if line.startswith("event: "):
+            event = line[len("event: "):]
+        elif line.startswith("data: "):
+            events.append((event, json.loads(line[len("data: "):])))
+            if event == "done" or (max_events is not None and len(events) >= max_events):
+                return events
+
+
+def _sse_tokens(events):
+    return [t for kind, d in events if kind == "token" for t in d["tokens"]]
+
+
+def _stream_and_cancel(engine, prompts, horizons):
+    """One hand-stepped gateway: the first prompt streamed whole, the second
+    cancelled over HTTP after 3 decode steps.  Returns (the first stream's
+    tokens, the cancelled stream's tokens, its final event, the blocks in
+    use after the cancel against before)."""
+    stack = _GatewayStack(engine, start=False, num_slots=4, total=48, block=4, max_inflight=4)
+    try:
+        conn, resp = _http_post(stack.gw.port, "/v1/generate",
+                                {"prompt": prompts[0], "max_new_tokens": horizons[0],
+                                 "stream": True})
+        stack.step_until(lambda: stack.gw.stats()["gateway_inflight"] == 0)
+        whole = _sse_events(resp)
+        conn.close()
+        conn, resp = _http_post(stack.gw.port, "/v1/generate",
+                                {"prompt": prompts[1], "max_new_tokens": horizons[1],
+                                 "stream": True})
+        gid = _sse_events(resp, max_events=1)[0][1]["gid"]
+        stack.step_until(lambda: stack.sched.stats()["active_slots"] == 1)
+        for _ in range(3):
+            stack.sched._iteration()
+        cconn, cresp = _http_post(stack.gw.port, f"/v1/cancel/{gid}", {})
+        cancelled = json.loads(cresp.read())["cancelled"]
+        cconn.close()
+        stack.sched._iteration()  # the loop retires the cancelled slot
+        cut = _sse_events(resp)
+        conn.close()
+        blocks = (stack.sched.stats()["blocks_in_use"], stack.baseline)
+    finally:
+        stack.close()
+    if not (cancelled and whole[-1][1]["finish_reason"] == "length"):
+        raise AssertionError("the gateway's stream did not finish, or its cancel did not land")
+    return _sse_tokens(whole), _sse_tokens(cut), cut[-1][1], blocks
+
+
+def check_tiny_part_c():
+    """12i (1): tiny GPT-2 in float32 on the card (graphs) against the CPU
+    from the same weights: a 2-replica fleet through ``run_serve`` (the
+    second replica built from engine 0's device, graphs and config), an SSE
+    stream and a mid-stream HTTP cancel through a hand-stepped gateway, and
+    a load-generator trace replayed open-loop: the tokens equal the CPU's,
+    and the cancel ends its stream with every block back."""
+    import numpy as np
+
+    from distributed_tensorflow_tpu_torch.models import gpt2
+    from distributed_tensorflow_tpu_torch.serve import ContinuousScheduler, ServeArgs, ServeEngine
+    from distributed_tensorflow_tpu_torch.serve import loadgen, run_serve
+
+    cfg = gpt2.GPT2Config.tiny(dtype=torch.float32)
+    engines = {dev: ServeEngine("gpt2", device=dev, config=cfg) for dev in ("cuda", "cpu")}
+    engines["cuda"].install_params(dict(engines["cpu"].module.named_parameters()))
+    args = dict(model="gpt2", continuous=True, num_replicas=2, steps=16, prompt_lens="4,6,9,17",
+                max_new_tokens=7, min_new_tokens=2, num_slots=4, clients=4)
+    rng = np.random.default_rng(21)
+    prompts = [[int(t) for t in rng.integers(0, 256, size=(n,))] for n in (6, 9)]
+    trace = loadgen.build_trace(16, seed=4, process="burst", rate=40.0, vocab=256, short_len=4,
+                                short_new=5, whale_len=12, whale_new=8, chat_turns=2,
+                                max_total_len=32)
+    outs = {}
+    for dev, e in engines.items():
+        fleet = run_serve(ServeArgs(device=dev, **args), engine=e)
+        stream = _stream_and_cancel(e, prompts, (8, 24))
+        with ContinuousScheduler(e, num_slots=4, max_total_len=32) as sched:
+            report = loadgen.run_trace(sched, trace, speed=1e4)
+        outs[dev] = (fleet, stream, report)
+    (fleet, stream, report), (cpu_fleet, cpu_stream, cpu_report) = outs["cuda"], outs["cpu"]
+    # How many tokens the cancelled stream delivered races the handler
+    # thread; what it delivered is a prefix of one stream on both.
+    k = min(len(stream[1]), len(cpu_stream[1]))
+    same = {"fleet": fleet["tokens_checksum"] == cpu_fleet["tokens_checksum"],
+            "stream": stream[0] == cpu_stream[0],
+            "cancelled stream": k > 0 and stream[1][:k] == cpu_stream[1][:k],
+            "loadgen": report["tokens_checksum"] == cpu_report["tokens_checksum"]}
+    print(f"[serve-c] tiny GPT-2 float32, card against CPU: tokens equal {same}; fleet dispatch "
+          f"{fleet['fleet_dispatch']} compile_post_warmup {fleet['compile_post_warmup']}; the "
+          f"cancel after {len(stream[1])} streamed tokens: {stream[2]['finish_reason']}, blocks "
+          f"in use {stream[3][0]:g} (before {stream[3][1]:g}); loadgen {report['completed']} of "
+          f"{report['requests_total']} completed, checksum {report['tokens_checksum']}")
+    if not all(same.values()):
+        raise AssertionError(f"tiny GPT-2 part C: the card's tokens differ from the CPU's: {same}")
+    if (stream[2]["finish_reason"] != "cancelled" or stream[3][0] != stream[3][1]
+            or fleet["compile_post_warmup"] or min(fleet["fleet_dispatch"]) == 0
+            or report["completed"] != len(trace)):
+        raise AssertionError("tiny GPT-2 part C: the cancel kept blocks, the fleet built after "
+                             "warm-up or left a replica idle, or the trace lost requests")
+    for e in engines.values():
+        e.close()
+
+
+def _medium_fleet(fa, eng, cfgs, runs, paths):
+    """12i (2) fleet: the continuous traffic on one replica, then on two
+    (the second a new engine given engine 0's weights), each with the
+    launch counts set to 0 just before; identical tokens asserted (bf16 at
+    the same batch shapes: every decode step is the (16, 1) graph, every
+    prefill one request's)."""
+    for arm in ("continuous", "fleet"):
+        cfg = dataclasses.replace(cfgs[arm], steps=C_FLEET_REQUESTS)
+        _serve_arm(fa, eng, cfg, f"part C {arm}", f"gpt2_medium_serve_c_{arm}", runs, paths,
+                   line=lambda label, res: "[serve-c]" + _arm_line(label, res)[len("[serve-b1]"):])
+    one, two = runs["part C continuous"], runs["part C fleet"]
+    print(f"[serve-c] GPT-2 medium fleet: 2 replicas {two['tokens_per_sec']:.1f} against 1 "
+          f"{one['tokens_per_sec']:.1f} tokens/s (fleet_speedup "
+          f"{two['tokens_per_sec'] / one['tokens_per_sec']:.3f}); dispatch "
+          f"{two['fleet_dispatch']}, shed {two['fleet_shed']}, redispatched "
+          f"{two['fleet_redispatched']}; idle {one['device_idle_fraction']} against "
+          f"{two['device_idle_fraction']} (the worse replica's); TTFT p50 {one['ttft_p50_ms']:.1f} "
+          f"against {two['ttft_p50_ms']:.1f} ms; peak {one['peak_mib']:.0f} against "
+          f"{two['peak_mib']:.0f} MiB; tokens equal: "
+          f"{one['tokens_checksum'] == two['tokens_checksum']}")
+    _same_tokens("2 replicas against 1", two, one)
+    if min(two["fleet_dispatch"]) == 0:
+        raise AssertionError("GPT-2 medium fleet: a replica served nothing")
+
+
+def _medium_reload(fa, eng, cfgs, ckpt_dir: Path, paths):
+    """12i (2) hot reload: new weights (a seed-1 GPT-2 medium state) saved
+    by the port's ``CheckpointManager``; a 2-replica fleet serves a wave of
+    requests, the watcher reloads the checkpoint while every one of them
+    decodes, and a second wave follows once both schedulers installed it.
+    The first wave must equal the old weights' tokens (one scheduler on
+    engine 0 before the fleet) and the second the new weights' (an engine
+    restored from the checkpoint), tagged with generations 0 and the step.
+    The watcher's manager restores before the traffic and hands that
+    restore to ``poll_once``: amid two replicas' loops the float32 restore
+    took 3.0-5.1 s on the H100's host, a time no wave's horizon can be
+    sized against."""
+    import numpy as np
+
+    from distributed_tensorflow_tpu_torch import train_lib
+    from distributed_tensorflow_tpu_torch.checkpoint.manager import CheckpointManager
+    from distributed_tensorflow_tpu_torch.models import get_workload
+    from distributed_tensorflow_tpu_torch.serve import ContinuousScheduler, ServeEngine
+    from distributed_tensorflow_tpu_torch.serve.driver import _make_fleet
+    from distributed_tensorflow_tpu_torch.serve.fleet import CheckpointWatcher
+
+    n, plen, horizon, step = (C_RELOAD[k] for k in ("wave", "prompt", "horizon", "step"))
+    t0 = time.perf_counter()
+    wl = get_workload("gpt2", preset="medium", batch_size=1, device="cuda")
+    state, _ = train_lib.build_state_and_step(wl, total_steps=1, seed=1)
+    with CheckpointManager(str(ckpt_dir), async_save=False) as mgr:
+        mgr.save(step, state)
+    del state, wl
+    gc.collect()
+    torch.cuda.empty_cache()
+    save_s = time.perf_counter() - t0
+    rng = np.random.default_rng(29)
+    waves = [[rng.integers(0, 50257, size=(plen,), dtype=np.int32) for _ in range(n)]
+             for _ in range(2)]
+    kw = dict(num_slots=CONT_SLOTS, max_total_len=plen + horizon)
+
+    def alone(engine, prompts):
+        with ContinuousScheduler(engine, **kw) as sched:
+            futs = [sched.submit(p, max_new_tokens=horizon) for p in prompts]
+            return [f.result(timeout=600) for f in futs]
+
+    want_old = alone(eng, waves[0])
+    with ServeEngine("gpt2", device="cuda", preset="medium", checkpoint_dir=str(ckpt_dir)) as new:
+        want_new = alone(new, waves[1])
+    args = dataclasses.replace(cfgs["fleet"], prompt_lens="", prompt_len=plen,
+                               max_new_tokens=horizon, min_new_tokens=0, steps=n)
+    zero_launches(fa)
+    streamed, at_restore = [0] * n, []
+    lock = threading.Lock()
+
+    t_restore = time.perf_counter()
+    with CheckpointManager(str(ckpt_dir)) as mgr:
+        restored = mgr.restore_params(step)
+    restore_s = time.perf_counter() - t_restore
+
+    class Manager(CheckpointManager):
+        # The restore read above; the first wave's progress when the
+        # staging starts: every row must still be decoding then.
+        def restore_params(self, step=None):
+            with lock:
+                at_restore.extend(streamed)
+            return restored
+
+    router = _make_fleet(args, eng, [(p, horizon) for p in waves[0]])
+    router.watcher = CheckpointWatcher(Manager(str(ckpt_dir)), router.replicas, start=False,
+                                       owns_manager=True)
+    try:
+
+        def counter(i):
+            def on_token(toks):
+                with lock:
+                    streamed[i] += len(toks)
+            return on_token
+
+        before = [router.submit({"prompt": p, "max_new_tokens": horizon,
+                                 "on_token": counter(i)}) for i, p in enumerate(waves[0])]
+        deadline = time.monotonic() + 120
+        while min(streamed) < 2 and time.monotonic() < deadline:
+            time.sleep(0.001)
+        t_reload = time.perf_counter()
+        reloaded = router.watcher.poll_once()
+        poll_s = time.perf_counter() - t_reload
+        while (any(r.scheduler.generation != step for r in router.replicas)
+               and time.monotonic() < deadline):
+            time.sleep(0.001)
+        install_s = time.perf_counter() - t_reload
+        after = [router.submit((p, horizon)) for p in waves[1]]
+        got = [f.result(timeout=600) for f in before + after]
+        stats = router.stats()
+    finally:
+        router.close()
+    paths["gpt2_medium_serve_c_reload"] = dict(fa.LAUNCHES)
+    assert_no_flash("GPT-2 medium hot reload", paths["gpt2_medium_serve_c_reload"])
+    same_old = sum(bool(np.array_equal(g, w)) for g, w in zip(got[:n], want_old))
+    same_new = sum(bool(np.array_equal(g, w)) for g, w in zip(got[n:], want_new))
+    gens = sorted({(i >= n, f.generation) for i, f in enumerate(before + after)})
+    print(f"[serve-c] GPT-2 medium hot reload across 2 replicas: checkpoint step {step} saved in "
+          f"{save_s:.1f} s, restored in {restore_s:.2f} s; poll_once (shard onto 2 engines, stage) "
+          f"{poll_s * 1e3:.1f} ms with "
+          f"the first wave {min(at_restore)}-{max(at_restore)} tokens into {horizon} as it "
+          f"staged, both installed after "
+          f"{install_s * 1e3:.1f} ms; first wave equal to the old weights' {same_old} of {n}, "
+          f"second to the new weights' {same_new} of {n}; generations {gens}; dispatch "
+          f"{[int(stats[f'dispatch_replica_{i}']) for i in range(2)]}")
+    if (reloaded != step or same_old != n or same_new != n or max(at_restore) >= horizon
+            or gens != [(False, 0), (True, step)]):
+        raise AssertionError("GPT-2 medium hot reload: a request admitted before the reload left "
+                             "the old weights, or one after it did not get the new ones")
+
+
+def _medium_gateway(fa, eng, paths):
+    """12i (2) gateway on 127.0.0.1: 8 concurrent SSE clients on a live
+    paged scheduler (each stream equal to the same prompt's whole response,
+    client TTFB printed); then a hand-stepped one with 2 seats: both held,
+    a third answered 429 with ``Retry-After``, one held stream cancelled
+    over HTTP mid-decode (its blocks back), the other finished."""
+    import numpy as np
+
+    g = C_GATEWAY
+    rng = np.random.default_rng(31)
+    prompts = [[int(t) for t in rng.integers(0, 50257, size=(g["prompt"],))]
+               for _ in range(g["clients"])]
+    zero_launches(fa)
+    stack = _GatewayStack(eng, start=True, num_slots=CONT_SLOTS, total=g["total"],
+                          block=g["block"], max_inflight=g["clients"])
+    try:
+        stack.sched.submit(np.asarray(prompts[0], np.int32), max_new_tokens=2).result(timeout=600)
+        results = [None] * g["clients"]
+
+        def client(i):
+            t0 = time.perf_counter()
+            conn, resp = _http_post(stack.gw.port, "/v1/generate",
+                                    {"prompt": prompts[i], "max_new_tokens": g["horizon"],
+                                     "stream": True})
+            events, ttfb = [], None
+            while True:
+                ev = _sse_events(resp, max_events=1)
+                if not ev:
+                    break
+                if ev[0][0] == "token" and ttfb is None:
+                    ttfb = time.perf_counter() - t0
+                events += ev
+                if ev[0][0] == "done":
+                    break
+            conn.close()
+            results[i] = (events, ttfb)
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(g["clients"])]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        whole = []
+        for p in prompts:
+            conn, resp = _http_post(stack.gw.port, "/v1/generate",
+                                    {"prompt": p, "max_new_tokens": g["horizon"]})
+            whole.append(json.loads(resp.read())["tokens"])
+            conn.close()
+        gstats = stack.gw.stats()
+    finally:
+        stack.close()
+    equal = sum(_sse_tokens(ev) == w for (ev, _), w in zip(results, whole))
+    ttfbs = sorted(t * 1e3 for _, t in results if t is not None)
+    print(f"[serve-c] GPT-2 medium gateway: {g['clients']} concurrent SSE clients, streams equal "
+          f"to the whole responses {equal} of {g['clients']}; client TTFB p50 "
+          f"{ttfbs[len(ttfbs) // 2]:.1f} / max {ttfbs[-1]:.1f} ms; accepted "
+          f"{gstats['gateway_accepted']:g}, throttled {gstats['gateway_throttled']:g}")
+    if equal != g["clients"] or any(ev[-1][1]["finish_reason"] != "length" for ev, _ in results):
+        raise AssertionError("GPT-2 medium gateway: a stream differs from its whole response")
+    held = _GatewayStack(eng, start=False, num_slots=CONT_SLOTS, total=g["total"],
+                         block=g["block"], max_inflight=2, retry_after_s=7)
+    try:
+        open_ = [_http_post(held.gw.port, "/v1/generate",
+                            {"prompt": p, "max_new_tokens": g["horizon"], "stream": True})
+                 for p in prompts[:2]]
+        gids = [_sse_events(r, max_events=1)[0][1]["gid"] for _, r in open_]
+        conn, resp = _http_post(held.gw.port, "/v1/generate", {"prompt": prompts[2]})
+        throttled = (resp.status, resp.getheader("Retry-After"))
+        conn.close()
+        held.step_until(lambda: held.sched.stats()["active_slots"] == 2)
+        for _ in range(4):
+            held.sched._iteration()
+        in_use = held.sched.stats()["blocks_in_use"]
+        cconn, cresp = _http_post(held.gw.port, f"/v1/cancel/{gids[1]}", {})
+        cancelled = json.loads(cresp.read())["cancelled"]
+        cconn.close()
+        held.sched._iteration()
+        after_cancel = held.sched.stats()["blocks_in_use"]
+        cut = _sse_events(open_[1][1])
+        held.step_until(lambda: held.gw.stats()["gateway_inflight"] == 0)
+        full = _sse_events(open_[0][1])
+        for c, _ in open_:
+            c.close()
+        final_in_use = held.sched.stats()["blocks_in_use"]
+        baseline = held.baseline
+    finally:
+        held.close()
+    paths["gpt2_medium_serve_c_gateway"] = dict(fa.LAUNCHES)
+    assert_no_flash("GPT-2 medium gateway", paths["gpt2_medium_serve_c_gateway"])
+    print(f"[serve-c] GPT-2 medium gateway, 2 seats held: a third request {throttled[0]} with "
+          f"Retry-After {throttled[1]}; HTTP cancel mid-decode {cancelled} "
+          f"({cut[-1][1]['finish_reason']} after {len(_sse_tokens(cut))} tokens), blocks in use "
+          f"{in_use:g} -> {after_cancel:g} -> {final_in_use:g} (baseline {baseline:g}); the other "
+          f"stream {full[-1][1]['finish_reason']} with {len(_sse_tokens(full))} tokens, equal to "
+          f"its whole response {_sse_tokens(full) == whole[0]}")
+    if (throttled != (429, "7") or not cancelled or cut[-1][1]["finish_reason"] != "cancelled"
+            or not after_cancel < in_use or final_in_use != baseline
+            or _sse_tokens(full) != whole[0]):
+        raise AssertionError("GPT-2 medium gateway: no 429 with Retry-After past max_inflight, or "
+                             "the HTTP cancel did not end its stream and return its blocks")
+    return {"ttfb_ms": ttfbs}
+
+
+def serve_c_medium(fa, data_dir: Path):
+    """12i (2): GPT-2 medium (bf16, seed 0, graphed, 16 slots) through part
+    C's layers, the launch counts set to 0 before each: the fleet arm
+    (``bench.serve_configs``' continuous traffic, C_FLEET_REQUESTS requests,
+    on 1 and 2 replicas), the bench's streaming arm (its asserts: no token
+    after a cancel, streams equal to the whole responses, every block
+    back; TTFB), the bench's loadgen arm (its deterministic asserts:
+    recorder parity, breakdown sums, nothing built after warm-up; goodput
+    and the recorder's overhead printed), a hot reload across 2 replicas
+    from a checkpoint the port's manager wrote, and the gateway."""
+    from distributed_tensorflow_tpu_torch import bench
+    from distributed_tensorflow_tpu_torch.serve import ServeEngine
+
+    cfgs, _ = bench.serve_configs(on_gpu=True, device="cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = ServeEngine("gpt2", device="cuda", preset="medium")
+    runs, paths = {}, {}
+    t0 = time.perf_counter()
+    _medium_fleet(fa, eng, cfgs, runs, paths)
+    t1 = time.perf_counter()
+    zero_launches(fa)
+    streaming = bench._streaming_arm(eng, cfgs["continuous"], 16)
+    paths["gpt2_medium_serve_c_streaming"] = dict(fa.LAUNCHES)
+    assert_no_flash("GPT-2 medium streaming", paths["gpt2_medium_serve_c_streaming"])
+    print(f"[serve-c] GPT-2 medium streaming arm ({streaming['streaming_requests']} requests, "
+          f"{streaming['streaming_cancelled']} cancelled after their first token): tokens after a "
+          f"cancel {streaming['tokens_streamed_after_cancel']}, streams equal to the whole "
+          f"responses {streaming['streaming_parity']}, blocks in use after "
+          f"{streaming['streaming_blocks_in_use_after']}; TTFB p50 {streaming['ttfb_p50_ms']} / "
+          f"p99 {streaming['ttfb_p99_ms']} ms; {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    zero_launches(fa)
+    lg = bench._loadgen_arm(eng, cfgs["continuous"], 16, assert_timing=False, max_rounds=1)
+    paths["gpt2_medium_serve_c_loadgen"] = dict(fa.LAUNCHES)
+    assert_no_flash("GPT-2 medium loadgen", paths["gpt2_medium_serve_c_loadgen"])
+    print(f"[serve-c] GPT-2 medium loadgen arm ({lg['loadgen_requests']} requests, pool "
+          f"undersized): recorder parity {lg['loadgen_recorder_parity']}, breakdowns sum to wall "
+          f"(ratio {lg['breakdown_sum_to_wall_ratio']}), compile_post_warmup "
+          f"{lg['loadgen_compile_post_warmup']} (all asserted); printed only: goodput under the "
+          f"SLOs {lg['goodput_under_slo']} with SLO scheduling against {lg['goodput_loadgen_off']} "
+          f"without, shed {lg['shed_rate']}, recorder overhead {lg['loadgen_recorder_overhead']} "
+          f"(one pair); queue wait p99 "
+          f"{lg['breakdown_queue_wait_p99_ms']} ms, prefill p99 {lg['breakdown_prefill_p99_ms']} "
+          f"ms, decode p99 {lg['breakdown_decode_compute_p99_ms']} ms, swap p99 "
+          f"{lg['breakdown_swap_p99_ms']} ms; {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    ckpt = data_dir / "serve_c_ckpt"
+    try:
+        _medium_reload(fa, eng, cfgs, ckpt, paths)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    print(f"[phase] 12i hot reload: {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    gateway = _medium_gateway(fa, eng, paths)
+    print(f"[phase] 12i gateway: {time.perf_counter() - t1:.1f} s; 12i (2) "
+          f"{time.perf_counter() - t0:.1f} s")
+    eng.close()
+    return {"runs": runs, "streaming": streaming, "loadgen": lg, "gateway": gateway}, paths
+
+
+def check_serving_c(fa, data_dir: Path):
+    """12i in order; returns (its results, launches by path)."""
+    t0 = time.perf_counter()
+    check_tiny_part_c()
+    print(f"[phase] 12i (1) tiny card against CPU: {time.perf_counter() - t0:.1f} s")
+    res, paths = serve_c_medium(fa, data_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[phase] 12i fleet, streaming, loadgen, reload and gateway: "
+          f"{time.perf_counter() - t0:.1f} s")
+    return res, paths
+
+
 def host_load() -> str:
     """The host's 1-minute load average and the processes this script
     started that still run (children by their parent id in /proc): a busy
@@ -4521,7 +5007,7 @@ def host_load() -> str:
 
 
 def check_serving(fa, data_dir: Path):
-    """Phase 12 in order (12a-12h); returns (its results, launches by path)."""
+    """Phase 12 in order (12a-12i); returns (its results, launches by path)."""
     t0 = time.perf_counter()
     print(f"[serve] host: {host_load()}")
     check_tiny_decode()
@@ -4538,9 +5024,11 @@ def check_serving(fa, data_dir: Path):
     by_path.update(b1_paths)
     b2, b2_paths = check_serving_b2(fa)
     by_path.update(b2_paths)
+    part_c, c_paths = check_serving_c(fa, data_dir)
+    by_path.update(c_paths)
     print(f"[phase] 12 serving: {time.perf_counter() - t0:.1f} s")
     return {"medium": runs, "decode": decode, "classify": classify, "cli": cli,
-            "continuous": b1, "b2": b2}, by_path
+            "continuous": b1, "b2": b2, "part_c": part_c}, by_path
 
 
 def main() -> int:
@@ -4707,8 +5195,9 @@ def main() -> int:
     return 0
 
 
-# --cluster_only labels any card runs ("serving_b2": phase 12h alone, no kernel build)
-ONE_CARD_LABELS = ("two_workers", "phase11", "serving", "serving_b2")
+# --cluster_only labels any card runs ("serving_b2" and "serving_c": phase 12h or 12i
+# alone, no kernel build)
+ONE_CARD_LABELS = ("two_workers", "phase11", "serving", "serving_b2", "serving_c")
 
 
 def cluster_main(labels) -> int:
@@ -4717,8 +5206,8 @@ def cluster_main(labels) -> int:
     the NCCL abort check (``nccl_abort``).  On a host with two or more
     cards each worker owns one, so the ranks run NCCL.  Labels (of
     CLUSTER_CONFIGS, ``nccl_abort``, or ``two_workers``, ``phase11``,
-    ``serving`` and ``serving_b2``: phases 8b, 11, 12 and 12h on any card,
-    12 after the kernels' build) run those alone."""
+    ``serving``, ``serving_b2`` and ``serving_c``: phases 8b, 11, 12, 12h
+    and 12i on any card, 12 after the kernels' build) run those alone."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only", file=sys.stderr)
         return 2
@@ -4755,6 +5244,12 @@ def cluster_main(labels) -> int:
             from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
 
             _, by_path = check_serving_b2(fa)
+            print(f"[serve] launches by path {json.dumps(by_path)}")
+        if "serving_c" in labels:
+            from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+
+            data_dir.mkdir(parents=True, exist_ok=True)
+            _, by_path = check_serving_c(fa, data_dir)
             print(f"[serve] launches by path {json.dumps(by_path)}")
         if torch.cuda.device_count() >= 4 and (four or not labels):
             par_dir.mkdir(parents=True, exist_ok=True)

@@ -20,6 +20,7 @@ counters and ``gap_pct``, the input pipeline's toll on the hot loop.
     python -m distributed_tensorflow_tpu_torch.bench --device=cpu
     python -m distributed_tensorflow_tpu_torch.bench --mode=serve   # GPT-2 medium, every arm
     python -m distributed_tensorflow_tpu_torch.bench --mode=serve --serve_arm=paged,prefix
+    python -m distributed_tensorflow_tpu_torch.bench --mode=serve --serve_arm=fleet,streaming,loadgen
 
 On the CPU it runs the reference's tiny smoke config (batch 16, 64x64,
 stages (1, 1, 1, 1), 1 warmup step, 3 steps a window) under its own metric
@@ -35,9 +36,14 @@ one engine and prints one line under the port's metric,
 fixed-vs-continuous pair always, then the ``--serve_arm`` groups (all by
 default): ``paged`` (the 45% pool, and int8), ``prefix`` (shared-prefix
 traffic cold and warm, and chunked), ``chunked`` (a whale prompt with and
-without a prefill budget) and ``sampling`` (a three-config mix).  The
-reference's other arms come with later serving slices and their keys are
-absent.
+without a prefill budget), ``sampling`` (a three-config mix), ``megastep``,
+``spec``, ``async``, ``async_depth`` and ``slo`` (serving part B2), and
+part C's ``fleet`` (the continuous traffic over 2 replicas: ``fleet_speedup``,
+dispatch and shed), ``streaming`` (streamed tokens against the whole
+response, mid-decode cancels that stream nothing more and return every
+block; TTFB) and ``loadgen`` (the open-loop goodput A/B with the lifecycle
+recorder; its overhead bound).  The prefix arm's per-shard pool keys come
+with serving on a mesh and are absent.
 """
 
 from __future__ import annotations
@@ -145,22 +151,17 @@ def _vs_baseline(value: float, write: bool = True) -> float:
     return 1.0
 
 
-SERVE_ARMS = ("chunked", "megastep", "spec", "paged", "prefix", "sampling", "async",
-              "async_depth", "slo")
-_LATER_ARMS = {"fleet": "serving part C", "streaming": "serving part C",
-               "loadgen": "serving part C"}
+SERVE_ARMS = ("chunked", "megastep", "spec", "paged", "fleet", "prefix", "sampling",
+              "streaming", "async", "async_depth", "slo", "loadgen")
 
 
 def _parse_serve_arms(spec: str):
     """``--serve_arm``: '' = every arm of the port; else a comma list of
-    ``SERVE_ARMS`` ('core' alone runs the pair).  The reference's arms of
-    later slices raise, naming the slice."""
+    ``SERVE_ARMS`` ('core' alone runs the pair)."""
     if not spec:
         return set(SERVE_ARMS)
     arms = set()
     for name in (s.strip() for s in spec.split(",") if s.strip()):
-        if name in _LATER_ARMS:
-            raise ValueError(f"--serve_arm={name} comes with {_LATER_ARMS[name]}")
         if name != "core" and name not in SERVE_ARMS:
             raise ValueError(f"--serve_arm: unknown arm {name!r} (choose from "
                              f"{', '.join(('core',) + SERVE_ARMS)})")
@@ -236,6 +237,7 @@ def serve_configs(on_gpu: bool, serve_requests: int = 0, checkpoint_dir=None,
     spec_async = dataclasses.replace(spec4, async_decode=True)
     configs = {
         "fixed": fixed, "continuous": continuous, "paged": paged,
+        "fleet": dataclasses.replace(continuous, num_replicas=2),
         "paged_int8": dataclasses.replace(paged, kv_dtype="int8"),
         "prefix_cold": prefix_cold, "prefix_warm": prefix_warm,
         "chunked_prefix": dataclasses.replace(prefix_warm, prefill_budget=64 if on_gpu else 16),
@@ -386,6 +388,215 @@ def _slo_arm(engine, cont, block_size):
     }
 
 
+def _streaming_arm(engine, cont, block_size):
+    """The reference's streaming A/B over a paged continuous scheduler:
+    every request streams through an ``on_token`` collector, the odd ones
+    cancel right after their first token.  Asserts (the cancel contract,
+    not timing): zero tokens seen after a request's Future resolved
+    cancelled; the streamed concatenation equal to the whole response of
+    every uncancelled request; every cancel landed; every KV block back in
+    the pool.  TTFB p50/p99 from the scheduler's counters."""
+    import concurrent.futures as cf
+    import threading
+
+    import numpy as np
+
+    from distributed_tensorflow_tpu_torch.serve import ContinuousScheduler
+
+    vocab = engine.module.cfg.vocab_size
+    horizon = max(32, cont.max_new_tokens)
+    sched = ContinuousScheduler(engine, num_slots=cont.num_slots,
+                                max_total_len=min(engine.module.cfg.n_positions,
+                                                  cont.prompt_len + horizon),
+                                cache_mode="paged", block_size=block_size)
+
+    class _Collector:
+        """``on_token`` sink: records arrivals and counts any token
+        delivered after its Future already resolved cancelled."""
+
+        def __init__(self):
+            self.tokens = []
+            self.after_cancel = 0
+            self.first = threading.Event()
+            self.future = None
+
+        def __call__(self, toks):
+            if self.future is not None and self.future.cancelled():
+                self.after_cancel += len(toks)
+            self.tokens.extend(int(t) for t in toks)
+            self.first.set()
+
+    rng = np.random.default_rng(cont.seed)
+    n = 2 * cont.num_slots
+    collectors = [_Collector() for _ in range(n)]
+    try:
+        # The programs built outside the TTFB window.
+        sched.submit(rng.integers(0, vocab, size=(cont.prompt_len,), dtype=np.int32),
+                     max_new_tokens=2).result(timeout=600.0)
+        baseline_in_use = int(sched.stats()["blocks_in_use"])
+        futs = []
+        for c in collectors:
+            prompt = rng.integers(0, vocab, size=(cont.prompt_len,), dtype=np.int32)
+            f = sched.submit(prompt, max_new_tokens=horizon, on_token=c)
+            c.future = f
+            futs.append(f)
+        cancelled = 0
+        for i, (c, f) in enumerate(zip(collectors, futs)):
+            if i % 2:
+                c.first.wait(timeout=600.0)
+                if sched.cancel(f.rid):
+                    cancelled += 1
+        parity = True
+        for c, f in zip(collectors, futs):
+            try:
+                r = f.result(timeout=600.0)
+            except cf.CancelledError:
+                continue
+            parity = parity and c.tokens == [int(t) for t in r]
+        after = sum(c.after_cancel for c in collectors)
+        stats = sched.stats()
+    finally:
+        sched.close()
+    assert after == 0, f"{after} tokens streamed after cancellation resolved"
+    assert parity, "streamed tokens != whole-response tokens"
+    assert cancelled == n // 2, f"only {cancelled}/{n // 2} mid-decode cancels landed"
+    assert int(stats["blocks_in_use"]) == baseline_in_use, (
+        f"cancelled requests leaked KV blocks: {int(stats['blocks_in_use'])} in use vs "
+        f"{baseline_in_use} before")
+    return {
+        "streaming_requests": n,
+        "streaming_cancelled": int(stats["cancelled"]),
+        "streaming_parity": bool(parity),
+        "tokens_streamed_after_cancel": int(after),
+        "streaming_blocks_in_use_after": int(stats["blocks_in_use"]),
+        "ttfb_p50_ms": round(stats["ttfb_p50_ms"], 3),
+        "ttfb_p99_ms": round(stats["ttfb_p99_ms"], 3),
+    }
+
+
+def _loadgen_arm(engine, cont, block_size, assert_timing=True, max_rounds=12):
+    """The reference's goodput A/B: one seeded open-loop trace (Poisson
+    arrivals, whales, chat turns, shared prefixes, mixed tiers) replayed
+    against the same undersized paged pool with ``slo_scheduling`` off, then
+    on, a lifecycle recorder on both, and a decode-heavy trace at megastep
+    4 with the recorder off and on for its overhead.  Asserts, as the
+    reference's: recorder-on tokens equal recorder-off (the trace digest);
+    every retired request's breakdown sums to its wall time within 5%
+    (2 ms floor); nothing built after the warm phase with the recorder on;
+    and, unless ``assert_timing`` is False (they are timing: a smoke run
+    prints them, from at most ``max_rounds`` pairs), goodput under the SLOs
+    with ranked admission no worse than FIFO and best-of-N recorder
+    overhead within 3%."""
+    from distributed_tensorflow_tpu_torch.obs.lifecycle import PHASES, LifecycleRecorder
+    from distributed_tensorflow_tpu_torch.serve import ContinuousScheduler
+    from distributed_tensorflow_tpu_torch.serve.loadgen import build_trace, run_trace
+
+    vocab = engine.module.cfg.vocab_size
+    whale_len, whale_new = 8, 24
+    short_len, short_new = 4, 6
+    max_total = whale_len + whale_new
+    blocks_whale = -(-(max_total - 1) // block_size)
+    blocks_short = -(-(short_len + short_new - 1) // block_size)
+    # Undersized (the SLO arm's recipe): a resident whale starves shorts
+    # unless ranked admission preempts it.
+    pool = blocks_whale + 2 * blocks_short
+    trace_kwargs = dict(
+        seed=cont.seed + 23, process="poisson", rate=200.0, vocab=vocab,
+        short_len=short_len, short_new=short_new, whale_len=whale_len, whale_new=whale_new,
+        whale_frac=0.25, chat_frac=0.25, chat_turns=2, chat_turn_growth=2, shared_frac=0.15,
+        shared_group=3, max_total_len=max_total)
+    trace = build_trace(20, **trace_kwargs)
+    mk = dict(num_slots=4, max_total_len=max_total, cache_mode="paged", block_size=block_size,
+              num_blocks=pool, max_queue_size=64)
+
+    def replay(trace_, *, slo, recorder, speed=1e4, megastep=None):
+        rec = LifecycleRecorder() if recorder else None
+        kw = dict(mk)
+        if slo:
+            kw.update(slo_scheduling=True, swap_min_tokens=4)
+        if megastep is not None:
+            kw.update(megastep=megastep)
+        sched = ContinuousScheduler(engine, lifecycle=rec, **kw)
+        try:
+            report = run_trace(sched, trace_, speed=speed, lifecycle=rec)
+        finally:
+            sched.close()
+            if rec is not None:
+                rec.close()
+        return report, rec
+
+    # Warm: the whole trace through both configurations, recorder on.
+    replay(trace, slo=False, recorder=True)
+    replay(trace, slo=True, recorder=True)
+    compile_warm = engine.compile_stats()["compile_total"]
+    off_report, _ = replay(trace, slo=False, recorder=True)
+    on_report, on_rec = replay(trace, slo=True, recorder=True)
+    breakdowns = on_rec.breakdowns()
+    assert breakdowns, "lifecycle recorder saw no completed requests"
+    for b in breakdowns:
+        parts = sum(b[p] for p in PHASES)
+        tol = max(0.05 * b["wall"], 0.002)
+        assert abs(parts - b["wall"]) <= tol, (
+            f"breakdown does not sum to wall for rid {b['rid']}: parts={parts:.4f}s "
+            f"wall={b['wall']:.4f}s (tol {tol:.4f}s): {b}")
+    compile_post_warmup = int(engine.compile_stats()["compile_total"] - compile_warm)
+    assert compile_post_warmup == 0, (
+        f"loadgen arm compiled {compile_post_warmup} programs after warm with the recorder on "
+        f"— recording must never perturb program identity")
+    goodput_on = on_report["goodput_under_slo"]
+    goodput_off = off_report["goodput_under_slo"]
+    assert goodput_on >= goodput_off or not assert_timing, (
+        f"SLO scheduling worsened goodput-under-SLO on the open-loop pressure trace: "
+        f"on={goodput_on:.3f} off={goodput_off:.3f}")
+    # The recorder's cost: a decode-heavy trace at megastep 4, off and on
+    # interleaved, best-of until the gap clears the bound (noise only slows
+    # a replay) or max_rounds.
+    tput_trace = build_trace(
+        32, seed=cont.seed + 37, process="poisson", rate=500.0, vocab=vocab,
+        short_len=short_len, short_new=24, whale_frac=0.0, chat_frac=0.0, shared_frac=0.0,
+        max_total_len=max_total)
+    replay(tput_trace, slo=False, recorder=True, megastep=4)
+    tps = {False: 0.0, True: 0.0}
+    digest = {False: None, True: None}
+    rounds, overhead = 0, 1.0
+    for rounds in range(1, max_rounds + 1):
+        for recorder in (False, True):
+            rep, _rec = replay(tput_trace, slo=False, recorder=recorder, megastep=4)
+            if digest[recorder] is None:
+                digest[recorder] = rep["tokens_checksum"]
+            else:
+                assert rep["tokens_checksum"] == digest[recorder], (
+                    "greedy outputs drifted between replays of the same trace")
+            tps[recorder] = max(tps[recorder], rep["tokens_per_sec"])
+        overhead = 1.0 - tps[True] / tps[False] if tps[False] > 0 else 0.0
+        if rounds >= 3 and overhead <= 0.03:
+            break
+    assert digest[True] == digest[False], (
+        f"lifecycle recorder changed greedy outputs: on={digest[True]} off={digest[False]}")
+    assert overhead <= 0.03 or not assert_timing, (
+        f"lifecycle recorder costs {overhead:.1%} tokens/sec (best-of-{rounds} "
+        f"on={tps[True]:.1f} off={tps[False]:.1f}) — the host-side tap must stay under 3%")
+    lc = on_report["lifecycle"]
+    out = {
+        "goodput_under_slo": round(goodput_on, 4),
+        "goodput_loadgen_off": round(goodput_off, 4),
+        "shed_rate": round(on_report["shed_rate"], 4),
+        "loadgen_requests": on_report["requests_total"],
+        "loadgen_recorder_overhead": round(max(overhead, 0.0), 4),
+        "loadgen_recorder_rounds": rounds,
+        "loadgen_recorder_parity": True,  # asserted above
+        "loadgen_compile_post_warmup": compile_post_warmup,
+        "breakdown_sum_to_wall_ratio": round(lc["breakdown_sum_to_wall_ratio"], 4),
+    }
+    for phase in ("queue_wait", "prefill", "swap"):
+        out[f"ttft_breakdown_{phase}_p99_ms"] = round(lc[f"ttft_breakdown_{phase}_p99_ms"], 3)
+    for phase in PHASES:
+        out[f"breakdown_{phase}_p99_ms"] = round(lc[f"breakdown_{phase}_p99_ms"], 3)
+    # Later arms on the shared engine record nothing.
+    engine.set_lifecycle(None)
+    return out
+
+
 def _async_arm(engine, cfg):
     """Async decode on and off (megastep 2, one steady-state wave), best of
     three interleaved passes: identical tokens and a smaller device idle
@@ -487,8 +698,10 @@ def _serve_bench(flags, device):
     ``sampling_compile_post_warmup`` (0) and scalar program sets, the
     megastep's and async's speedups with their parity and idle shares,
     speculative decoding's launches per token and acceptance, the ring's
-    depth sweep, and the SLO arm's goodput and preemptions.  Serving has no
-    baseline yet: ``vs_baseline`` is 1.0, as in the reference."""
+    depth sweep, the SLO arm's goodput and preemptions, the fleet's
+    speedup over one replica with its dispatch, the streaming contract with
+    TTFB, and the load generator's goodput A/B.  Serving has no baseline
+    yet: ``vs_baseline`` is 1.0, as in the reference."""
     import numpy as np
 
     from distributed_tensorflow_tpu_torch.serve import ServeEngine, run_serve
@@ -600,6 +813,18 @@ def _serve_bench(flags, device):
                 "block_utilization": round(paged_res["blocks_high_water"]
                                            / max(paged_res["blocks_total"], 1), 4),
             })
+        if "fleet" in arms:
+            fleet_res = run_serve(cfg["fleet"], engine=engine)
+            out.update({
+                "fleet_tokens_per_sec": fleet_res["tokens_per_sec"],
+                "fleet_speedup": round(fleet_res["tokens_per_sec"]
+                                       / max(cont_res["tokens_per_sec"], 1e-9), 3),
+                "fleet_replicas": fleet_res["num_replicas"],
+                "fleet_dispatch": fleet_res["fleet_dispatch"],
+                "fleet_shed": fleet_res["fleet_shed"],
+                "fleet_parity": fleet_res["tokens_checksum"] == cont_res["tokens_checksum"],
+                "fleet_compile_post_warmup": fleet_res["compile_post_warmup"],
+            })
         if "prefix" in arms:
             cold = run_serve(cfg["prefix_cold"], engine=engine)
             warm = run_serve(cfg["prefix_warm"], engine=engine)
@@ -647,8 +872,12 @@ def _serve_bench(flags, device):
             out.update(_async_arm(engine, cfg))
         if "async_depth" in arms:
             out.update(_async_depth_arm(engine, cfg))
+        if "streaming" in arms:
+            out.update(_streaming_arm(engine, cfg["continuous"], 16 if on_gpu else 4))
         if "slo" in arms:
             out.update(_slo_arm(engine, cfg["continuous"], 16 if on_gpu else 4))
+        if "loadgen" in arms:
+            out.update(_loadgen_arm(engine, cfg["continuous"], 16 if on_gpu else 4))
     finally:
         engine.close()
         if chunk_engine is not engine:

@@ -4,7 +4,7 @@ The counterpart of the reference's root ``serve.py``: an in-process
 request loop (synthetic clients -> ``DynamicBatcher`` -> ``ServeEngine``)
 that prints ONE JSON line of serve metrics (tokens/sec, latency
 percentiles, occupancy).  It takes the reference's flags plus
-``--device``; those of later serving slices raise, naming the slice.
+``--device``; those of serving on a mesh raise, naming the slice.
 
     python -m distributed_tensorflow_tpu_torch.serve                 # GPT-2 medium on the card
     python -m distributed_tensorflow_tpu_torch.serve --device=cpu --model=gpt2 --preset=tiny
@@ -16,6 +16,10 @@ percentiles, occupancy).  It takes the reference's flags plus
         --cache_mode=paged --megastep=4 --async_decode --spec_k=3 --prompt_period=4
     python -m distributed_tensorflow_tpu_torch.serve --device=cpu --continuous \
         --cache_mode=paged --slo_scheduling --swap_min_tokens=8
+    python -m distributed_tensorflow_tpu_torch.serve --device=cpu --continuous --num_replicas=2
+    python -m distributed_tensorflow_tpu_torch.serve --device=cpu --continuous \
+        --loadgen_trace=poisson:n=16
+    python -m distributed_tensorflow_tpu_torch.serve --device=cpu --continuous --gateway_port=8080
     python -m distributed_tensorflow_tpu_torch.serve --model=bert --steps=64
     python -m distributed_tensorflow_tpu_torch.serve --checkpoint_dir=/path/to/ckpt
 
@@ -136,9 +140,27 @@ def parse_args(argv=None) -> ServeArgs:
     p.add_argument("--prompt_period", type=int, default=d.prompt_period,
                    help="traffic: tile each prompt from a motif of this many tokens (0 = "
                         "random prompts)")
+    part_c = p.add_argument_group("the fleet, the gateway and the load generator (--continuous)")
+    part_c.add_argument("--num_replicas", type=int, default=d.num_replicas,
+                        help="replicas behind the load-aware FleetRouter (1 = no router)")
+    part_c.add_argument("--reload_poll_s", type=float, default=d.reload_poll_s,
+                        help="poll --checkpoint_dir this often and hot-reload new steps into "
+                             "every replica (0 = off; needs --num_replicas > 1)")
+    part_c.add_argument("--gateway_port", type=int, default=d.gateway_port,
+                        help="serve the HTTP/SSE gateway on this port for the run (0 = off)")
+    part_c.add_argument("--max_inflight", type=int, default=d.max_inflight,
+                        help="gateway admission limit: past it, 429 with Retry-After")
+    part_c.add_argument("--priority_headroom", type=int, default=d.priority_headroom,
+                        help="tier the gateway's limit: priority p gets max_inflight - (9 - p) "
+                             "x this many seats (0 = one gate)")
+    part_c.add_argument("--loadgen_trace", default=d.loadgen_trace,
+                        help="replace the clients by the open-loop load generator, e.g. "
+                             "'poisson:n=64', 'diurnal:n=64,rate=12', 'burst:n=64' ('' = off)")
+    part_c.add_argument("--arrival_rate", type=float, default=d.arrival_rate,
+                        help="mean arrivals a second of a --loadgen_trace without rate=")
     # Flags of later serving slices: parsed, then refused by run_serve,
     # naming the slice.
-    later = p.add_argument_group("serving on a mesh and part C (refused, naming the slice)")
+    later = p.add_argument_group("serving on a mesh (refused, naming the slice)")
     for flag, (default, where) in later_flags().items():
         if isinstance(default, bool):
             later.add_argument(f"--{flag}", action="store_true", help=where)

@@ -1,11 +1,11 @@
 """In-process serve loop: synthetic clients -> batcher -> engine.
 
-Port of ``distributed_tensorflow_tpu/serve/driver.py`` less the fleet,
-the gateway and the load generator: ``ServeArgs`` (every flag of the
-reference, plus ``device``), ``run_serve``, ``_make_requests`` (mixed
-prompt lengths and horizons, shared-prefix groups, ``prompt_period``
-motifs, a sampling mix), ``_make_batcher``, ``_resolve_megastep``, ``_warm``
-and ``_drive`` with the reference's output keys.  ``python -m
+Port of ``distributed_tensorflow_tpu/serve/driver.py``: ``ServeArgs``
+(every flag of the reference, plus ``device``), ``run_serve``,
+``_make_requests`` (mixed prompt lengths and horizons, shared-prefix
+groups, ``prompt_period`` motifs, a sampling mix), ``_make_batcher``,
+``_make_fleet``, ``_resolve_megastep``, ``_warm``, ``_drive_loadgen`` and
+``_drive`` with the reference's output keys.  ``python -m
 distributed_tensorflow_tpu_torch.serve`` and the bench's ``--mode=serve``
 drive it.  Two scheduling disciplines, the same client loop:
 
@@ -21,11 +21,22 @@ drive it.  Two scheduling disciplines, the same client loop:
   per-request sampling (``sampling_mix``) and the lifecycle recorder
   (``lifecycle_log``).
 
-The flags of later serving slices raise a ``ValueError`` naming the slice:
-per-shard KV pools (serving on a mesh), the fleet, the gateway and the load
-generator (part C); so do ``--data``/``--fsdp`` > 1 and a multi-rank mesh.
-The continuous path's own flags raise without ``--continuous`` rather than
-being ignored; ``--prompt_period`` shapes the traffic of either path.
+Serving part C rides the continuous path: ``num_replicas`` > 1 puts N
+replicas behind a ``FleetRouter`` (replica 0 the caller's engine, the rest
+built with its device, graphs and workload overrides and given its
+weights; ``reload_poll_s`` with ``checkpoint_dir`` hot-reloads them);
+``gateway_port`` opens the HTTP/SSE ``GatewayServer`` over the same
+backend (``max_inflight``, ``priority_headroom``); ``loadgen_trace``
+replaces the closed-loop clients by the open-loop load generator
+(``arrival_rate``) on one replica and reports goodput under the SLOs.
+
+Per-shard KV pools (serving on a mesh) raise a ``ValueError`` naming the
+slice; so do ``--data``/``--fsdp`` > 1 and a multi-rank mesh.  The
+continuous path's own flags raise without ``--continuous`` rather than
+being ignored, and so do part C's flags where they would be ignored (the
+gateway's limits without ``--gateway_port``, ``--arrival_rate`` without
+``--loadgen_trace``, ``--reload_poll_s`` without a fleet and a checkpoint
+directory); ``--prompt_period`` shapes the traffic of either path.
 
 ``_warm`` builds every program the traffic can reach before the clients
 start (each prompt length's decode family at each padded batch size, or a
@@ -69,9 +80,6 @@ def _later(default, where):
 
 
 _MESH = "serving on a mesh (per-shard KV pools)"
-_FLEET = "serving part C (the fleet)"
-_GATEWAY = "serving part C (the gateway)"
-_LOADGEN = "serving part C (the load generator)"
 
 
 @dataclasses.dataclass
@@ -155,13 +163,23 @@ class ServeArgs:
     # LifecycleRecorder and streams its events there as JSONL (--continuous).
     lifecycle_log: str = ""
     # -- serving part C: fleet, gateway, load generator ---------------------
-    num_replicas: int = _later(1, _FLEET)
-    reload_poll_s: float = _later(0.0, _FLEET)
-    gateway_port: int = _later(0, _GATEWAY)
-    max_inflight: int = _later(64, _GATEWAY)
-    priority_headroom: int = _later(0, _GATEWAY)
-    loadgen_trace: str = _later("", _LOADGEN)
-    arrival_rate: float = _later(8.0, _LOADGEN)
+    # >1 runs N replicas behind a load-aware FleetRouter (--continuous).
+    num_replicas: int = 1
+    # >0 polls checkpoint_dir that often and hot-reloads new steps into
+    # every replica without dropping in-flight requests.
+    reload_poll_s: float = 0.0
+    # >0 binds the HTTP/SSE GatewayServer on that port for the run's life.
+    gateway_port: int = 0
+    # The gateway's admission limit: past it, 429 with Retry-After.
+    max_inflight: int = 64
+    # >0 tiers the gateway's limit: priority p gets max_inflight - (9 - p) *
+    # priority_headroom seats (at least 1).
+    priority_headroom: int = 0
+    # "" = the closed-loop clients; a trace spec ("poisson:n=64",
+    # "diurnal:...", "burst:...") drives the open-loop load generator.
+    loadgen_trace: str = ""
+    # Mean arrival rate (requests/s) of a trace spec without its own rate=.
+    arrival_rate: float = 8.0
 
 
 # The continuous path's own flags: refused off their defaults without
@@ -179,22 +197,41 @@ def later_flags() -> Dict[str, Tuple[Any, str]]:
 
 
 def check_flags(args: ServeArgs) -> None:
-    """Refuse the flags of later serving slices, naming each slice, and the
-    continuous path's flags without ``--continuous``."""
+    """Refuse the flags of later serving slices, naming each slice; the
+    continuous path's flags without ``--continuous``; the reference's own
+    refusals of part C; and part C's flags where they would be ignored."""
     for flag, (default, where) in later_flags().items():
         if getattr(args, flag) != default:
             raise ValueError(f"--{flag}={getattr(args, flag)!r} comes with {where}; the port "
-                             "serves the fixed batch and the continuous scheduler (parts A, B1 "
-                             "and B2) so far")
+                             "serves one card (parts A, B1, B2 and C) so far")
     if args.data > 1 or args.fsdp > 1:
         raise ValueError("--data/--fsdp > 1 (the batch split over ranks) comes with a later "
                          "serving slice")
-    if not (args.continuous and args.model == "gpt2"):
-        defaults = ServeArgs()
+    defaults = ServeArgs()
+    continuous = args.continuous and args.model == "gpt2"
+    if not continuous:
         for flag in CONTINUOUS_FLAGS:
             if getattr(args, flag) != getattr(defaults, flag):
                 raise ValueError(f"--{flag} applies to the continuous gpt2 path (--continuous "
                                  f"--model=gpt2); it would be ignored here")
+    if args.num_replicas > 1 and not continuous:
+        raise ValueError("--num_replicas > 1 requires the continuous gpt2 path (--continuous); "
+                         "fixed-batch fleets are not a thing here")
+    if (args.loadgen_trace or args.lifecycle_log) and not (continuous
+                                                           and args.num_replicas == 1):
+        raise ValueError("--loadgen_trace / --lifecycle_log require the single-replica "
+                         "continuous gpt2 path (--continuous): the open-loop harness and the "
+                         "lifecycle hooks drive the iteration-level scheduler directly")
+    if args.gateway_port and not continuous:
+        raise ValueError("--gateway_port requires the continuous gpt2 path (--continuous): the "
+                         "gateway's requests are the scheduler's dict payloads")
+    for flag, used, needs in (("max_inflight", args.gateway_port, "--gateway_port"),
+                              ("priority_headroom", args.gateway_port, "--gateway_port"),
+                              ("arrival_rate", args.loadgen_trace, "--loadgen_trace"),
+                              ("reload_poll_s", args.num_replicas > 1 and args.checkpoint_dir,
+                               "--num_replicas > 1 and --checkpoint_dir")):
+        if not used and getattr(args, flag) != getattr(defaults, flag):
+            raise ValueError(f"--{flag} applies with {needs}; it would be ignored here")
 
 
 def _auto_preset(args: ServeArgs) -> Optional[str]:
@@ -432,6 +469,49 @@ def _warm_continuous(args: ServeArgs, engine: ServeEngine, payloads) -> None:
         sched.close()
 
 
+def _make_fleet(args: ServeArgs, engine: ServeEngine, payloads):
+    """N replicas behind a ``FleetRouter``, each warmed before its scheduler
+    leases its slot family (so ``compile_post_warmup`` of the timed run is 0
+    over all of them).  Replica 0 is the caller's engine; every other one is
+    built with engine 0's device, CUDA-graph setting and workload overrides
+    (preset, config, dtype: one numerics for the fleet) and given engine 0's
+    weights and restored step.  ``reload_poll_s`` with ``checkpoint_dir``
+    attaches the hot-reload watcher, which the router owns and closes."""
+    from distributed_tensorflow_tpu_torch.serve.fleet import (
+        CheckpointWatcher,
+        FleetRouter,
+        Replica,
+    )
+
+    replicas, eng = [], None
+    try:
+        for i in range(args.num_replicas):
+            eng = engine
+            if i:
+                eng = ServeEngine(args.model, mesh=engine.mesh, device=engine.device,
+                                  cuda_graphs=engine.use_graphs, **engine.workload_overrides)
+                eng.install_params(engine.params)
+                eng.restored_step = engine.restored_step
+            _warm(args, eng, payloads)
+            sched = _scheduler(args, eng, payloads, name=f"serve-fleet-r{i}",
+                               **_cache_kwargs(args))
+            replicas.append(Replica(i, eng, sched, owns_engine=i > 0))
+            eng = None
+    except BaseException:
+        if eng is not None and eng is not engine:
+            eng.close()
+        for rep in replicas:
+            rep.close()
+        raise
+    watcher = None
+    if args.reload_poll_s > 0 and args.checkpoint_dir:
+        from distributed_tensorflow_tpu_torch.checkpoint import CheckpointManager
+
+        watcher = CheckpointWatcher(CheckpointManager(args.checkpoint_dir), replicas,
+                                    poll_interval_s=args.reload_poll_s, owns_manager=True)
+    return FleetRouter(replicas, watcher=watcher)
+
+
 def _resolve_megastep(args: ServeArgs, engine: ServeEngine, payloads) -> int:
     """``--megastep=auto`` to a concrete K before the timed run: a
     throwaway scheduler with ``megastep="auto"`` on the same engine replays
@@ -573,12 +653,97 @@ def _continuous_keys(stats: Dict[str, float], args: ServeArgs,
     return out
 
 
+def _drive_loadgen(args: ServeArgs, engine: ServeEngine, batcher, monitor, payloads, *,
+                   gateway=None, lifecycle=None) -> Dict[str, Any]:
+    """Open-loop trace replay on the one replica's scheduler: the load
+    generator's arrivals replace the closed-loop clients, so overload shows
+    as shed and missed SLOs instead of a quietly lower arrival rate."""
+    from distributed_tensorflow_tpu_torch.serve import loadgen as loadgen_lib
+
+    cfg = engine.module.cfg
+    kwargs = loadgen_lib.parse_trace_spec(args.loadgen_trace, rate=args.arrival_rate,
+                                          seed=args.seed)
+    n = int(kwargs.pop("n"))
+    kwargs.setdefault("vocab", int(cfg.vocab_size))
+    # The capacity the scheduler was sized for: prompts clamp to it.
+    kwargs.setdefault("max_total_len", _max_total_len(args, engine, payloads))
+    trace = loadgen_lib.build_trace(n, **kwargs)
+    compile_warm = engine.compile_stats()["compile_total"]
+    report = loadgen_lib.run_trace(batcher.scheduler, trace, lifecycle=lifecycle)
+    stats = batcher.stats()
+    gstats = None
+    if gateway is not None:
+        gstats = gateway.stats()
+        gateway.close(timeout=args.drain_timeout_s)
+    batcher.close()
+    monitor.log(n)
+    cstats = engine.compile_stats()
+    out: Dict[str, Any] = {
+        "model": args.model,
+        "scheduler": "continuous",
+        "loadgen_trace": args.loadgen_trace,
+        "arrival_rate": float(kwargs.get("rate", args.arrival_rate)),
+        "requests": int(report["requests_total"]),
+        "completed": int(report["completed"]),
+        "shed": int(report["shed"]),
+        "errors": int(report["errors"]),
+        "shed_rate": round(report["shed_rate"], 4),
+        "goodput_under_slo": round(report["goodput_under_slo"], 4),
+        "goodput_requests": int(report["goodput_requests"]),
+        "tokens_generated": int(report["tokens_emitted"]),
+        "tokens_per_sec": round(report["tokens_per_sec"], 2),
+        "elapsed_s": round(report["wall_s"], 4),
+        "client_ttft_p50_ms": round(report["client_ttft_p50_ms"], 3),
+        "client_ttft_p99_ms": round(report["client_ttft_p99_ms"], 3),
+        "tokens_checksum": report["tokens_checksum"],
+        "by_tier": report["by_tier"],
+        "by_scenario": report["by_scenario"],
+        "slo_scheduling": bool(args.slo_scheduling),
+        "checkpoint_step": engine.restored_step,
+        "compile_total": int(cstats["compile_total"]),
+        "compile_post_warmup": int(cstats["compile_total"] - compile_warm),
+    }
+    out.update(_lifecycle_keys(stats, args))
+    if gstats is not None:
+        out.update(_gateway_keys(gstats, args))
+    return out
+
+
+def _gateway_keys(gstats: Dict[str, float], args: ServeArgs) -> Dict[str, Any]:
+    out = {"gateway_port": int(args.gateway_port),
+           "max_inflight": int(gstats["gateway_max_inflight"])}
+    for key in ("gateway_accepted", "gateway_throttled", "gateway_cancel_requests",
+                "gateway_disconnects"):
+        out[key] = int(gstats[key])
+    return out
+
+
+def _fleet_stats(router) -> Dict[str, float]:
+    """The router's rollup plus the replicas' keys it does not roll up that
+    the continuous keys read: prefix caching (summed, the hit rate from the
+    sums) and the async ring (fallbacks and fetch wait summed, the ring
+    depth averaged)."""
+    stats = router.stats()
+    snaps = [rep.scheduler.stats() for rep in router.replicas]
+
+    def total(key):
+        return float(sum(s.get(key, 0.0) for s in snaps))
+
+    lookups = total("prefix_hits") + total("prefix_misses")
+    stats["prefix_hit_rate"] = total("prefix_hits") / lookups if lookups else 0.0
+    for key in ("prefill_tokens_skipped", "prefix_cached_blocks", "prefix_evictions",
+                "async_sync_fallbacks", "async_fetch_wait_s"):
+        stats[key] = total(key)
+    stats["async_ring_depth_avg"] = total("async_ring_depth_avg") / len(snaps)
+    return stats
+
+
 def _drive(args: ServeArgs, engine: ServeEngine) -> Dict[str, Any]:
     lifecycle = None
-    if args.lifecycle_log:
+    if args.lifecycle_log or args.loadgen_trace:
         from distributed_tensorflow_tpu_torch.obs.lifecycle import LifecycleRecorder
 
-        lifecycle = LifecycleRecorder(jsonl_path=args.lifecycle_log)
+        lifecycle = LifecycleRecorder(jsonl_path=args.lifecycle_log or None)
     rng = np.random.default_rng(args.seed)
     payloads = _make_requests(args, engine, rng)
     megastep_auto = args.megastep == "auto"
@@ -588,9 +753,29 @@ def _drive(args: ServeArgs, engine: ServeEngine) -> Dict[str, Any]:
         args = dataclasses.replace(args, megastep=_resolve_megastep(args, engine, payloads))
     is_lm = args.model == "gpt2"
     continuous = is_lm and args.continuous
-    _warm(args, engine, payloads)
-    batcher = _make_batcher(args, engine, payloads, lifecycle=lifecycle)
+    fleet = continuous and args.num_replicas > 1
+    if fleet:
+        batcher = _make_fleet(args, engine, payloads)
+    else:
+        _warm(args, engine, payloads)
+        batcher = _make_batcher(args, engine, payloads, lifecycle=lifecycle)
+    gateway = None
+    if args.gateway_port:
+        from distributed_tensorflow_tpu_torch.serve.gateway import GatewayServer
+
+        # The front door rides the backend the synthetic clients drive:
+        # routing, hot reload and drain compose.
+        gateway = GatewayServer(batcher, port=args.gateway_port, max_inflight=args.max_inflight,
+                                priority_headroom=args.priority_headroom)
+        logger.info("gateway listening on %s:%d (max_inflight=%d, priority_headroom=%d)",
+                    gateway.host, gateway.port, args.max_inflight, args.priority_headroom)
     monitor = ServeMonitorHook(batcher, every_steps=args.log_every)
+    if args.loadgen_trace:
+        try:
+            return _drive_loadgen(args, engine, batcher, monitor, payloads, gateway=gateway,
+                                  lifecycle=lifecycle)
+        finally:
+            lifecycle.close()
     futures: List[Any] = [None] * len(payloads)
     rejected = [0]
     lock = threading.Lock()
@@ -651,7 +836,11 @@ def _drive(args: ServeArgs, engine: ServeEngine) -> Dict[str, Any]:
         results = [f.result(timeout=600.0) for f in futures]
         done_payloads = payloads
     elapsed = time.perf_counter() - t0
-    stats = batcher.stats()
+    stats = _fleet_stats(batcher) if fleet else batcher.stats()
+    gstats = None
+    if gateway is not None:
+        gstats = gateway.stats()
+        gateway.close(timeout=args.drain_timeout_s)
     batcher.close()
     monitor.log(len(payloads))
     if lifecycle is not None:
@@ -680,6 +869,13 @@ def _drive(args: ServeArgs, engine: ServeEngine) -> Dict[str, Any]:
         out["sampling_configs"] = len(sampling_lib.parse_sampling_mix(args.sampling_mix))
     if interrupted:
         out["drained"] = True
+    if fleet:
+        out["num_replicas"] = args.num_replicas
+        out["fleet_dispatch"] = [int(stats.get(f"dispatch_replica_{i}", 0.0))
+                                 for i in range(args.num_replicas)]
+        out["fleet_shed"] = int(stats.get("shed", 0.0))
+        out["fleet_redispatched"] = int(stats.get("redispatched", 0.0))
+        out["param_generation"] = int(stats.get("param_generation", 0.0))
     if continuous:
         out.update(_continuous_keys(stats, args, megastep_auto))
         if lifecycle is not None:
@@ -687,6 +883,8 @@ def _drive(args: ServeArgs, engine: ServeEngine) -> Dict[str, Any]:
     else:
         out["avg_batch_occupancy"] = round(stats.get("avg_batch_occupancy", 0.0), 3)
         out["batches"] = int(stats.get("batches", 0))
+    if gstats is not None:
+        out.update(_gateway_keys(gstats, args))
     if is_lm:
         delivered = int(sum(len(r) for r in results))
         out["tokens_generated"] = delivered

@@ -378,6 +378,9 @@ class ServeEngine:
                 "(the decode graphs would capture its collectives); the CPU runs --tensor "
                 "ranks over gloo")
         self.model = model
+        # The workload's overrides (preset, config, dtype): a fleet's other
+        # replicas are built with them, so every replica serves one numerics.
+        self.workload_overrides = dict(workload_overrides)
         self.workload: Workload = get_workload(model, mesh=self.mesh, device=self.device,
                                                **workload_overrides)
         self.module = self.workload.module
@@ -1313,7 +1316,10 @@ class ServeEngine:
         rebuilds no decode family."""
         plan = getattr(self.module, "plan", None)
         local = _local_parts(params, plan) if plan is not None else dict(params)
-        return {k: v.to(self.device) for k, v in local.items()}
+        # Under the launch lock: a hot reload's watcher thread copies here
+        # while other threads launch and capture on the card.
+        with _launch_lock:
+            return {k: v.to(self.device) for k, v in local.items()}
 
     def install_params(self, params: Mapping[str, torch.Tensor]) -> None:
         """Swap the live weights (hot reload): each tensor is copied into the

@@ -10,10 +10,11 @@
   same logits; a seeded row's stream is its own; the draws follow the
   softmax (chi-square).  A vocabulary of 6-64 columns: enough for a
   nucleus and a top-k cut to differ from the whole row.
-- Refusals: decode on a pipeline mesh, misused slot-cache arguments, and
-  every flag of serving part B2, serving on a mesh and part C; each flag
-  of serving part B1 reaches the continuous scheduler (and is refused
-  without ``--continuous``).
+- Refusals: decode on a pipeline mesh, misused slot-cache arguments, every
+  flag of serving on a mesh, the reference's refusals of part C and part
+  C's flags where they would be ignored; each flag of serving parts B1, B2
+  and C reaches its layer (the continuous scheduler, the router, the
+  watcher, the gateway or the load generator).
 - The entry points in process: ``run_serve`` on tiny GPT-2 and MNIST
   gives the reference's keys, ``python -m ...serve``'s ``main`` and the
   bench's ``--mode=serve`` one JSON line each.
@@ -411,8 +412,7 @@ def test_decode_arguments_of_part_b_are_refused():
     ("megastep", 4, "--continuous"), ("async_decode", True, "--continuous"),
     ("spec_k", 2, "--continuous"), ("slo_scheduling", True, "--continuous"),
     ("sampling_mix", "greedy:1", "--continuous"),
-    ("lifecycle_log", "x.jsonl", "--continuous"), ("num_replicas", 2, "part C"),
-    ("gateway_port", 8080, "part C"), ("loadgen_trace", "poisson:n=4", "part C"),
+    ("lifecycle_log", "x.jsonl", "--continuous"),
     ("data", 2, "later serving slice"), ("fsdp", 2, "later serving slice"),
 ])
 def test_flags_of_later_slices_are_refused(flag, value, where):
@@ -433,12 +433,12 @@ def _other_value(default):
 
 @pytest.mark.parametrize("flag", sorted(later_flags()))
 def test_every_flag_of_a_later_slice_is_refused_from_the_command_line(flag):
-    """Each flag of part C or of serving on a mesh the entry point parses is
-    refused, naming its slice: none is accepted and silently ignored."""
+    """Each flag of serving on a mesh the entry point parses is refused,
+    naming its slice: none is accepted and silently ignored."""
     from distributed_tensorflow_tpu_torch.serve.__main__ import parse_args
 
     default, where = later_flags()[flag]
-    assert re.match(r"serving part C |serving on a mesh ", where), where
+    assert re.match(r"serving on a mesh ", where), where
     value = _other_value(default)
     argv = ["--device=cpu", f"--{flag}" if value is None else f"--{flag}={value}"]
     with pytest.raises(ValueError, match=re.escape(where)):
@@ -540,6 +540,122 @@ def test_each_part_b2_flag_reaches_the_scheduler(flag, monkeypatch):
     assert out["compile_post_warmup"] == 0
     timed = built[-1]  # the warm-up scheduler came first
     assert len(timed.prompts) == 4 and holds(timed, timed.prompts), flag
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--num_replicas=2"], "--num_replicas > 1 requires the continuous gpt2 path"),
+    (["--continuous", "--num_replicas=2", "--loadgen_trace=poisson:n=4"],
+     "require the single-replica continuous gpt2 path"),
+])
+def test_the_reference_refusals_of_part_c(argv, match):
+    """The reference's own refusals: a fleet without --continuous, and the
+    load generator on more than one replica."""
+    from distributed_tensorflow_tpu_torch.serve.__main__ import parse_args
+
+    with pytest.raises(ValueError, match=match):
+        run_serve(parse_args(["--device=cpu", *argv]))
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--gateway_port=8080"], "--gateway_port requires the continuous gpt2 path"),
+    (["--continuous", "--max_inflight=4"], "--max_inflight applies with --gateway_port"),
+    (["--continuous", "--priority_headroom=2"], "--priority_headroom applies with --gateway_port"),
+    (["--continuous", "--arrival_rate=4"], "--arrival_rate applies with --loadgen_trace"),
+    (["--continuous", "--num_replicas=2", "--reload_poll_s=1"],
+     "--reload_poll_s applies with --num_replicas > 1 and --checkpoint_dir"),
+])
+def test_part_c_flags_that_would_be_ignored_are_refused(argv, match):
+    """Part C's flags where the reference would ignore them: refused,
+    naming what they apply with."""
+    from distributed_tensorflow_tpu_torch.serve.__main__ import parse_args
+
+    with pytest.raises(ValueError, match=re.escape(match)):
+        run_serve(parse_args(["--device=cpu", *argv]))
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+# Serving part C's flags: each one's command-line value and what the run's
+# output, router, watcher or gateway must show of it.
+C_FLAGS = {
+    # Paged with prefix caching and the async ring: the keys the router's
+    # rollup lacks come from the replicas.
+    "num_replicas": (["--num_replicas=2", "--cache_mode=paged", "--prefix_cache",
+                      "--async_decode"],
+                     lambda out, built: out["num_replicas"] == 2
+                     and min(out["fleet_dispatch"]) > 0 and out["compile_post_warmup"] == 0
+                     and out["prefix_hit_rate"] >= 0.0 and out["async_ring_depth_avg"] > 0.0),
+    "reload_poll_s": (["--num_replicas=2", "--reload_poll_s=0.02", "--checkpoint_dir=CKPT"],
+                      lambda out, built: built["watcher"].interval == 0.02
+                      and built["watcher"].polls >= 1 and out["param_generation"] == 0),
+    "gateway_port": (["--gateway_port=PORT"], lambda out, built: out["gateway_port"]
+                     == built["gateway"].port and built["gateway"].health["ok"]),
+    "max_inflight": (["--gateway_port=PORT", "--max_inflight=5"],
+                     lambda out, built: out["max_inflight"] == 5),
+    "priority_headroom": (["--gateway_port=PORT", "--priority_headroom=2"],
+                          lambda out, built: built["gateway"].limit_for(0) == 64 - 18),
+    # The trace's horizons (8 and 16 tokens) need a capacity of 16 new tokens.
+    "loadgen_trace": (["--loadgen_trace=poisson:n=6", "--max_new_tokens=16"],
+                      lambda out, built: out["requests"] == 6
+                      and out["completed"] == 6 and out["compile_post_warmup"] == 0
+                      and "goodput_under_slo" in out),
+    "arrival_rate": (["--loadgen_trace=poisson:n=6", "--max_new_tokens=16", "--arrival_rate=50"],
+                     lambda out, built: out["arrival_rate"] == 50.0 and out["completed"] == 6),
+}
+
+
+@pytest.mark.parametrize("flag", sorted(C_FLAGS))
+def test_each_part_c_flag_reaches_its_layer(flag, monkeypatch, tmp_path):
+    """Each flag of serving part C the entry point parses reaches the
+    router, the watcher, the gateway or the load generator, and the run
+    completes: none is refused or ignored."""
+    import http.client
+
+    from distributed_tensorflow_tpu_torch.serve import fleet, gateway
+    from distributed_tensorflow_tpu_torch.serve.__main__ import parse_args
+
+    extra, holds = C_FLAGS[flag]
+    extra = [a.replace("PORT", str(_free_port())).replace("CKPT", str(tmp_path))
+             for a in extra]
+    built = {}
+
+    class Watcher(fleet.CheckpointWatcher):
+        def __init__(self, *a, poll_interval_s, **kw):
+            self.interval, self.polls = poll_interval_s, 0
+            super().__init__(*a, poll_interval_s=poll_interval_s, **kw)
+            built["watcher"] = self
+
+        def poll_once(self):
+            self.polls += 1
+            return super().poll_once()
+
+        def close(self):
+            deadline = time.monotonic() + 5.0
+            while not self.polls and time.monotonic() < deadline:
+                time.sleep(0.01)
+            super().close()
+
+    class Gateway(gateway.GatewayServer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            conn = http.client.HTTPConnection("127.0.0.1", self.port, timeout=30)
+            conn.request("GET", "/v1/health")
+            self.health = json.loads(conn.getresponse().read())
+            conn.close()
+            built["gateway"] = self
+
+    monkeypatch.setattr(fleet, "CheckpointWatcher", Watcher)
+    monkeypatch.setattr(gateway, "GatewayServer", Gateway)
+    out = run_serve(parse_args(["--device=cpu", "--continuous", "--steps=4", "--clients=1",
+                                "--max_new_tokens=2", "--prompt_len=6", *extra]))
+    assert out["scheduler"] == "continuous" and out["completed"] >= 4
+    assert holds(out, built), flag
 
 
 def test_the_entry_point_parses_exactly_the_serve_args():
