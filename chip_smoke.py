@@ -12,8 +12,9 @@
                                            # or phase 8b (two_workers), 11
                                            # (phase11), 12 (serving, with
                                            # the kernels' build), 12h
-                                           # (serving_b2) or 12i
-                                           # (serving_c) alone on any card
+                                           # (serving_b2), 12i (serving_c) or
+                                           # 12j (serving_12j) alone on any
+                                           # card; serving_mesh on four
 
 Phases (any failure raises; there is no CPU path):
 
@@ -256,7 +257,20 @@ Phases (any failure raises; there is no CPU path):
    the old weights' tokens, the second on the new ones'), and the gateway
    on 127.0.0.1 (8 concurrent SSE clients, 429 with ``Retry-After`` past
    ``max_inflight``, an HTTP cancel that returns its blocks); no path
-   launches a flash kernel.
+   launches a flash kernel; (j) serving on a mesh, two ranks of
+   ``--serve_mesh_worker`` sharing the card over gloo (rank 0 drives, the
+   other follows its engine calls): tiny GPT-2 in float32 at data=2
+   (graphed, per-shard pool) and tensor=2 (eager), fixed batch and
+   continuous, against this process's one-rank run; GPT-2 medium bf16 at
+   data=2 with per-shard pools on the bench's continuous traffic
+   (tokens/s, KV MiB a rank against one rank's, peak MiB a rank, the
+   leader's send a call); BERT-base classify at data=2 (12 flash forwards
+   a batch a rank, ids equal to one process on each rank's rows).
+   ``--cluster_only serving_mesh`` on four cards (NCCL, a card a rank):
+   GPT-2 medium at data=4 and data=2 x tensor=2, graphed (the second's
+   graphs capture the tensor axis's collectives): a float32 witness and
+   its first decode step's logits against one card, the continuous
+   traffic's tokens/s a card.
 
 The line before the last is a JSON object of the kernels' numbers; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -1632,6 +1646,28 @@ DP_BF16_TOL = 2**-5
 WORKER_DEADLINE_S = 240.0
 
 
+class Background:
+    """``fn(*args)`` on a thread, for checks whose processes are independent
+    of the ones beside them; ``result`` joins and re-raises its failure."""
+
+    def __init__(self, fn, *args):
+        self._out = {}
+        self._thread = threading.Thread(target=self._run, args=(fn, args), daemon=True)
+        self._thread.start()
+
+    def _run(self, fn, args):
+        try:
+            self._out["value"] = fn(*args)
+        except BaseException as e:  # noqa: BLE001 - re-raised by result()
+            self._out["error"] = e
+
+    def result(self):
+        self._thread.join()
+        if "error" in self._out:
+            raise self._out["error"]
+        return self._out.get("value")
+
+
 def free_ports(n):
     import socket
 
@@ -2018,18 +2054,51 @@ def check_two_workers(data_dir: Path):
     out.mkdir(parents=True, exist_ok=True)
     launches = []
     # (precision, state tolerance, loss tolerance: absolute in float32,
-    # relative in bf16)
-    for precision, tol, loss_tol in (("fp32", DP_TOL["tensor"], DP_TOL["loss"]),
-                                     ("bf16", DP_BF16_TOL, PAR_LOSS_RTOL)):
-        tag, dumps_steps = f"dp_{precision}", precision == "bf16"
+    # relative in bf16).  The two pairs run side by side (four ranks on the
+    # card), to keep the whole script inside its time.
+    runs = (("fp32", DP_TOL["tensor"], DP_TOL["loss"]), ("bf16", DP_BF16_TOL, PAR_LOSS_RTOL))
+    pairs = {}
+    for precision, _, _ in runs:
+        tag = f"dp_{precision}"
         flags = ["--model=wide_deep", f"--batch_size={RECSYS_BATCH}", f"--steps={DP_STEPS}",
                  "--log_every=1", "--device=cuda", "--seed=0", f"--precision={precision}",
-                 "--dump"] + (["--dump_steps"] if dumps_steps else [])
-        procs = spawn_cluster(out, tag, [("worker", 0), ("worker", 1)], {"worker": flags})
-        r0, r1 = expect_ok(f"two workers ({precision})", join_cluster(procs))
+                 "--dump"] + (["--dump_steps"] if precision == "bf16" else [])
+        pairs[precision] = spawn_cluster(out, tag, [("worker", 0), ("worker", 1)],
+                                         {"worker": flags})
+    with killing(*pairs.values()):
+        _check_two_workers(out, runs, pairs, launches)
+    print(f"[phase] two workers ({launches[0]['backend']}): {time.perf_counter() - t_phase:.1f} s")
+    return {"wide_deep_2_workers": summed_launches(*launches)}
+
+
+def killing(*clusters):
+    """A context that kills, on the way out, every process of
+    ``spawn_cluster``'s ``clusters`` still running (a failed check leaves
+    none behind)."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        try:
+            yield
+        finally:
+            for procs in clusters:
+                for p, _, _, _ in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+
+    return ctx()
+
+
+def _check_two_workers(out: Path, runs, pairs, launches) -> None:
+    """Phase 8b's checks of each pair in ``pairs`` (see check_two_workers)."""
+    for precision, tol, loss_tol in runs:
+        tag, dumps_steps = f"dp_{precision}", precision == "bf16"
+        r0, r1 = expect_ok(f"two workers ({precision})", join_cluster(pairs[precision]))
         launches += [r0, r1]
         s0, s1 = (torch.load(out / f"{tag}_rank{r}.pt") for r in (0, 1))
-        where = {"gloo": "sharing ONE card over gloo: not a scaling figure",
+        where = {"gloo": "sharing ONE card over gloo, beside the other pair: not a scaling figure",
                  "nccl": "a card each, NCCL over NVLink"}[r0["backend"]]
         same = all(torch.equal(s0[k], s1[k]) for k in s0) and r0["losses"] == r1["losses"]
         if not same:
@@ -2060,8 +2129,6 @@ def check_two_workers(data_dir: Path):
                   f"copies + gloo; NCCL's is device time, untimed) after the first step: "
                   f"{r['allreduce_calls']} calls, "
                   f"{1e3 * r['allreduce_s'] / max(1, r['allreduce_calls']):.2f} ms each")
-    print(f"[phase] two workers ({r0['backend']}): {time.perf_counter() - t_phase:.1f} s")
-    return {"wide_deep_2_workers": summed_launches(*launches)}
 
 
 def check_preemption(data_dir: Path):
@@ -2233,7 +2300,8 @@ def _as_hook(cls):
 
 
 # Phase 9a's steps an epoch: its depth, cut from 10 to keep the whole script
-# inside its time (a fit step of ResNet-50 takes ~1.7 s).
+# inside its time (a fit step of ResNet-50 takes ~1.7 s; at 3 the steady
+# steps' median mixes the two epochs' and the rate means nothing).
 FIT_STEPS = 5
 
 
@@ -2302,8 +2370,9 @@ def check_session(fa):
     checkpoint every 3 steps, ``while not sess.should_stop():
     sess.run(train_op)``; a second session on the directory restores step 6
     on enter and runs to 8.  The loss is finite every step and the flash
-    kernels launch as BERT's steps need.  Then the port's
-    ``examples.tf1_ps_launcher`` with a parked ps process."""
+    kernels launch as BERT's steps need.  (The port's
+    ``examples.tf1_ps_launcher`` with a parked ps process is
+    ``check_launcher``.)"""
     from distributed_tensorflow_tpu_torch import compat
     from distributed_tensorflow_tpu_torch.data.pipeline import DevicePrefetchIterator
     from distributed_tensorflow_tpu_torch.models import bert, get_workload
@@ -2365,10 +2434,8 @@ def check_session(fa):
     shutil.rmtree(ckpt, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
-    launcher = check_launcher()
-    print(f"[phase] TF1 session (BERT-base) and the PS launcher: "
-          f"{time.perf_counter() - t_phase:.1f} s")
-    return {"bert_base_session": launches, "tf1_ps_launcher": launcher}, rate
+    print(f"[phase] TF1 session (BERT-base): {time.perf_counter() - t_phase:.1f} s")
+    return {"bert_base_session": launches}, rate
 
 
 LAUNCHER_FLAGS = ["--train_steps", "4", "--batch_size", "8", "--seq_len", "32", "--log_every",
@@ -2554,11 +2621,21 @@ def start_service(data_dir: Path, log: Path, *args):
     """``python -m distributed_tensorflow_tpu_torch.data.service`` (a worker
     on ResNet-50's records, batch 256, or ``--role=dispatcher``); returns
     (process, address) once it prints its READY line."""
+    return service_ready(launch_service(log, *args), log)
+
+
+def launch_service(log: Path, *args):
+    """Start a data-service process (``start_service``'s) without waiting."""
     f = open(log, "w")
     proc = subprocess.Popen(
         [sys.executable, "-m", "distributed_tensorflow_tpu_torch.data.service", *args],
         stdout=subprocess.PIPE, stderr=f, text=True)
     f.close()
+    return proc
+
+
+def service_ready(proc, log: Path):
+    """(process, address) once ``launch_service``'s process is READY."""
     ready = proc.stdout.readline()
     if not ready.startswith(("DATA_SERVICE_READY ", "DATA_DISPATCHER_READY ")):
         proc.kill()
@@ -2618,6 +2695,9 @@ def check_data_service(fa, data_dir: Path, records):
     by_path, rates = {}, {}
     try:
         t0 = time.perf_counter()
+        # The dispatcher (no loader) starts beside the standalone server.
+        disp = launch_service(logs / "dispatcher.log", "--role=dispatcher")
+        procs.append(disp)
         server, addr = start_service(data_dir, logs / "standalone.log",
                                      *service_worker_args(data_dir, "--num_threads=1"))
         procs.append(server)
@@ -2639,16 +2719,15 @@ def check_data_service(fa, data_dir: Path, records):
         r = train_phase(fa, "ResNet-50 data service", base + [f"--data_service={addr}"],
                         units="images", per_step=256)
         by_path["resnet50_data_service"], rates["ResNet-50 data service"] = r["launches"], r
-        disp, daddr = start_service(data_dir, logs / "dispatcher.log", "--role=dispatcher")
-        procs.append(disp)
-        workers = []
-        for i in range(2):
-            w, waddr = start_service(
-                data_dir, logs / f"worker{i}.log",
+        _, daddr = service_ready(disp, logs / "dispatcher.log")
+        launched = []
+        for i in range(2):  # the two workers start together
+            launched.append(launch_service(
+                logs / f"worker{i}.log",
                 *service_worker_args(data_dir, f"--dispatcher={daddr}", f"--shard_index={i}",
-                                     "--shard_count=2"))
-            procs.append(w)
-            workers.append((w, waddr))
+                                     "--shard_count=2")))
+            procs.append(launched[-1])
+        workers = [service_ready(w, logs / f"worker{i}.log") for i, w in enumerate(launched)]
         kill = _KillAt(workers[1][0], DISPATCH_KILL_STEP)
         r = train_phase(fa, "ResNet-50 dispatcher", base + [f"--data_service=dispatch://{daddr}"],
                         units="images", per_step=256, hooks=[kill])
@@ -2917,12 +2996,19 @@ def parallel_worker_main(argv) -> int:
     return 0
 
 
-def run_parallel(out: Path, job, ranks: int, deadline_s=WORKER_DEADLINE_S):
-    """Phase 10's ranks of ``job`` (this script, ``--parallel_worker``);
-    raises unless every rank reports; returns the ranks' reports."""
+def start_parallel(out: Path, job, ranks: int):
+    """Start phase 10's ranks of ``job`` (this script, ``--parallel_worker``)."""
     flags = {"worker": [json.dumps(job)]}
-    procs = spawn_cluster(out, job.get("tag", job["kind"]), [("worker", i) for i in range(ranks)],
-                          flags, mode="--parallel_worker")
+    return spawn_cluster(out, job.get("tag", job["kind"]), [("worker", i) for i in range(ranks)],
+                         flags, mode="--parallel_worker")
+
+
+def run_parallel(out: Path, job, ranks: int, deadline_s=WORKER_DEADLINE_S, procs=None):
+    """Phase 10's ranks of ``job`` (started here unless ``procs`` are
+    ``start_parallel``'s); raises unless every rank reports; returns the
+    ranks' reports."""
+    if procs is None:
+        procs = start_parallel(out, job, ranks)
     reports = []
     for code, _, _, text in join_cluster(procs, deadline_s):
         m = re.search(r"^PARALLEL_RESULT (.*)$", text, re.M)
@@ -3115,15 +3201,28 @@ def check_parallel_training(out: Path):
     at PAR_GPT2_LAYERS layers) at tensor=2 and at fsdp=2, ResNet-50 at
     data=2 with synchronised BatchNorm (its running statistics too), each
     against one process on the same global batches.  Returns their launch
-    counts (rank 0's)."""
+    counts (rank 0's).  The one-process runs go first, alone; then the
+    three pairs run side by side (six ranks on the card), to keep the whole
+    script inside its time."""
     launches = {}
-    for label, model, axes in (("gpt2_medium_tensor2", "gpt2_cut", {"tensor": 2}),
-                               ("gpt2_medium_fsdp2", "gpt2_cut", {"fsdp": 2}),
-                               ("resnet50_data2", "resnet", {"data": 2})):
-        t0 = time.perf_counter()
-        want = one_process(model)
-        reports = run_parallel(out, {"kind": "train", "tag": label, "model": model,
-                                     "axes": axes}, 2)
+    cells = (("gpt2_medium_tensor2", "gpt2_cut", {"tensor": 2}),
+             ("gpt2_medium_fsdp2", "gpt2_cut", {"fsdp": 2}),
+             ("resnet50_data2", "resnet", {"data": 2}))
+    wants = {model: one_process(model) for _, model, _ in cells}
+    t0 = time.perf_counter()
+    jobs = {label: {"kind": "train", "tag": label, "model": model, "axes": axes}
+            for label, model, axes in cells}
+    started = {label: start_parallel(out, job, 2) for label, job in jobs.items()}
+    with killing(*started.values()):
+        _check_parallel_training(out, cells, wants, jobs, started, launches, t0)
+    return launches
+
+
+def _check_parallel_training(out: Path, cells, wants, jobs, started, launches, t0) -> None:
+    """The checks of each pair of ``check_parallel_training``."""
+    for label, model, axes in cells:
+        want = wants[model]
+        reports = run_parallel(out, jobs[label], 2, procs=started[label])
         gots = [torch.load(out / f"{label}_rank{r}.pt") for r in (0, 1)]
         compare_training(label, gots, want, reports)
         got = gots[0]
@@ -3137,8 +3236,8 @@ def check_parallel_training(out: Path):
         else:  # the layers x 4 microbatches a step on every rank
             assert_flash_launches(label, got["launches"], PAR_GPT2_LAYERS * 4, PAR_STEPS)
         launches[label] = got["launches"]
-        print(f"[phase] 10 {label}: {time.perf_counter() - t0:.1f} s")
-    return launches
+        print(f"[phase] 10 {label} (the three pairs side by side): "
+              f"{time.perf_counter() - t0:.1f} s")
 
 
 def pipe_microbatches(axes) -> int:
@@ -4987,6 +5086,376 @@ def check_serving_c(fa, data_dir: Path):
     return res, paths
 
 
+# -- 12j: serving on a mesh (leader and followers; --cluster_only serving_mesh) ----
+#
+# Ranks are this script run again with ``--serve_mesh_worker OUT JOB`` under a
+# TF_CONFIG of their own (``spawn_cluster``): rank 0 drives its engine
+# through ``serve.mesh.MeshEngine`` and the others follow; each prints one
+# WORKER_RESULT line.  JOB "card" is 12j (two ranks sharing the card over
+# gloo), "cluster" the four-card run (a card a rank, NCCL).
+
+MESH_TINY_PROMPTS = 8  # tiny GPT-2's fixed batch: 8 rows of 12 tokens, 8 new
+MESH_WITNESS = dict(rows=8, prompt=32, new=16)  # GPT-2 medium's float32 witness
+MESH_LOGITS_RTOL = 1e-4  # first decode step's float32 logits, of their largest |logit|
+MESH_BERT_REPS = 5
+MESH_DEADLINE_S = 420.0
+
+
+def _mesh_inputs(out: Path, bert=None) -> dict:
+    """The inputs every rank and this process share, written to
+    ``out/serve_mesh_inputs.pt``: tiny GPT-2's float32 weights (seed 3),
+    its prompts and requests, the float32 witness's prompts and, given the
+    BERT-base engine, 32 classify examples of its stream (synthetic_mlm's
+    ragged keys)."""
+    import numpy as np
+
+    from distributed_tensorflow_tpu_torch.models import gpt2 as tgpt2
+
+    tiny = tgpt2.GPT2(tgpt2.GPT2Config.tiny(dtype=torch.float32), seed=3)
+    rng = np.random.default_rng(5)
+    inputs = {
+        "tiny": {k: v.detach().cpu() for k, v in tiny.state_dict().items()},
+        "prompts": rng.integers(0, 256, size=(MESH_TINY_PROMPTS, 12), dtype=np.int32),
+        "requests": _tiny_requests(seed=6, n=12),
+        "witness": rng.integers(0, 50257, size=(MESH_WITNESS["rows"], MESH_WITNESS["prompt"]),
+                                dtype=np.int32)}
+    if bert is not None:
+        batch = next(bert.workload.data_fn(32))
+        inputs["bert"] = [{k: np.asarray(v[i]) for k, v in batch.items() if k != "label"}
+                          for i in range(32)]
+    torch.save(inputs, out / "serve_mesh_inputs.pt")
+    return inputs
+
+
+def _tiny_serve(m, inputs) -> dict:
+    """The leader's tiny GPT-2 run: the fixed batch's greedy tokens and the
+    continuous scheduler's (paged, per-shard pools, blocks of 4)."""
+    from distributed_tensorflow_tpu_torch.serve import ContinuousScheduler
+
+    fixed = m.generate(inputs["prompts"], 8).tolist()
+    with ContinuousScheduler(m, num_slots=4, max_total_len=32, cache_mode="paged",
+                             block_size=4, per_shard_kv=True) as sched:
+        futs = [sched.submit(p, max_new_tokens=h) for p, h in inputs["requests"]]
+        cont = [f.result(timeout=300).tolist() for f in futs]
+        shards = sched.paged.data_shards
+    return {"fixed": fixed, "continuous": cont, "shards": shards,
+            "messages": m.message_stats() if hasattr(m, "message_stats") else {}}
+
+
+def _medium_serve(mesh) -> dict:
+    """GPT-2 medium (bf16, seed 0, graphed) on the bench's continuous
+    traffic (16 slots), paged with per-shard pools, through ``run_serve`` on
+    every rank: the leader's line (None elsewhere), this rank's peak and KV
+    MiB and its graphs' capture seconds."""
+    import dataclasses
+
+    from distributed_tensorflow_tpu_torch.bench import serve_configs
+    from distributed_tensorflow_tpu_torch.serve import ServeEngine, run_serve
+
+    args = dataclasses.replace(serve_configs(True)[0]["continuous"], cache_mode="paged",
+                               per_shard_kv=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServeEngine("gpt2", device="cuda", mesh=mesh, preset="medium")
+    line = run_serve(args, engine=eng)
+    torch.cuda.synchronize()
+    fam = next(iter(eng._families.values()))
+    res = {"line": line, "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+           "kv_mib_rank": eng.cache_hbm_bytes_per_shard(fam.cache) / 2**20,
+           "capture_s": sum(c["seconds"] for c in eng.captures),
+           "captures": len(eng.captures), "graphs": eng.use_graphs}
+    eng.close()
+    return res
+
+
+def _first_step_logits(eng, prompts):
+    """Every rank (SPMD): its rows of ``prompts`` prefilled but the last
+    token, whose decode step runs as a captured graph (with the tensor
+    axis's collectives, under NCCL); the step's float32 logits of the whole
+    vocabulary, gathered over the data ranks."""
+    lo, hi = eng._local(prompts.shape[0])
+    cache = eng.init_cache(prompts.shape[0], prompts.shape[1])
+    with torch.inference_mode():
+        toks = torch.from_numpy(prompts[lo:hi]).to(eng.device).long()
+        eng.module(toks[:, :-1], decode=True, cache=cache)
+        step_in, out = toks[:, -1:].clone(), None
+        index, position = cache.cache_index.clone(), cache.position.clone()
+        stream = torch.cuda.Stream(eng.device)
+        stream.wait_stream(torch.cuda.current_stream(eng.device))
+        with torch.cuda.stream(stream):
+            out = eng._full_logits(eng.module(step_in, decode=True, cache=cache))
+        torch.cuda.current_stream(eng.device).wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = eng._full_logits(eng.module(step_in, decode=True, cache=cache))
+        cache.cache_index.copy_(index)
+        cache.position.copy_(position)
+        graph.replay()
+        return eng._gather_rows(out.clone()).cpu()
+
+
+def serve_mesh_worker_main(argv) -> int:
+    """One rank of 12j (JOB "card") or of the four-card serving run (JOB
+    "cluster"); see the section's comment."""
+    from distributed_tensorflow_tpu_torch import cluster
+    from distributed_tensorflow_tpu_torch.cluster.topology import MeshConfig, build_mesh
+    from distributed_tensorflow_tpu_torch.models import gpt2 as tgpt2
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+    from distributed_tensorflow_tpu_torch.serve import ServeEngine
+    from distributed_tensorflow_tpu_torch.serve import mesh as mesh_lib
+
+    out, job = Path(argv[0]), argv[1]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    server = cluster.Server.from_resolver(cluster.resolve(), device="cuda")
+    rank, world = server.runtime.rank, server.runtime.world_size
+    inputs = torch.load(out / "serve_mesh_inputs.pt", weights_only=False)
+    res = {"role": "worker", "rank": rank, "backend": torch.distributed.get_backend()}
+    try:
+        group = mesh_lib.side_group()
+        if job == "card":
+            meshes = {"data2": build_mesh(MeshConfig(data=2)),
+                      "tensor2": build_mesh(MeshConfig(data=1, tensor=2))}
+            tiny = tgpt2.GPT2Config.tiny(dtype=torch.float32)
+            for label, mesh in meshes.items():
+                t0 = time.perf_counter()
+                eng = ServeEngine("gpt2", device="cuda", mesh=mesh, config=tiny,
+                                  cuda_graphs=label == "data2")
+                eng.install_params(eng.shard_params(inputs["tiny"]))
+                res[f"tiny_{label}"] = mesh_lib.run(eng, group,
+                                                    lambda m: _tiny_serve(m, inputs)) or {}
+                res[f"tiny_{label}"].update(graphs=eng.use_graphs,
+                                            captures=len(eng.captures),
+                                            seconds=time.perf_counter() - t0)
+                eng.close()
+            res["medium_data2"] = _medium_serve(meshes["data2"])
+            res["gpt2_launches"] = dict(fa.LAUNCHES)
+            bert = ServeEngine("bert", device="cuda", mesh=meshes["data2"], seq_len=512,
+                               batch_size=32)
+            mesh_lib.run(bert, group, lambda m: m.classify_batch(inputs["bert"]))  # warm
+            torch.cuda.synchronize()
+            zero_launches(fa)
+
+            def classify(m):
+                t0 = time.perf_counter()
+                for _ in range(MESH_BERT_REPS):
+                    ids = m.classify_batch(inputs["bert"])
+                return {"ids": ids, "batch_s": (time.perf_counter() - t0) / MESH_BERT_REPS}
+
+            res["bert_data2"] = mesh_lib.run(bert, group, classify) or {}
+            torch.cuda.synchronize()
+            res["bert_data2"]["launches"] = dict(fa.LAUNCHES)
+        else:
+            configs = {"data4": MeshConfig(data=world), "data2_tensor2": MeshConfig(
+                data=world // 2, tensor=2)}
+            for label, config in configs.items():
+                mesh = build_mesh(config)
+                f32 = ServeEngine("gpt2", device="cuda", mesh=mesh, preset="medium",
+                                  config=tgpt2.GPT2Config.medium(dtype=torch.float32))
+                w = MESH_WITNESS
+                witness = mesh_lib.run(f32, group, lambda m: m.generate(
+                    inputs["witness"], w["new"]).tolist())
+                logits = _first_step_logits(f32, inputs["witness"])
+                if rank == 0:
+                    torch.save(logits, out / f"serve_mesh_{label}_logits.pt")
+                f32.close()
+                res[label] = {"witness": witness, **_medium_serve(mesh)}
+                bf16 = ServeEngine("gpt2", device="cuda", mesh=mesh, preset="medium")
+                res[label]["bf16_witness"] = mesh_lib.run(bf16, group, lambda m: m.generate(
+                    inputs["witness"], w["new"]).tolist())
+                bf16.close()
+        res["launches"] = dict(fa.LAUNCHES)
+    except Exception as e:  # noqa: BLE001 - reported to the parent, which raises
+        import traceback
+
+        print("WORKER_RAISED " + json.dumps({"time": time.time(), "type": type(e).__name__,
+                                             "message": f"{e}\n{traceback.format_exc()}"[
+                                                 -3000:]}), flush=True)
+        server.shutdown(barrier=False)
+        return 3
+    print("WORKER_RESULT " + json.dumps(res, default=float), flush=True)
+    server.shutdown()
+    return 0
+
+
+def _mesh_results(label, procs):
+    results = join_cluster(procs, MESH_DEADLINE_S)
+    for code, res, raised, text in results:
+        if code != 0 or res is None:
+            raise AssertionError(f"{label}: a rank exited {code}: "
+                                 f"{(raised or {}).get('message') or text[-3000:]}")
+    return [res for _, res, _, _ in results]
+
+
+def _medium_line(label, ranks, cards):
+    """Print (and check) a GPT-2 medium mesh run's figures."""
+    line = ranks[0]["line"]
+    per_rank = line["kv_hbm_bytes_per_rank"] / 2**20
+    whole = line["kv_hbm_bytes"] / 2**20
+    decode_us = line["mesh_send_us_by_program"].get("decode_slots")
+    print(f"[serve] {label}: {line['tokens_per_sec']:.1f} tokens/s ({line['tokens_generated']} "
+          f"tokens, {line['completed']} requests in {line['elapsed_s']:.3f} s; "
+          f"{line['tokens_per_sec'] / cards:.1f} a card over {cards} card(s)), TTFT p50 "
+          f"{line['ttft_p50_ms']:.1f} ms, TPOT p50 {line['tpot_p50_ms']:.2f} ms, occupancy "
+          f"{line['slot_occupancy']}; KV {per_rank:.1f} MiB a rank against one rank's "
+          f"{whole:.1f} ({per_rank / whole:.3f}); peak MiB a rank "
+          f"{[round(r['peak_mib']) for r in ranks]}; graphs {ranks[0]['graphs']}, "
+          f"{ranks[0]['captures']} captures in {ranks[0]['capture_s']:.2f} s a rank; the "
+          f"leader's sends {line['mesh_messages']} at {line['mesh_send_us_mean']} us, a "
+          f"decode step's {decode_us} us; compile_post_warmup {line['compile_post_warmup']}; "
+          f"checksum {line['tokens_checksum']}")
+    if line["compile_post_warmup"] != 0 or line["completed"] != line["requests"]:
+        raise AssertionError(f"{label}: compile_post_warmup {line['compile_post_warmup']}, "
+                             f"{line['completed']} of {line['requests']} completed")
+    if not per_rank <= 0.55 * whole:
+        raise AssertionError(f"{label}: a rank holds {per_rank:.1f} of {whole:.1f} MiB of KV")
+    return {"tokens_per_sec": line["tokens_per_sec"], "kv_mib_rank": per_rank,
+            "kv_mib_one_rank": whole, "peak_mib": [r["peak_mib"] for r in ranks],
+            "capture_s": ranks[0]["capture_s"], "send_us": line["mesh_send_us_mean"],
+            "decode_send_us": decode_us}
+
+
+def check_serving_mesh(fa, data_dir: Path):
+    """12j: two ranks sharing the card over gloo (``--serve_mesh_worker
+    OUT card``; not a scaling figure).  Tiny GPT-2 in float32 at data=2
+    (graphed, per-shard pool) and at tensor=2 (``cuda_graphs=False``):
+    greedy tokens of the fixed batch and of the continuous scheduler equal
+    to this process's one-rank card run.  GPT-2 medium bf16 at data=2 with
+    per-shard pools on the bench's continuous traffic: tokens/s, KV MiB a
+    rank against one rank's (<= 0.55x), peak MiB a rank,
+    ``compile_post_warmup`` 0, no flash launch.  BERT-base classify (seq
+    512, 32 rows) at data=2: 12 flash forwards a batch a rank, class ids
+    equal to one process classifying each rank's rows.  Returns (results,
+    launches by path)."""
+    import numpy as np
+
+    from distributed_tensorflow_tpu_torch.models import gpt2 as tgpt2
+    from distributed_tensorflow_tpu_torch.serve import ServeEngine
+
+    t0 = time.perf_counter()
+    out = data_dir / "serve_mesh"
+    out.mkdir(parents=True, exist_ok=True)
+    bert = ServeEngine("bert", device="cuda", seq_len=512, batch_size=32)
+    inputs = _mesh_inputs(out, bert)
+    gc.collect()
+    torch.cuda.empty_cache()
+    procs = spawn_cluster(out, "card", [("worker", 0), ("worker", 1)],
+                          {"worker": ["card"]}, mode="--serve_mesh_worker")
+    r0, r1 = _mesh_results("12j", procs)
+    where = {"gloo": "sharing ONE card over gloo: not a scaling figure",
+             "nccl": "a card each, NCCL"}[r0["backend"]]
+    # This process's one-rank card runs on the same inputs, after the ranks.
+    one = ServeEngine("gpt2", device="cuda", config=tgpt2.GPT2Config.tiny(dtype=torch.float32))
+    one.install_params(one.shard_params(inputs["tiny"]))
+    want = _tiny_serve(one, inputs)
+    one.close()
+    for label in ("data2", "tensor2"):
+        got = r0[f"tiny_{label}"]
+        same = got["fixed"] == want["fixed"] and got["continuous"] == want["continuous"]
+        print(f"[serve] 12j tiny GPT-2 float32 at {label} ({where}; graphs {got['graphs']}, "
+              f"{got['captures']} slot captures): fixed batch {len(got['fixed'])} rows and "
+              f"continuous {len(got['continuous'])} requests ({got['shards']:.0f} pool "
+              f"shard(s)) equal to one rank's: {same}; leader's sends "
+              f"{json.dumps({k: round(v['send_us_mean'], 1) for k, v in got['messages'].items()})}"
+              f" us; {got['seconds']:.1f} s")
+        if not same:
+            raise AssertionError(f"12j tiny GPT-2 at {label}: tokens differ from one rank's")
+    if r0["tiny_data2"]["graphs"] is not True or r0["tiny_tensor2"]["graphs"] is not False:
+        raise AssertionError("12j: data=2 must capture its steps, tensor=2 over gloo must not")
+    medium = _medium_line(f"12j GPT-2 medium bf16 data=2, per-shard pools ({where})",
+                          [r0["medium_data2"], r1["medium_data2"]], 1)
+    for r in (r0, r1):
+        assert_no_flash(f"12j GPT-2 (rank {r['rank']})", r["gpt2_launches"])
+    # BERT-base: one process classifies each rank's 16 rows (the ranks'
+    # shapes), and the whole batch (agreement printed).
+    stacked = {k: np.stack([e[k] for e in inputs["bert"]]) for k in inputs["bert"][0]}
+    halves = [bert.classify({k: v[h * 16:(h + 1) * 16] for k, v in stacked.items()})
+              for h in (0, 1)]
+    want_ids = [int(i) for i in np.concatenate(halves).argmax(-1)]
+    whole_ids = [int(i) for i in bert.classify(stacked).argmax(-1)]
+    bert.close()
+    got = r0["bert_data2"]
+    launches = [r["bert_data2"]["launches"] for r in (r0, r1)]
+    print(f"[serve] 12j BERT-base classify data=2 ({where}): {32 / got['batch_s']:.1f} examples/s "
+          f"({1e3 * got['batch_s']:.2f} ms a batch of 32); flash launches a rank in "
+          f"{MESH_BERT_REPS} batches {[l['flash_fwd'] for l in launches]}; ids equal to one "
+          f"process on the ranks' rows: {got['ids'] == want_ids}; on the whole batch "
+          f"{np.mean(np.asarray(got['ids']) == np.asarray(whole_ids)):.1%}")
+    if got["ids"] != want_ids:
+        raise AssertionError("12j BERT-base: class ids differ from one process's")
+    for n in launches:
+        if n["flash_fwd"] != 12 * MESH_BERT_REPS or any(n[k] for k in BACKWARD):
+            raise AssertionError(f"12j BERT-base: expected 12 forwards a batch a rank, got {n}")
+    print(f"[phase] 12j serving on a mesh: {time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(out, ignore_errors=True)
+    summed = {k: launches[0][k] + launches[1][k] for k in launches[0]}
+    return {"medium": medium, "bert": got}, {"bert_classify_data2": summed,
+                                             "gpt2_serve_mesh_data2": {
+                                                 k: 0 for k in launches[0]}}
+
+
+def check_serving_mesh_cluster(data_dir: Path):
+    """``--cluster_only serving_mesh`` on four cards (NCCL, a card a rank):
+    GPT-2 medium at data=4 and at data=2 x tensor=2, graphed (the second's
+    decode graphs capture the tensor axis's NCCL all-reduces and the head's
+    gather).  Each: a float32 witness (8 prompts of 32, 16 new tokens)
+    equal to one card's greedy tokens, and its first decode step's logits,
+    run as a captured graph on every rank, within MESH_LOGITS_RTOL of one
+    card's; in bf16 the witness's token agreement with one card, and the
+    bench's continuous traffic with per-shard pools: tokens/s a card, KV
+    and peak MiB a rank, the graphs' capture seconds and the leader's
+    sends."""
+    import numpy as np
+
+    from distributed_tensorflow_tpu_torch.models import gpt2 as tgpt2
+    from distributed_tensorflow_tpu_torch.serve import ServeEngine
+
+    t0 = time.perf_counter()
+    out = data_dir / "serve_mesh"
+    out.mkdir(parents=True, exist_ok=True)
+    inputs = _mesh_inputs(out)
+    procs = spawn_cluster(out, "cluster", [("worker", i) for i in range(4)],
+                          {"worker": ["cluster"]}, mode="--serve_mesh_worker")
+    ranks = _mesh_results("serving_mesh", procs)
+    if ranks[0]["backend"] != "nccl":
+        raise AssertionError(f"serving_mesh: backend {ranks[0]['backend']}, expected NCCL")
+    w = MESH_WITNESS
+    want, want_bf16 = {}, {}
+    for dtype, dst in ((torch.float32, want), (torch.bfloat16, want_bf16)):
+        one = ServeEngine("gpt2", device="cuda", preset="medium",
+                          config=tgpt2.GPT2Config.medium(dtype=dtype))
+        dst["tokens"] = one.generate(inputs["witness"], w["new"]).tolist()
+        if dtype == torch.float32:
+            dst["logits"] = _first_step_logits(one, inputs["witness"])
+        one.close()
+        gc.collect()
+        torch.cuda.empty_cache()
+    summary = {}
+    for label in ("data4", "data2_tensor2"):
+        got = ranks[0][label]
+        logits = torch.load(out / f"serve_mesh_{label}_logits.pt")
+        scale = float(want["logits"].abs().max())
+        rel = float((logits - want["logits"]).abs().max()) / scale
+        agree = float(np.mean(np.asarray(got["bf16_witness"]) == np.asarray(want_bf16["tokens"])))
+        print(f"[serve] serving_mesh {label} (NCCL, a card a rank): float32 witness tokens equal "
+              f"to one card's: {got['witness'] == want['tokens']}; first decode step's logits "
+              f"(a captured graph on every rank) {rel:.3e} of max |logit| {scale:.3f} "
+              f"(tolerance {MESH_LOGITS_RTOL}); bf16 witness token agreement with one card "
+              f"{agree:.1%}")
+        if got["witness"] != want["tokens"] or not rel <= MESH_LOGITS_RTOL:
+            raise AssertionError(f"serving_mesh {label}: the float32 witness differs from one "
+                                 f"card's")
+        summary[label] = _medium_line(f"serving_mesh GPT-2 medium bf16 {label}",
+                                      [r[label] for r in ranks], 4)
+        summary[label].update(logits_rel=rel, bf16_agreement=agree)
+    for r in ranks:
+        assert_no_flash(f"serving_mesh (rank {r['rank']})", r["launches"])
+    shutil.rmtree(out, ignore_errors=True)
+    print(f"[phase] serving_mesh (four cards): {time.perf_counter() - t0:.1f} s")
+    return summary
+
+
 def host_load() -> str:
     """The host's 1-minute load average and the processes this script
     started that still run (children by their parent id in /proc): a busy
@@ -5007,7 +5476,7 @@ def host_load() -> str:
 
 
 def check_serving(fa, data_dir: Path):
-    """Phase 12 in order (12a-12i); returns (its results, launches by path)."""
+    """Phase 12 in order (12a-12j); returns (its results, launches by path)."""
     t0 = time.perf_counter()
     print(f"[serve] host: {host_load()}")
     check_tiny_decode()
@@ -5026,9 +5495,11 @@ def check_serving(fa, data_dir: Path):
     by_path.update(b2_paths)
     part_c, c_paths = check_serving_c(fa, data_dir)
     by_path.update(c_paths)
+    mesh, mesh_paths = check_serving_mesh(fa, data_dir)
+    by_path.update(mesh_paths)
     print(f"[phase] 12 serving: {time.perf_counter() - t0:.1f} s")
     return {"medium": runs, "decode": decode, "classify": classify, "cli": cli,
-            "continuous": b1, "b2": b2, "part_c": part_c}, by_path
+            "continuous": b1, "b2": b2, "part_c": part_c, "mesh": mesh}, by_path
 
 
 def main() -> int:
@@ -5117,17 +5588,27 @@ def main() -> int:
         t_cluster = time.perf_counter()
         gc.collect()
         torch.cuda.empty_cache()
-        other_runs.update({label: {"launches": n} for label, n in {
-            **check_observability(fa, data_dir), **check_two_workers(data_dir),
-            **check_preemption(data_dir)}.items()})
-        check_health(data_dir)
+        paths = {**check_observability(fa, data_dir), **check_two_workers(data_dir)}
+        # 8d's SIGKILL pair runs beside 8c's workers: independent clusters.
+        health = Background(check_health, data_dir)
+        try:
+            paths.update(check_preemption(data_dir))
+        finally:
+            health.result()  # its pair is reaped whatever 8c did
+        other_runs.update({label: {"launches": n} for label, n in paths.items()})
         print(f"[phase] multi-worker phases: {time.perf_counter() - t_cluster:.1f} s")
         # Phase 9: the TF-compat surface and the data service.
         t_compat = time.perf_counter()
         paths, fit_rate = check_fit(fa, other_runs["ResNet-50"])
         session_paths, session_rate = check_session(fa)
         paths.update(session_paths)
-        paths.update(check_strategies(fa, data_dir))
+        # The PS launcher's processes run beside 9c's (no figure of either
+        # is a rate).
+        launcher = Background(check_launcher)
+        try:
+            paths.update(check_strategies(fa, data_dir))
+        finally:
+            paths["tf1_ps_launcher"] = launcher.result()
         service_paths, service_runs = check_data_service(fa, data_dir,
                                                          other_runs["ResNet-50 records"])
         paths.update(service_paths)
@@ -5196,8 +5677,10 @@ def main() -> int:
 
 
 # --cluster_only labels any card runs ("serving_b2" and "serving_c": phase 12h or 12i
-# alone, no kernel build)
-ONE_CARD_LABELS = ("two_workers", "phase11", "serving", "serving_b2", "serving_c")
+# alone, no kernel build; "serving_12j": 12j alone, after the kernels' build)
+ONE_CARD_LABELS = ("two_workers", "phase11", "serving", "serving_b2", "serving_c",
+                   "serving_12j")
+FOUR_CARD_SERVING = "serving_mesh"  # the four-card serving run (check_serving_mesh_cluster)
 
 
 def cluster_main(labels) -> int:
@@ -5211,7 +5694,7 @@ def cluster_main(labels) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only", file=sys.stderr)
         return 2
-    unknown = (set(labels) - {c[0] for c in CLUSTER_CONFIGS} - {"nccl_abort"}
+    unknown = (set(labels) - {c[0] for c in CLUSTER_CONFIGS} - {"nccl_abort", FOUR_CARD_SERVING}
                - set(ONE_CARD_LABELS))
     if unknown:
         raise SystemExit(f"chip_smoke: unknown --cluster_only labels {sorted(unknown)}")
@@ -5251,13 +5734,26 @@ def cluster_main(labels) -> int:
             data_dir.mkdir(parents=True, exist_ok=True)
             _, by_path = check_serving_c(fa, data_dir)
             print(f"[serve] launches by path {json.dumps(by_path)}")
+        if "serving_12j" in labels:
+            from distributed_tensorflow_tpu_torch.ops import _build
+            from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+
+            secs, _ = _build.build_all(verbose=True)
+            print(f"[build] nvcc {' '.join(_build.NVCC_FLAGS)}: {secs:.1f} s")
+            data_dir.mkdir(parents=True, exist_ok=True)
+            _, by_path = check_serving_mesh(fa, data_dir)
+            print(f"[serve] launches by path {json.dumps(by_path)}")
         if torch.cuda.device_count() >= 4 and (four or not labels):
             par_dir.mkdir(parents=True, exist_ok=True)
-            if not four or set(four) - {"nccl_abort"}:
-                summary = check_cluster_parallel(par_dir, four)
+            if not four or set(four) - {"nccl_abort", FOUR_CARD_SERVING}:
+                summary = check_cluster_parallel(
+                    par_dir, [x for x in four if x != FOUR_CARD_SERVING])
                 print(f"[cluster] summary {json.dumps(summary)}")
             if not four or "nccl_abort" in four:
                 check_nccl_abort(data_dir)
+            if not four or FOUR_CARD_SERVING in four:
+                summary = check_serving_mesh_cluster(data_dir)
+                print(f"[serve] serving_mesh summary {json.dumps(summary)}")
         elif four:
             raise AssertionError(f"{four} need four cards, found {torch.cuda.device_count()}")
     finally:
@@ -5278,6 +5774,8 @@ if __name__ == "__main__":
         sys.exit(launcher_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--parallel_worker"]:
         sys.exit(parallel_worker_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--serve_mesh_worker"]:
+        sys.exit(serve_mesh_worker_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--cluster_only"]:
         sys.exit(cluster_main(sys.argv[2:]))
     sys.exit(main())

@@ -42,8 +42,9 @@ part C's ``fleet`` (the continuous traffic over 2 replicas: ``fleet_speedup``,
 dispatch and shed), ``streaming`` (streamed tokens against the whole
 response, mid-decode cancels that stream nothing more and return every
 block; TTFB) and ``loadgen`` (the open-loop goodput A/B with the lifecycle
-recorder; its overhead bound).  The prefix arm's per-shard pool keys come
-with serving on a mesh and are absent.
+recorder; its overhead bound).  The prefix arm also runs the per-shard
+pool (``per_shard_kv``, one shard on one rank) whole and chunked:
+``chunked_pershard_parity``.
 """
 
 from __future__ import annotations
@@ -241,6 +242,9 @@ def serve_configs(on_gpu: bool, serve_requests: int = 0, checkpoint_dir=None,
         "paged_int8": dataclasses.replace(paged, kv_dtype="int8"),
         "prefix_cold": prefix_cold, "prefix_warm": prefix_warm,
         "chunked_prefix": dataclasses.replace(prefix_warm, prefill_budget=64 if on_gpu else 16),
+        "pershard": dataclasses.replace(paged, num_blocks=0, per_shard_kv=True),
+        "pershard_chunked": dataclasses.replace(paged, num_blocks=0, per_shard_kv=True,
+                                                prefill_budget=64 if on_gpu else 16),
         "chunk_base": chunk_base,
         "chunked": dataclasses.replace(chunk_base, prefill_budget=budget),
         "sampling_mixed": dataclasses.replace(
@@ -829,6 +833,8 @@ def _serve_bench(flags, device):
             cold = run_serve(cfg["prefix_cold"], engine=engine)
             warm = run_serve(cfg["prefix_warm"], engine=engine)
             chunked_prefix = run_serve(cfg["chunked_prefix"], engine=engine)
+            pershard = run_serve(cfg["pershard"], engine=engine)
+            pershard_chunked = run_serve(cfg["pershard_chunked"], engine=engine)
             spec_prefix = run_serve(cfg["spec_prefix"], engine=engine)
             out.update({
                 "spec_prefix_parity": spec_prefix["tokens_checksum"] == warm["tokens_checksum"],
@@ -843,6 +849,8 @@ def _serve_bench(flags, device):
                                           == warm["tokens_checksum"]),
                 "chunked_prefix_skip_parity": (chunked_prefix["prefill_tokens_skipped"]
                                                == warm["prefill_tokens_skipped"]),
+                "chunked_pershard_parity": (pershard_chunked["tokens_checksum"]
+                                            == pershard["tokens_checksum"]),
             })
         if "sampling" in arms:
             mixed = run_serve(cfg["sampling_mixed"], engine=engine)

@@ -107,6 +107,7 @@ from distributed_tensorflow_tpu_torch.models.layers import (
     vocab_parallel_ce,
 )
 from distributed_tensorflow_tpu_torch.ops.flash_attention import flash_attention
+from distributed_tensorflow_tpu_torch.parallel.collectives import pmax
 from distributed_tensorflow_tpu_torch.parallel.pipeline import auto_microbatches, run_schedule
 from distributed_tensorflow_tpu_torch.parallel.ring_attention import ring_attention
 from distributed_tensorflow_tpu_torch.parallel.sharding import (
@@ -338,13 +339,16 @@ class PagedKVConfig:
         return shard * self.blocks_per_shard
 
 
-def _quantize_kv_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _quantize_kv_int8(x: torch.Tensor, mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-token int8 of (..., h, hd) K or V: one float32 scale a
     (row, position), shared across heads (the max |x| over the heads and
-    head dims over 127, at least 1e-8), values rounded half to even and
-    clipped to [-127, 127]."""
+    head dims over 127, at least 1e-8; over every rank's heads on a tensor
+    mesh), values rounded half to even and clipped to [-127, 127]."""
     xf = x.float()
-    scale = (xf.abs().amax(dim=(-2, -1)) / 127.0).clamp_min(1e-8)
+    amax = xf.abs().amax(dim=(-2, -1))
+    if _axis(mesh, "tensor") > 1:
+        amax = pmax(amax, mesh, "tensor")
+    scale = (amax / 127.0).clamp_min(1e-8)
     q = torch.round(xf / scale[..., None, None]).clamp(-127, 127)
     return q.to(torch.int8), scale
 
@@ -413,16 +417,18 @@ def _check_slot_geometry(cfg: "GPT2Config", mesh, num_slots: int, total_len: int
     return gpt2_cache_rules(cfg, mesh, num_slots, total_len)
 
 
-def _slot_indices(cfg: "GPT2Config", num_slots: int, device):
-    return (torch.zeros(cfg.n_layer, num_slots, dtype=torch.int32, device=device),
-            torch.zeros(num_slots, dtype=torch.int32, device=device))
+def _slot_indices(cfg: "GPT2Config", rows: int, device):
+    return (torch.zeros(cfg.n_layer, rows, dtype=torch.int32, device=device),
+            torch.zeros(rows, dtype=torch.int32, device=device))
 
 
 def init_slot_cache(cfg: "GPT2Config", mesh, num_slots: int, total_len: int, *,
                     device=None) -> SlotCache:
-    """A zeroed ``SlotCache`` of ``num_slots`` rows of ``total_len`` positions."""
+    """A zeroed ``SlotCache`` of ``num_slots`` rows of ``total_len``
+    positions: on a mesh this rank's rows (the slots ``[r*n/dp,
+    (r+1)*n/dp)`` of its coordinate ``r`` over data x fsdp) and heads."""
     shape = _check_slot_geometry(cfg, mesh, num_slots, total_len)
-    index, position = _slot_indices(cfg, num_slots, device)
+    index, position = _slot_indices(cfg, shape[0], device)
     return SlotCache(
         keys=[torch.zeros(shape, dtype=cfg.dtype, device=device) for _ in range(cfg.n_layer)],
         values=[torch.zeros(shape, dtype=cfg.dtype, device=device) for _ in range(cfg.n_layer)],
@@ -432,13 +438,22 @@ def init_slot_cache(cfg: "GPT2Config", mesh, num_slots: int, total_len: int, *,
 def init_paged_cache(cfg: "GPT2Config", mesh, num_slots: int, total_len: int,
                      paged: PagedKVConfig, *, device=None) -> PagedCache:
     """A zeroed ``PagedCache`` of ``paged``'s pools for ``num_slots`` slots
-    of up to ``total_len`` positions."""
-    _, _, h, hd = _check_slot_geometry(cfg, mesh, num_slots, total_len)
-    shape = (paged.num_blocks, paged.block_size, h, hd)
+    of up to ``total_len`` positions, this rank's rows and heads.  Per-shard
+    pools (``paged.data_shards > 1``, equal to the data x fsdp extent) hold
+    only this rank's shard, ``blocks_per_shard`` blocks whose local block 0
+    is the shard's trash block (the reference's ``gpt2_cache_rules(
+    per_shard_pools=True)``); otherwise every rank holds the whole pool."""
+    rows, _, h, hd = _check_slot_geometry(cfg, mesh, num_slots, total_len)
+    dp = _axis(mesh, "data") * _axis(mesh, "fsdp")
+    if paged.data_shards > 1 and paged.data_shards != dp:
+        raise ValueError(f"paged.data_shards {paged.data_shards} must equal the mesh's "
+                         f"data-parallel extent {dp} (each data shard owns its own block pool)")
+    blocks = paged.blocks_per_shard if paged.data_shards > 1 else paged.num_blocks
+    shape = (blocks, paged.block_size, h, hd)
     store = paged.storage_dtype(cfg.dtype)
     scales = (lambda: [torch.zeros(shape[:2], dtype=torch.float32, device=device)
                        for _ in range(cfg.n_layer)]) if paged.quantized else list
-    index, position = _slot_indices(cfg, num_slots, device)
+    index, position = _slot_indices(cfg, rows, device)
     return PagedCache(
         keys=[torch.zeros(shape, dtype=store, device=device) for _ in range(cfg.n_layer)],
         values=[torch.zeros(shape, dtype=store, device=device) for _ in range(cfg.n_layer)],
@@ -567,8 +582,11 @@ class Block(nn.Module):
         """The reference's ``_paged_cached_attention``: the call's K/V
         scattered into the blocks that own each (row, position), one write a
         (row, token) (offsets are unique within a call because slot ids
-        are; an unallocated table entry points at trash block 0), int8
-        quantised per token with its scale beside it; then each row's whole
+        are; the table is in this rank's block ids, and an unallocated
+        entry points at its shard's trash block, local block 0), int8
+        quantised per token with its scale beside it (the max over every
+        head: on a tensor mesh reduced over ``tensor``, as the reference's
+        amax over its sharded heads); then each row's whole
         table row gathered into a contiguous (max_blocks * block_size, h,
         hd) view, dequantised or cast to ``cfg.dtype``, for the dense slot
         path's masked softmax.  A prefix-cached suffix or a chunk starts at
@@ -586,8 +604,8 @@ class Block(nn.Module):
         pb = rows_bt.gather(1, torch.div(pos, bs, rounding_mode="floor").clamp(max=max_blk - 1))
         where = (pb.reshape(-1), (pos % bs).reshape(-1))
         if pg.quantized:
-            kq, k_scale = _quantize_kv_int8(k)
-            vq, v_scale = _quantize_kv_int8(v)
+            kq, k_scale = _quantize_kv_int8(k, self.mesh)
+            vq, v_scale = _quantize_kv_int8(v, self.mesh)
             pool_k.index_put_(where, kq.reshape(B * T, h, hd))
             pool_v.index_put_(where, vq.reshape(B * T, h, hd))
             cache.key_scales[self.layer].index_put_(where, k_scale.reshape(-1))

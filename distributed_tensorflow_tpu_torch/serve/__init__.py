@@ -1,7 +1,8 @@
 """Serving of the PyTorch port: the fixed batch, the continuous scheduler,
 the fleet, the gateway and the load generator.
 
-Port of ``distributed_tensorflow_tpu/serve/`` on one card:
+Port of ``distributed_tensorflow_tpu/serve/``, on one card or a mesh of
+processes:
 
 - ``engine``: restore, this rank's parameters, GPT-2 KV-cache decode with a
   CUDA graph per decode family, the continuous scheduler's slot programs
@@ -21,14 +22,20 @@ Port of ``distributed_tensorflow_tpu/serve/`` on one card:
 - ``batcher``: request coalescing, bucketed shapes, backpressure
   (``DynamicBatcher`` / ``ServeOverloadedError``, a copy);
 - ``sampling``: per-request sampling parameters as vectors (a copy);
+- ``mesh``: serving on a mesh of processes: rank 0 drives its engine
+  through ``MeshEngine``, which sends each engine call to the other ranks
+  (``follow``) over a gloo side group;
 - ``driver``: the in-process request loop behind ``python -m
   distributed_tensorflow_tpu_torch.serve`` and the bench's
   ``--mode=serve`` (``run_serve`` / ``ServeArgs``);
 - ``obs.serve.ServeMonitorHook`` exports the batcher's and the scheduler's
   counters, ``obs.lifecycle`` the per-request phases.
 
-Serving on a mesh (per-shard KV pools, the decode graphs over NCCL) comes
-with a later slice.
+On a mesh the engine, the fixed batch, classify and the continuous
+scheduler (dense, paged, per-shard pools, prefix caching, chunked prefill)
+run over data x fsdp x tensor ranks; the megastep, async decode,
+speculative decoding, SLO scheduling, hot reload and part C's fleet,
+gateway and load generator run on one rank (serving on a mesh, part D2).
 """
 
 from distributed_tensorflow_tpu_torch.serve.batcher import DynamicBatcher, ServeOverloadedError

@@ -4,7 +4,14 @@ The counterpart of the reference's root ``serve.py``: an in-process
 request loop (synthetic clients -> ``DynamicBatcher`` -> ``ServeEngine``)
 that prints ONE JSON line of serve metrics (tokens/sec, latency
 percentiles, occupancy).  It takes the reference's flags plus
-``--device``; those of serving on a mesh raise, naming the slice.
+``--device``.  On a mesh, run one process a rank under ``TF_CONFIG``
+(``--data=-1`` absorbs the ranks ``--fsdp`` and ``--tensor`` leave); rank
+0 prints the line:
+
+    TF_CONFIG='{"cluster": {"worker": ["localhost:2222", "localhost:2223"]},
+                "task": {"type": "worker", "index": 0}}' \
+        python -m distributed_tensorflow_tpu_torch.serve --data=2 --continuous \
+        --cache_mode=paged --per_shard_kv      # and index 1 in a second process
 
     python -m distributed_tensorflow_tpu_torch.serve                 # GPT-2 medium on the card
     python -m distributed_tensorflow_tpu_torch.serve --device=cpu --model=gpt2 --preset=tiny
@@ -35,7 +42,7 @@ import logging
 import signal
 import threading
 
-from distributed_tensorflow_tpu_torch.serve.driver import ServeArgs, later_flags, run_serve
+from distributed_tensorflow_tpu_torch.serve.driver import ServeArgs, run_serve
 
 
 def _megastep_arg(value):
@@ -105,6 +112,9 @@ def parse_args(argv=None) -> ServeArgs:
     cont.add_argument("--kv_dtype", default=d.kv_dtype,
                       help="paged storage dtype: '' = the compute dtype, int8, or a torch "
                            "dtype name")
+    cont.add_argument("--per_shard_kv", action="store_true",
+                      help="split the paged pool over the data x fsdp ranks, each rank "
+                           "holding its shard (paged)")
     cont.add_argument("--prefix_cache", action="store_true",
                       help="map shared full prompt blocks from cache (paged)")
     cont.add_argument("--prefill_budget", type=int, default=d.prefill_budget,
@@ -158,14 +168,6 @@ def parse_args(argv=None) -> ServeArgs:
                              "'poisson:n=64', 'diurnal:n=64,rate=12', 'burst:n=64' ('' = off)")
     part_c.add_argument("--arrival_rate", type=float, default=d.arrival_rate,
                         help="mean arrivals a second of a --loadgen_trace without rate=")
-    # Flags of later serving slices: parsed, then refused by run_serve,
-    # naming the slice.
-    later = p.add_argument_group("serving on a mesh (refused, naming the slice)")
-    for flag, (default, where) in later_flags().items():
-        if isinstance(default, bool):
-            later.add_argument(f"--{flag}", action="store_true", help=where)
-        else:
-            later.add_argument(f"--{flag}", type=type(default), default=default, help=where)
     return ServeArgs(**vars(p.parse_args(argv)))
 
 
@@ -189,7 +191,8 @@ def main(argv=None):
     finally:
         if previous is not None:
             signal.signal(signal.SIGTERM, previous)
-    print(json.dumps(result))
+    if result is not None:  # a follower rank of a mesh returns None
+        print(json.dumps(result))
     return result
 
 

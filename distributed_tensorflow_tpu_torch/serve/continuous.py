@@ -1,7 +1,6 @@
 """Continuous batching of the PyTorch port: Orca-style iteration-level decode scheduling.
 
-Port of ``distributed_tensorflow_tpu/serve/continuous.py`` less per-shard
-pools (``per_shard_kv`` raises, naming serving on a mesh).  The
+Port of ``distributed_tensorflow_tpu/serve/continuous.py``.  The
 fixed-batch path (``ServeEngine.generate`` behind ``DynamicBatcher``)
 batches at request granularity: every row of a flushed batch decodes the
 whole shared horizon.  ``ContinuousScheduler`` re-forms the batch every
@@ -35,6 +34,20 @@ decode step instead (Yu et al., OSDI 2022):
   cached prompt prefix is mapped into its block table (refcounted shares,
   chained block hashes) and prefill starts at the first uncached block; a
   generation install drops every key.
+- PER-SHARD KV POOLS (``per_shard_kv=True``, paged): the block pool splits
+  over the mesh's data x fsdp ranks, ``shards = max(1, data_parallelism)``
+  (one shard, the classic pool, on one rank).  The allocator partitions the
+  block ids contiguously per shard, each with its own trash block; slot
+  ``s`` is pinned to shard ``s * shards // num_slots``, the rank that holds
+  its rows, so its table row only names blocks that rank holds; admission
+  picks the free slot whose shard has the most headroom; prefix caching
+  keys one map a shard.  ``num_blocks`` rounds up to a multiple of the
+  shard count.
+- ON A MULTI-RANK MESH the scheduler runs on the leader over
+  ``serve.mesh.MeshEngine``, which sends each engine call to every rank;
+  part B2's megastep, async decode, speculative decoding and SLO
+  scheduling, and a hot reload, are refused there (serving on a mesh,
+  part D2).
 - CHUNKED PREFILL (``prefill_budget > 0``): at most that many prompt tokens
   are prefilled an iteration, one ``min(remaining, budget)`` chunk a slot,
   new requests first with an aging bound (``_PREFILL_AGE_LIMIT``); only the
@@ -388,12 +401,17 @@ class ContinuousScheduler:
         if cfg is None:
             raise ValueError("ContinuousScheduler serves the KV-cache decode path; "
                              f"model {engine.model!r} has no decode cache")
-        if per_shard_kv:
-            raise NotImplementedError("per_shard_kv comes with serving on a mesh (a later "
-                                      "serving slice); the port keeps one pool")
         if engine.mesh.size > 1:
-            raise NotImplementedError("the continuous scheduler on a multi-rank mesh comes with "
-                                      "serving on a mesh (a later serving slice)")
+            for flag, used in (("megastep", megastep != 1), ("async_decode", async_decode),
+                               ("spec_k", spec_k is not None),
+                               ("slo_scheduling", slo_scheduling)):
+                if used:
+                    raise NotImplementedError(
+                        f"{flag} on a multi-rank mesh comes with serving on a mesh, part D2; "
+                        "it runs on one rank")
+        if per_shard_kv and cache_mode != "paged":
+            raise ValueError("per_shard_kv partitions the paged block pool — it requires "
+                             "cache_mode='paged'")
         if cache_mode not in ("dense", "paged"):
             raise ValueError(f"cache_mode must be 'dense' or 'paged', got {cache_mode!r}")
         if cache_mode == "dense" and kv_dtype is not None:
@@ -469,27 +487,44 @@ class ContinuousScheduler:
         # in the slot's own row (dense, where a write near the end would
         # otherwise clamp back over live K/V) or on trash table entries.
         slot_len = self.max_total_len + self.spec_k
+        shards = 1
         if cache_mode == "paged":
             from distributed_tensorflow_tpu_torch.models.gpt2 import PagedKVConfig
 
+            if per_shard_kv:
+                shards = max(1, engine.data_parallelism)
             per_slot = -(-slot_len // self.block_size)
             if num_blocks is None:
-                # Full capacity (every slot at max length) plus the trash block.
-                num_blocks = self.num_slots * per_slot + 1
+                # Full capacity (every slot at max length) plus the trash
+                # block of each shard.
+                num_blocks = self.num_slots * per_slot + shards
+            else:
+                # Per-shard pools split the ids evenly: round up to a
+                # multiple of the shard count.
+                num_blocks = -(-int(num_blocks) // shards) * shards
             self.paged: Optional[PagedKVConfig] = PagedKVConfig(
-                block_size=self.block_size, num_blocks=int(num_blocks), kv_dtype=kv_dtype)
+                block_size=self.block_size, num_blocks=int(num_blocks), kv_dtype=kv_dtype,
+                data_shards=shards)
             self._cache = engine.init_paged_cache(self.num_slots, slot_len, paged=self.paged)
             self._allocator: Optional[BlockAllocator] = BlockAllocator(
-                self.paged.num_blocks, self.block_size)
+                self.paged.num_blocks, self.block_size, num_shards=shards)
+            # Slot -> data shard: contiguous ranges, as the engine splits
+            # the slot rows over the ranks, so a slot's rows and its blocks
+            # live on one rank.
+            self._slot_shard = [s * shards // self.num_slots for s in range(self.num_slots)]
             # Host-owned logical -> physical map, one row a slot; rows (and
-            # entries past a slot's allocation) point at the trash block.
+            # entries past a slot's allocation) point at the slot's shard's
+            # trash block (block 0 with one shard).
             self._block_tables = np.zeros((self.num_slots, per_slot), np.int32)
+            for slot, shard in enumerate(self._slot_shard):
+                self._block_tables[slot, :] = self._allocator.trash_block(shard)
             self._slot_blocks: Dict[int, List[int]] = {s: [] for s in range(self.num_slots)}
         else:
             self.paged = None
             self._allocator = None
             self._block_tables = None
             self._slot_blocks = {}
+            self._slot_shard = [0] * self.num_slots
             self._cache = engine.init_slot_cache(self.num_slots, slot_len)
         # Per-slot emitted-token counts (the penalties' state), resident
         # beside the cache and rebound from every slot launch's return.
@@ -513,7 +548,7 @@ class ContinuousScheduler:
             self._tier_pool = HostKVPool(
                 engine, paged=self.paged, policy=SwapPolicy(swap_min_tokens=self.swap_min_tokens),
                 lifecycle=lifecycle)
-        self._reserved = 0  # paged: reserved-but-unallocated blocks
+        self._reserved_by_shard = [0] * shards  # paged: reserved-but-unallocated blocks
         self._blocks_per_request: collections.deque = collections.deque(maxlen=1024)
         self._blocks_hist: collections.Counter = collections.Counter()
         self._free: List[int] = list(range(self.num_slots))
@@ -744,7 +779,12 @@ class ContinuousScheduler:
         tensors, the serving parameters' names and shapes).  The loop
         installs it at the top of its next iteration: admitted requests
         keep decoding on the generation they pinned; every later admission
-        pins the new one.  Updates before the loop wakes coalesce."""
+        pins the new one.  Updates before the loop wakes coalesce.  Refused
+        on a multi-rank mesh (part D2): the pinned generations' copies would
+        live on the leader alone."""
+        if self.engine.mesh.size > 1:
+            raise NotImplementedError("a hot reload on a multi-rank mesh comes with serving on a "
+                                      "mesh, part D2")
         staged = _ParamGeneration(params=dict(params), generation=int(generation))
         with self._cond:
             if self._stopped:
@@ -1062,7 +1102,7 @@ class ContinuousScheduler:
                         # Reserve the worst case now, so a mid-decode boundary
                         # cross can always be served.
                         req.reserved_blocks = self.paged.blocks_for(req.max_written_tokens())
-                        self._reserved += req.reserved_blocks
+                        self._reserved_by_shard[self._slot_shard[req.slot]] += req.reserved_blocks
                     req.gen = self._gen
                     self._gen.refs += 1
                     admits.append(req)
@@ -1099,21 +1139,34 @@ class ContinuousScheduler:
                 self._autotune_eval()
         return False
 
+    @property
+    def _reserved(self) -> int:
+        """Reserved-but-unallocated blocks over every shard."""
+        return sum(self._reserved_by_shard)
+
     def _pick_slot_locked(self, req: _SlotRequest) -> Optional[int]:
         """Index into ``self._free`` of the slot to admit ``req`` into, or
-        None when the pool cannot cover its worst-case block footprint
-        beyond what is promised to in-flight requests (the head of line
-        waits: admission stays FIFO).  Slots are reused LIFO."""
+        None when no shard can cover its worst-case block footprint beyond
+        what is promised to in-flight requests there (the head of line
+        waits: admission stays FIFO).  Among the eligible slots the one
+        whose shard has the most headroom wins; with one shard (and dense)
+        slots are reused LIFO."""
         if not self._free:
             return None
         if self.paged is None:
             return len(self._free) - 1
         need = self.paged.blocks_for(req.max_written_tokens())
-        # Zero-ref prefix-cached blocks count as headroom: allocate() evicts
-        # them LRU-first.
-        headroom = (self._allocator.free_count_shard(0)
-                    + self._allocator.evictable_count_shard(0) - self._reserved)
-        return len(self._free) - 1 if headroom >= need else None
+        best, best_headroom = None, need - 1
+        for i in range(len(self._free) - 1, -1, -1):
+            shard = self._slot_shard[self._free[i]]
+            # Zero-ref prefix-cached blocks count as headroom: allocate()
+            # evicts them LRU-first.
+            headroom = (self._allocator.free_count_shard(shard)
+                        + self._allocator.evictable_count_shard(shard)
+                        - self._reserved_by_shard[shard])
+            if headroom > best_headroom:
+                best, best_headroom = i, headroom
+        return best
 
     # -- SLO scheduling: ranked admission + preempt/swap/resume ---------------
 
@@ -1200,7 +1253,8 @@ class ContinuousScheduler:
                     best.slot = self._free.pop(idx)
                     if self.paged is not None:
                         best.reserved_blocks = self.paged.blocks_for(best.max_written_tokens())
-                        self._reserved += best.reserved_blocks
+                        shard = self._slot_shard[best.slot]
+                        self._reserved_by_shard[shard] += best.reserved_blocks
                     best.gen = self._gen
                     self._gen.refs += 1
                     if from_parked:
@@ -1280,7 +1334,7 @@ class ContinuousScheduler:
         if blocks:
             self._allocator.free(blocks)
             self._slot_blocks[slot] = []
-        self._block_tables[slot, :] = self._allocator.trash_block(0)
+        self._block_tables[slot, :] = self._allocator.trash_block(self._slot_shard[slot])
         self._dev_block_tables = None  # host table reset
         self._fresh[slot] = False
         path = "swap" if swapped_bytes >= 0 else "recompute"
@@ -1292,7 +1346,7 @@ class ContinuousScheduler:
             self._lifecycle.record(req.rid, "PREEMPTED", path=path,
                                    swap_bytes=max(swapped_bytes, 0), tokens=len(req.tokens))
         with self._lock:
-            self._reserved -= req.reserved_blocks
+            self._reserved_by_shard[self._slot_shard[slot]] -= req.reserved_blocks
             req.reserved_blocks = 0
             if req.gen is not None:
                 # Unpinned: the parked request pins again at resume.
@@ -1330,9 +1384,10 @@ class ContinuousScheduler:
         prefill.  False (the request reset for recompute) when the shared
         chain was evicted while parked."""
         slot = req.slot
+        shard = self._slot_shard[slot]
         shared: List[int] = []
         if entry.shared_blocks:
-            shared = self._allocator.acquire_prefix(req.prefix_keys[:entry.shared_blocks], 0)
+            shared = self._allocator.acquire_prefix(req.prefix_keys[:entry.shared_blocks], shard)
             if len(shared) < entry.shared_blocks:
                 if shared:
                     self._allocator.free(shared)
@@ -1341,7 +1396,7 @@ class ContinuousScheduler:
                 return False
         fresh: List[int] = []
         if entry.payloads:
-            fresh = self._allocator.allocate(len(entry.payloads), slot=slot)
+            fresh = self._allocator.allocate(len(entry.payloads), slot=slot, shard=shard)
             self._cache = self._tier_pool.swap_in(self._cache, rid=req.rid, blocks=fresh)
         self._counts = self._tier_pool.restore_counts(self._counts, rid=req.rid, slot=slot)
         blocks = shared + fresh
@@ -1365,7 +1420,7 @@ class ContinuousScheduler:
         with self._lock:
             release = min(req.reserved_blocks, len(blocks))
             req.reserved_blocks -= release
-            self._reserved -= release
+            self._reserved_by_shard[shard] -= release
             self._admitted += 1
             self._resumes_swapped += 1
             self._active[slot] = req
@@ -1390,14 +1445,15 @@ class ContinuousScheduler:
         needed = self.paged.blocks_for(tokens_written)
         if needed <= len(blocks):
             return
-        fresh = self._allocator.allocate(needed - len(blocks), slot=req.slot)
+        shard = self._slot_shard[req.slot]
+        fresh = self._allocator.allocate(needed - len(blocks), slot=req.slot, shard=shard)
         self._block_tables[req.slot, len(blocks):needed] = fresh
         self._dev_block_tables = None  # host table grew
         blocks.extend(fresh)
         with self._lock:
             release = min(req.reserved_blocks, len(fresh))
             req.reserved_blocks -= release
-            self._reserved -= release
+            self._reserved_by_shard[shard] -= release
 
     def _paged_call_kwargs(self) -> Dict[str, Any]:
         """Paged kwargs for the slot programs, the block tables kept on the
@@ -1420,7 +1476,8 @@ class ContinuousScheduler:
         cacheable = self.paged.prefix_blocks(len(req.prompt))
         if cacheable <= 0:
             return 0
-        blocks = self._allocator.acquire_prefix(req.prefix_keys[:cacheable], 0)
+        shard = self._slot_shard[req.slot]
+        blocks = self._allocator.acquire_prefix(req.prefix_keys[:cacheable], shard)
         m = len(blocks)
         if m:
             self._block_tables[req.slot, :m] = blocks
@@ -1433,7 +1490,7 @@ class ContinuousScheduler:
             if m:
                 release = min(req.reserved_blocks, m)
                 req.reserved_blocks -= release
-                self._reserved -= release
+                self._reserved_by_shard[shard] -= release
                 self._prefix_tokens_skipped += start
                 self._obs["prefix_hits"].inc(m)
                 self._obs["prefix_skipped"].observe(start)
@@ -1449,7 +1506,7 @@ class ContinuousScheduler:
         full = len(req.prompt) // self.block_size
         if full > 0:
             self._allocator.register_prefix(self._slot_blocks[req.slot][:full],
-                                            req.prefix_keys[:full], 0)
+                                            req.prefix_keys[:full], self._slot_shard[req.slot])
 
     def _admit(self, admits: List[_SlotRequest]) -> None:
         """Admission: map the cached prefix, start the chunk state machine
@@ -2431,7 +2488,8 @@ class ContinuousScheduler:
             if blocks:
                 self._allocator.free(blocks)
                 self._slot_blocks[req.slot] = []
-            self._block_tables[req.slot, :] = self._allocator.trash_block(0)
+            self._block_tables[req.slot, :] = self._allocator.trash_block(
+                self._slot_shard[req.slot])
             self._dev_block_tables = None
         else:
             used = self.paged_equivalent_blocks
@@ -2439,7 +2497,7 @@ class ContinuousScheduler:
         with self._lock:
             was_cancelled = req.cancelled
             if self.paged is not None:
-                self._reserved -= req.reserved_blocks
+                self._reserved_by_shard[self._slot_shard[req.slot]] -= req.reserved_blocks
                 req.reserved_blocks = 0
             if req.gen is not None:
                 req.gen.refs -= 1

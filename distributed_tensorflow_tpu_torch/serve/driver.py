@@ -30,10 +30,18 @@ backend (``max_inflight``, ``priority_headroom``); ``loadgen_trace``
 replaces the closed-loop clients by the open-loop load generator
 (``arrival_rate``) on one replica and reports goodput under the SLOs.
 
-Per-shard KV pools (serving on a mesh) raise a ``ValueError`` naming the
-slice; so do ``--data``/``--fsdp`` > 1 and a multi-rank mesh.  The
-continuous path's own flags raise without ``--continuous`` rather than
-being ignored, and so do part C's flags where they would be ignored (the
+On a mesh of processes (one a rank, under ``TF_CONFIG``; ``--data=-1``
+absorbs the ranks ``--fsdp`` and ``--tensor`` leave) ``run_serve`` starts
+the process group (``cluster.Server``: NCCL where every rank has its own
+card, gloo where ranks share one) and every rank builds its engine; rank 0
+drives the clients, the batcher and the scheduler through
+``serve.mesh.MeshEngine`` and alone returns the metrics, the other ranks
+follow its engine calls and return None once it finished.  Over gloo with
+``--tensor`` > 1 the engines run without CUDA graphs (a collective there
+cannot be captured), which the line reports.  Part B2's and part C's flags
+(``_PART_D2_FLAGS``) raise on a multi-rank mesh, naming serving on a mesh,
+part D2.  The continuous path's own flags raise without ``--continuous``
+rather than being ignored, and so do part C's flags where they would be ignored (the
 gateway's limits without ``--gateway_port``, ``--arrival_rate`` without
 ``--loadgen_trace``, ``--reload_poll_s`` without a fleet and a checkpoint
 directory); ``--prompt_period`` shapes the traffic of either path.
@@ -68,18 +76,9 @@ from distributed_tensorflow_tpu_torch.obs.serve import ServeMonitorHook
 from distributed_tensorflow_tpu_torch.serve import sampling as sampling_lib
 from distributed_tensorflow_tpu_torch.serve.batcher import DynamicBatcher, ServeOverloadedError
 from distributed_tensorflow_tpu_torch.serve.continuous import ContinuousScheduler
-from distributed_tensorflow_tpu_torch.serve.engine import ServeEngine
+from distributed_tensorflow_tpu_torch.serve.engine import ServeEngine, check_capture
 
 logger = logging.getLogger(__name__)
-
-
-def _later(default, where):
-    """A flag of a later serving slice: parsed, refused by ``check_flags``
-    unless left at ``default``, naming ``where`` it comes with."""
-    return dataclasses.field(default=default, metadata={"later": where})
-
-
-_MESH = "serving on a mesh (per-shard KV pools)"
 
 
 @dataclasses.dataclass
@@ -131,7 +130,8 @@ class ServeArgs:
     # "" = the compute dtype; "int8" = per-token symmetric int8 with float32
     # scales; any torch dtype name ("bfloat16", ...) stores that dtype.
     kv_dtype: str = ""
-    per_shard_kv: bool = _later(False, _MESH)
+    # Per-shard pools: the paged pool split over the data x fsdp ranks.
+    per_shard_kv: bool = False
     # Prefix caching (paged): shared full prompt blocks mapped from cache.
     prefix_cache: bool = False
     # Chunked prefill: >0 bounds the prompt tokens prefilled an iteration.
@@ -184,30 +184,28 @@ class ServeArgs:
 
 # The continuous path's own flags: refused off their defaults without
 # --continuous on GPT-2 rather than ignored.
-CONTINUOUS_FLAGS = ("cache_mode", "block_size", "num_blocks", "kv_dtype", "prefix_cache",
-                    "prefill_budget", "sampling_mix", "lifecycle_log", "megastep",
+CONTINUOUS_FLAGS = ("cache_mode", "block_size", "num_blocks", "kv_dtype", "per_shard_kv",
+                    "prefix_cache", "prefill_budget", "sampling_mix", "lifecycle_log", "megastep",
                     "async_decode", "async_depth", "spec_k", "spec_ngram", "slo_scheduling",
                     "swap_min_tokens", "starvation_age_s")
 
 
-def later_flags() -> Dict[str, Tuple[Any, str]]:
-    """Every flag of a later slice: its default and the slice it comes with."""
-    return {f.name: (f.default, f.metadata["later"]) for f in dataclasses.fields(ServeArgs)
-            if "later" in f.metadata}
+# Part B2's and part C's flags: refused off their defaults on a multi-rank
+# mesh, where they come with serving on a mesh, part D2.
+_PART_D2_FLAGS = ("megastep", "async_decode", "spec_k", "slo_scheduling", "num_replicas",
+                  "gateway_port", "loadgen_trace")
 
 
-def check_flags(args: ServeArgs) -> None:
-    """Refuse the flags of later serving slices, naming each slice; the
-    continuous path's flags without ``--continuous``; the reference's own
-    refusals of part C; and part C's flags where they would be ignored."""
-    for flag, (default, where) in later_flags().items():
-        if getattr(args, flag) != default:
-            raise ValueError(f"--{flag}={getattr(args, flag)!r} comes with {where}; the port "
-                             "serves one card (parts A, B1, B2 and C) so far")
-    if args.data > 1 or args.fsdp > 1:
-        raise ValueError("--data/--fsdp > 1 (the batch split over ranks) comes with a later "
-                         "serving slice")
+def check_flags(args: ServeArgs, mesh=None) -> None:
+    """Refuse the continuous path's flags without ``--continuous``; the
+    reference's own refusals of part C; part C's flags where they would be
+    ignored; and, on a multi-rank ``mesh``, part D2's flags."""
     defaults = ServeArgs()
+    if mesh is not None and mesh.size > 1:
+        for flag in _PART_D2_FLAGS:
+            if getattr(args, flag) != getattr(defaults, flag):
+                raise ValueError(f"--{flag}={getattr(args, flag)!r} on a multi-rank mesh comes "
+                                 "with serving on a mesh, part D2; it runs on one rank")
     continuous = args.continuous and args.model == "gpt2"
     if not continuous:
         for flag in CONTINUOUS_FLAGS:
@@ -258,7 +256,7 @@ def _cache_kwargs(args: ServeArgs) -> Dict[str, Any]:
         return {"cache_mode": "dense"}
     return {"cache_mode": args.cache_mode, "block_size": args.block_size,
             "num_blocks": args.num_blocks or None, "kv_dtype": args.kv_dtype or None,
-            "prefix_cache": args.prefix_cache}
+            "per_shard_kv": args.per_shard_kv, "prefix_cache": args.prefix_cache}
 
 
 def _b2_kwargs(args: ServeArgs) -> Dict[str, Any]:
@@ -336,25 +334,68 @@ def _make_requests(args: ServeArgs, engine: ServeEngine, rng: np.random.Generato
             for i in range(args.steps)]
 
 
-def run_serve(args: ServeArgs, engine: Optional[ServeEngine] = None) -> Dict[str, Any]:
-    """Drive ``args.steps`` requests; returns the serve metrics dict.  Pass
-    ``engine`` to reuse one restored engine (and its decode families)
-    across runs."""
+def run_serve(args: ServeArgs, engine: Optional[ServeEngine] = None) -> Optional[Dict[str, Any]]:
+    """Drive ``args.steps`` requests; returns the serve metrics dict (on a
+    multi-rank mesh on rank 0; the other ranks return None once it
+    finished).  Without ``engine`` the process group starts from the
+    launcher's cluster (``TF_CONFIG``) and this rank's engine is built;
+    pass ``engine`` (every rank its own, on one mesh) to reuse one
+    restored engine and its decode families across runs."""
     check_flags(args)
     own_engine = engine is None
-    if own_engine:
-        from distributed_tensorflow_tpu_torch.cluster.topology import MeshConfig, build_mesh
+    cluster_server = None
+    failed = True
+    try:
+        if own_engine:
+            from distributed_tensorflow_tpu_torch import cluster
+            from distributed_tensorflow_tpu_torch.cluster.topology import MeshConfig, build_mesh
 
-        mesh = build_mesh(MeshConfig(data=args.data, fsdp=args.fsdp, tensor=args.tensor))
-        if mesh.size > 1:
-            raise ValueError("the serve driver over a multi-rank mesh comes with a later "
-                             "serving slice; build a ServeEngine on each rank instead")
-        overrides: Dict[str, Any] = {}
-        preset = _auto_preset(args)
-        if preset:
-            overrides["preset"] = preset
-        engine = ServeEngine(args.model, mesh=mesh, checkpoint_dir=args.checkpoint_dir,
-                             seed=args.seed, device=args.device, **overrides)
+            cluster_server = cluster.Server.from_resolver(cluster.resolve(), device=args.device)
+            mesh = build_mesh(MeshConfig(data=args.data, fsdp=args.fsdp, tensor=args.tensor))
+            check_flags(args, mesh)  # before the engine's build
+            overrides: Dict[str, Any] = {}
+            preset = _auto_preset(args)
+            if preset:
+                overrides["preset"] = preset
+            engine = ServeEngine(args.model, mesh=mesh, checkpoint_dir=args.checkpoint_dir,
+                                 seed=args.seed, device=args.device,
+                                 cuda_graphs=_graphs_capture(mesh, args.device), **overrides)
+        else:
+            check_flags(args, engine.mesh)
+        if engine.mesh.size > 1:
+            from distributed_tensorflow_tpu_torch.serve import mesh as mesh_lib
+
+            out = mesh_lib.run(engine, mesh_lib.side_group(),
+                               lambda mirrored: _serve(args, mirrored))
+        else:
+            out = _serve(args, engine)
+        failed = False
+        return out
+    finally:
+        if own_engine and engine is not None:
+            engine.close()
+        if cluster_server is not None:
+            # The process group goes last; after a failure the peers may be
+            # gone, so nobody waits for them.
+            cluster_server.shutdown(barrier=not failed)
+
+
+def _graphs_capture(mesh, device: str) -> bool:
+    """Whether the engines of ``mesh`` on ``device`` capture CUDA graphs:
+    not where a tensor collective runs over gloo (ranks sharing a card),
+    which a graph cannot capture (``serve.engine.check_capture``); the line
+    reports it."""
+    try:
+        check_capture(mesh, device, True)
+    except ValueError:
+        logger.info("tensor collectives over gloo: the engines run without CUDA graphs")
+        return False
+    return True
+
+
+def _serve(args: ServeArgs, engine) -> Dict[str, Any]:
+    """The leader's run: the scrape endpoint and the tracer around
+    ``_drive``, and the mesh's keys on a multi-rank mesh."""
     server = None
     if args.metrics_port:
         from distributed_tensorflow_tpu_torch.obs.exporters import MetricsServer
@@ -365,7 +406,7 @@ def run_serve(args: ServeArgs, engine: Optional[ServeEngine] = None) -> Dict[str
 
         default_tracer().enable()
     try:
-        return _drive(args, engine)
+        out = _drive(args, engine)
     finally:
         if args.trace_out:
             from distributed_tensorflow_tpu_torch.obs.exporters import write_chrome_trace
@@ -373,8 +414,18 @@ def run_serve(args: ServeArgs, engine: Optional[ServeEngine] = None) -> Dict[str
             write_chrome_trace(args.trace_out)
         if server is not None:
             server.close()
-        if own_engine:
-            engine.close()
+    if engine.mesh.size > 1:
+        sent = engine.message_stats()
+        calls = sum(s["calls"] for s in sent.values())
+        out.update({
+            "mesh": {a: engine.mesh.shape[a] for a in ("data", "fsdp", "tensor")},
+            "ranks": engine.mesh.size, "cuda_graphs": bool(engine.use_graphs),
+            "mesh_messages": calls,
+            "mesh_send_us_mean": round(sum(s["calls"] * s["send_us_mean"]
+                                           for s in sent.values()) / max(calls, 1), 2),
+            "mesh_send_us_by_program": {k: round(s["send_us_mean"], 2)
+                                        for k, s in sent.items()}})
+    return out
 
 
 def _scheduler(args: ServeArgs, engine: ServeEngine, payloads, **kw) -> ContinuousScheduler:
@@ -878,6 +929,8 @@ def _drive(args: ServeArgs, engine: ServeEngine) -> Dict[str, Any]:
         out["param_generation"] = int(stats.get("param_generation", 0.0))
     if continuous:
         out.update(_continuous_keys(stats, args, megastep_auto))
+        if engine.mesh.size > 1:
+            out["kv_hbm_bytes_per_rank"] = int(stats["kv_hbm_bytes_per_shard"])
         if lifecycle is not None:
             out.update(_lifecycle_keys(stats, args))
     else:

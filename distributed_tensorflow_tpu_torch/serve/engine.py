@@ -71,6 +71,28 @@ On a tensor mesh the logits are gathered over ``tensor`` and cut to the
 vocabulary before any choice, so the zero-padded rows of a vocab-parallel
 ``wte`` (50257 over 2) never win, and an argmax over the whole row returns
 the lowest index on ties, as ``jnp.argmax`` does.
+
+On a mesh of several processes every rank builds the engine and runs each
+program on the same host arguments (``serve.mesh`` sends one request
+stream's calls to every rank): the counterpart of the reference's
+``batch_sharding``.  Rows split contiguously over data x fsdp (``fsdp`` is a
+data axis for rows; the port's FSDP keeps the compute weights whole): rank
+``r`` of the extent ``dp`` runs the rows ``[r*B/dp, (r+1)*B/dp)`` of a
+fixed batch, or the slots ``[r*n/dp, (r+1)*n/dp)``, of which its caches
+hold only those rows (and only its heads over ``tensor``); ``bucket_rows``
+pads to a multiple of ``dp``.  A prefill runs the rows of the rank's slots.
+The tokens, logits and class ids are gathered over data x fsdp in global
+row order after each program, outside its graph; a sampled row is keyed by
+its global row, so a stream equals one process's.  Per-shard paged pools
+(``PagedKVConfig.data_shards == dp``) hold only the rank's shard: the
+caller's block tables are in global ids, which the rank translates to its
+own (``id - r * blocks_per_shard``) before the step, so an inactive row's
+trash block is local block 0 on every shard.  The tensor axis's
+collectives run inside the step: under NCCL the decode and slot graphs
+capture them (each group's communicator is made by an eager collective at
+construction, before any capture); over gloo a collective cannot be
+captured, so ``cuda_graphs=True`` with ``tensor > 1`` raises, and a
+data-only mesh still captures its steps, which hold no collective.
 """
 
 from __future__ import annotations
@@ -84,6 +106,7 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from distributed_tensorflow_tpu_torch.checkpoint.manager import CheckpointManager
 from distributed_tensorflow_tpu_torch.cluster.topology import MeshConfig, build_mesh
@@ -92,6 +115,7 @@ from distributed_tensorflow_tpu_torch.models import Workload, get_workload
 from distributed_tensorflow_tpu_torch.models.layers import gather_last
 from distributed_tensorflow_tpu_torch.obs import metrics as obs_metrics
 from distributed_tensorflow_tpu_torch.ops.flash_attention import philox4x32_10
+from distributed_tensorflow_tpu_torch.parallel import collectives
 from distributed_tensorflow_tpu_torch.rng import fold_in
 from distributed_tensorflow_tpu_torch.serve import sampling as sampling_lib
 from distributed_tensorflow_tpu_torch.train_lib import resolve_device
@@ -103,6 +127,8 @@ logger = logging.getLogger(__name__)
 # takes this lock, whatever thread it runs on.
 _launch_lock = threading.Lock()
 
+_DATA = ("data", "fsdp")  # the axes a batch's rows split over
+_PART_D2 = "serving on a mesh, part D2"
 _MASK32 = 0xFFFFFFFF
 _SEEDED = 0x5EED  # the seeded rows' key word, as the reference folds it in
 _F32_MIN = torch.finfo(torch.float32).min
@@ -157,23 +183,26 @@ def _gumbel(shape: Tuple[int, int], key0, key1, row, step, domain: int,
     return -torch.log(-torch.log(u))
 
 
-def _shared_draw(scaled: torch.Tensor, base_seed: int, counter: torch.Tensor) -> torch.Tensor:
+def _shared_draw(scaled: torch.Tensor, base_seed: int, counter: torch.Tensor,
+                 rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The batch's shared categorical draw at step ``counter``: each row a
-    stream of its own under the engine's base seed."""
-    B = scaled.shape[0]
-    rows = torch.arange(B, device=scaled.device, dtype=torch.int64)[:, None]
+    stream of its own under the engine's base seed, keyed by its global
+    row (``rows``, (B, 1) int64; ``arange(B)`` on one rank)."""
+    if rows is None:
+        rows = torch.arange(scaled.shape[0], device=scaled.device, dtype=torch.int64)[:, None]
     g = _gumbel(scaled.shape, base_seed & _MASK32, (base_seed >> 32) & _MASK32, rows,
                 counter.to(torch.int64).reshape(-1, 1), 0, scaled.device)
     return (scaled + g).argmax(-1)
 
 
 def _select_next_scalar(logits: torch.Tensor, base_seed: int, counter: torch.Tensor,
-                        temperature: float, top_k: int) -> torch.Tensor:
+                        temperature: float, top_k: int,
+                        rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The reference's scalar-config choice over (B, V) last-position
     logits, the fixed-batch ``generate`` family: ``temperature <= 0`` is
     the exact argmax; else temperature and top-k sampling keyed by the base
-    seed and the step ``counter`` (a device tensor the step advances, so
-    the loop splits no key on the host)."""
+    seed, the step ``counter`` (a device tensor the step advances, so
+    the loop splits no key on the host) and the global ``rows``."""
     if temperature <= 0.0:
         return logits.argmax(-1)
     scaled = logits.float() / temperature
@@ -181,7 +210,7 @@ def _select_next_scalar(logits: torch.Tensor, base_seed: int, counter: torch.Ten
         k = min(int(top_k), scaled.shape[-1])
         kth = scaled.sort(-1).values[:, -k][:, None]
         scaled = scaled.masked_fill(scaled < kth, _F32_MIN)
-    return _shared_draw(scaled, base_seed, counter)
+    return _shared_draw(scaled, base_seed, counter, rows)
 
 
 def _penalized(logits: torch.Tensor, sampling: Mapping[str, torch.Tensor],
@@ -219,18 +248,19 @@ def sampling_logits(penalized: torch.Tensor, sampling: Mapping[str, torch.Tensor
 
 
 def _select_next(logits: torch.Tensor, base_seed: int, counter: torch.Tensor,
-                 sampling: Mapping[str, torch.Tensor], counts: torch.Tensor) -> torch.Tensor:
+                 sampling: Mapping[str, torch.Tensor], counts: torch.Tensor,
+                 rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The reference's vectorised per-row choice over (B, V) logits: one
     function for any mix of per-request configs (``serve.sampling.pack``'s
     vectors as tensors).  Greedy rows (``temperature <= 0``) take the
     penalised argmax; rows with ``seed < 0`` draw from the shared stream
-    (base seed, ``counter``); seeded rows from (seed, 0x5EED, ``step``)
-    alone, whatever the batch or the counter.  Every row's choice is
+    (base seed, ``counter``, global ``rows``); seeded rows from (seed,
+    0x5EED, ``step``) alone, whatever the batch or the counter.  Every row's choice is
     computed and the greedy ones selected by ``torch.where``: no host branch,
     so the step stays capturable."""
     penalized = _penalized(logits, sampling, counts)
     scaled = sampling_logits(penalized, sampling)
-    shared = _shared_draw(scaled, base_seed, counter)
+    shared = _shared_draw(scaled, base_seed, counter, rows)
     seeds = sampling["seed"].to(torch.int64)
     seeded = (scaled + _gumbel(scaled.shape, (seeds & _MASK32)[:, None], _SEEDED, 0,
                                sampling["step"].to(torch.int64)[:, None], 1,
@@ -248,12 +278,14 @@ def _all_greedy(sampling: Mapping[str, np.ndarray]) -> bool:
 
 
 def _choose_rows(logits: torch.Tensor, key: str, base_seed: int, counter: torch.Tensor,
-                 sampling: Mapping[str, torch.Tensor], counts: torch.Tensor) -> torch.Tensor:
+                 sampling: Mapping[str, torch.Tensor], counts: torch.Tensor,
+                 rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The slot programs' choice over (B, V) float32 logits: "greedy" the
-    argmax, "mixed" the vectorised ``_select_next``."""
+    argmax, "mixed" the vectorised ``_select_next`` (``rows`` the global
+    row ids of the shared draw)."""
     if key == "greedy":
         return logits.argmax(-1)
-    return _select_next(logits, base_seed, counter, sampling, counts)
+    return _select_next(logits, base_seed, counter, sampling, counts, rows)
 
 
 def _bump_counts(counts: torch.Tensor, rows: torch.Tensor, toks: torch.Tensor,
@@ -289,9 +321,9 @@ def _trim_at_eos(row: np.ndarray, eos_token: Optional[int]) -> np.ndarray:
 class _Geometry:
     """The static buffers of one (batch, total length): the decode cache,
     the step's input token, the output rows (column = step), the step
-    counter, the eos flags and token, and each sampling key's decode step
-    (a captured graph's replay, or the eager step).  ``lock`` holds the
-    buffers for one ``generate``."""
+    counter, the eos flags and token, the global ids of this rank's rows,
+    and each sampling key's decode step (a captured graph's replay, or the
+    eager step).  ``lock`` holds the buffers for one ``generate``."""
 
     cache: Any
     tokens: torch.Tensor
@@ -299,6 +331,7 @@ class _Geometry:
     counter: torch.Tensor
     done: torch.Tensor
     eos: torch.Tensor
+    rows: torch.Tensor
     steps: Dict[Tuple[float, int], Any] = dataclasses.field(default_factory=dict)
     lock: threading.Lock = dataclasses.field(default_factory=threading.Lock)
 
@@ -313,6 +346,11 @@ class _SlotFamily:
 
     key: Tuple[int, int, Any]
     cache: Any
+    # This rank's slots [lo, lo + cache.num_slots), their global ids as a
+    # (rows, 1) tensor, and the offset of its shard's block ids.
+    lo: int
+    rows: torch.Tensor
+    block_base: int
     counts: torch.Tensor
     tokens: torch.Tensor
     active: torch.Tensor
@@ -336,6 +374,20 @@ class _SlotFamily:
     leased: bool = True
 
 
+def check_capture(mesh, device_type: str, cuda_graphs: bool) -> None:
+    """Refuse CUDA graphs on the card where the step's tensor collectives
+    run over gloo (ranks that share a card): they go through host memory,
+    which a graph cannot capture.  Nothing switches to eager silently."""
+    group = mesh.group("tensor")
+    if (cuda_graphs and device_type == "cuda" and group is not None
+            and dist.get_backend(group) == "gloo"):
+        raise ValueError(
+            f"cuda_graphs=True on a mesh with tensor={mesh.shape['tensor']} over gloo (ranks "
+            "that share a card): the step's tensor collectives go through host memory, which "
+            "a CUDA graph cannot capture; pass cuda_graphs=False, or run one card a rank "
+            "(NCCL), whose collectives the graphs capture")
+
+
 class HostFetch:
     """Host copies of a launch's outputs in flight (``ServeEngine.
     fetch_async``): ``wait`` blocks on the copies' CUDA event, then hands
@@ -352,9 +404,10 @@ class HostFetch:
 
 
 class ServeEngine:
-    """Checkpoint-backed inference on one device (or a tensor mesh of CPU
-    ranks).  ``checkpoint_dir=None`` (or an empty directory) falls back to
-    a fresh init of seed ``seed``."""
+    """Checkpoint-backed inference on one device, or on this rank's part of
+    a mesh of processes (data x fsdp x tensor; see the module docstring).
+    ``checkpoint_dir=None`` (or an empty directory) falls back to a fresh
+    init of seed ``seed``."""
 
     def __init__(self, model: str = "gpt2", *, mesh=None, checkpoint_dir: Optional[str] = None,
                  checkpoint_step: Optional[int] = None, seed: int = 0, device="cuda",
@@ -368,15 +421,7 @@ class ServeEngine:
                 f"{pipe}: KV-cache decode (decode=True) is unsupported under pipeline "
                 f"parallelism — re-mesh without the pipe axis (TP/DP shardings apply) or "
                 f"dedicate a pipe-free mesh slice to serving")
-        if self.data_parallelism > 1:
-            raise NotImplementedError(
-                "serving with the batch split over --data/--fsdp comes with a later serving "
-                "slice; serve on one rank or over --tensor")
-        if self.mesh.size > 1 and self.device.type == "cuda":
-            raise NotImplementedError(
-                "serving on a multi-rank mesh on the card comes with a later serving slice "
-                "(the decode graphs would capture its collectives); the CPU runs --tensor "
-                "ranks over gloo")
+        check_capture(self.mesh, self.device.type, cuda_graphs)
         self.model = model
         # The workload's overrides (preset, config, dtype): a fleet's other
         # replicas are built with them, so every replica serves one numerics.
@@ -385,6 +430,10 @@ class ServeEngine:
                                                **workload_overrides)
         self.module = self.workload.module
         self.use_graphs = bool(cuda_graphs) and self.device.type == "cuda"
+        # This rank's coordinate over the data axes (rows split contiguously).
+        self._dp_index = self.mesh.axis_index(_DATA)
+        if self.mesh.size > 1 and self.device.type == "cuda":
+            self._make_communicators()
         self._manager: Optional[CheckpointManager] = None
         self._obs = _engine_instruments()
         self._geometries: Dict[Tuple[int, int], _Geometry] = {}
@@ -423,6 +472,46 @@ class ServeEngine:
     @property
     def data_parallelism(self) -> int:
         return self.mesh.shape["data"] * self.mesh.shape["fsdp"]
+
+    def _make_communicators(self) -> None:
+        """One eager collective on every group a program uses, so each
+        NCCL communicator exists before a graph captures its collectives
+        (a capture cannot create one)."""
+        with torch.inference_mode():
+            probe = torch.ones(1, device=self.device)
+            for axis in ("tensor", _DATA):
+                collectives.psum(probe, self.mesh, axis)
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def _local(self, n: int, what: str = "batch") -> Tuple[int, int]:
+        """This rank's rows [lo, hi) of ``n`` split over data x fsdp."""
+        dp = self.data_parallelism
+        if n % dp:
+            raise ValueError(f"{what} {n} must be a multiple of the data-parallel extent {dp} "
+                             f"(rows shard over data x fsdp; bucket_rows pads to one)")
+        per = n // dp
+        return self._dp_index * per, (self._dp_index + 1) * per
+
+    def _gather_rows(self, local: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of ``local`` (equal counts), concatenated in
+        global row order over data x fsdp: a program's output, gathered
+        outside its graph."""
+        if self.data_parallelism == 1:
+            return local
+        return collectives.all_gather(local.contiguous(), self.mesh, _DATA)
+
+    def _sum_rows(self, buf: torch.Tensor) -> torch.Tensor:
+        """``buf`` (each rank's rows filled, zeros elsewhere) summed over
+        data x fsdp: the rows of a call whose ranks run different counts."""
+        if self.data_parallelism == 1:
+            return buf
+        return collectives.psum(buf, self.mesh, _DATA)
+
+    def _multi_rank(self, program: str) -> None:
+        """Refuse a program of serving part B2 on a multi-rank mesh."""
+        if self.mesh.size > 1:
+            raise NotImplementedError(f"{program} on a multi-rank mesh comes with {_PART_D2}; "
+                                      "it runs on one rank")
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
@@ -477,17 +566,34 @@ class ServeEngine:
             return init_decode_cache(self.module.cfg, self.mesh, batch, total_len,
                                      device=self.device)
 
-    @staticmethod
-    def cache_hbm_bytes(cache) -> int:
-        """Resident bytes of a decode cache (dense rows or paged pools,
-        scales and index rows) on this rank: the serving-capacity
-        denominator the block gauges and the bench report."""
-        return int(cache.nbytes())
+    def cache_hbm_bytes(self, cache) -> int:
+        """Bytes of a decode cache (dense rows or paged pools, scales and
+        index rows) in the global layout, the reference's count of its
+        arrays: each rank's part times the ranks it is split over (rows
+        over data x fsdp, heads over ``tensor``; a replicated pool counts
+        once).  The serving-capacity denominator the block gauges and the
+        bench report."""
+        from distributed_tensorflow_tpu_torch.models.gpt2 import DecodeCache, PagedCache
+
+        dp, tp = self.data_parallelism, self.mesh.shape["tensor"]
+        # The K/V split over data (rows, or a per-shard pool's blocks) and
+        # the scales' (one a token, shared by the heads).
+        over_data = dp
+        if isinstance(cache, PagedCache) and cache.paged.data_shards == 1:
+            over_data = 1  # the pool is whole on every data rank
+        kv = sum(t.numel() * t.element_size() for t in (*cache.keys, *cache.values))
+        scales = sum(t.numel() * t.element_size()
+                     for t in (*getattr(cache, "key_scales", ()),
+                               *getattr(cache, "value_scales", ())))
+        rows = cache.nbytes() - kv - scales  # the index and position rows
+        rows_over = 1 if isinstance(cache, DecodeCache) else dp  # one index for a fixed batch
+        return int(kv * over_data * tp + scales * over_data + rows * rows_over)
 
     @staticmethod
     def cache_hbm_bytes_per_shard(cache) -> int:
-        """Bytes of a cache on one device: the whole of it, since the slot
-        programs run on one device (no pool is split over ranks)."""
+        """Bytes of a cache on one device, this rank's part: the rank's
+        rows and heads, and its shard of a per-shard pool (a replicated
+        pool in full)."""
         return int(cache.nbytes())
 
     def _geometry(self, batch: int, total_len: int) -> _Geometry:
@@ -500,10 +606,13 @@ class ServeEngine:
                     def zeros(shape, dtype=torch.int64):
                         return torch.zeros(shape, dtype=dtype, device=self.device)
 
+                    lo, hi = self._local(batch)
+                    rows = hi - lo
                     geom = _Geometry(
-                        cache=self.init_cache(batch, total_len), tokens=zeros((batch, 1)),
-                        out=zeros((batch, total_len)), counter=zeros(()),
-                        done=zeros((batch,), torch.bool), eos=zeros(()) - 1)
+                        cache=self.init_cache(batch, total_len), tokens=zeros((rows, 1)),
+                        out=zeros((rows, total_len)), counter=zeros(()),
+                        done=zeros((rows,), torch.bool), eos=zeros(()) - 1,
+                        rows=torch.arange(lo, hi, device=self.device)[:, None])
                 self._geometries[key] = geom
             return geom
 
@@ -522,7 +631,7 @@ class ServeEngine:
         written at column ``counter`` of the output, the eos flags, the next
         step's input, the counter advanced."""
         tok = _select_next_scalar(self._full_logits(logits), self._sample_seed, geom.counter,
-                                  *key)
+                                  *key, rows=geom.rows)
         geom.out.index_copy_(1, geom.counter.reshape(1), tok[:, None])
         geom.done.logical_or_(tok == geom.eos)
         geom.tokens.copy_(tok[:, None])
@@ -587,7 +696,10 @@ class ServeEngine:
         ``top_k``) samples.  ``eos_token`` enables early exit: once every
         row has emitted it, decoding stops at the next host check, every
         ``eos_check_every`` steps, so the loop is not synced per token; rows
-        that finished earlier carry (ignorable) tokens after their eos."""
+        that finished earlier carry (ignorable) tokens after their eos.  On
+        a data mesh each rank decodes its rows (B a multiple of the
+        data-parallel extent), the eos check agrees over the ranks, and
+        every rank returns the whole (B, n)."""
         prompts = np.asarray(prompts, np.int32)
         if prompts.ndim != 2:
             raise ValueError(f"prompts must be (B, T), got {prompts.shape}")
@@ -610,14 +722,15 @@ class ServeEngine:
                 geom.counter.zero_()
                 geom.done.zero_()
                 geom.eos.fill_(-1 if eos_token is None else int(eos_token))
-                tokens = torch.from_numpy(prompts).to(self.device, non_blocking=True)
+                lo, hi = self._local(B)
+                tokens = torch.from_numpy(prompts[lo:hi]).to(self.device, non_blocking=True)
                 self._choose(geom, self.module(tokens, decode=True, cache=geom.cache), key)
             self._obs["prefill"].observe(time.perf_counter() - t0)
             n = 1
             for i in range(1, max_new_tokens):
                 if eos_token is not None and i % check_every == 0:
                     with _launch_lock:
-                        finished = bool(geom.done.all())
+                        finished = self._all_ranks(bool(geom.done.all()))
                     if finished:
                         break
                 t0 = time.perf_counter()
@@ -626,8 +739,17 @@ class ServeEngine:
                 self._obs["decode_step"].observe(time.perf_counter() - t0)
                 n += 1
             with _launch_lock:
-                out = geom.out[:, :n].to(torch.int32).cpu().numpy()
+                out = self._gather_rows(geom.out[:, :n]).to(torch.int32).cpu().numpy()
         return out
+
+    def _all_ranks(self, flag: bool) -> bool:
+        """``flag`` and on every data rank (a host decision the ranks'
+        loops must share)."""
+        if self.data_parallelism == 1:
+            return flag
+        votes = collectives.pmin(torch.tensor([int(flag)], device=self.device), self.mesh,
+                                 _DATA)
+        return bool(votes.item())
 
     def generate_batch(self, prompts: List[np.ndarray], max_new_tokens: int,
                        **gen_kwargs) -> List[np.ndarray]:
@@ -654,7 +776,7 @@ class ServeEngine:
         dp = max(1, self.data_parallelism)
         if num_slots < 1 or num_slots % dp:
             raise ValueError(f"num_slots {num_slots} must be a positive multiple of the "
-                             f"data-parallel extent {dp} (slot rows shard over data)")
+                             f"data-parallel extent {dp} (decode rows shard over data)")
         cfg = getattr(self.module, "cfg", None)
         if cfg is not None and total_len > cfg.n_positions:
             raise ValueError(f"max_total_len {total_len} exceeds n_positions {cfg.n_positions}")
@@ -677,6 +799,9 @@ class ServeEngine:
                 return fam.cache
             self._note_compile("slot_cache_init" if paged is None else "paged_cache_init")
             cfg, dev = self.module.cfg, self.device
+            lo, hi = self._local(num_slots, "num_slots")
+            n = hi - lo  # this rank's slots
+            block_base = 0
             with torch.inference_mode():
                 if paged is None:
                     cache = gpt2.init_slot_cache(cfg, self.mesh, num_slots, total_len, device=dev)
@@ -684,18 +809,22 @@ class ServeEngine:
                 else:
                     cache = gpt2.init_paged_cache(cfg, self.mesh, num_slots, total_len, paged,
                                                   device=dev)
-                    tables = torch.zeros(num_slots, paged.max_blocks_per_slot(total_len),
+                    tables = torch.zeros(n, paged.max_blocks_per_slot(total_len),
                                          dtype=torch.int32, device=dev)
+                    if paged.data_shards > 1:
+                        block_base = paged.trash_block(self._dp_index)
+
                 def rows(dtype=torch.int64):
-                    return torch.zeros(num_slots, dtype=dtype, device=dev)
+                    return torch.zeros(n, dtype=dtype, device=dev)
 
                 fam = _SlotFamily(
-                    key=key, cache=cache,
-                    counts=torch.zeros(num_slots, cfg.vocab_size, dtype=torch.int32, device=dev),
-                    tokens=torch.zeros(num_slots, 1, dtype=torch.int64, device=dev),
+                    key=key, cache=cache, lo=lo,
+                    rows=torch.arange(lo, hi, device=dev)[:, None], block_base=block_base,
+                    counts=torch.zeros(n, cfg.vocab_size, dtype=torch.int32, device=dev),
+                    tokens=torch.zeros(n, 1, dtype=torch.int64, device=dev),
                     active=rows(torch.bool), tables=tables,
                     sampling={k: torch.from_numpy(v).to(dev)
-                              for k, v in sampling_lib.uniform(num_slots).items()},
+                              for k, v in sampling_lib.uniform(n).items()},
                     counter=torch.zeros((), dtype=torch.int64, device=dev), out=rows(),
                     horizon=rows(), eos=rows() - 1, fresh=rows(torch.bool), fresh_tokens=rows(),
                     clock=torch.zeros((), dtype=torch.int64, device=dev))
@@ -712,7 +841,8 @@ class ServeEngine:
     def init_slot_cache(self, num_slots: int, total_len: int):
         """One resident dense cache for a continuous scheduler's lifetime:
         (num_slots, total_len) K/V rows with per-slot index and position
-        rows (``models.gpt2.SlotCache``), zeroed."""
+        rows (``models.gpt2.SlotCache``), zeroed; on a data mesh this rank's
+        slots."""
         self._slot_geometry(num_slots, total_len)
         return self._lease_family(num_slots, total_len, None)
 
@@ -720,20 +850,25 @@ class ServeEngine:
         """One resident paged cache (``cache_mode="paged"``): per-layer
         (num_blocks, block_size, heads, head_dim) pools (and float32 scales
         under int8) and the same per-slot index rows (``models.gpt2.
-        PagedCache``).  The block table is the caller's, passed to every
-        call; the pool must hold one maximum-length request beside the
-        trash block."""
+        PagedCache``).  The block table is the caller's, in global block
+        ids, passed to every call; the pool must hold one maximum-length
+        request beside the trash block (of each shard: ``paged.data_shards``
+        per-shard pools, which must equal the data-parallel extent, each
+        rank holding its own)."""
         self._slot_geometry(num_slots, total_len)
-        if paged.data_shards > 1:
-            raise NotImplementedError(
-                "per-shard KV pools come with serving on a mesh (a later serving slice); the "
-                "port keeps one pool")
+        dp = max(1, self.data_parallelism)
+        if paged.data_shards > 1 and paged.data_shards != dp:
+            raise ValueError(f"paged.data_shards {paged.data_shards} must equal the mesh's "
+                             f"data-parallel extent {dp} (each data shard owns its own block "
+                             f"pool)")
         max_blocks = paged.max_blocks_per_slot(total_len)
         if paged.usable_blocks_per_shard < max_blocks:
+            shard_note = (f" per data shard (data_shards {paged.data_shards})"
+                          if paged.data_shards > 1 else "")
             raise ValueError(
                 f"num_blocks {paged.num_blocks} cannot hold one max-length request: need "
-                f"{max_blocks} usable blocks (block_size {paged.block_size} x max_total_len "
-                f"{total_len}) plus the reserved trash block")
+                f"{max_blocks} usable blocks{shard_note} (block_size {paged.block_size} x "
+                f"max_total_len {total_len}) plus the reserved trash block")
         return self._lease_family(num_slots, total_len, paged)
 
     def release_cache(self, cache) -> None:
@@ -746,7 +881,7 @@ class ServeEngine:
 
     def init_slot_counts(self, cache) -> torch.Tensor:
         """The resident ``cache``'s (num_slots, vocab) int32 emitted-token
-        counts, zeroed: the per-slot state the presence and frequency
+        counts (this rank's slots), zeroed: the per-slot state the presence and frequency
         penalties read, a static buffer of the decode step, passed to and
         returned by every slot call."""
         fam = self._family(cache)
@@ -828,7 +963,10 @@ class ServeEngine:
         prefill.  ``sampling`` (n,)-row vectors (``sampling.pack``);
         ``commit`` (n,) bool marks the rows whose token is emitted (a final
         chunk), which alone bump the counts.  ``params`` pins an older
-        weight generation.  Eager on the card too."""
+        weight generation.  Eager on the card too.  On a data mesh each rank
+        runs the rows of its own slots (none, when it holds none of them),
+        each sampled row keyed by its row in the call, and every rank
+        returns the whole (n,) tokens."""
         fam = self._family(cache)
         self._check_paged(fam, paged, block_tables)
         prompts = np.asarray(prompts, np.int32)
@@ -842,33 +980,53 @@ class ServeEngine:
         self._check_counts(fam, counts)
         commit = np.ones((n,), bool) if commit is None else np.asarray(commit, bool)
         key = "greedy" if _all_greedy(sampling) else "mixed"
+        slot_ids = np.asarray(slot_ids, np.int64)
+        # The call's rows whose slots are this rank's.
+        mine = np.flatnonzero((slot_ids >= fam.lo) & (slot_ids < fam.lo + cache.num_slots))
         t0 = time.perf_counter()
         with torch.inference_mode(), _launch_lock:
             self._note_eager("slot_prefill", fam.key[2])
             dev = self.device
-            slots = self._to_device(np.asarray(slot_ids, np.int64))
-            self._reset_slot_rows(cache, slots, self._to_device(starts))
-            counts.index_fill_(0, slots, 0)
-            tables = None if block_tables is None else self._to_device(block_tables)
-            logits = self._slot_forward(params, self._to_device(prompts), cache, slots, tables)
-            nxt = _choose_rows(self._full_logits(logits), key, self._sample_seed,
-                               torch.full((), int(counter), dtype=torch.int64, device=dev),
-                               self._sampling_tensors(sampling), counts.index_select(0, slots))
-            _bump_counts(counts, slots, nxt, self._to_device(commit))
-            nxt = nxt.to(torch.int32)
+            out = torch.zeros(n, dtype=torch.int64, device=dev)
+            if mine.size:
+                sel = self._to_device(mine)
+                slots = self._to_device(slot_ids[mine] - fam.lo)
+                self._reset_slot_rows(cache, slots, self._to_device(starts[mine]))
+                counts.index_fill_(0, slots, 0)
+                tables = (None if block_tables is None
+                          else self._local_tables(fam, block_tables))
+                logits = self._slot_forward(params, self._to_device(prompts[mine]), cache, slots,
+                                            tables)
+                nxt = _choose_rows(self._full_logits(logits), key, self._sample_seed,
+                                   torch.full((), int(counter), dtype=torch.int64, device=dev),
+                                   self._sampling_tensors({k: np.asarray(v)[mine]
+                                                           for k, v in sampling.items()}),
+                                   counts.index_select(0, slots), rows=sel[:, None])
+                _bump_counts(counts, slots, nxt, self._to_device(commit[mine]))
+                out.index_copy_(0, sel, nxt)
+            nxt = self._sum_rows(out).to(torch.int32)
         self._obs["prefill"].observe(time.perf_counter() - t0)
         return nxt, cache, counts
 
+    def _local_tables(self, fam: _SlotFamily, block_tables) -> torch.Tensor:
+        """This rank's rows of the caller's (num_slots, max_blocks) block
+        tables, in its own block ids: a per-shard pool's ids less the
+        shard's first (its trash block becomes local block 0)."""
+        rows = self._to_device(block_tables)[fam.lo:fam.lo + fam.cache.num_slots]
+        return rows - fam.block_base if fam.block_base else rows
+
     def _stage_step(self, fam: _SlotFamily, last_tokens, active, sampling, counter: int,
                     block_tables) -> None:
-        """The inputs every slot program shares, into the family's buffers."""
-        self._stage(fam.tokens, last_tokens)
-        self._stage(fam.active, np.asarray(active, bool))
+        """The inputs every slot program shares, this rank's rows of each,
+        into the family's buffers."""
+        lo, hi = fam.lo, fam.lo + fam.cache.num_slots
+        self._stage(fam.tokens, last_tokens[lo:hi])
+        self._stage(fam.active, np.asarray(active, bool)[lo:hi])
         for k, v in sampling.items():
-            self._stage(fam.sampling[k], v)
+            self._stage(fam.sampling[k], v[lo:hi])
         fam.counter.fill_(int(counter))
         if block_tables is not None:
-            self._stage(fam.tables, block_tables)
+            self._stage(fam.tables, self._local_tables(fam, block_tables))
 
     def _gated_forward(self, fam: _SlotFamily, tokens: torch.Tensor, rows: torch.Tensor,
                        params) -> torch.Tensor:
@@ -891,7 +1049,7 @@ class ServeEngine:
         bumped, the tokens written to ``out``."""
         logits = self._gated_forward(fam, fam.tokens, fam.active, params)
         nxt = _choose_rows(self._full_logits(logits), key, self._sample_seed, fam.counter,
-                           fam.sampling, fam.counts)
+                           fam.sampling, fam.counts, rows=fam.rows)
         _bump_counts(fam.counts, fam.cache.all_slots, nxt, fam.active)
         fam.out.copy_(nxt)
 
@@ -1044,7 +1202,9 @@ class ServeEngine:
         ``init_slot_counts(cache)``.  ``last_tokens`` may be the previous
         step's device tokens.  On the card the step is the family's CUDA graph of its
         sampling key; ``params`` of an older generation run it eagerly on
-        those tensors."""
+        those tensors.  On a data mesh each rank steps its slots and every
+        rank returns the whole (num_slots,) tokens, gathered after the
+        step."""
         fam = self._family(cache)
         self._check_paged(fam, paged, block_tables)
         self._check_counts(fam, counts)
@@ -1056,7 +1216,7 @@ class ServeEngine:
                 self._slot_step(fam, key, params)
             else:
                 self._program(fam, key, "slot_decode", lambda: self._slot_step(fam, key))()
-            nxt = fam.out.to(torch.int32)
+            nxt = self._gather_rows(fam.out).to(torch.int32)
         self._obs["decode_step"].observe(time.perf_counter() - t0)
         return nxt, cache, counts
 
@@ -1090,6 +1250,7 @@ class ServeEngine:
         steps may write (``PagedKVConfig.blocks_for_megastep``).  On the
         card one CUDA graph per (K, sampling key) of the family; ``params``
         of an older generation run the same steps eagerly."""
+        self._multi_rank("decode_megastep")
         fam = self._family(cache)
         self._check_paged(fam, paged, block_tables)
         self._check_counts(fam, counts)
@@ -1134,6 +1295,7 @@ class ServeEngine:
         the table must cover the written positions
         (``PagedKVConfig.blocks_for_spec``).  On the card one CUDA graph per
         (k, sampling key) of the family serves both forms."""
+        self._multi_rank("verify_slots")
         fam = self._family(cache)
         self._check_paged(fam, paged, block_tables)
         self._check_counts(fam, counts)
@@ -1187,8 +1349,8 @@ class ServeEngine:
             self._eager_built.add((kind, layout))
             self._note_compile(kind)
 
-    @staticmethod
-    def _check_pool(fam: _SlotFamily, paged) -> None:
+    def _check_pool(self, fam: _SlotFamily, paged) -> None:
+        self._multi_rank("the KV-tiering block programs")
         if paged is None or paged != fam.key[2]:
             raise ValueError(f"the block programs move blocks of a paged pool; the cache's "
                              f"PagedKVConfig is {fam.key[2]}, the call's {paged}")
@@ -1237,6 +1399,7 @@ class ServeEngine:
         the resume of a swapped-in request (its restored blocks hold the
         positions below its start; decode continues from there without a
         prefill).  Returns the cache."""
+        self._multi_rank("bind_slot_rows")
         self._family(cache)
         with torch.inference_mode(), _launch_lock:
             self._note_eager("slot_bind")
@@ -1247,12 +1410,14 @@ class ServeEngine:
     def gather_counts_row(self, counts: torch.Tensor, slot: int) -> np.ndarray:
         """One slot's emitted-token count row to the host: swapped out with
         the victim's K/V so the penalties survive a preemption."""
+        self._multi_rank("gather_counts_row")
         with torch.inference_mode(), _launch_lock:
             self._note_eager("counts_gather")
             return counts[int(slot)].cpu().numpy().copy()
 
     def scatter_counts_row(self, counts: torch.Tensor, slot: int, row) -> torch.Tensor:
         """Restore a saved count row into ``slot``; returns the counts."""
+        self._multi_rank("scatter_counts_row")
         with torch.inference_mode(), _launch_lock:
             self._note_eager("counts_bind")
             counts[int(slot)].copy_(self._to_device(np.asarray(row, np.int32)))
@@ -1264,6 +1429,7 @@ class ServeEngine:
         CUDA event recorded after them on the stream; ``HostFetch.wait``
         waits on that event alone and launches nothing.  The async ring's
         fetch half."""
+        self._multi_rank("fetch_async")
         if self.device.type != "cuda":
             return HostFetch([t.numpy().copy() for t in tensors], None)
         with _launch_lock:
@@ -1290,11 +1456,16 @@ class ServeEngine:
         raise NotImplementedError(f"no serve predict path for model {self.model!r}")
 
     def classify(self, batch: Dict[str, np.ndarray]) -> np.ndarray:
-        """Batched deterministic forward -> host logits array."""
+        """Batched deterministic forward -> host logits array.  On a data
+        mesh each rank classifies its rows (the batch a multiple of the
+        data-parallel extent) and every rank returns the whole batch's
+        logits in row order."""
+        n = len(next(iter(batch.values())))
+        lo, hi = self._local(n)
         with torch.inference_mode(), _launch_lock:
-            dev = {k: torch.as_tensor(np.asarray(v)).to(self.device, non_blocking=True)
+            dev = {k: torch.as_tensor(np.asarray(v)[lo:hi]).to(self.device, non_blocking=True)
                    for k, v in batch.items()}
-            logits = self._predict(dev).float().cpu()
+            logits = self._gather_rows(self._predict(dev).float()).cpu()
         return logits.numpy()
 
     def classify_batch(self, examples: List[Dict[str, np.ndarray]]) -> List[int]:

@@ -2,7 +2,8 @@
 
 Copied from ``distributed_tensorflow_tpu/serve/gateway/server.py`` (host
 only), its imports pointed at the port's ``obs``, ``serve.sampling`` and
-``serve.batcher``; JSON and SSE bodies also serialise numpy scalars.
+``serve.batcher``; JSON and SSE bodies also serialise numpy scalars; a
+cancel reads the body its client sent before it answers.
 
 Stdlib-only (``http.server.ThreadingHTTPServer`` — no new deps).  Routes:
 
@@ -437,6 +438,9 @@ class _Handler(BaseHTTPRequestHandler):
         if self.path == "/v1/generate":
             self._generate(gw)
         elif self.path.startswith("/v1/cancel/"):
+            # Read the body a client may send: a socket closed with unread
+            # bytes resets the connection, which can beat the response.
+            self.rfile.read(int(self.headers.get("Content-Length", 0) or 0))
             gid = self.path[len("/v1/cancel/"):]
             known = gw.lookup(gid) is not None
             cancelled = gw.cancel(gid) if known else False

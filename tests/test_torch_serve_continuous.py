@@ -458,11 +458,11 @@ def test_mixed_step_masks_equal_the_reference(eng, monkeypatch):
     seen = []
     real = tengine._select_next
 
-    def record(logits, base_seed, counter, sampling, counts):
+    def record(logits, base_seed, counter, sampling, counts, *rows):
         if logits.shape[0] == SLOTS:
             seen.append((logits.clone(), {k: v.clone() for k, v in sampling.items()},
                          counts.clone()))
-        return real(logits, base_seed, counter, sampling, counts)
+        return real(logits, base_seed, counter, sampling, counts, *rows)
 
     monkeypatch.setattr(tengine, "_select_next", record)
     mix = [{"temperature": 0.7, "top_k": 5}, {"temperature": 1.2, "top_p": 0.6},
@@ -526,7 +526,8 @@ def test_hook_exports_slot_counters_and_the_batcher_streams(eng, caplog):
 
 def test_part_b2_arguments_are_refused(eng):
     """The reference's argument checks of serving part B2; per-shard pools
-    stay refused, naming serving on a mesh."""
+    on one rank are accepted as the reference's one shard (the classic
+    pool), and need the paged cache."""
     for kw, match in (({"megastep": 0}, "megastep must be >= 1"),
                       ({"megastep": "fast"}, "megastep must be an int >= 1 or 'auto'"),
                       ({"megastep": "auto", "spec_k": 2}, "nothing to tune"),
@@ -537,8 +538,10 @@ def test_part_b2_arguments_are_refused(eng):
                       ({"starvation_age_s": 0.0}, "starvation_age_s must be > 0")):
         with pytest.raises(ValueError, match=match):
             ContinuousScheduler(eng, start=False, **kw)
-    with pytest.raises(NotImplementedError, match="serving on a mesh"):
-        ContinuousScheduler(eng, cache_mode="paged", per_shard_kv=True, start=False)
+    with ContinuousScheduler(eng, cache_mode="paged", per_shard_kv=True, start=False) as sched:
+        assert sched.paged.data_shards == 1 and sched._allocator.num_shards == 1
+    with pytest.raises(ValueError, match="cache_mode='paged'"):
+        ContinuousScheduler(eng, per_shard_kv=True, start=False)
     with pytest.raises(ValueError, match="paged"):
         ContinuousScheduler(eng, prefix_cache=True, start=False)
 

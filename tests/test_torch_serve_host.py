@@ -10,11 +10,13 @@
   same logits; a seeded row's stream is its own; the draws follow the
   softmax (chi-square).  A vocabulary of 6-64 columns: enough for a
   nucleus and a top-k cut to differ from the whole row.
-- Refusals: decode on a pipeline mesh, misused slot-cache arguments, every
-  flag of serving on a mesh, the reference's refusals of part C and part
-  C's flags where they would be ignored; each flag of serving parts B1, B2
-  and C reaches its layer (the continuous scheduler, the router, the
-  watcher, the gateway or the load generator).
+- Refusals: decode on a pipeline mesh, misused slot-cache arguments, mesh
+  sizes the world cannot hold, every flag of part D2 on a multi-rank mesh,
+  the reference's refusals of part C and part C's flags where they would
+  be ignored; each flag of serving parts B1, B2 and C (and ``--data``,
+  ``--fsdp``, ``--per_shard_kv`` on one rank) reaches its layer (the
+  continuous scheduler, the router, the watcher, the gateway or the load
+  generator).
 - The entry points in process: ``run_serve`` on tiny GPT-2 and MNIST
   gives the reference's keys, ``python -m ...serve``'s ``main`` and the
   bench's ``--mode=serve`` one JSON line each.
@@ -54,7 +56,6 @@ from distributed_tensorflow_tpu_torch.serve import (  # noqa: E402
 )
 from distributed_tensorflow_tpu_torch.serve import engine as tengine  # noqa: E402
 from distributed_tensorflow_tpu_torch.serve import sampling as tsampling  # noqa: E402
-from distributed_tensorflow_tpu_torch.serve.driver import later_flags  # noqa: E402
 from tests.test_torch_cluster import join, spawn  # noqa: E402
 
 
@@ -407,17 +408,17 @@ def test_decode_arguments_of_part_b_are_refused():
 
 
 @pytest.mark.parametrize("flag,value,where", [
-    ("per_shard_kv", True, "serving on a mesh"), ("cache_mode", "paged", "--continuous"),
+    ("per_shard_kv", True, "--continuous"), ("cache_mode", "paged", "--continuous"),
     ("prefix_cache", True, "--continuous"), ("prefill_budget", 32, "--continuous"),
     ("megastep", 4, "--continuous"), ("async_decode", True, "--continuous"),
     ("spec_k", 2, "--continuous"), ("slo_scheduling", True, "--continuous"),
     ("sampling_mix", "greedy:1", "--continuous"),
     ("lifecycle_log", "x.jsonl", "--continuous"),
-    ("data", 2, "later serving slice"), ("fsdp", 2, "later serving slice"),
+    ("data", 2, "needs 2 devices but 1 present"), ("fsdp", 2, "Cannot factor 1 device"),
 ])
 def test_flags_of_later_slices_are_refused(flag, value, where):
-    """Flags of later slices name their slice; the continuous path's own
-    flags are refused without ``--continuous`` rather than ignored."""
+    """The continuous path's own flags are refused without ``--continuous``
+    rather than ignored; a mesh larger than the world is refused."""
     from distributed_tensorflow_tpu_torch.serve.__main__ import parse_args
 
     with pytest.raises(ValueError, match=where):
@@ -425,24 +426,26 @@ def test_flags_of_later_slices_are_refused(flag, value, where):
                              else ["--device=cpu", f"--{flag}"]))
 
 
-def _other_value(default):
-    if isinstance(default, bool):
-        return None  # a store_true flag: passed bare
-    return default + 1 if isinstance(default, (int, float)) else "x"
+PART_D2_ARGV = {"megastep": "--megastep=2", "async_decode": "--async_decode",
+                "spec_k": "--spec_k=2", "slo_scheduling": "--slo_scheduling",
+                "num_replicas": "--num_replicas=2", "gateway_port": "--gateway_port=8080",
+                "loadgen_trace": "--loadgen_trace=poisson:n=4"}
 
 
-@pytest.mark.parametrize("flag", sorted(later_flags()))
+@pytest.mark.parametrize("flag", sorted(PART_D2_ARGV))
 def test_every_flag_of_a_later_slice_is_refused_from_the_command_line(flag):
-    """Each flag of serving on a mesh the entry point parses is refused,
-    naming its slice: none is accepted and silently ignored."""
+    """Each flag of part D2 the entry point parses is refused on a
+    multi-rank mesh, naming serving on a mesh, part D2, and passes the
+    same check on one rank: none is silently ignored on the mesh."""
+    from distributed_tensorflow_tpu_torch.serve import driver
     from distributed_tensorflow_tpu_torch.serve.__main__ import parse_args
 
-    default, where = later_flags()[flag]
-    assert re.match(r"serving on a mesh ", where), where
-    value = _other_value(default)
-    argv = ["--device=cpu", f"--{flag}" if value is None else f"--{flag}={value}"]
-    with pytest.raises(ValueError, match=re.escape(where)):
-        run_serve(parse_args(argv))
+    assert set(PART_D2_ARGV) == set(driver._PART_D2_FLAGS)
+    args = parse_args(["--device=cpu", "--continuous", PART_D2_ARGV[flag]])
+    two = Mesh({**{a: 1 for a in MESH_AXES}, "data": 2})
+    with pytest.raises(ValueError, match=re.escape("serving on a mesh, part D2")):
+        driver.check_flags(args, two)
+    driver.check_flags(args, Mesh({a: 1 for a in MESH_AXES}))
 
 
 # Serving part B1's flags: each one's command-line value and what the
@@ -466,6 +469,10 @@ B1_FLAGS = {
     "sampling_mix": (["--sampling_mix=t0.8k40:1"],
                      lambda s, p: s.engine.compile_stats()["compile_total"] >= 1),
     "lifecycle_log": (["--lifecycle_log=LOG"], lambda s, p: s._lifecycle is not None),
+    "per_shard_kv": (["--cache_mode=paged", "--per_shard_kv"],
+                     lambda s, p: s.paged.data_shards == 1 and s._allocator.num_shards == 1),
+    "data": (["--data=1"], lambda s, p: s.engine.mesh.shape["data"] == 1),
+    "fsdp": (["--fsdp=1"], lambda s, p: s.engine.mesh.shape["fsdp"] == 1),
 }
 
 

@@ -342,6 +342,7 @@ def test_port_imports_no_jax_and_no_reference():
         "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
+        "assert pkg.__name__ + '.serve.mesh' in mods, mods\n"
         "import chip_smoke, chip_faults\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',\n"
         "                                                     'tensorboardX', 'tensorboard',\n"
@@ -358,5 +359,5 @@ def test_port_imports_no_jax_and_no_reference():
     # every module was imported (pipeline too; serve/ and obs/serve.py since serving part A;
     # serve/continuous.py, serve/paged.py and obs/lifecycle.py since serving part B1;
     # serve/tiering.py since serving part B2; serve/loadgen.py, serve/gateway/ (4) and
-    # serve/fleet/ (3) since serving part C)
-    assert int(proc.stdout.split()[-1]) >= 84
+    # serve/fleet/ (3) since serving part C; serve/mesh.py since serving on a mesh, D1)
+    assert int(proc.stdout.split()[-1]) >= 85
