@@ -261,7 +261,10 @@ Phases (any failure raises; there is no CPU path):
    ``--serve_mesh_worker`` sharing the card over gloo (rank 0 drives, the
    other follows its engine calls): tiny GPT-2 in float32 at data=2
    (graphed, per-shard pool) and tensor=2 (eager), fixed batch and
-   continuous, against this process's one-rank run; GPT-2 medium bf16 at
+   continuous and part D2's paths (megastep, async, spec, an SLO swap and
+   recompute resuming on the other data rank, a hot reload, 2 replicas with
+   a gateway request and a loadgen trace), against this process's one-rank
+   run; GPT-2 medium bf16 at
    data=2 with per-shard pools on the bench's continuous traffic
    (tokens/s, KV MiB a rank against one rank's, peak MiB a rank, the
    leader's send a call); BERT-base classify at data=2 (12 flash forwards
@@ -270,7 +273,9 @@ Phases (any failure raises; there is no CPU path):
    GPT-2 medium at data=4 and data=2 x tensor=2, graphed (the second's
    graphs capture the tensor axis's collectives): a float32 witness and
    its first decode step's logits against one card, the continuous
-   traffic's tokens/s a card.
+   traffic's tokens/s a card; part D2: data=4's traffic with megastep and
+   async decode, data=2 x tensor=2's float32 witness through megastep and
+   spec against one card and a hot reload keeping 16 of 16 streams.
 
 The line before the last is a JSON object of the kernels' numbers; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -5101,24 +5106,62 @@ MESH_BERT_REPS = 5
 MESH_DEADLINE_S = 420.0
 
 
+MESH_RELOAD_STEP = 5  # the hot reload's checkpoint step (tiny: seed 13; medium: seed 1)
+MESH_D2_SLOTS = 4  # tiny part D2: two slots a data rank, blocks of 4, at most 32 positions
+
+
+def _tiny_checkpoint(path: Path, state_dict, seed: int) -> str:
+    """Step ``MESH_RELOAD_STEP`` of the port's ``CheckpointManager`` holding
+    tiny GPT-2's float32 weights of ``seed`` (the hot reload's generation),
+    in the names and shapes of ``state_dict``."""
+    from distributed_tensorflow_tpu_torch import train_lib
+    from distributed_tensorflow_tpu_torch.checkpoint.manager import CheckpointManager
+    from distributed_tensorflow_tpu_torch.models import get_workload
+    from distributed_tensorflow_tpu_torch.models import gpt2 as tgpt2
+    from distributed_tensorflow_tpu_torch.training import FP32
+
+    cfg = tgpt2.GPT2Config.tiny(dtype=torch.float32)
+    new = dict(tgpt2.GPT2(cfg, seed=seed).named_parameters())
+    wl = get_workload("gpt2", preset="tiny", batch_size=4, seq_len=16, device="cpu", config=cfg)
+    state, _ = train_lib.build_state_and_step(wl, precision=FP32, total_steps=1)
+    with torch.no_grad():
+        for name, p in state.params.items():
+            p.copy_(new[name].to(p.dtype))
+    assert set(state.params) <= set(state_dict)
+    with CheckpointManager(str(path), async_save=False) as mgr:
+        mgr.save(MESH_RELOAD_STEP, state)
+    return str(path)
+
+
 def _mesh_inputs(out: Path, bert=None) -> dict:
     """The inputs every rank and this process share, written to
     ``out/serve_mesh_inputs.pt``: tiny GPT-2's float32 weights (seed 3),
-    its prompts and requests, the float32 witness's prompts and, given the
-    BERT-base engine, 32 classify examples of its stream (synthetic_mlm's
-    ragged keys)."""
+    its prompts and requests, part D2's traffic (motif prompts the drafter
+    drafts, the SLO pressure scenario's whale and shorts, the reload's
+    prompts) and the reload's checkpoint, the float32 witness's prompts
+    (random, and tiled from 4-token motifs) and, given the BERT-base
+    engine, 32 classify examples of its stream (synthetic_mlm's ragged
+    keys)."""
     import numpy as np
 
     from distributed_tensorflow_tpu_torch.models import gpt2 as tgpt2
 
     tiny = tgpt2.GPT2(tgpt2.GPT2Config.tiny(dtype=torch.float32), seed=3)
     rng = np.random.default_rng(5)
+    w = MESH_WITNESS
+    motifs = rng.integers(0, 50257, size=(w["rows"], 4), dtype=np.int32)
     inputs = {
         "tiny": {k: v.detach().cpu() for k, v in tiny.state_dict().items()},
         "prompts": rng.integers(0, 256, size=(MESH_TINY_PROMPTS, 12), dtype=np.int32),
         "requests": _tiny_requests(seed=6, n=12),
-        "witness": rng.integers(0, 50257, size=(MESH_WITNESS["rows"], MESH_WITNESS["prompt"]),
-                                dtype=np.int32)}
+        "spec": [(np.tile(rng.integers(0, 256, size=(3,), dtype=np.int32), 3)[:8], 12)
+                 for _ in range(4)],
+        "pressure": [(rng.integers(0, 256, size=(8,), dtype=np.int32), 16)] + [
+            (rng.integers(0, 256, size=(4,), dtype=np.int32), 8) for _ in range(3)],
+        "reload": [(rng.integers(0, 256, size=(6,), dtype=np.int32), 10) for _ in range(4)],
+        "witness": rng.integers(0, 50257, size=(w["rows"], w["prompt"]), dtype=np.int32),
+        "witness_motif": np.tile(motifs, (1, w["prompt"] // 4))}
+    inputs["tiny_ckpt"] = _tiny_checkpoint(out / "tiny_ckpt", inputs["tiny"], seed=13)
     if bert is not None:
         batch = next(bert.workload.data_fn(32))
         inputs["bert"] = [{k: np.asarray(v[i]) for k, v in batch.items() if k != "label"}
@@ -5127,33 +5170,170 @@ def _mesh_inputs(out: Path, bert=None) -> dict:
     return inputs
 
 
-def _tiny_serve(m, inputs) -> dict:
-    """The leader's tiny GPT-2 run: the fixed batch's greedy tokens and the
-    continuous scheduler's (paged, per-shard pools, blocks of 4)."""
+def _tiny_sched_kw(**extra):
+    return {"num_slots": MESH_D2_SLOTS, "max_total_len": 32, "cache_mode": "paged",
+            "block_size": 4, **extra}
+
+
+def _tiny_run(m, reqs, **extra):
     from distributed_tensorflow_tpu_torch.serve import ContinuousScheduler
 
+    with ContinuousScheduler(m, **_tiny_sched_kw(**extra)) as sched:
+        futs = [sched.submit(p, max_new_tokens=h) for p, h in reqs]
+        outs = [f.result(timeout=300).tolist() for f in futs]
+        return outs, {**sched.stats(), "data_shards": sched.paged.data_shards}
+
+
+def _stepped(sched, futs, between=None, limit=1000):
+    """A hand-stepped scheduler's iterations until every future resolved."""
+    for _ in range(limit):
+        if all(f.done() for f in futs):
+            break
+        if between is not None:
+            between()
+        sched._iteration()
+    return [f.result(timeout=0).tolist() for f in futs]
+
+
+def _tiny_slo(m, inputs) -> dict:
+    """The SLO pressure scenario on a whole pool (9 usable blocks): the
+    whale (priority 0) decodes 4 tokens, three priority-9 shorts preempt it;
+    while it is parked the other data rank's slots head the free list, so on
+    a data mesh it resumes there (by swap, then, at a swap floor above its
+    context, by recompute).  Hand-stepped; returns each run's streams, the
+    whale's slots and the swap counters."""
+    from distributed_tensorflow_tpu_torch.serve import ContinuousScheduler
+
+    (whale, wh), shorts = inputs["pressure"][0], inputs["pressure"][1:]
+    per = MESH_D2_SLOTS // max(1, m.data_parallelism)
+    out = {}
+    for path, swap_min in (("swap", 4), ("recompute", 64)):
+        sched = ContinuousScheduler(m, start=False, **_tiny_sched_kw(
+            max_total_len=24, num_blocks=10, slo_scheduling=True, swap_min_tokens=swap_min))
+        try:
+            wf = sched.submit(whale, max_new_tokens=wh, sampling={"priority": 0})
+            for _ in range(40):
+                if sched._active and len(next(iter(sched._active.values())).tokens) >= 4:
+                    break
+                sched._iteration()
+            slots = [next(iter(sched._active))]
+            sf = [sched.submit(p, max_new_tokens=h, sampling={"priority": 9}) for p, h in shorts]
+
+            def steer():
+                if sched._preempted:
+                    sched._free.sort(key=lambda slot: slot // per != slots[0] // per)
+                now = [s for s, r in sched._active.items() if r.rid == wf.rid]
+                if now and now[0] != slots[-1]:
+                    slots.append(now[0])
+            outs = _stepped(sched, [wf] + sf, between=steer)
+            st = sched.stats()
+        finally:
+            sched.close()
+        out[path] = {"outs": outs, "whale_slots": slots, "swapped": st["preempt_swapped_total"],
+                     "recomputed": st["preempt_recompute_total"],
+                     "swap_bytes": st["swap_bytes_total"],
+                     "swap_bytes_rank": st["swap_bytes_total_per_shard"]}
+    return out
+
+
+def _tiny_reload(m, inputs) -> dict:
+    """Two requests admitted, then every rank restores the checkpoint's
+    step itself (``restore_params``) and the scheduler installs it: the two
+    finish on the old weights, two more run on the new; then the old
+    weights go back."""
+    from distributed_tensorflow_tpu_torch.serve import ContinuousScheduler
+
+    rs = inputs["reload"]
+    sched = ContinuousScheduler(m, start=False, **_tiny_sched_kw())
+    try:
+        before = [sched.submit(p, max_new_tokens=h) for p, h in rs[:2]]
+        for _ in range(4):
+            sched._iteration()
+        sched.update_params(m.restore_params(MESH_RELOAD_STEP, inputs["tiny_ckpt"]),
+                            generation=MESH_RELOAD_STEP)
+        after = [sched.submit(p, max_new_tokens=h) for p, h in rs[2:]]
+        outs = _stepped(sched, before + after)
+        gens = [f.generation for f in before + after]
+    finally:
+        sched.close()
+    old = m.shard_params(inputs["tiny"])
+    m.install_params(old)
+    m.release_outputs(old)
+    return {"outs": outs, "generations": gens}
+
+
+def _tiny_fleet(m, inputs) -> dict:
+    """Two replicas (``driver._make_fleet``: the second built on every
+    rank) behind the router, a gateway SSE stream and the router's
+    streams; then a 4-request Poisson trace through the load generator."""
+    from distributed_tensorflow_tpu_torch.serve import ContinuousScheduler, GatewayServer
+    from distributed_tensorflow_tpu_torch.serve import driver, loadgen
+
+    reqs = inputs["requests"]
+    args = driver.ServeArgs(continuous=True, num_replicas=2, num_slots=MESH_D2_SLOTS,
+                            cache_mode="paged", block_size=4, megastep=2)
+    router = driver._make_fleet(args, m, reqs)
+    gw = GatewayServer(router, host="127.0.0.1", port=0)
+    try:
+        p, h = reqs[1]
+        conn, resp = _http_post(gw.port, "/v1/generate",
+                                {"prompt": [int(t) for t in p], "max_new_tokens": h,
+                                 "stream": True})
+        sse = _sse_tokens(_sse_events(resp))
+        conn.close()
+        futs = [router.submit((p, h)) for p, h in reqs]
+        outs = [f.result(timeout=300).tolist() for f in futs]
+        stats = router.stats()
+    finally:
+        gw.close()
+        router.close()
+    kw = loadgen.parse_trace_spec("poisson:n=4,rate=50", seed=0)
+    trace = loadgen.build_trace(int(kw.pop("n")), vocab=256, max_total_len=32, **kw)
+    with ContinuousScheduler(m, **_tiny_sched_kw()) as sched:
+        report = loadgen.run_trace(sched, trace)
+    return {"sse": sse, "outs": outs, "loadgen": report["tokens_checksum"],
+            "dispatch": [int(stats["dispatch_replica_0"]), int(stats["dispatch_replica_1"])],
+            "loadgen_completed": int(report["completed"])}
+
+
+def _tiny_serve(m, inputs) -> dict:
+    """The leader's tiny GPT-2 run: the fixed batch's greedy tokens, the
+    continuous scheduler's (paged, per-shard pools, blocks of 4), and part
+    D2's paths (``tokens``, every stream of each): megastep 4, the async
+    ring at depth 2, spec 3 on motif prompts, the SLO swap and recompute,
+    the hot reload, 2 replicas with a gateway SSE request and a loadgen
+    trace."""
     fixed = m.generate(inputs["prompts"], 8).tolist()
-    with ContinuousScheduler(m, num_slots=4, max_total_len=32, cache_mode="paged",
-                             block_size=4, per_shard_kv=True) as sched:
-        futs = [sched.submit(p, max_new_tokens=h) for p, h in inputs["requests"]]
-        cont = [f.result(timeout=300).tolist() for f in futs]
-        shards = sched.paged.data_shards
-    return {"fixed": fixed, "continuous": cont, "shards": shards,
-            "messages": m.message_stats() if hasattr(m, "message_stats") else {}}
+    cont, st = _tiny_run(m, inputs["requests"], per_shard_kv=True)
+    reqs = inputs["requests"]
+    spec, sp = _tiny_run(m, inputs["spec"], spec_k=3)
+    slo, reload, fleet = _tiny_slo(m, inputs), _tiny_reload(m, inputs), _tiny_fleet(m, inputs)
+    tokens = {"megastep": _tiny_run(m, reqs, megastep=4)[0],
+              "async": _tiny_run(m, reqs, megastep=4, async_decode=True, async_depth=2)[0],
+              "spec": spec, "slo_swap": slo["swap"]["outs"],
+              "slo_recompute": slo["recompute"]["outs"], "reload": reload["outs"],
+              "fleet": fleet["outs"], "sse": fleet["sse"], "loadgen": fleet["loadgen"]}
+    return {"fixed": fixed, "continuous": cont, "shards": st["data_shards"], "tokens": tokens,
+            "spec_accepted": sp["spec_accepted"], "generations": reload["generations"],
+            "slo": {k: {f: v for f, v in r.items() if f != "outs"} for k, r in slo.items()},
+            "dispatch": fleet["dispatch"], "loadgen_completed": fleet["loadgen_completed"],
+            "messages": m.message_stats() if hasattr(m, "message_stats") else {},
+            "fault_check_us": m.fault_check_us() if hasattr(m, "fault_check_us") else None}
 
 
-def _medium_serve(mesh) -> dict:
+def _medium_serve(mesh, **overrides) -> dict:
     """GPT-2 medium (bf16, seed 0, graphed) on the bench's continuous
-    traffic (16 slots), paged with per-shard pools, through ``run_serve`` on
-    every rank: the leader's line (None elsewhere), this rank's peak and KV
-    MiB and its graphs' capture seconds."""
+    traffic (16 slots), paged with per-shard pools (and ``overrides``: the
+    megastep, async decode), through ``run_serve`` on every rank: the
+    leader's line (None elsewhere), this rank's peak and KV MiB and its
+    graphs' capture seconds."""
     import dataclasses
 
     from distributed_tensorflow_tpu_torch.bench import serve_configs
     from distributed_tensorflow_tpu_torch.serve import ServeEngine, run_serve
 
     args = dataclasses.replace(serve_configs(True)[0]["continuous"], cache_mode="paged",
-                               per_shard_kv=True)
+                               per_shard_kv=True, **overrides)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -5167,6 +5347,69 @@ def _medium_serve(mesh) -> dict:
            "captures": len(eng.captures), "graphs": eng.use_graphs}
     eng.close()
     return res
+
+
+MESH_B2 = dict(megastep=4, async_decode=True)  # serving_mesh data=4's part D2 traffic
+MESH_RELOAD = dict(wave=16, prompt=32, horizon=24)  # serving_mesh's GPT-2 medium hot reload
+
+
+def _witness_b2(m, inputs) -> dict:
+    """GPT-2 medium's float32 witness through part D2: the motif prompts
+    (8 slots, paged) with megastep 4, then with spec 3 (the drafter drafts
+    them); each stream and the accepted drafts."""
+    from distributed_tensorflow_tpu_torch.serve import ContinuousScheduler
+
+    w = MESH_WITNESS
+    reqs = [(p, w["new"]) for p in inputs["witness_motif"]]
+    out = {}
+    for arm, kw in (("megastep", {"megastep": 4}), ("spec", {"spec_k": 3})):
+        with ContinuousScheduler(m, num_slots=w["rows"], max_total_len=w["prompt"] + w["new"],
+                                 cache_mode="paged", block_size=16, **kw) as sched:
+            futs = [sched.submit(p, max_new_tokens=h) for p, h in reqs]
+            out[arm] = [f.result(timeout=600).tolist() for f in futs]
+            if arm == "spec":
+                out["spec_accepted"] = sched.stats()["spec_accepted"]
+    return out
+
+
+def _medium_reload_mesh(m, inputs) -> dict:
+    """GPT-2 medium bf16's hot reload on the mesh: 16 requests decode on the
+    old weights; once each holds 2 tokens every rank restores the
+    checkpoint's step itself and the scheduler installs it; each of the 16
+    must equal its stream without the reload.  Hand-stepped, so the reload
+    lands at the same iteration on any card."""
+    import numpy as np
+
+    from distributed_tensorflow_tpu_torch.serve import ContinuousScheduler
+
+    r = MESH_RELOAD
+    rng = np.random.default_rng(31)
+    prompts = [rng.integers(0, m.module.cfg.vocab_size, size=(r["prompt"],), dtype=np.int32)
+               for _ in range(r["wave"])]
+    kw = dict(num_slots=r["wave"], max_total_len=r["prompt"] + r["horizon"])
+    with ContinuousScheduler(m, **kw) as sched:
+        want = [f.result(timeout=600).tolist()
+                for f in [sched.submit(p, max_new_tokens=r["horizon"]) for p in prompts]]
+    sched = ContinuousScheduler(m, start=False, **kw)
+    try:
+        futs = [sched.submit(p, max_new_tokens=r["horizon"]) for p in prompts]
+        for _ in range(100):
+            if len(sched._active) == r["wave"] and all(
+                    len(q.tokens) >= 2 for q in sched._active.values()):
+                break
+            sched._iteration()
+        t0 = time.perf_counter()
+        staged = m.restore_params(MESH_RELOAD_STEP, inputs["medium_ckpt"])
+        restore_s = time.perf_counter() - t0
+        sched.update_params(staged, generation=MESH_RELOAD_STEP)
+        got = _stepped(sched, futs)
+        after = sched.submit(prompts[0], max_new_tokens=2)
+        _stepped(sched, [after])
+        gens = [f.generation for f in futs] + [after.generation]
+    finally:
+        sched.close()
+    return {"same": sum(g == w for g, w in zip(got, want)), "generations": gens,
+            "restore_s": restore_s}
 
 
 def _first_step_logits(eng, prompts):
@@ -5259,11 +5502,19 @@ def serve_mesh_worker_main(argv) -> int:
                 logits = _first_step_logits(f32, inputs["witness"])
                 if rank == 0:
                     torch.save(logits, out / f"serve_mesh_{label}_logits.pt")
+                b2 = None
+                if label == "data2_tensor2":
+                    b2 = mesh_lib.run(f32, group, lambda m: _witness_b2(m, inputs))
                 f32.close()
-                res[label] = {"witness": witness, **_medium_serve(mesh)}
+                res[label] = {"witness": witness, "witness_b2": b2, **_medium_serve(mesh)}
+                if label == "data4":
+                    res[label]["b2"] = _medium_serve(mesh, **MESH_B2)
                 bf16 = ServeEngine("gpt2", device="cuda", mesh=mesh, preset="medium")
                 res[label]["bf16_witness"] = mesh_lib.run(bf16, group, lambda m: m.generate(
                     inputs["witness"], w["new"]).tolist())
+                if label == "data2_tensor2":
+                    res[label]["reload"] = mesh_lib.run(
+                        bf16, group, lambda m: _medium_reload_mesh(m, inputs))
                 bf16.close()
         res["launches"] = dict(fa.LAUNCHES)
     except Exception as e:  # noqa: BLE001 - reported to the parent, which raises
@@ -5316,12 +5567,46 @@ def _medium_line(label, ranks, cards):
             "decode_send_us": decode_us}
 
 
+def _check_tiny_d2(label, got, want, cross_ranks: bool) -> None:
+    """Part D2 on the mesh against one rank: every stream of each path equal
+    (megastep 4, async depth 2, spec 3, the SLO swap and recompute, the hot
+    reload, a 2-replica fleet with its SSE stream, a loadgen trace); spec
+    accepted drafts, the reload's generations, both replicas served; at
+    data=2 the whale's swap-in and recompute landed on the other data rank
+    and the swap moved bytes."""
+    same = {k: got["tokens"][k] == want["tokens"][k] for k in want["tokens"]}
+    slo = got["slo"]
+    crossed = {k: len(r["whale_slots"]) == 2 and (
+        r["whale_slots"][0] // (MESH_D2_SLOTS // 2) != r["whale_slots"][1] // (MESH_D2_SLOTS // 2))
+               for k, r in slo.items()}
+    print(f"[serve] {label}, part D2 against one rank: equal {same}; spec accepted "
+          f"{got['spec_accepted']:g}; SLO swap {slo['swap']['swapped']:g} "
+          f"({slo['swap']['swap_bytes']:g} bytes, {slo['swap']['swap_bytes_rank']:g} a rank), "
+          f"recompute {slo['recompute']['recomputed']:g}, the whale's slots "
+          f"{slo['swap']['whale_slots']} / {slo['recompute']['whale_slots']}; reload generations "
+          f"{got['generations']}; fleet dispatch {got['dispatch']}; loadgen "
+          f"{got['loadgen_completed']} of 4")
+    if not all(same.values()):
+        raise AssertionError(f"{label}: part D2's tokens differ from one rank's: {same}")
+    if (got["spec_accepted"] <= 0 or got["generations"] != [0, 0, MESH_RELOAD_STEP,
+                                                            MESH_RELOAD_STEP]
+            or min(got["dispatch"]) == 0 or got["loadgen_completed"] != 4
+            or slo["swap"]["swapped"] < 1 or slo["swap"]["swap_bytes"] <= 0
+            or slo["recompute"]["recomputed"] < 1):
+        raise AssertionError(f"{label}: a part D2 path did not run as set up")
+    if cross_ranks and not all(crossed.values()):
+        raise AssertionError(f"{label}: the whale did not resume on the other data rank: {slo}")
+
+
 def check_serving_mesh(fa, data_dir: Path):
     """12j: two ranks sharing the card over gloo (``--serve_mesh_worker
     OUT card``; not a scaling figure).  Tiny GPT-2 in float32 at data=2
     (graphed, per-shard pool) and at tensor=2 (``cuda_graphs=False``):
-    greedy tokens of the fixed batch and of the continuous scheduler equal
-    to this process's one-rank card run.  GPT-2 medium bf16 at data=2 with
+    greedy tokens of the fixed batch, of the continuous scheduler and of
+    part D2's paths (megastep 4, async depth 2, spec 3, an SLO swap and a
+    recompute resuming on the other data rank, a hot reload, 2 replicas
+    with a gateway SSE request and a loadgen trace) equal to this
+    process's one-rank card run.  GPT-2 medium bf16 at data=2 with
     per-shard pools on the bench's continuous traffic: tokens/s, KV MiB a
     rank against one rank's (<= 0.55x), peak MiB a rank,
     ``compile_post_warmup`` 0, no flash launch.  BERT-base classify (seq
@@ -5358,9 +5643,12 @@ def check_serving_mesh(fa, data_dir: Path):
               f"continuous {len(got['continuous'])} requests ({got['shards']:.0f} pool "
               f"shard(s)) equal to one rank's: {same}; leader's sends "
               f"{json.dumps({k: round(v['send_us_mean'], 1) for k, v in got['messages'].items()})}"
-              f" us; {got['seconds']:.1f} s")
+              f" us, its fault check {got['fault_check_us']:.3f} us a call; "
+              f"{got['seconds']:.1f} s")
         if not same:
             raise AssertionError(f"12j tiny GPT-2 at {label}: tokens differ from one rank's")
+        _check_tiny_d2(f"12j tiny GPT-2 float32 at {label}", got, want,
+                       cross_ranks=label == "data2")
     if r0["tiny_data2"]["graphs"] is not True or r0["tiny_tensor2"]["graphs"] is not False:
         raise AssertionError("12j: data=2 must capture its steps, tensor=2 over gloo must not")
     medium = _medium_line(f"12j GPT-2 medium bf16 data=2, per-shard pools ({where})",
@@ -5405,16 +5693,34 @@ def check_serving_mesh_cluster(data_dir: Path):
     card's; in bf16 the witness's token agreement with one card, and the
     bench's continuous traffic with per-shard pools: tokens/s a card, KV
     and peak MiB a rank, the graphs' capture seconds and the leader's
-    sends."""
+    sends.  Part D2: at data=4 the same traffic with megastep 4 and async
+    decode (tokens/s, TPOT p50, launches a token, the sends by program);
+    at data=2 x tensor=2 the float32 witness through megastep 4 and spec 3
+    (motif prompts) equal to one card's, and a bf16 hot reload from a
+    checkpoint every rank restores itself, keeping 16 of 16 admitted
+    streams on their weights."""
     import numpy as np
 
     from distributed_tensorflow_tpu_torch.models import gpt2 as tgpt2
     from distributed_tensorflow_tpu_torch.serve import ServeEngine
 
+    from distributed_tensorflow_tpu_torch import train_lib
+    from distributed_tensorflow_tpu_torch.checkpoint.manager import CheckpointManager
+    from distributed_tensorflow_tpu_torch.models import get_workload
+
     t0 = time.perf_counter()
     out = data_dir / "serve_mesh"
     out.mkdir(parents=True, exist_ok=True)
+    wl = get_workload("gpt2", preset="medium", batch_size=1, device="cuda")
+    state, _ = train_lib.build_state_and_step(wl, total_steps=1, seed=1)
+    with CheckpointManager(str(out / "medium_ckpt"), async_save=False) as mgr:
+        mgr.save(MESH_RELOAD_STEP, state)
+    del state, wl
+    gc.collect()
+    torch.cuda.empty_cache()
     inputs = _mesh_inputs(out)
+    inputs["medium_ckpt"] = str(out / "medium_ckpt")
+    torch.save(inputs, out / "serve_mesh_inputs.pt")
     procs = spawn_cluster(out, "cluster", [("worker", i) for i in range(4)],
                           {"worker": ["cluster"]}, mode="--serve_mesh_worker")
     ranks = _mesh_results("serving_mesh", procs)
@@ -5428,6 +5734,7 @@ def check_serving_mesh_cluster(data_dir: Path):
         dst["tokens"] = one.generate(inputs["witness"], w["new"]).tolist()
         if dtype == torch.float32:
             dst["logits"] = _first_step_logits(one, inputs["witness"])
+            dst["b2"] = _witness_b2(one, inputs)
         one.close()
         gc.collect()
         torch.cuda.empty_cache()
@@ -5449,6 +5756,40 @@ def check_serving_mesh_cluster(data_dir: Path):
         summary[label] = _medium_line(f"serving_mesh GPT-2 medium bf16 {label}",
                                       [r[label] for r in ranks], 4)
         summary[label].update(logits_rel=rel, bf16_agreement=agree)
+        if label == "data4":
+            b2 = [r[label]["b2"] for r in ranks]
+            summary["data4_b2"] = _medium_line(
+                f"serving_mesh GPT-2 medium bf16 data4, megastep {MESH_B2['megastep']} + async", b2,
+                4)
+            line = b2[0]["line"]
+            summary["data4_b2"].update(
+                tpot_p50_ms=line["tpot_p50_ms"],
+                launches_a_token=line["megastep_launches"] / max(line["megastep_tokens"], 1),
+                send_us_by_program=line["mesh_send_us_by_program"],
+                fault_check_us=line["mesh_fault_check_us_mean"])
+            print(f"[serve] serving_mesh data4 part D2: TPOT p50 {line['tpot_p50_ms']:.2f} ms "
+                  f"(without {ranks[0][label]['line']['tpot_p50_ms']:.2f}), "
+                  f"launches a token {summary['data4_b2']['launches_a_token']:.4f}, the leader's "
+                  f"sends by program {json.dumps(line['mesh_send_us_by_program'])} us, its fault "
+                  f"check {line['mesh_fault_check_us_mean']} us a call")
+        else:
+            b2, want_b2 = got["witness_b2"], want["b2"]
+            same_b2 = {k: b2[k] == want_b2[k] for k in ("megastep", "spec")}
+            rl = got["reload"]
+            print(f"[serve] serving_mesh {label} part D2: float32 witness through megastep 4 and "
+                  f"spec 3 equal to one card's {same_b2} (spec accepted {b2['spec_accepted']:g}, "
+                  f"one card {want_b2['spec_accepted']:g}); GPT-2 medium bf16 hot reload: "
+                  f"{rl['same']} of {MESH_RELOAD['wave']} streams on their weights, every rank "
+                  f"restored step {MESH_RELOAD_STEP} in {rl['restore_s']:.2f} s, generations "
+                  f"{sorted(set(rl['generations']))}")
+            if not all(same_b2.values()) or b2["spec_accepted"] <= 0:
+                raise AssertionError(f"serving_mesh {label}: the float32 witness through part D2 "
+                                     f"differs from one card's: {same_b2}")
+            if (rl["same"] != MESH_RELOAD["wave"]
+                    or rl["generations"] != [0] * MESH_RELOAD["wave"] + [MESH_RELOAD_STEP]):
+                raise AssertionError(f"serving_mesh {label}: the hot reload moved an admitted "
+                                     f"stream or did not install: {rl}")
+            summary[label].update(reload_same=rl["same"], reload_restore_s=rl["restore_s"])
     for r in ranks:
         assert_no_flash(f"serving_mesh (rank {r['rank']})", r["launches"])
     shutil.rmtree(out, ignore_errors=True)

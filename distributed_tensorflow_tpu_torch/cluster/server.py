@@ -69,6 +69,9 @@ class Runtime:
     store: dist.Store  # the rendezvous store; the port's own keys start "dtt/"
     address: str  # host:port of the store
     control_group: dist.ProcessGroup  # gloo, for host-side control
+    # The collectives' timeout of every group of the mesh (None: torch's
+    # default for the backend).
+    timeout: Optional[datetime.timedelta] = None
 
     def new_store_client(self) -> dist.Store:
         """A connection of its own to the store: a client blocks in ``wait``
@@ -115,11 +118,14 @@ def initialize_runtime(coordinator_address: Optional[str] = None,
                        num_processes: Optional[int] = None,
                        process_id: Optional[int] = None, *,
                        local_rank: int = 0, local_world_size: int = 1,
-                       device_type: str = "cuda") -> Optional[Runtime]:
+                       device_type: str = "cuda",
+                       timeout_s: Optional[float] = None) -> Optional[Runtime]:
     """Idempotent ``torch.distributed.init_process_group`` over a TCP store
     at ``coordinator_address`` (rank 0 serves it).  A process without a
     cluster (``num_processes`` None) skips it and returns None; a
     one-process cluster initialises a group of one, as the launcher asked.
+    ``timeout_s`` bounds a collective of the default group and of every
+    mesh group built on it (None: torch's default for the backend).
     ``local_world_size`` is the number of ranks on this host: more ranks
     than CUDA devices share cards, which NCCL refuses, so they run gloo."""
     global _RUNTIME
@@ -145,12 +151,14 @@ def initialize_runtime(coordinator_address: Optional[str] = None,
         backend = _agree_backend(store, process_id, num_processes, can_nccl)
         if device.type == "cuda":
             torch.cuda.set_device(device)
+        pg_timeout = None if timeout_s is None else datetime.timedelta(seconds=timeout_s)
         dist.init_process_group(backend, store=dist.PrefixStore("dtt/pg", store),
-                                rank=process_id, world_size=num_processes)
+                                rank=process_id, world_size=num_processes, timeout=pg_timeout)
         control = dist.new_group(backend="gloo")
         _RUNTIME = Runtime(rank=process_id, world_size=num_processes, local_rank=local_rank,
                            backend=backend, device=device, store=store,
-                           address=coordinator_address, control_group=control)
+                           address=coordinator_address, control_group=control,
+                           timeout=pg_timeout)
         if process_id == 0:
             logger.info("torch.distributed: %d rank(s), backend %s%s, store at %s",
                         num_processes, backend,
@@ -212,8 +220,9 @@ class Server:
     ``device`` ("cuda" or "cpu") is where a compute task's rank runs."""
 
     def __init__(self, cluster: ClusterSpec, job_name: str = "worker", task_index: int = 0,
-                 start: bool = True, *, device: str = "cuda"):
+                 start: bool = True, *, device: str = "cuda", timeout_s: Optional[float] = None):
         self.cluster_spec = ClusterSpec(cluster)
+        self.timeout_s = timeout_s
         self.job_name = job_name
         self.task_index = task_index
         self.device = device
@@ -225,9 +234,10 @@ class Server:
 
     @classmethod
     def from_resolver(cls, resolver: ClusterResolver, start: bool = True, *,
-                      device: str = "cuda") -> "Server":
+                      device: str = "cuda", timeout_s: Optional[float] = None) -> "Server":
         return cls(resolver.cluster_spec(), job_name=resolver.task_type or "worker",
-                   task_index=resolver.task_id or 0, start=start, device=device)
+                   task_index=resolver.task_id or 0, start=start, device=device,
+                   timeout_s=timeout_s)
 
     @property
     def is_compute(self) -> bool:
@@ -248,7 +258,7 @@ class Server:
                 coordinator_address=self.cluster_spec.coordinator_address(),
                 num_processes=self.cluster_spec.num_processes(), process_id=rank,
                 local_rank=local_rank, local_world_size=local_world,
-                device_type=self.device)
+                device_type=self.device, timeout_s=self.timeout_s)
         elif not self.is_compute:
             logger.info("Task %s:%d is not a compute job; parameters are replicated over "
                         "the data-parallel ranks, so this process only parks in join().",

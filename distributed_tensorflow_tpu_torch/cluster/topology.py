@@ -155,7 +155,12 @@ class Mesh:
 
 def _subgroups(mesh: Mesh, axes: Tuple[str, ...]):
     """Every rank calls ``new_group`` for every group along ``axes``, in
-    one order; returns the one through this rank."""
+    one order; returns the one through this rank.  Each takes the
+    runtime's collective timeout (``initialize_runtime(timeout_s=)``)."""
+    from distributed_tensorflow_tpu_torch.cluster.server import runtime
+
+    rt = runtime()
+    timeout = rt.timeout if rt is not None else None
     mine, seen = None, set()
     for r in range(mesh.size):
         other = Mesh(mesh.shape, r)
@@ -163,7 +168,7 @@ def _subgroups(mesh: Mesh, axes: Tuple[str, ...]):
         if ranks in seen:
             continue
         seen.add(ranks)
-        g = dist.new_group(list(ranks))
+        g = dist.new_group(list(ranks), timeout=timeout)
         if mesh.rank in ranks:
             mine = g
     return mine

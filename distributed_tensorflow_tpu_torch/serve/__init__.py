@@ -32,10 +32,11 @@ processes:
   counters, ``obs.lifecycle`` the per-request phases.
 
 On a mesh the engine, the fixed batch, classify and the continuous
-scheduler (dense, paged, per-shard pools, prefix caching, chunked prefill)
-run over data x fsdp x tensor ranks; the megastep, async decode,
-speculative decoding, SLO scheduling, hot reload and part C's fleet,
-gateway and load generator run on one rank (serving on a mesh, part D2).
+scheduler with every feature (dense, paged, per-shard pools, prefix
+caching, chunked prefill, the megastep, async decode, speculative
+decoding, SLO scheduling with swap and recompute, the hot reload) run over
+data x fsdp x tensor ranks, and so does a fleet of replicas behind the
+router, with the gateway and the load generator on the leader.
 """
 
 from distributed_tensorflow_tpu_torch.serve.batcher import DynamicBatcher, ServeOverloadedError

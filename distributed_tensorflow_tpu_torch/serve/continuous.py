@@ -44,10 +44,15 @@ decode step instead (Yu et al., OSDI 2022):
   keys one map a shard.  ``num_blocks`` rounds up to a multiple of the
   shard count.
 - ON A MULTI-RANK MESH the scheduler runs on the leader over
-  ``serve.mesh.MeshEngine``, which sends each engine call to every rank;
-  part B2's megastep, async decode, speculative decoding and SLO
-  scheduling, and a hot reload, are refused there (serving on a mesh,
-  part D2).
+  ``serve.mesh.MeshEngine``, which sends each engine call to every rank,
+  every feature included: the megastep's and the verify's outputs come
+  back whole, the async ring fetches them on the leader alone, a swap's
+  payload stays on the rank that holds its block until a swap-in moves it
+  to its new slot's, a hot reload's pinned and staged generations are
+  outputs every rank holds (``snapshot_params``; ``release_outputs`` once
+  unused).  A whole paged pool (not per-shard) is one logical pool: the
+  blocks the prefix cache registers are copied from their slot's rank to
+  every data rank (``share_kv_blocks``), so any slot may map them.
 - CHUNKED PREFILL (``prefill_budget > 0``): at most that many prompt tokens
   are prefilled an iteration, one ``min(remaining, budget)`` chunk a slot,
   new requests first with an aging bound (``_PREFILL_AGE_LIMIT``); only the
@@ -143,8 +148,8 @@ _AUTOTUNE_MIN_SAMPLES = 8
 _AUTOTUNE_MAX_K = 32
 
 _TIER_KEYS = ("swapped_resident", "swapped_bytes_resident", "swap_out_bytes_total",
-              "swap_in_bytes_total", "swap_bytes_total", "swap_outs_total", "swap_ins_total",
-              "swap_dropped_total")
+              "swap_in_bytes_total", "swap_bytes_total", "swap_bytes_total_per_shard",
+              "swap_outs_total", "swap_ins_total", "swap_dropped_total")
 
 
 def _continuous_instruments(registry=None):
@@ -401,14 +406,6 @@ class ContinuousScheduler:
         if cfg is None:
             raise ValueError("ContinuousScheduler serves the KV-cache decode path; "
                              f"model {engine.model!r} has no decode cache")
-        if engine.mesh.size > 1:
-            for flag, used in (("megastep", megastep != 1), ("async_decode", async_decode),
-                               ("spec_k", spec_k is not None),
-                               ("slo_scheduling", slo_scheduling)):
-                if used:
-                    raise NotImplementedError(
-                        f"{flag} on a multi-rank mesh comes with serving on a mesh, part D2; "
-                        "it runs on one rank")
         if per_shard_kv and cache_mode != "paged":
             raise ValueError("per_shard_kv partitions the paged block pool — it requires "
                              "cache_mode='paged'")
@@ -779,18 +776,18 @@ class ContinuousScheduler:
         tensors, the serving parameters' names and shapes).  The loop
         installs it at the top of its next iteration: admitted requests
         keep decoding on the generation they pinned; every later admission
-        pins the new one.  Updates before the loop wakes coalesce.  Refused
-        on a multi-rank mesh (part D2): the pinned generations' copies would
-        live on the leader alone."""
-        if self.engine.mesh.size > 1:
-            raise NotImplementedError("a hot reload on a multi-rank mesh comes with serving on a "
-                                      "mesh, part D2")
+        pins the new one.  Updates before the loop wakes coalesce (the
+        superseded staging is released).  On a mesh ``params`` is a mirrored
+        call's output (``shard_params``, ``restore_params``), which every
+        rank holds."""
         staged = _ParamGeneration(params=dict(params), generation=int(generation))
         with self._cond:
             if self._stopped:
                 raise RuntimeError("ContinuousScheduler is closed")
-            self._pending_gen = staged
+            superseded, self._pending_gen = self._pending_gen, staged
             self._cond.notify_all()
+        if superseded is not None:
+            self.engine.release_outputs(superseded.params)
 
     @property
     def generation(self) -> int:
@@ -1032,13 +1029,23 @@ class ContinuousScheduler:
             old = self._gen
             pinned = old.refs > 0
         if pinned:
-            old.params = {n: p.detach().clone() for n, p in self.engine.params.items()}
+            old.params = self.engine.snapshot_params()
         self.engine.install_params(new.params)
+        self.engine.release_outputs(new.params)
         new.params = None  # live: the module's own tensors
         with self._lock:
             self._gen = new
         logger.info("hot-swapped params: generation %d -> %d (%d request(s) still on the old "
                     "weights)", old.generation, new.generation, old.refs)
+
+    def _unpin_locked(self, gen: _ParamGeneration):
+        """One row fewer on ``gen``; the weights of a superseded generation
+        whose last row went, for the caller to release outside the lock."""
+        gen.refs -= 1
+        if gen is not self._gen and gen.refs == 0:
+            params, gen.params = gen.params, None  # the last row on a superseded generation
+            return params
+        return None
 
     def _iteration(self) -> bool:
         """One scheduler iteration; True means the loop should exit.  The
@@ -1348,11 +1355,10 @@ class ContinuousScheduler:
         with self._lock:
             self._reserved_by_shard[self._slot_shard[slot]] -= req.reserved_blocks
             req.reserved_blocks = 0
+            unpinned = None
             if req.gen is not None:
                 # Unpinned: the parked request pins again at resume.
-                req.gen.refs -= 1
-                if req.gen is not self._gen and req.gen.refs == 0:
-                    req.gen.params = None
+                unpinned = self._unpin_locked(req.gen)
                 req.gen = None
             if was_prefilling:
                 self._prefilling -= 1
@@ -1373,6 +1379,7 @@ class ContinuousScheduler:
             self._obs["preemptions"].inc()
             self._obs["active_slots"].set(len(self._active))
             self._cond.notify_all()
+        self.engine.release_outputs(unpinned)
         logger.debug("preempted request %d from slot %d (%s, %d token(s) emitted)",
                      req.rid, slot, path, len(req.tokens))
 
@@ -1505,8 +1512,15 @@ class ContinuousScheduler:
             return
         full = len(req.prompt) // self.block_size
         if full > 0:
-            self._allocator.register_prefix(self._slot_blocks[req.slot][:full],
-                                            req.prefix_keys[:full], self._slot_shard[req.slot])
+            blocks = self._slot_blocks[req.slot][:full]
+            self._allocator.register_prefix(blocks, req.prefix_keys[:full],
+                                            self._slot_shard[req.slot])
+            # A whole pool on several data ranks: the slot's rank alone wrote
+            # the blocks it did not map from the cache; copy them to every rank.
+            written = blocks[req.prefix_cached // self.block_size:]
+            if written and self.paged.data_shards == 1 and self.engine.data_parallelism > 1:
+                self._cache = self.engine.share_kv_blocks(self._cache, written, paged=self.paged,
+                                                          slot=req.slot)
 
     def _admit(self, admits: List[_SlotRequest]) -> None:
         """Admission: map the cached prefix, start the chunk state machine
@@ -2499,10 +2513,7 @@ class ContinuousScheduler:
             if self.paged is not None:
                 self._reserved_by_shard[self._slot_shard[req.slot]] -= req.reserved_blocks
                 req.reserved_blocks = 0
-            if req.gen is not None:
-                req.gen.refs -= 1
-                if req.gen is not self._gen and req.gen.refs == 0:
-                    req.gen.params = None  # the last row on a superseded generation
+            unpinned = self._unpin_locked(req.gen) if req.gen is not None else None
             if req.prefilling():
                 # Only a cancelled request retires mid-prefill.
                 self._prefilling -= 1
@@ -2543,6 +2554,7 @@ class ContinuousScheduler:
                         self._tpot_ms.append(per * 1e3)
                         self._obs["tpot"].observe(per)
             self._cond.notify_all()  # wake drain() waiters
+        self.engine.release_outputs(unpinned)
         if self._lifecycle is not None:
             self._lifecycle.record(req.rid, "CANCELLED" if was_cancelled else "RETIRED",
                                    t=req.finished_at, tokens=len(req.tokens),

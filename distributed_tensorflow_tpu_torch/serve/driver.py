@@ -36,12 +36,16 @@ the process group (``cluster.Server``: NCCL where every rank has its own
 card, gloo where ranks share one) and every rank builds its engine; rank 0
 drives the clients, the batcher and the scheduler through
 ``serve.mesh.MeshEngine`` and alone returns the metrics, the other ranks
-follow its engine calls and return None once it finished.  Over gloo with
+follow its engine calls and return None once it finished.  Every flag runs
+there: a fleet's replicas are built on every rank (``replicate``) and share
+the leader's one channel, while the router, the gateway, the load
+generator and the reload watcher stay on the leader.  Over gloo with
 ``--tensor`` > 1 the engines run without CUDA graphs (a collective there
-cannot be captured), which the line reports.  Part B2's and part C's flags
-(``_PART_D2_FLAGS``) raise on a multi-rank mesh, naming serving on a mesh,
-part D2.  The continuous path's own flags raise without ``--continuous``
-rather than being ignored, and so do part C's flags where they would be ignored (the
+cannot be captured), which the line reports.  The process group's
+collectives time out after ``MESH_TIMEOUT_S``; a follower's own failure
+raises on the leader well before (``serve.mesh``).  The continuous path's
+own flags raise without ``--continuous`` rather than being ignored, and so
+do part C's flags where they would be ignored (the
 gateway's limits without ``--gateway_port``, ``--arrival_rate`` without
 ``--loadgen_trace``, ``--reload_poll_s`` without a fleet and a checkpoint
 directory); ``--prompt_period`` shapes the traffic of either path.
@@ -189,23 +193,16 @@ CONTINUOUS_FLAGS = ("cache_mode", "block_size", "num_blocks", "kv_dtype", "per_s
                     "async_decode", "async_depth", "spec_k", "spec_ngram", "slo_scheduling",
                     "swap_min_tokens", "starvation_age_s")
 
-
-# Part B2's and part C's flags: refused off their defaults on a multi-rank
-# mesh, where they come with serving on a mesh, part D2.
-_PART_D2_FLAGS = ("megastep", "async_decode", "spec_k", "slo_scheduling", "num_replicas",
-                  "gateway_port", "loadgen_trace")
+# The serving mesh's collective timeout (seconds): a bound on a wait for a
+# rank that is gone without a word.
+MESH_TIMEOUT_S = 300.0
 
 
-def check_flags(args: ServeArgs, mesh=None) -> None:
+def check_flags(args: ServeArgs) -> None:
     """Refuse the continuous path's flags without ``--continuous``; the
     reference's own refusals of part C; part C's flags where they would be
-    ignored; and, on a multi-rank ``mesh``, part D2's flags."""
+    ignored."""
     defaults = ServeArgs()
-    if mesh is not None and mesh.size > 1:
-        for flag in _PART_D2_FLAGS:
-            if getattr(args, flag) != getattr(defaults, flag):
-                raise ValueError(f"--{flag}={getattr(args, flag)!r} on a multi-rank mesh comes "
-                                 "with serving on a mesh, part D2; it runs on one rank")
     continuous = args.continuous and args.model == "gpt2"
     if not continuous:
         for flag in CONTINUOUS_FLAGS:
@@ -350,9 +347,9 @@ def run_serve(args: ServeArgs, engine: Optional[ServeEngine] = None) -> Optional
             from distributed_tensorflow_tpu_torch import cluster
             from distributed_tensorflow_tpu_torch.cluster.topology import MeshConfig, build_mesh
 
-            cluster_server = cluster.Server.from_resolver(cluster.resolve(), device=args.device)
+            cluster_server = cluster.Server.from_resolver(cluster.resolve(), device=args.device,
+                                                          timeout_s=MESH_TIMEOUT_S)
             mesh = build_mesh(MeshConfig(data=args.data, fsdp=args.fsdp, tensor=args.tensor))
-            check_flags(args, mesh)  # before the engine's build
             overrides: Dict[str, Any] = {}
             preset = _auto_preset(args)
             if preset:
@@ -360,8 +357,6 @@ def run_serve(args: ServeArgs, engine: Optional[ServeEngine] = None) -> Optional
             engine = ServeEngine(args.model, mesh=mesh, checkpoint_dir=args.checkpoint_dir,
                                  seed=args.seed, device=args.device,
                                  cuda_graphs=_graphs_capture(mesh, args.device), **overrides)
-        else:
-            check_flags(args, engine.mesh)
         if engine.mesh.size > 1:
             from distributed_tensorflow_tpu_torch.serve import mesh as mesh_lib
 
@@ -424,7 +419,8 @@ def _serve(args: ServeArgs, engine) -> Dict[str, Any]:
             "mesh_send_us_mean": round(sum(s["calls"] * s["send_us_mean"]
                                            for s in sent.values()) / max(calls, 1), 2),
             "mesh_send_us_by_program": {k: round(s["send_us_mean"], 2)
-                                        for k, s in sent.items()}})
+                                        for k, s in sent.items()},
+            "mesh_fault_check_us_mean": round(engine.fault_check_us(), 3)})
     return out
 
 
@@ -512,8 +508,9 @@ def _warm_continuous(args: ServeArgs, engine: ServeEngine, payloads) -> None:
             # The swap path's block programs, on the trash block of the idle
             # warm cache, so a preemption in the timed run builds nothing.
             cache, counts = sched._cache, sched._counts
-            payload = engine.gather_kv_block(cache, 0, paged=sched.paged)
+            payload = engine.gather_kv_block(cache, 0, paged=sched.paged, slot=0)
             engine.scatter_kv_block(cache, 0, payload, paged=sched.paged)
+            engine.release_outputs(payload)
             engine.bind_slot_rows(cache, [0], [0])
             engine.scatter_counts_row(counts, 0, engine.gather_counts_row(counts, 0))
     finally:
@@ -526,8 +523,10 @@ def _make_fleet(args: ServeArgs, engine: ServeEngine, payloads):
     over all of them).  Replica 0 is the caller's engine; every other one is
     built with engine 0's device, CUDA-graph setting and workload overrides
     (preset, config, dtype: one numerics for the fleet) and given engine 0's
-    weights and restored step.  ``reload_poll_s`` with ``checkpoint_dir``
-    attaches the hot-reload watcher, which the router owns and closes."""
+    weights and restored step (``ServeEngine.replicate``; on a mesh built on
+    every rank and driven through the leader's one channel).
+    ``reload_poll_s`` with ``checkpoint_dir`` attaches the hot-reload
+    watcher, which the router owns and closes."""
     from distributed_tensorflow_tpu_torch.serve.fleet import (
         CheckpointWatcher,
         FleetRouter,
@@ -537,12 +536,7 @@ def _make_fleet(args: ServeArgs, engine: ServeEngine, payloads):
     replicas, eng = [], None
     try:
         for i in range(args.num_replicas):
-            eng = engine
-            if i:
-                eng = ServeEngine(args.model, mesh=engine.mesh, device=engine.device,
-                                  cuda_graphs=engine.use_graphs, **engine.workload_overrides)
-                eng.install_params(engine.params)
-                eng.restored_step = engine.restored_step
+            eng = engine.replicate() if i else engine
             _warm(args, eng, payloads)
             sched = _scheduler(args, eng, payloads, name=f"serve-fleet-r{i}",
                                **_cache_kwargs(args))
@@ -558,8 +552,17 @@ def _make_fleet(args: ServeArgs, engine: ServeEngine, payloads):
     if args.reload_poll_s > 0 and args.checkpoint_dir:
         from distributed_tensorflow_tpu_torch.checkpoint import CheckpointManager
 
-        watcher = CheckpointWatcher(CheckpointManager(args.checkpoint_dir), replicas,
-                                    poll_interval_s=args.reload_poll_s, owns_manager=True)
+        if engine.mesh.size > 1:
+            # A manager's construction is a collective of every rank: the
+            # leader's watcher polls the engine's own, which every rank built.
+            manager, owns = engine.checkpoint_manager, False
+            if manager is None:
+                raise ValueError("--reload_poll_s on a mesh polls the engine's checkpoint "
+                                 "directory: build the engine with checkpoint_dir")
+        else:
+            manager, owns = CheckpointManager(args.checkpoint_dir), True
+        watcher = CheckpointWatcher(manager, replicas, poll_interval_s=args.reload_poll_s,
+                                    owns_manager=owns)
     return FleetRouter(replicas, watcher=watcher)
 
 
@@ -931,6 +934,9 @@ def _drive(args: ServeArgs, engine: ServeEngine) -> Dict[str, Any]:
         out.update(_continuous_keys(stats, args, megastep_auto))
         if engine.mesh.size > 1:
             out["kv_hbm_bytes_per_rank"] = int(stats["kv_hbm_bytes_per_shard"])
+            if args.slo_scheduling:
+                out["swap_bytes_total_per_rank"] = int(stats.get("swap_bytes_total_per_shard",
+                                                                 0.0))
         if lifecycle is not None:
             out.update(_lifecycle_keys(stats, args))
     else:

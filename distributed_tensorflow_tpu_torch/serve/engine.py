@@ -128,7 +128,6 @@ logger = logging.getLogger(__name__)
 _launch_lock = threading.Lock()
 
 _DATA = ("data", "fsdp")  # the axes a batch's rows split over
-_PART_D2 = "serving on a mesh, part D2"
 _MASK32 = 0xFFFFFFFF
 _SEEDED = 0x5EED  # the seeded rows' key word, as the reference folds it in
 _F32_MIN = torch.finfo(torch.float32).min
@@ -388,6 +387,20 @@ def check_capture(mesh, device_type: str, cuda_graphs: bool) -> None:
             "(NCCL), whose collectives the graphs capture")
 
 
+@dataclasses.dataclass
+class BlockPayload:
+    """A block's ``gather_kv_block`` payload on a mesh of processes: this
+    rank's leaves (its heads, in ``_pool_leaf_paths`` order) on the data
+    rank ``src`` that holds the block, None on the others; ``nbytes`` the
+    payload over every rank (each tensor rank's heads), ``nbytes_rank`` one
+    rank's."""
+
+    leaves: Optional[List[torch.Tensor]]
+    src: int
+    nbytes: int
+    nbytes_rank: int
+
+
 class HostFetch:
     """Host copies of a launch's outputs in flight (``ServeEngine.
     fetch_async``): ``wait`` blocks on the copies' CUDA event, then hands
@@ -507,11 +520,28 @@ class ServeEngine:
             return buf
         return collectives.psum(buf, self.mesh, _DATA)
 
-    def _multi_rank(self, program: str) -> None:
-        """Refuse a program of serving part B2 on a multi-rank mesh."""
-        if self.mesh.size > 1:
-            raise NotImplementedError(f"{program} on a multi-rank mesh comes with {_PART_D2}; "
-                                      "it runs on one rank")
+    def _max_ranks(self, value: torch.Tensor) -> torch.Tensor:
+        """``value``'s maximum over data x fsdp (a copy on one rank)."""
+        if self.data_parallelism == 1:
+            return value.clone()
+        return collectives.pmax(value, self.mesh, _DATA)
+
+    @staticmethod
+    def _my_rows(fam: "_SlotFamily", value):
+        """This rank's rows of a (num_slots, ...) host array or device
+        tensor (None passes)."""
+        if value is None:
+            return None
+        lo, hi = fam.lo, fam.lo + fam.cache.num_slots
+        if isinstance(value, torch.Tensor):
+            return value[lo:hi]
+        return np.asarray(value)[lo:hi]
+
+    @property
+    def checkpoint_manager(self) -> Optional[CheckpointManager]:
+        """The manager of the checkpoint directory this engine restored
+        from (None without one)."""
+        return self._manager
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
@@ -1060,8 +1090,7 @@ class ServeEngine:
             buf = fam.mega[K] = {
                 "toks": torch.zeros(N, K, dtype=torch.int64, device=dev),
                 "final": torch.zeros(N, dtype=torch.int64, device=dev),
-                "steps": torch.zeros((), dtype=torch.int64, device=dev),
-                "clock": torch.zeros((), dtype=torch.int64, device=dev)}
+                "steps": torch.zeros((), dtype=torch.int64, device=dev)}
         return buf
 
     def _megastep_body(self, fam: _SlotFamily, key: str, K: int, params=None) -> None:
@@ -1072,9 +1101,10 @@ class ServeEngine:
         (a dead row's index and position frozen, its writes routed as an
         inactive row's), the choice at ``counter + j`` and ``step + j``,
         the alive rows' counts bumped.  ``steps`` counts the steps in which
-        any row was alive (the reference's executed iterations); a column
-        past the last such step stays 0, as the reference's untouched
-        buffer."""
+        any of this rank's rows was alive; ``decode_megastep`` takes the
+        maximum over the ranks (the reference's executed iterations, until
+        every row of the whole batch is dead) and zeroes the columns past
+        it, as the reference's untouched buffer."""
         buf = self._mega_buffers(fam, K)
         tok = torch.where(fam.fresh, fam.fresh_tokens, fam.tokens[:, 0])
         alive = fam.active & (fam.horizon > 0)
@@ -1084,18 +1114,16 @@ class ServeEngine:
             logits = self._gated_forward(fam, tok[:, None], alive, params)
             samp = dict(fam.sampling, step=fam.sampling["step"] + j)
             nxt = _choose_rows(self._full_logits(logits), key, self._sample_seed,
-                               fam.counter + j, samp, fam.counts)
+                               fam.counter + j, samp, fam.counts, rows=fam.rows)
             tok_next = torch.where(alive, nxt, tok)
             _bump_counts(fam.counts, fam.cache.all_slots, tok_next, alive)
-            any_alive = alive.any()
-            ran = ran + any_alive
-            buf["toks"][:, j].copy_(torch.where(any_alive, tok_next, torch.zeros_like(tok_next)))
+            ran = ran + alive.any()
+            buf["toks"][:, j].copy_(tok_next)
             left = torch.where(alive, left - 1, left)
             alive = alive & ~((fam.eos >= 0) & (tok_next == fam.eos)) & (left > 0)
             tok = tok_next
         buf["final"].copy_(tok)
         buf["steps"].copy_(ran)
-        buf["clock"].copy_(fam.clock + ran)
 
     def _verify_buffers(self, fam: _SlotFamily, k: int) -> Dict[str, torch.Tensor]:
         buf = fam.verify.get(k)
@@ -1132,7 +1160,7 @@ class ServeEngine:
         for j in range(k + 1):
             samp = dict(fam.sampling, step=fam.sampling["step"] + j)
             t = _choose_rows(self._full_logits(logits, j), key, self._sample_seed,
-                             fam.counter + j, samp, provisional)
+                             fam.counter + j, samp, provisional, rows=fam.rows)
             _bump_counts(provisional, cache.all_slots, t, active)
             targets.append(t)
         targets = torch.stack(targets, dim=1)
@@ -1221,10 +1249,12 @@ class ServeEngine:
         return nxt, cache, counts
 
     def _stage_carry(self, fam: _SlotFamily, fresh_tokens, fresh, clock) -> None:
+        """The carry's inputs, this rank's rows of the per-slot ones."""
         N = fam.cache.num_slots
-        self._stage(fam.fresh, np.zeros((N,), bool) if fresh is None else np.asarray(fresh, bool))
+        self._stage(fam.fresh, np.zeros((N,), bool) if fresh is None
+                    else self._my_rows(fam, np.asarray(fresh, bool)))
         if fresh_tokens is not None:
-            self._stage(fam.fresh_tokens, fresh_tokens)
+            self._stage(fam.fresh_tokens, self._my_rows(fam, fresh_tokens))
         if clock is None:
             fam.clock.zero_()
         else:
@@ -1249,8 +1279,11 @@ class ServeEngine:
         (0 when None).  Paged: the table must cover every position the K
         steps may write (``PagedKVConfig.blocks_for_megastep``).  On the
         card one CUDA graph per (K, sampling key) of the family; ``params``
-        of an older generation run the same steps eagerly."""
-        self._multi_rank("decode_megastep")
+        of an older generation run the same steps eagerly.  On a data mesh
+        each rank runs its slots' rows; the tokens and the final carry are
+        gathered, ``steps_run`` is the maximum over the ranks and the clock
+        advances by it, so every rank returns the reference's whole-batch
+        outputs."""
         fam = self._family(cache)
         self._check_paged(fam, paged, block_tables)
         self._check_counts(fam, counts)
@@ -1262,9 +1295,9 @@ class ServeEngine:
         t0 = time.perf_counter()
         with torch.inference_mode(), _launch_lock:
             self._stage_step(fam, last_tokens, active, sampling, counter, block_tables)
-            self._stage(fam.horizon, np.asarray(horizon, np.int64))
+            self._stage(fam.horizon, self._my_rows(fam, np.asarray(horizon, np.int64)))
             self._stage(fam.eos, np.full((N,), -1, np.int64) if eos_rows is None
-                        else np.asarray(eos_rows, np.int64))
+                        else self._my_rows(fam, np.asarray(eos_rows, np.int64)))
             self._stage_carry(fam, fresh_tokens, fresh, clock)
             if not self._live(params):
                 self._megastep_body(fam, key, K, params)
@@ -1272,8 +1305,11 @@ class ServeEngine:
                 self._program(fam, ("megastep", K, key), "slot_megastep",
                               lambda: self._megastep_body(fam, key, K))()
             buf = fam.mega[K]
-            out = (buf["toks"].to(torch.int32), buf["final"].clone(), buf["steps"].clone(),
-                   buf["clock"].clone())
+            steps_run = self._max_ranks(buf["steps"])
+            ran = torch.arange(K, device=self.device)[None, :] < steps_run
+            toks = self._gather_rows(buf["toks"])
+            out = (torch.where(ran, toks, torch.zeros_like(toks)).to(torch.int32),
+                   self._gather_rows(buf["final"]).clone(), steps_run, fam.clock + steps_run)
         self._obs["megastep"].observe(time.perf_counter() - t0)
         return (*out, cache, counts)
 
@@ -1294,8 +1330,8 @@ class ServeEngine:
         (targets, accepted, carry_out, clock_out, cache, counts).  Paged:
         the table must cover the written positions
         (``PagedKVConfig.blocks_for_spec``).  On the card one CUDA graph per
-        (k, sampling key) of the family serves both forms."""
-        self._multi_rank("verify_slots")
+        (k, sampling key) of the family serves both forms.  On a data mesh
+        each rank verifies its slots' rows and the outputs are gathered."""
         fam = self._family(cache)
         self._check_paged(fam, paged, block_tables)
         self._check_counts(fam, counts)
@@ -1312,9 +1348,9 @@ class ServeEngine:
         with torch.inference_mode(), _launch_lock:
             buf = self._verify_buffers(fam, k)
             self._stage_step(fam, tokens[:, :1], active, sampling, counter, block_tables)
-            self._stage(buf["tokens"], tokens)
-            self._stage(buf["lens"], np.asarray(draft_lens, np.int64))
-            self._stage(buf["carry"], carry if chain else tokens[:, 0])
+            self._stage(buf["tokens"], self._my_rows(fam, tokens))
+            self._stage(buf["lens"], self._my_rows(fam, np.asarray(draft_lens, np.int64)))
+            self._stage(buf["carry"], self._my_rows(fam, carry if chain else tokens[:, 0]))
             if chain:
                 self._stage_carry(fam, fresh_tokens, fresh, clock)
             else:
@@ -1324,9 +1360,10 @@ class ServeEngine:
             else:
                 self._program(fam, ("verify", k, key), "slot_verify",
                               lambda: self._verify_body(fam, key, k))()
-            out = (buf["targets"].to(torch.int32), buf["accepted"].clone())
+            out = (self._gather_rows(buf["targets"]).to(torch.int32),
+                   self._gather_rows(buf["accepted"]).clone())
             if chain:
-                out += (buf["carry_out"].clone(), buf["clock"].clone())
+                out += (self._gather_rows(buf["carry_out"]).clone(), buf["clock"].clone())
         self._obs["verify"].observe(time.perf_counter() - t0)
         return (*out, cache, counts)
 
@@ -1349,8 +1386,8 @@ class ServeEngine:
             self._eager_built.add((kind, layout))
             self._note_compile(kind)
 
-    def _check_pool(self, fam: _SlotFamily, paged) -> None:
-        self._multi_rank("the KV-tiering block programs")
+    @staticmethod
+    def _check_pool(fam: _SlotFamily, paged) -> None:
         if paged is None or paged != fam.key[2]:
             raise ValueError(f"the block programs move blocks of a paged pool; the cache's "
                              f"PagedKVConfig is {fam.key[2]}, the call's {paged}")
@@ -1359,68 +1396,161 @@ class ServeEngine:
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
 
-    def gather_kv_block(self, cache, block: int, *, paged) -> List[torch.Tensor]:
+    def _block_owner(self, fam: _SlotFamily, block: int, slot: Optional[int]) -> int:
+        """The data rank whose pool holds ``block``'s bytes: its shard's of
+        a per-shard pool; of a whole pool on every data rank, ``slot``'s
+        (the rank that wrote the slot's private blocks)."""
+        paged = fam.key[2]
+        if paged.data_shards > 1:
+            return int(block) // paged.blocks_per_shard
+        if self.data_parallelism == 1:
+            return 0
+        if slot is None:
+            raise ValueError("on a data mesh a block of the whole pool moves from the rank of "
+                             "the slot that wrote it: pass slot=")
+        return int(slot) // fam.cache.num_slots
+
+    def _local_block(self, fam: _SlotFamily, block: int) -> int:
+        return int(block) - fam.block_base
+
+    def _pool_leaves(self, cache) -> List[List[torch.Tensor]]:
+        return [getattr(cache, field) for field, _ in self._pool_leaf_paths(cache)]
+
+    def gather_kv_block(self, cache, block: int, *, paged, slot: Optional[int] = None):
         """One physical block of the paged pools to host memory: each leaf
         of ``_pool_leaf_paths`` as one (n_layer, block_size, ...) tensor,
         copied from the card into pinned memory on the stream, returned once
         the copies landed.  The KV-tiering swap-out unit; runs at iteration
         boundaries, with no launch in flight, under the launch lock.  Scale
         tables travel with their blocks, so an int8 pool round-trips
-        byte for byte."""
-        self._check_pool(self._family(cache), paged)
+        byte for byte.  On a data mesh a ``BlockPayload``: the leaves (this
+        rank's heads) stay on the data rank that holds the block
+        (``_block_owner``; ``slot`` names the block's slot in a whole pool)
+        and ``scatter_kv_block`` moves them where the block lands."""
+        fam = self._family(cache)
+        self._check_pool(fam, paged)
         pinned = self.device.type == "cuda"
+        src = self._block_owner(fam, block, slot)
         with torch.inference_mode(), _launch_lock:
             self._note_eager("block_gather", paged)
-            out = []
-            for field, _ in self._pool_leaf_paths(cache):
-                dev = torch.stack([t[int(block)] for t in getattr(cache, field)])
-                host = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=pinned)
-                host.copy_(dev, non_blocking=pinned)
-                out.append(host)
-            self._sync_stream()
-        return out
+            out = None
+            if src == self._dp_index:
+                local = self._local_block(fam, block)
+                out = []
+                for tensors in self._pool_leaves(cache):
+                    dev = torch.stack([t[local] for t in tensors])
+                    host = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=pinned)
+                    host.copy_(dev, non_blocking=pinned)
+                    out.append(host)
+                self._sync_stream()
+        if self.mesh.size == 1:
+            return out
+        rank_bytes = sum(len(t) * t[0][0].numel() * t[0].element_size()
+                         for t in self._pool_leaves(cache))
+        return BlockPayload(out, src, rank_bytes * self.mesh.shape["tensor"], rank_bytes)
 
-    def scatter_kv_block(self, cache, block: int, payload: List[torch.Tensor], *, paged):
+    def scatter_kv_block(self, cache, block: int, payload, *, paged):
         """Write a ``gather_kv_block`` payload into physical ``block`` of
         every pool leaf (the swap-in restore), byte for byte, copied from
-        pinned memory on the stream; returns the cache."""
-        self._check_pool(self._family(cache), paged)
+        pinned memory on the stream; returns the cache.  On a data mesh the
+        leaves move from the rank that holds them to the block's (every
+        data rank's copy of a whole pool, so the block reads the same
+        everywhere): a swap-in may land on another data shard than the one
+        its request left."""
+        fam = self._family(cache)
+        self._check_pool(fam, paged)
         with torch.inference_mode(), _launch_lock:
             self._note_eager("block_scatter", paged)
-            for (field, _), host in zip(self._pool_leaf_paths(cache), payload):
-                tensors = getattr(cache, field)
-                dev = self._to_device(host, tensors[0].dtype)
-                for layer, t in enumerate(tensors):
-                    t[int(block)].copy_(dev[layer])
+            if self.mesh.size == 1:
+                for tensors, host in zip(self._pool_leaves(cache), payload):
+                    dev = self._to_device(host, tensors[0].dtype)
+                    for layer, t in enumerate(tensors):
+                        t[int(block)].copy_(dev[layer])
+                return cache
+            per_shard = paged.data_shards > 1
+            dst = int(block) // paged.blocks_per_shard if per_shard else None
+            me = self._dp_index
+            for i, tensors in enumerate(self._pool_leaves(cache)):
+                mine = payload.src == me
+                if per_shard and payload.src == dst:
+                    dev = self._to_device(payload.leaves[i], tensors[0].dtype) if mine else None
+                else:
+                    if mine:
+                        value = self._to_device(payload.leaves[i], tensors[0].dtype)
+                    else:
+                        value = torch.zeros((len(tensors), *tensors[0].shape[1:]),
+                                            dtype=tensors[0].dtype, device=self.device)
+                    dev = collectives.broadcast(value, self.mesh, _DATA, root=payload.src)
+                if dev is not None and (dst is None or dst == me):
+                    local = self._local_block(fam, block)
+                    for layer, t in enumerate(tensors):
+                        t[local].copy_(dev[layer])
+        return cache
+
+    def share_kv_blocks(self, cache, blocks, *, paged, slot: int):
+        """Copy ``blocks`` of a whole pool from the data rank of ``slot``,
+        which wrote them, into every data rank's copy: the prefix cache
+        registers them, so a slot of any rank may map them.  A no-op on one
+        data rank and for per-shard pools (a shard's blocks serve its own
+        slots).  Returns the cache."""
+        fam = self._family(cache)
+        self._check_pool(fam, paged)
+        if self.data_parallelism == 1 or paged.data_shards > 1 or not len(blocks):
+            return cache
+        src = self._block_owner(fam, blocks[0], slot)
+        with torch.inference_mode(), _launch_lock:
+            idx = self._to_device(np.asarray(blocks, np.int64))
+            for tensors in self._pool_leaves(cache):
+                value = torch.stack([t.index_select(0, idx) for t in tensors])
+                value = collectives.broadcast(value, self.mesh, _DATA, root=src)
+                if src != self._dp_index:
+                    for layer, t in enumerate(tensors):
+                        t.index_copy_(0, idx, value[layer])
         return cache
 
     def bind_slot_rows(self, cache, slot_ids, starts):
         """Set the index and position rows of ``slot_ids`` to ``starts``:
         the resume of a swapped-in request (its restored blocks hold the
         positions below its start; decode continues from there without a
-        prefill).  Returns the cache."""
-        self._multi_rank("bind_slot_rows")
-        self._family(cache)
+        prefill).  On a data mesh the rank of each slot binds it.  Returns
+        the cache."""
+        fam = self._family(cache)
+        slot_ids = np.asarray(slot_ids, np.int64)
+        mine = (slot_ids >= fam.lo) & (slot_ids < fam.lo + cache.num_slots)
         with torch.inference_mode(), _launch_lock:
             self._note_eager("slot_bind")
-            self._reset_slot_rows(cache, self._to_device(np.asarray(slot_ids, np.int64)),
-                                  self._to_device(np.asarray(starts, np.int32)))
+            if mine.any():
+                self._reset_slot_rows(cache, self._to_device(slot_ids[mine] - fam.lo),
+                                      self._to_device(np.asarray(starts, np.int32)[mine]))
         return cache
+
+    def _counts_slot(self, counts: torch.Tensor, slot: int) -> Optional[int]:
+        """``slot``'s row in this rank's counts, None on another rank."""
+        fam = next((f for f in self._families.values() if f.counts is counts), None)
+        lo = fam.lo if fam is not None else 0
+        local = int(slot) - lo
+        return local if 0 <= local < counts.shape[0] else None
 
     def gather_counts_row(self, counts: torch.Tensor, slot: int) -> np.ndarray:
         """One slot's emitted-token count row to the host: swapped out with
-        the victim's K/V so the penalties survive a preemption."""
-        self._multi_rank("gather_counts_row")
+        the victim's K/V so the penalties survive a preemption.  On a data
+        mesh the slot's rank's row, on every rank."""
         with torch.inference_mode(), _launch_lock:
             self._note_eager("counts_gather")
-            return counts[int(slot)].cpu().numpy().copy()
+            local = self._counts_slot(counts, slot)
+            if self.data_parallelism == 1:
+                return counts[local].cpu().numpy().copy()
+            row = counts[local] if local is not None else torch.zeros_like(counts[0])
+            return self._sum_rows(row).cpu().numpy().copy()
 
     def scatter_counts_row(self, counts: torch.Tensor, slot: int, row) -> torch.Tensor:
-        """Restore a saved count row into ``slot``; returns the counts."""
-        self._multi_rank("scatter_counts_row")
+        """Restore a saved count row into ``slot`` (on a data mesh, on the
+        slot's rank); returns the counts."""
         with torch.inference_mode(), _launch_lock:
             self._note_eager("counts_bind")
-            counts[int(slot)].copy_(self._to_device(np.asarray(row, np.int32)))
+            local = self._counts_slot(counts, slot)
+            if local is not None:
+                counts[local].copy_(self._to_device(np.asarray(row, np.int32)))
         return counts
 
     def fetch_async(self, tensors: List[torch.Tensor]) -> "HostFetch":
@@ -1428,8 +1558,8 @@ class ServeEngine:
         card into pinned buffers of their own, ``non_blocking``, with a
         CUDA event recorded after them on the stream; ``HostFetch.wait``
         waits on that event alone and launches nothing.  The async ring's
-        fetch half."""
-        self._multi_rank("fetch_async")
+        fetch half.  On a mesh the leader's alone (the outputs are whole on
+        every rank), never mirrored."""
         if self.device.type != "cuda":
             return HostFetch([t.numpy().copy() for t in tensors], None)
         with _launch_lock:
@@ -1503,6 +1633,46 @@ class ServeEngine:
         with _launch_lock, torch.no_grad():
             for name, value in params.items():
                 own[name].copy_(value)
+
+    def snapshot_params(self) -> Dict[str, torch.Tensor]:
+        """A copy of the live parameters (this rank's parts): the weights a
+        hot reload's pinned rows keep decoding on once the module takes the
+        new ones."""
+        with _launch_lock, torch.no_grad():
+            return {n: p.detach().clone() for n, p in self.module.named_parameters()}
+
+    def restore_params(self, step: int, checkpoint_dir: Optional[str] = None
+                       ) -> Dict[str, torch.Tensor]:
+        """Checkpoint ``step``'s parameters as this rank's parts on the
+        device (``shard_params``), restored here from ``checkpoint_dir``
+        (the engine's own by default): on a mesh every rank restores the
+        step itself, so only the step travels."""
+        manager = self._manager
+        if checkpoint_dir is not None:
+            manager = CheckpointManager(checkpoint_dir)
+        if manager is None:
+            raise ValueError("restore_params needs a checkpoint directory")
+        try:
+            params, model_state = manager.restore_params(step)
+        finally:
+            if manager is not self._manager:
+                manager.close()
+        return self.shard_params({**params, **model_state})
+
+    def replicate(self) -> "ServeEngine":
+        """Another engine of this one's model, mesh, device, CUDA-graph
+        setting and workload overrides (one numerics for a fleet), holding a
+        copy of its live weights and its restored step: a fleet's replica."""
+        eng = ServeEngine(self.model, mesh=self.mesh, device=self.device,
+                          cuda_graphs=self.use_graphs, **self.workload_overrides)
+        eng.install_params(self.params)
+        eng.restored_step = self.restored_step
+        return eng
+
+    def release_outputs(self, value) -> None:
+        """Hand back outputs of the held programs (``serve.mesh.HELD``): on a
+        mesh ``MeshEngine`` releases them on every rank; one process holds
+        nothing for them."""
 
     # -- lifecycle ---------------------------------------------------------------
 

@@ -19,6 +19,12 @@ finish on the weights they were admitted under, new admissions pin the
 new generation, and the old device buffers free when the last request
 holding them retires (refcount in ``_ParamGeneration``).
 
+On a mesh of processes (the replicas' engines are ``serve.mesh``
+views) nothing of the weights travels: each replica's mirrored
+``restore_params`` has every rank restore the step from the checkpoint
+directory itself, as an engine restores at start, and the scheduler stages
+that output, which every rank holds.
+
 A step that REGRESSES (a retention sweep deleted the newest checkpoint)
 is logged and ignored — the fleet never downgrades weights it is
 already serving.
@@ -111,12 +117,18 @@ class CheckpointWatcher:
                 "checkpoint step regressed (%d -> %d) — keeping the "
                 "weights already serving", last, step)
             return None
-        # One host-side restore, N per-device shardings.  Staged only: the
+        # One host-side restore, N per-device shardings (on a mesh, every
+        # rank restores each replica's parts itself).  Staged only: the
         # scheduler's loop installs into its engine's module tensors once
         # its ring drained and the pinned generation is cloned.
-        params, model_state = self._manager.restore_params(step)
-        for rep in self._replicas:
-            device_params = rep.engine.shard_params({**params, **model_state})
+        if any(rep.engine.mesh.size > 1 for rep in self._replicas):
+            staged = [rep.engine.restore_params(step, self._manager.directory)
+                      for rep in self._replicas]
+        else:
+            params, model_state = self._manager.restore_params(step)
+            staged = [rep.engine.shard_params({**params, **model_state})
+                      for rep in self._replicas]
+        for rep, device_params in zip(self._replicas, staged):
             rep.scheduler.update_params(device_params, generation=step)
         with self._lock:
             self._last_step = step

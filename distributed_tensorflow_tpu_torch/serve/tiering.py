@@ -1,12 +1,17 @@
 """Host-RAM KV tiering: swap a preempted request's paged KV blocks to
 host memory and restore them bit-exactly on resume.
 
-Copied whole from ``distributed_tensorflow_tpu/serve/tiering.py``
-(standard library only).  Its discipline in the port: every device touch
-goes through the engine's block programs (``gather_kv_block`` into pinned
-host buffers on the launching stream, ``scatter_kv_block`` back, under the
+Copied from ``distributed_tensorflow_tpu/serve/tiering.py`` (standard
+library only).  Its discipline in the port: every device touch goes
+through the engine's block programs (``gather_kv_block`` into pinned host
+buffers on the launching stream, ``scatter_kv_block`` back, under the
 engine's launch lock), only at iteration boundaries, with no launch in
 flight; a payload is a list of host tensors in the engine's leaf order.
+On a mesh of processes a payload is the engine's ``BlockPayload`` (the
+leaves stay on the rank that holds the block): the ledger counts its
+bytes over every rank (``swap_*_bytes_total``) and one rank's
+(``swap_bytes_total_per_shard``), and hands each payload back to the mesh
+(``release_outputs``) once it leaves the ledger.
 
 The vLLM preemption insight (Kwon et al., SOSP 2023; PAPERS.md): a paged
 allocator can run near full utilization only if the scheduler may
@@ -116,8 +121,16 @@ class SwappedRequest:
     bytes: int
 
 
-def _payload_bytes(payload: List[Any]) -> int:
+def _payload_bytes(payload) -> int:
+    """Bytes of a payload over every rank."""
+    if hasattr(payload, "nbytes_rank"):
+        return int(payload.nbytes)
     return int(sum(int(arr.nbytes) for arr in payload))
+
+
+def _payload_bytes_rank(payload) -> int:
+    """Bytes of a payload on one rank (the whole payload on one process)."""
+    return int(getattr(payload, "nbytes_rank", _payload_bytes(payload)))
 
 
 class HostKVPool:
@@ -143,6 +156,7 @@ class HostKVPool:
         self._ledger: Dict[int, SwappedRequest] = {}
         self._swap_out_bytes = 0
         self._swap_in_bytes = 0
+        self._swap_bytes_rank = 0
         self._swap_outs = 0
         self._swap_ins = 0
         self._dropped = 0
@@ -158,12 +172,13 @@ class HostKVPool:
         pinned host memory under the engine launch lock; the
         caller frees the device blocks AFTER this returns.  The cache is
         only read, never donated — ``cache`` stays live."""
-        payloads = [self.engine.gather_kv_block(cache, b, paged=self.paged)
+        payloads = [self.engine.gather_kv_block(cache, b, paged=self.paged, slot=slot)
                     for b in private_blocks]
         counts_row = None
         if counts is not None and slot >= 0:
             counts_row = self.engine.gather_counts_row(counts, slot)
         moved = sum(_payload_bytes(p) for p in payloads)
+        moved_rank = sum(_payload_bytes_rank(p) for p in payloads)
         entry = SwappedRequest(
             rid=rid, payloads=payloads, shared_blocks=shared_blocks,
             written=written, counts_row=counts_row, last_token=last_token,
@@ -171,6 +186,7 @@ class HostKVPool:
         with self._lock:
             self._ledger[rid] = entry
             self._swap_out_bytes += moved
+            self._swap_bytes_rank += moved_rank
             self._swap_outs += 1
         if self._lifecycle is not None:
             self._lifecycle.record(
@@ -197,6 +213,7 @@ class HostKVPool:
                 cache, b, payload, paged=self.paged)
         with self._lock:
             self._swap_in_bytes += entry.bytes
+            self._swap_bytes_rank += sum(_payload_bytes_rank(p) for p in entry.payloads)
             self._swap_ins += 1
         if self._lifecycle is not None:
             self._lifecycle.record(
@@ -223,7 +240,10 @@ class HostKVPool:
         """Release ``rid``'s parked payload (resume completed, request
         cancelled, or payload invalidated by a hot reload)."""
         with self._lock:
-            return self._ledger.pop(rid, None)
+            entry = self._ledger.pop(rid, None)
+        if entry is not None:
+            self.engine.release_outputs(entry.payloads)
+        return entry
 
     def drop(self, rid: int) -> bool:
         """Discard a parked payload without restoring it (generation
@@ -232,7 +252,9 @@ class HostKVPool:
             entry = self._ledger.pop(rid, None)
             if entry is not None:
                 self._dropped += 1
-            return entry is not None
+        if entry is not None:
+            self.engine.release_outputs(entry.payloads)
+        return entry is not None
 
     def swapped_rids(self) -> List[int]:
         with self._lock:
@@ -248,6 +270,7 @@ class HostKVPool:
                 "swap_in_bytes_total": float(self._swap_in_bytes),
                 "swap_bytes_total": float(self._swap_out_bytes
                                           + self._swap_in_bytes),
+                "swap_bytes_total_per_shard": float(self._swap_bytes_rank),
                 "swap_outs_total": float(self._swap_outs),
                 "swap_ins_total": float(self._swap_ins),
                 "swap_dropped_total": float(self._dropped),

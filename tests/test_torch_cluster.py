@@ -14,6 +14,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import pytest
@@ -28,41 +29,101 @@ from tests.helpers import free_ports  # noqa: E402
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+# A spawn whose rank 0 could not bind the rendezvous port starts over on
+# new ports, at most this many times; nothing else is ever retried.
+SPAWN_RESTARTS = 3
+_BIND_FAILED = "The server socket has failed to listen"
+
+
+class _Spawn:
+    """One spawn's script, roles, arguments and environment, and its
+    processes (each with a thread that reads its output)."""
+
+    def __init__(self, script, roles, args, env):
+        self.script, self.roles, self.args, self.env = script, roles, list(args), env
+        self.restarts = 0
+        self.procs = []
+        self.start()
+
+    def start(self):
+        ports = free_ports(len(self.roles))
+        self.port = ports[0]  # rank 0's rendezvous (the coordinator address)
+        cluster = {}
+        for (job, _), port in zip(self.roles, ports):
+            cluster.setdefault(job, []).append(f"localhost:{port}")
+        self.procs = []
+        for job, index in self.roles:
+            penv = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
+                        TF_CONFIG=json.dumps({"cluster": cluster,
+                                              "task": {"type": job, "index": index}}))
+            penv.pop("PYTHONPATH", None)
+            penv.update(self.env or {})
+            p = subprocess.Popen([sys.executable, "-c", self.script, *self.args], cwd=REPO,
+                                 env=penv, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                 text=True)
+            p.spawn, p.chunks = self, []
+            p.reader = threading.Thread(target=lambda p=p: p.chunks.extend(p.stdout), daemon=True)
+            p.reader.start()
+            self.procs.append(p)
+
+    def lost_rendezvous(self) -> bool:
+        """Whether a process ended because the rendezvous port was taken
+        between ``free_ports`` and its bind (another process's socket)."""
+        for p in self.procs:
+            if p.poll() is not None and p.returncode != 0:
+                p.reader.join(5)
+                text = "".join(p.chunks)
+                if _BIND_FAILED in text and f"port: {self.port}," in text:
+                    return True
+        return False
+
+    def restart(self):
+        for p in self.procs:
+            p.kill()
+        for p in self.procs:
+            p.wait()
+        self.restarts += 1
+        self.start()
+
+
 def spawn(script, roles, *, args=(), env=None):
     """One process a (job, index) of ``roles`` (e.g. ``[("worker", 0),
     ("worker", 1), ("evaluator", 0)]``), each running ``script`` under a
     localhost ``TF_CONFIG`` of those tasks.  Returns the Popen objects."""
-    ports = free_ports(len(roles))
-    cluster = {}
-    for (job, _), port in zip(roles, ports):
-        cluster.setdefault(job, []).append(f"localhost:{port}")
-    procs = []
-    for job, index in roles:
-        penv = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
-                    TF_CONFIG=json.dumps({"cluster": cluster,
-                                          "task": {"type": job, "index": index}}))
-        penv.pop("PYTHONPATH", None)
-        penv.update(env or {})
-        procs.append(subprocess.Popen([sys.executable, "-c", script, *args], cwd=REPO,
-                                      env=penv, stdout=subprocess.PIPE,
-                                      stderr=subprocess.STDOUT, text=True))
-    return procs
+    return list(_Spawn(script, roles, args, env).procs)
 
 
 def join(procs, deadline_s):
     """Every process's (returncode, output); all are killed if any is still
-    running ``deadline_s`` seconds from now, and the test fails."""
+    running ``deadline_s`` seconds from now, and the test fails.  A spawn
+    whose rendezvous port another process took before rank 0 bound it (the
+    ports ``free_ports`` picks are free only when it returns) starts over
+    on new ports, up to ``SPAWN_RESTARTS`` times; the outputs are the new
+    processes'."""
     end = time.monotonic() + deadline_s
+    procs = list(procs)
+    while True:
+        for sp in {id(p.spawn): p.spawn for p in procs}.values():
+            if sp.restarts < SPAWN_RESTARTS and sp.lost_rendezvous():
+                old = list(sp.procs)
+                sp.restart()
+                procs = [sp.procs[old.index(p)] if p in old else p for p in procs]
+        if all(p.poll() is not None for p in procs):
+            break
+        if time.monotonic() > end:
+            for p in procs:
+                p.kill()
+            details = []
+            for p in procs:
+                p.wait()
+                p.reader.join(5)
+                details.append("".join(p.chunks)[-2000:])
+            pytest.fail(f"workers still running after {deadline_s} s:\n" + "\n".join(details))
+        time.sleep(0.05)
     outs = []
-    try:
-        for p in procs:
-            out, _ = p.communicate(timeout=max(0.1, end - time.monotonic()))
-            outs.append((p.returncode, out))
-    except subprocess.TimeoutExpired:
-        for p in procs:
-            p.kill()
-        details = "\n".join((p.communicate()[0] or "")[-2000:] for p in procs)
-        pytest.fail(f"workers still running after {deadline_s} s:\n{details}")
+    for p in procs:
+        p.reader.join(30)
+        outs.append((p.returncode, "".join(p.chunks)))
     return outs
 
 

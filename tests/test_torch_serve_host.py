@@ -11,9 +11,8 @@
   softmax (chi-square).  A vocabulary of 6-64 columns: enough for a
   nucleus and a top-k cut to differ from the whole row.
 - Refusals: decode on a pipeline mesh, misused slot-cache arguments, mesh
-  sizes the world cannot hold, every flag of part D2 on a multi-rank mesh,
-  the reference's refusals of part C and part C's flags where they would
-  be ignored; each flag of serving parts B1, B2 and C (and ``--data``,
+  sizes the world cannot hold, the reference's refusals of part C and part
+  C's flags where they would be ignored; each flag of serving parts B1, B2 and C (and ``--data``,
   ``--fsdp``, ``--per_shard_kv`` on one rank) reaches its layer (the
   continuous scheduler, the router, the watcher, the gateway or the load
   generator).
@@ -424,28 +423,6 @@ def test_flags_of_later_slices_are_refused(flag, value, where):
     with pytest.raises(ValueError, match=where):
         run_serve(parse_args(["--device=cpu", f"--{flag}={value}"] if not isinstance(value, bool)
                              else ["--device=cpu", f"--{flag}"]))
-
-
-PART_D2_ARGV = {"megastep": "--megastep=2", "async_decode": "--async_decode",
-                "spec_k": "--spec_k=2", "slo_scheduling": "--slo_scheduling",
-                "num_replicas": "--num_replicas=2", "gateway_port": "--gateway_port=8080",
-                "loadgen_trace": "--loadgen_trace=poisson:n=4"}
-
-
-@pytest.mark.parametrize("flag", sorted(PART_D2_ARGV))
-def test_every_flag_of_a_later_slice_is_refused_from_the_command_line(flag):
-    """Each flag of part D2 the entry point parses is refused on a
-    multi-rank mesh, naming serving on a mesh, part D2, and passes the
-    same check on one rank: none is silently ignored on the mesh."""
-    from distributed_tensorflow_tpu_torch.serve import driver
-    from distributed_tensorflow_tpu_torch.serve.__main__ import parse_args
-
-    assert set(PART_D2_ARGV) == set(driver._PART_D2_FLAGS)
-    args = parse_args(["--device=cpu", "--continuous", PART_D2_ARGV[flag]])
-    two = Mesh({**{a: 1 for a in MESH_AXES}, "data": 2})
-    with pytest.raises(ValueError, match=re.escape("serving on a mesh, part D2")):
-        driver.check_flags(args, two)
-    driver.check_flags(args, Mesh({a: 1 for a in MESH_AXES}))
 
 
 # Serving part B1's flags: each one's command-line value and what the

@@ -18,9 +18,30 @@ ResNet and BERT classifiers are held to one process of the port on the same
 weights (``test_torch_serve.py`` and ``test_torch_serve_paged.py`` hold
 those to the reference).  Then the
 per-shard pools (the reference's ``TestPerShardPools``: cross-shard demand,
-resident bytes, the refusals), part D2's refusals on the mesh, graphs
-refused at tensor > 1 over gloo, FSDP as a data axis with whole weights,
-and a leader's error reaching every follower.
+resident bytes, the refusals), graphs refused at tensor > 1 over gloo,
+FSDP as a data axis with whole weights, and a leader's error reaching
+every follower.
+
+Serving part B2's and part C's features on the mesh, each greedy, so a
+stream is a function of the weights alone and the reference's fixed batch
+holds it (the reference's own tests hold its scheduler's features to the
+fixed batch): prefix caching on a whole pool (on equals off, with hits on
+the other data rank than the writer's), the megastep (K=2 and ``auto``),
+async decode (the megastep's ring and the chained verify), speculative
+decoding (k=2 on motif prompts that draft), an SLO run whose preempted
+whale swaps out on one data rank and back in on the other and one whose
+whale recomputes, a hot reload restored on every rank (admitted requests
+stay on the old weights, held to the reference; later ones on the new,
+held to one process of the port), a fleet of two replicas on the one
+channel with a gateway SSE stream and a 4-request load-generator trace
+(the trace's checksum held to one process), ``run_serve`` on every rank
+with part B2's flags and two replicas, then with the load generator (its
+checksum held to one process's), and a
+fault injected on one follower, which raises on the leader within
+``FAULT_BOUND_S``.  Tiny GPT-2 with 4 slots, blocks of 4 and at most 32
+positions: two slots a data rank, so a request's slot, its blocks and a
+swap's payload live on one rank and each feature crosses the ranks; a
+float32 pool, so a recompute and a swap are exact.
 """
 
 import json
@@ -45,11 +66,26 @@ from distributed_tensorflow_tpu_torch.convert import (  # noqa: E402
 from distributed_tensorflow_tpu_torch.models import gpt2 as tgpt2  # noqa: E402
 from distributed_tensorflow_tpu_torch.models import mnist_cnn as tmnist  # noqa: E402
 from distributed_tensorflow_tpu_torch.serve import ContinuousScheduler, ServeEngine  # noqa: E402
+from distributed_tensorflow_tpu_torch.serve import loadgen as tloadgen  # noqa: E402
 from tests.test_torch_cluster import join, spawn  # noqa: E402
 
 VOCAB = 256
 SPAWN_DEADLINE_S = 150
 MESHES = ("data2", "data2_tensor2")
+# A follower's fault reaches the leader within the mesh's grace for a
+# blocked leader call (serve.mesh.FAULT_GRACE_S, 5 s) and a few polls,
+# with room for six busy test workers; the group timeout it replaces is
+# torch's 30 minutes.
+FAULT_BOUND_S = 10.0
+# ``run_serve`` on every rank: the part B2 flags and a fleet together, then
+# the load generator on one replica (the driver refuses it on a fleet).
+DRIVER_FLAGS = ["--device=cpu", "--continuous", "--cache_mode=paged", "--block_size=4",
+                "--num_slots=4", "--steps=8", "--clients=2", "--prompt_len=8",
+                "--prompt_period=3", "--max_new_tokens=10", "--min_new_tokens=4",
+                "--megastep=2", "--async_decode", "--spec_k=2", "--slo_scheduling",
+                "--swap_min_tokens=8", "--num_replicas=2"]
+LOADGEN_FLAGS = ["--device=cpu", "--continuous", "--cache_mode=paged", "--block_size=4",
+                 "--num_slots=4", "--loadgen_trace=poisson:n=4,rate=50", "--megastep=2"]
 
 # The classifiers beside MNIST, one definition for the ranks and this
 # process: a float32 ResNet (stages 1,1,1,1 of 8 filters at 16 px, its
@@ -77,29 +113,42 @@ def _requests():
     """MAIN: mixed prompt lengths (5, 8) and horizons, more requests than
     slots; CROSS: eight 8-token prompts of horizon 16, each needing 6 of a
     shard's 9 usable blocks (the reference's cross-shard demand); PREFIX:
-    one 9-token system prompt before 3-token tails."""
+    one 9-token system prompt before 3-token tails; SHARED: eight of those,
+    submitted together, so slots of both data ranks write and map the
+    prefix; SPEC: 8-token prompts tiled from 3-token motifs, horizon 12,
+    which the prompt-lookup drafter drafts; PRESSURE: a whale (8 + 16) and
+    three shorts (4 + 8), the reference's SLO pressure scenario; RELOAD:
+    four 6-token prompts of horizon 10."""
     rng = np.random.default_rng(7)
     main = [(rng.integers(0, VOCAB, size=((5, 8)[i % 2],), dtype=np.int32),
              (2, 5, 3, 7)[i % 4]) for i in range(8)]
     cross = [(rng.integers(0, VOCAB, size=(8,), dtype=np.int32), 16) for _ in range(8)]
     prefix = rng.integers(0, VOCAB, size=(9,), dtype=np.int32)
     shared = [(np.concatenate([prefix, rng.integers(0, VOCAB, size=(3,), dtype=np.int32)]),
-               (4, 3)[i % 2]) for i in range(4)]
-    return main, cross, shared
+               (4, 3)[i % 2]) for i in range(8)]
+    spec = [(np.tile(rng.integers(0, VOCAB, size=(3,), dtype=np.int32), 3)[:8], 12)
+            for _ in range(4)]
+    pressure = [(rng.integers(0, VOCAB, size=(8,), dtype=np.int32), 16)] + [
+        (rng.integers(0, VOCAB, size=(4,), dtype=np.int32), 8) for _ in range(3)]
+    reload = [(rng.integers(0, VOCAB, size=(6,), dtype=np.int32), 10) for _ in range(4)]
+    return {"main": main, "cross": cross, "prefix": shared[:4], "shared": shared, "spec": spec,
+            "pressure": pressure, "reload": reload}
 
 
-MAIN, CROSS, PREFIX = _requests()
+REQUESTS = _requests()
+MAIN, CROSS, PREFIX = REQUESTS["main"], REQUESTS["cross"], REQUESTS["prefix"]
 
 WORKER = CLASSIFIER + r"""
-import json, sys, traceback
+import http.client, json, os, sys, time, traceback
 import numpy as np, torch
 torch.set_num_threads(1)
 from distributed_tensorflow_tpu_torch import cluster
 from distributed_tensorflow_tpu_torch.cluster.topology import MeshConfig, build_mesh
 from distributed_tensorflow_tpu_torch.models import gpt2 as tgpt2
 from distributed_tensorflow_tpu_torch.models import mnist_cnn as tmnist
-from distributed_tensorflow_tpu_torch.serve import ContinuousScheduler, ServeEngine
+from distributed_tensorflow_tpu_torch.serve import ContinuousScheduler, GatewayServer, ServeEngine
 from distributed_tensorflow_tpu_torch.serve import driver, engine as tengine, mesh as mesh_lib
+from distributed_tensorflow_tpu_torch.serve import loadgen
 from distributed_tensorflow_tpu_torch.serve.__main__ import parse_args
 
 tensor, path = int(sys.argv[1]), sys.argv[2]
@@ -136,6 +185,43 @@ def serve(m, rs, sequential=False, **kw):
             outs = [f.result(timeout=60) for f in futs]
         stats = sched.stats()
     return [o.tolist() for o in outs], stats
+
+
+def finish(sched, futs, limit=400, between=None):
+    # A hand-stepped scheduler's iterations until every future resolved.
+    for _ in range(limit):
+        if all(f.done() for f in futs):
+            break
+        if between is not None:
+            between()
+        sched._iteration()
+    return [f.result(timeout=0).tolist() for f in futs]
+
+
+def held(m):
+    # The mesh's outputs held past the call window (swap payloads, weight
+    # generations, replica engines): released ones leave.
+    return sum(1 for _, last in m._channel.outputs._by_key.values() if last is None)
+
+
+def sse(port, prompt, horizon):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.request("POST", "/v1/generate", json.dumps(
+        {"prompt": [int(t) for t in prompt], "max_new_tokens": horizon, "stream": True}),
+        {"Content-Type": "application/json"})
+    resp, events, event = conn.getresponse(), [], None
+    while True:
+        line = resp.readline().decode("utf-8").rstrip("\n")
+        if line.startswith("event: "):
+            event = line[len("event: "):]
+        elif line.startswith("data: "):
+            events.append((event, json.loads(line[len("data: "):])))
+            if event == "done":
+                break
+        elif not line and resp.isclosed():
+            break
+    conn.close()
+    return [t for kind, d in events if kind == "token" for t in d["tokens"]], events[-1][0]
 
 
 def raises(fn, kind):
@@ -210,24 +296,117 @@ def gpt2_cases(m):
         "paged": raises(lambda: ContinuousScheduler(
             m, per_shard_kv=True, start=False, num_slots=4, max_total_len=32), ValueError)})
 
-    def d2():
+    def shared_pool():
+        kw = dict(cache_mode="paged", block_size=4, per_shard_kv=False)
+        off, _ = serve(m, reqs["shared"], prefix_cache=False, **kw)
+        on, s = serve(m, reqs["shared"], prefix_cache=True, **kw)
+        return {"off": off, "on": on, "hits": s["prefix_hits"]}
+    case("prefix_shared_pool", shared_pool)
+    case("megastep", lambda: {
+        "k2": serve(m, reqs["main"], megastep=2, cache_mode="paged", block_size=4,
+                    per_shard_kv=True)[0],
+        "auto": serve(m, reqs["main"], megastep="auto")[0]})
+
+    def async_decode():
+        mega, s = serve(m, reqs["main"], async_decode=True, async_depth=2, megastep=2,
+                        cache_mode="paged", block_size=4)
+        spec, t = serve(m, reqs["spec"], async_decode=True, async_depth=2, spec_k=2,
+                        cache_mode="paged", block_size=4)
+        return {"megastep": mega, "spec": spec, "fallbacks": s["async_sync_fallbacks"],
+                "ring": s["async_ring_depth_max"], "spec_launches": t["spec_launches"]}
+    case("async", async_decode)
+
+    def spec():
+        outs, s = serve(m, reqs["spec"], spec_k=2, cache_mode="paged", block_size=4,
+                        per_shard_kv=True)
+        return {"outs": outs, "accepted": s["spec_accepted"], "launches": s["spec_launches"]}
+    case("spec", spec)
+
+    def slo():
+        # The reference's pressure scenario on a whole pool: the whale
+        # (priority 0) decodes 4 tokens, three priority-9 shorts preempt it;
+        # while it is parked the other data rank's slots head the free list,
+        # so it resumes there.
         out = {}
-        for flag, kw in (("megastep", {"megastep": 2}), ("megastep_auto", {"megastep": "auto"}),
-                         ("async_decode", {"async_decode": True}), ("spec_k", {"spec_k": 2}),
-                         ("slo_scheduling", {"slo_scheduling": True})):
-            out[flag] = raises(lambda: ContinuousScheduler(m, start=False, **kw),
-                               NotImplementedError)
-        for flag in ("megastep=2", "async_decode", "spec_k=2", "slo_scheduling",
-                     "num_replicas=2", "gateway_port=8080", "loadgen_trace=poisson:n=4"):
-            args = parse_args(["--device=cpu", "--continuous", f"--{flag}"])
-            out["--" + flag] = raises(lambda: driver.check_flags(args, mesh), ValueError)
-        out["decode_megastep"] = raises(lambda: m.decode_megastep(
-            None, None, None, None, steps=2, sampling={}, counts=None), NotImplementedError)
-        with ContinuousScheduler(m, start=False) as sched:
-            out["update_params"] = raises(lambda: sched.update_params({}, generation=1),
-                                          NotImplementedError)
+        (whale, wh), shorts = reqs["pressure"][0], reqs["pressure"][1:]
+        per = 2  # slots a data rank
+        for path, swap_min in (("swap", 4), ("recompute", 64)):
+            sched = ContinuousScheduler(m, start=False, num_slots=4, max_total_len=24,
+                                        cache_mode="paged", block_size=4, num_blocks=10,
+                                        slo_scheduling=True, swap_min_tokens=swap_min)
+            try:
+                wf = sched.submit(whale, max_new_tokens=wh, sampling={"priority": 0})
+                for _ in range(20):
+                    if sched._active and len(next(iter(sched._active.values())).tokens) >= 4:
+                        break
+                    sched._iteration()
+                slots = [next(iter(sched._active))]
+                sf = [sched.submit(p, max_new_tokens=h, sampling={"priority": 9})
+                      for p, h in shorts]
+
+                def steer():
+                    if sched._preempted:
+                        sched._free.sort(key=lambda slot: slot // per != slots[0] // per)
+                    now = [s for s, r in sched._active.items() if r.rid == wf.rid]
+                    if now and now[0] != slots[-1]:
+                        slots.append(now[0])
+                outs = finish(sched, [wf] + sf, between=steer)
+                steer()
+                st = sched.stats()
+            finally:
+                sched.close()
+            out[path] = {"outs": outs, "whale_slots": slots, "held": held(m), **{
+                k: st[k] for k in ("preempt_swapped_total", "preempt_recompute_total",
+                                   "resume_swapped_total", "swap_bytes_total",
+                                   "swap_bytes_total_per_shard", "swapped_resident")}}
         return out
-    case("part_d2", d2)
+    case("slo", slo)
+
+    def reload():
+        sched = ContinuousScheduler(m, start=False, num_slots=4, max_total_len=32,
+                                    cache_mode="paged", block_size=4)
+        try:
+            rs = reqs["reload"]
+            before = [sched.submit(p, max_new_tokens=h) for p, h in rs[:2]]
+            for _ in range(4):
+                sched._iteration()
+            sched.update_params(m.restore_params(5, data["ckpt"]), generation=5)
+            after = [sched.submit(p, max_new_tokens=h) for p, h in rs[2:]]
+            outs = finish(sched, before + after)
+            gens = [f.generation for f in before + after]
+        finally:
+            sched.close()
+        # The live weights are the new ones: a fresh greedy stream says so.
+        again = serve(m, rs[2:3])[0]
+        old = m.shard_params(data["gpt2"])  # the old weights back for the later cases
+        m.install_params(old)
+        m.release_outputs(old)
+        return {"outs": outs, "generations": gens, "again": again, "held": held(m)}
+    case("reload", reload)
+
+    def fleet():
+        args = driver.ServeArgs(device="cpu", continuous=True, num_replicas=2, num_slots=4,
+                                cache_mode="paged", block_size=4, megastep=2)
+        router = driver._make_fleet(args, m, reqs["main"])
+        gw = GatewayServer(router, host="127.0.0.1", port=0)
+        try:
+            p, h = reqs["main"][1]
+            streamed, last = sse(gw.port, p, h)
+            futs = [router.submit((p, h)) for p, h in reqs["main"]]
+            outs = [f.result(timeout=60).tolist() for f in futs]
+            st = router.stats()
+        finally:
+            gw.close()
+            router.close()
+        kw = loadgen.parse_trace_spec("poisson:n=4,rate=50", seed=0)
+        trace = loadgen.build_trace(int(kw.pop("n")), vocab=256, max_total_len=32, **kw)
+        with ContinuousScheduler(m, num_slots=4, max_total_len=32, cache_mode="paged",
+                                 block_size=4) as sched:
+            report = loadgen.run_trace(sched, trace)
+        return {"sse": streamed, "sse_last": last, "outs": outs,
+                "dispatch": [st["dispatch_replica_0"], st["dispatch_replica_1"]],
+                "loadgen": report["tokens_checksum"], "loadgen_completed": report["completed"]}
+    case("fleet", fleet)
     if tensor > 1:
         case("graphs_refused", lambda: {
             "engine": raises(lambda: tengine.check_capture(mesh, "cuda", True), ValueError),
@@ -236,6 +415,14 @@ def gpt2_cases(m):
 
 
 mesh_lib.run(eng, group, gpt2_cases)
+for label, flags in (("driver_d2", data["driver_flags"]),
+                     ("driver_loadgen", data["loadgen_flags"])):
+    try:
+        line = driver.run_serve(parse_args(flags), engine=eng)
+    except Exception as e:
+        line = {"error": f"{type(e).__name__}: {e}", "tb": traceback.format_exc()[-2000:]}
+    if mesh.rank == 0:
+        print("CASE", label, json.dumps(line), flush=True)
 mesh_lib.run(mn, group, lambda m: case("classify", lambda: m.classify_batch(data["examples"])))
 if tensor == 1:
     for name, c in data["classifiers"].items():
@@ -263,8 +450,58 @@ try:
     mesh_lib.run(eng, group, boom)
 except RuntimeError as e:
     print("RAISED", mesh.rank, str(e), flush=True)
-server.shutdown()
+
+# Last: a fault on one follower (rank 1's third decode step raises there
+# alone).  The groups are gone after it, so every rank ends its process.
+if mesh.rank == 1:
+    real, steps = eng.decode_slots, [0]
+
+    def faulty(*args, **kwargs):
+        steps[0] += 1
+        if steps[0] == 3:
+            print("INJECTED", repr(time.time()), flush=True)
+            raise RuntimeError("a fault injected on rank 1")
+        return real(*args, **kwargs)
+    eng.decode_slots = faulty
+try:
+    mesh_lib.run(eng, group, lambda m: serve(m, reqs["main"], cache_mode="paged", block_size=4))
+    print("FAULT_MISSED", mesh.rank, flush=True)
+except Exception as e:
+    print("FAULT_RAISED", mesh.rank, repr(time.time()), type(e).__name__, str(e)[:300],
+          flush=True)
+os._exit(0)
 """
+
+
+def _checkpoint(path, seed):
+    """Step 5 of the port's ``CheckpointManager`` holding tiny GPT-2's
+    float32 weights of ``seed``: the hot reload's new generation.  Returns
+    the weights."""
+    from distributed_tensorflow_tpu_torch import train_lib
+    from distributed_tensorflow_tpu_torch.checkpoint.manager import CheckpointManager
+    from distributed_tensorflow_tpu_torch.models import get_workload
+    from distributed_tensorflow_tpu_torch.training import FP32
+
+    cfg = tgpt2.GPT2Config.tiny(dtype=torch.float32)
+    new = {k: v.detach().clone() for k, v in tgpt2.GPT2(cfg, seed=seed).named_parameters()}
+    wl = get_workload("gpt2", preset="tiny", batch_size=4, seq_len=16, grad_accum_steps=1,
+                      device="cpu", config=cfg)
+    state, _ = train_lib.build_state_and_step(wl, precision=FP32, total_steps=1)
+    with torch.no_grad():
+        for name, p in state.params.items():
+            p.copy_(new[name])
+    with CheckpointManager(str(path), async_save=False) as mgr:
+        assert mgr.save(5, state)
+    return new
+
+
+def _one_process_line(one, flags):
+    """``run_serve``'s line on one process of the port (the same engine,
+    weights and flags as the ranks')."""
+    from distributed_tensorflow_tpu_torch.serve import run_serve
+    from distributed_tensorflow_tpu_torch.serve.__main__ import parse_args
+
+    return run_serve(parse_args(flags), engine=one)
 
 
 def _reference_generate(ref, reqs):
@@ -314,17 +551,21 @@ def run(devices8, tmp_path_factory):
             "state": {**dict(eng.module.named_parameters()), **dict(eng.module.named_buffers())},
             "examples": ex, "ids": eng.classify_batch(ex)}
         eng.close()
-    path = tmp_path_factory.mktemp("serve_mesh") / "weights.pt"
+    tmp = tmp_path_factory.mktemp("serve_mesh")
+    path = tmp / "weights.pt"
+    new_weights = _checkpoint(tmp / "ckpt", seed=11)
     torch.save({"gpt2": weights, "mnist": dict(mnist.state_dict()), "examples": examples,
                 "classifiers": {k: {"state": v["state"], "examples": v["examples"]}
                                 for k, v in classifiers.items()},
-                "requests": {"main": MAIN, "cross": CROSS, "prefix": PREFIX}}, path)
+                "requests": REQUESTS, "ckpt": str(tmp / "ckpt"), "driver_flags": DRIVER_FLAGS,
+                "loadgen_flags": LOADGEN_FLAGS}, path)
     procs = {"data2": spawn(WORKER, [("worker", i) for i in range(2)], args=["1", str(path)]),
              "data2_tensor2": spawn(WORKER, [("worker", i) for i in range(4)],
                                     args=["2", str(path)])}
     try:
-        want = {name: {"main": _reference_generate(ref, MAIN),
-                       "cross": _reference_generate(ref, CROSS)} for name, ref in refs.items()}
+        want = {name: {k: _reference_generate(ref, REQUESTS[k])
+                       for k in ("main", "cross", "shared", "spec", "pressure", "reload")}
+                for name, ref in refs.items()}
         # MNIST through the reference engine's classify on data=2, without
         # its constructor's init (test_torch_serve.py's _reference_classifier).
         from tests.test_torch_serve import _reference_classifier
@@ -342,6 +583,15 @@ def run(devices8, tmp_path_factory):
                                  block_size=4, kv_dtype="int8") as sched:
             futs = [sched.submit(p, max_new_tokens=h) for p, h in MAIN]
             int8 = [f.result(timeout=60).tolist() for f in futs]
+        lines = {"driver_d2": _one_process_line(one, DRIVER_FLAGS),
+                 "driver_loadgen": _one_process_line(one, LOADGEN_FLAGS)}
+        kw = tloadgen.parse_trace_spec("poisson:n=4,rate=50", seed=0)
+        trace = tloadgen.build_trace(int(kw.pop("n")), vocab=VOCAB, max_total_len=32, **kw)
+        with ContinuousScheduler(one, num_slots=4, max_total_len=32, cache_mode="paged",
+                                 block_size=4) as sched:
+            loadgen_checksum = tloadgen.run_trace(sched, trace)["tokens_checksum"]
+        one.install_params(one.shard_params(new_weights))
+        reload_new = [one.generate(p[None, :], h)[0].tolist() for p, h in REQUESTS["reload"]]
         one.close()
     finally:
         outs = {name: join(p, SPAWN_DEADLINE_S) for name, p in procs.items()}
@@ -358,7 +608,8 @@ def run(devices8, tmp_path_factory):
                 cases[case] = json.loads(payload)
         result[name] = {"cases": cases, "outputs": [o for _, o in ranks], "want": want[name],
                         "classify": classify_ids, "sampled": sampled, "int8": int8,
-                        "classifiers": {k: v["ids"] for k, v in classifiers.items()}}
+                        "classifiers": {k: v["ids"] for k, v in classifiers.items()},
+                        "lines": lines, "loadgen": loadgen_checksum, "reload_new": reload_new}
     return result
 
 
@@ -459,16 +710,6 @@ def test_per_shard_pool_refusals(run, mesh, check, match):
     assert got is not None and match in got, got
 
 
-@pytest.mark.parametrize("mesh", MESHES)
-def test_part_d2_is_refused_on_the_mesh(run, mesh):
-    """Each of part D2's scheduler features, engine programs, hot reload
-    and driver flags raises on a multi-rank mesh, naming part D2."""
-    got = _case(run, mesh, "part_d2")
-    assert len(got) == 14
-    for what, message in got.items():
-        assert message is not None and "serving on a mesh, part D2" in message, (what, message)
-
-
 def test_cuda_graphs_over_gloo_are_refused_at_tensor_2(run):
     got = _case(run, "data2_tensor2", "graphs_refused")
     assert "cannot capture" in got["engine"] and "cuda_graphs=False" in got["engine"]
@@ -494,6 +735,123 @@ def test_a_leader_error_reaches_every_follower(run, mesh):
     outs = run[mesh]["outputs"]
     for rank, out in enumerate(outs):
         assert f"RAISED {rank} the leader failed on purpose" in out, out[-2000:]
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_prefix_caching_on_a_whole_pool_equals_it_off(run, mesh):
+    """A whole pool (not per-shard) is one logical pool: blocks a slot of
+    one data rank wrote and the prefix cache registered read the same from
+    a slot of the other (``share_kv_blocks``).  Eight requests of one
+    9-token prefix submitted together into four slots, two a rank: caching
+    on equals off, equals the reference, with hits."""
+    got = _case(run, mesh, "prefix_shared_pool")
+    assert got["on"] == got["off"] == run[mesh]["want"]["shared"]
+    assert got["hits"] > 0
+
+
+@pytest.mark.parametrize("arm", ["k2", "auto"])
+@pytest.mark.parametrize("mesh", MESHES)
+def test_megastep_equals_the_reference(run, mesh, arm):
+    """K=2 on per-shard pools and ``auto`` on the dense cache: the rows
+    split over the data ranks, the tokens gathered, ``steps_run`` the
+    maximum over the ranks."""
+    assert _case(run, mesh, "megastep")[arm] == run[mesh]["want"]["main"]
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_async_decode_equals_the_reference(run, mesh):
+    """The launch ring at depth 2 over the megastep and over the chained
+    verify: the leader fetches the gathered outputs alone."""
+    got = _case(run, mesh, "async")
+    assert got["megastep"] == run[mesh]["want"]["main"]
+    assert got["spec"] == run[mesh]["want"]["spec"]
+    assert got["fallbacks"] == 0.0 and got["ring"] == 2.0 and got["spec_launches"] > 0
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_speculative_decoding_equals_the_reference(run, mesh):
+    got = _case(run, mesh, "spec")
+    assert got["outs"] == run[mesh]["want"]["spec"]
+    assert got["launches"] > 0 and got["accepted"] > 0
+
+
+@pytest.mark.parametrize("path", ["swap", "recompute"])
+@pytest.mark.parametrize("mesh", MESHES)
+def test_slo_preemption_across_data_ranks_equals_the_reference(run, mesh, path):
+    """The whale leaves a slot of one data rank and resumes in a slot of
+    the other: by swap (its payload moves from the rank that held its
+    blocks) or by recompute.  Every stream is the reference's; the payload
+    is counted over every rank and on one, and released."""
+    got = _case(run, mesh, "slo")[path]
+    assert got["outs"] == run[mesh]["want"]["pressure"]
+    first, resumed = got["whale_slots"][0], got["whale_slots"][-1]
+    assert len(got["whale_slots"]) == 2 and first // 2 != resumed // 2, got["whale_slots"]
+    if path == "swap":
+        assert got["preempt_swapped_total"] >= 1.0 and got["resume_swapped_total"] >= 1.0
+        tensor = 2 if mesh == "data2_tensor2" else 1
+        assert got["swap_bytes_total"] > 0.0
+        assert got["swap_bytes_total_per_shard"] * tensor == got["swap_bytes_total"]
+    else:
+        assert got["preempt_recompute_total"] >= 1.0 and got["swap_bytes_total"] == 0.0
+    assert got["swapped_resident"] == 0.0 and got["held"] == 0
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_hot_reload_keeps_admitted_requests_on_their_weights(run, mesh):
+    """Every rank restores step 5 itself (``restore_params``); the two
+    admitted requests finish on the old weights (the reference's streams),
+    the two after on the new (one process's), and the pinned and staged
+    generations are released."""
+    got, new = _case(run, mesh, "reload"), run[mesh]["reload_new"]
+    old = run[mesh]["want"]["reload"]
+    assert old[:2] != new[:2]
+    assert got["outs"] == old[:2] + new[2:] and got["generations"] == [0, 0, 5, 5]
+    assert got["again"] == [new[2]] and got["held"] == 0
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_a_fleet_with_gateway_and_loadgen_equals_the_reference(run, mesh):
+    """Two replicas built on every rank behind the router, on the one
+    channel: a gateway SSE stream and the router's streams are the
+    reference's, both replicas served; a 4-request trace's checksum is one
+    process's."""
+    got, want = _case(run, mesh, "fleet"), run[mesh]["want"]["main"]
+    assert got["sse"] == want[1] and got["sse_last"] == "done"
+    assert got["outs"] == want and min(got["dispatch"]) > 0
+    assert got["loadgen"] == run[mesh]["loadgen"] and got["loadgen_completed"] == 4
+
+
+@pytest.mark.parametrize("label", ["driver_d2", "driver_loadgen"])
+@pytest.mark.parametrize("mesh", MESHES)
+def test_run_serve_with_part_b2_and_c_flags_equals_one_process(run, mesh, label):
+    """``run_serve`` on every rank: the megastep, async decode, spec, SLO
+    scheduling and two replicas together, then the load generator; the
+    checksum is one process's and nothing builds after the warm-up (the
+    fleet case holds the gateway on the mesh)."""
+    got, want = _case(run, mesh, label), run[mesh]["lines"][label]
+    assert got["tokens_checksum"] == want["tokens_checksum"]
+    assert got["compile_post_warmup"] == 0 and got["ranks"] == (2 if mesh == "data2" else 4)
+    assert got["mesh_fault_check_us_mean"] >= 0.0
+    if label == "driver_d2":
+        assert got["completed"] == got["requests"] and min(got["fleet_dispatch"]) > 0
+        assert got["spec_launches"] > 0
+    else:
+        assert got["completed"] == 4
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_a_follower_fault_raises_on_the_leader_in_bound(run, mesh):
+    """Rank 1's third decode step raises there alone, before its
+    collectives: the leader, blocked in the step's collective, raises
+    ``FollowerError`` naming rank 1 within ``FAULT_BOUND_S``, and every
+    rank ends (no group timeout)."""
+    outs = run[mesh]["outputs"]
+    injected = float(outs[1].split("INJECTED ")[1].split()[0])
+    line = next(ln for ln in outs[0].splitlines() if ln.startswith("FAULT_RAISED 0 "))
+    assert "FollowerError" in line and "rank 1" in line, line
+    assert 0.0 <= float(line.split()[2]) - injected <= FAULT_BOUND_S, (line, injected)
+    for rank, out in enumerate(outs):
+        assert f"FAULT_RAISED {rank} " in out, out[-2000:]
 
 
 def test_one_shard_per_shard_kv_is_the_classic_pool():
