@@ -25,7 +25,11 @@ Phases (any failure raises; there is no CPU path):
    count of HGMMA (wgmma) instructions in each forward, dQ and dK/dV
    instantiation, and the integer instructions of one Philox draw by pipe
    (the keep-bit kernel's loop in the SASS), which with the SM clock give
-   the draws' bound.
+   the draws' bound.  Then run the port's dttlint in process over its
+   default targets (the package, this script and ``chip_faults.py``) on
+   the card's machine and print its files, findings, baselined entries and
+   seconds beside the card's name and power limit; a non-zero exit fails
+   the script.
 2. Hold each kernel (forward, with and without its keep bits; Delta and
    keep-bit pre-passes; dQ, with Delta given and computing it; dK/dV)
    against its plain PyTorch version on the same inputs, and the training
@@ -5843,6 +5847,30 @@ def check_serving(fa, data_dir: Path):
             "continuous": b1, "b2": b2, "part_c": part_c, "mesh": mesh}, by_path
 
 
+def check_dttlint(card: str) -> None:
+    """The port's dttlint, in process, over its default targets: one line
+    of its files, findings, baselined entries and seconds on this
+    machine's interpreter; a non-zero exit raises."""
+    import contextlib
+    import io
+
+    from distributed_tensorflow_tpu_torch.analysis import __main__ as dttlint
+
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = dttlint.main(["--json"])
+    secs = time.perf_counter() - t0
+    report = json.loads(out.getvalue())
+    print(f"[dttlint] python {sys.version.split()[0]}: {report['files']} files, "
+          f"{len(report['findings'])} findings, {len(report['baselined'])} baselined, "
+          f"{len(report['stale_baseline_entries'])} stale, {secs:.2f} s, exit {rc} ({card})")
+    if rc != 0:
+        for f in report["findings"]:
+            print(f"[dttlint] {f['path']}:{f['line']}: [{f['rule']}] {f['message']}")
+        raise AssertionError(f"dttlint exited {rc} on the port's tree")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only", file=sys.stderr)
@@ -5872,6 +5900,7 @@ def main() -> int:
     if not native.get("ok"):
         raise AssertionError("the native record loader did not build")
     report_build(logs, _build.nvcc_path())
+    check_dttlint(card)
     philox_per_draw, int_rate = philox_pipe_ops(_build.nvcc_path()), int_ops_rate()
 
     medium = dict(MEDIUM, dtype=torch.bfloat16, causal=True)

@@ -1012,10 +1012,10 @@ class ContinuousScheduler:
                 self._queue.clear()
                 self._active.clear()
                 self._preempted.clear()
-                self._ring.clear()
                 self._failed += len(doomed)
                 self._obs["failed"].inc(len(doomed))
                 self._cond.notify_all()
+            self._ring.clear()  # the loop thread's own: no other reads it
             for req in doomed:
                 if not req.future.done() and req.future.set_running_or_notify_cancel():
                     req.future.set_exception(e)

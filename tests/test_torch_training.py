@@ -359,5 +359,6 @@ def test_port_imports_no_jax_and_no_reference():
     # every module was imported (pipeline too; serve/ and obs/serve.py since serving part A;
     # serve/continuous.py, serve/paged.py and obs/lifecycle.py since serving part B1;
     # serve/tiering.py since serving part B2; serve/loadgen.py, serve/gateway/ (4) and
-    # serve/fleet/ (3) since serving part C; serve/mesh.py since serving on a mesh, D1)
-    assert int(proc.stdout.split()[-1]) >= 85
+    # serve/fleet/ (3) since serving part C; serve/mesh.py since serving on a mesh, D1;
+    # version.py and analysis/ (dttlint, 13) since the slice that ported dttlint)
+    assert int(proc.stdout.split()[-1]) >= 99
